@@ -1,0 +1,111 @@
+"""Build and bind the port's CUDA kernels.
+
+Each ``csrc/*.cu`` source has a plain C interface. It is compiled with
+``nvcc`` for ``sm_90a`` into a shared library under
+``build/torch_kernels/`` of the checkout (named by the hash of its
+source, so an edited kernel rebuilds) at first use, and loaded with
+``ctypes``. Pointers and the stream are passed as ``c_void_p``; each C
+entry returns a ``cudaError_t`` that the caller checks.
+
+Imported only when a kernel is about to launch on a CUDA tensor: the
+CPU path never reaches this module.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+from ..base import MXNetError
+
+__all__ = ["SOURCES", "build_all", "library", "BUILD_DIR", "build_log"]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+# library name -> (source file, {C entry: (argtypes, restype)})
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+SOURCES = {
+    "flash_fwd": ("flash_fwd.cu", {
+        "mx_flash_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+                          _P], _I),
+    }),
+}
+
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_libs = {}
+build_log = {}   # library name -> {"seconds": s, "ptxas": compiler output}
+
+
+def _nvcc():
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise MXNetError("nvcc not found: the port's CUDA kernels are "
+                         "built from source on the machine with the card")
+    return path
+
+
+def _so_path(name):
+    src = _CSRC / SOURCES[name][0]
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return src, BUILD_DIR / ("lib%s-%s.so" % (name, digest))
+
+
+def _compile(name):
+    src, so = _so_path(name)
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(".so.tmp%d" % os.getpid())
+    t0 = time.monotonic()
+    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise MXNetError("nvcc failed for %s:\n%s%s"
+                         % (src.name, proc.stdout, proc.stderr))
+    os.replace(tmp, so)
+    build_log[name] = {"seconds": time.monotonic() - t0,
+                       "ptxas": (proc.stdout + proc.stderr).strip()}
+    return so
+
+
+def _load(name, so):
+    lib = ctypes.CDLL(str(so))
+    for fn, (argtypes, restype) in SOURCES[name][1].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = restype
+    return lib
+
+
+def build_all():
+    """Compile every kernel library, one ``nvcc`` per source, all
+    started together; returns the wall seconds."""
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as ex:
+        sos = dict(zip(SOURCES, ex.map(_compile, SOURCES)))
+    with _lock:
+        for name, so in sos.items():
+            if name not in _libs:
+                _libs[name] = _load(name, so)
+    return time.monotonic() - t0
+
+
+def library(name):
+    """The loaded library ``name``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = _libs[name] = _load(name, _compile(name))
+        return lib

@@ -1,0 +1,22 @@
+"""mxserve on PyTorch: paged-KV continuous-batching inference.
+
+- :mod:`.kv_cache` — paged KV pool on the card + free-list allocator;
+- :mod:`.model` — bucketed ragged step over the transformer params, and
+  the context-parallel long-prompt prefill :func:`cp_prefill_kv`;
+- :mod:`.sampling` — greedy sampling (sampled draws come later);
+- :mod:`.scheduler` — continuous batching (host-only copy);
+- :mod:`.engine` — ``Engine.submit(prompt) -> stream of tokens`` and
+  the synchronous ``generate``.
+"""
+from __future__ import annotations
+
+from .engine import Engine, QueueFullError, ServingConfig, StreamHandle
+from .kv_cache import PagedKVPool, blocks_for_tokens
+from .model import ServingModel, cp_prefill_kv
+from .scheduler import Request, Scheduler, StepPlan
+
+__all__ = [
+    "Engine", "ServingConfig", "StreamHandle", "QueueFullError",
+    "PagedKVPool", "blocks_for_tokens", "ServingModel", "cp_prefill_kv",
+    "Request", "Scheduler", "StepPlan",
+]

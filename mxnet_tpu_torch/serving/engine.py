@@ -1,0 +1,612 @@
+"""Request front-end: ``Engine.submit(prompt) -> stream of tokens``.
+
+Counterpart of ``mxnet_tpu/serving/engine.py``. An Engine owns one
+model's params on one device, a paged KV pool sized by
+:class:`ServingConfig`, a :class:`~.scheduler.Scheduler` and the
+bucketed step (:class:`~.model.ServingModel`). Each ``step()`` runs at
+most one decode batch and one prefill batch; ``start()`` drives steps
+from a background thread, while tests drive ``step()`` directly.
+
+Prompts of at least ``cp_min_tokens`` tokens on an engine with a
+``mesh`` are prefilled whole by :func:`~.model.cp_prefill_kv` (with
+``cp_kind="ulysses"`` the attention of each layer is the flash-attention
+kernel); shorter prompts take the paged chunked prefill.
+
+Admission control: ``submit`` raises :class:`QueueFullError` past
+``max_queue_depth`` and rejects outright a request whose worst-case
+footprint can never fit the pool or the model's position table.
+
+Not in this release (ROADMAP queue 1): sampled decoding (``temperature
+> 0`` raises), speculative decoding (``spec=True`` raises), telemetry,
+live weight sync, drain/resume and introspection.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import queue as _queue
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..base import MXNetError, env_bool as _env_bool, env_int as _env_int
+from ..context import resolve_device
+from . import sampling as _samp
+from .kv_cache import PagedKVPool, blocks_for_tokens
+from .model import ServingModel, cp_prefill_kv
+from .scheduler import CANCELLED, DECODE, FINISHED, PREFILL, Request, \
+    Scheduler
+
+__all__ = ["Engine", "ServingConfig", "StreamHandle", "QueueFullError"]
+
+_END = object()
+
+_SPEC_NOT_PORTED = ("speculative decoding is not ported yet: ROADMAP "
+                    "queue 1, the spec draft/verify")
+
+
+class QueueFullError(MXNetError):
+    """submit() past max_queue_depth — shed load upstream. Carries the
+    observed ``queue_depth`` and a ``retry_after_s`` hint."""
+
+    def __init__(self, message, queue_depth=0, retry_after_s=1.0):
+        super().__init__(message)
+        self.queue_depth = int(queue_depth)
+        self.retry_after_s = float(retry_after_s)
+
+
+@dataclasses.dataclass
+class ServingConfig:
+    """Engine knobs. Every field defaults from an ``MXNET_SERVE_*`` env
+    var, as in the JAX package."""
+
+    block_size: int = None
+    num_blocks: int = None
+    max_batch: int = None
+    max_active: int = None
+    prefill_chunk: int = None
+    token_budget: int = None
+    max_queue_depth: int = None
+    policy: str = "continuous"
+    eos_id: int = None
+    max_seq_tokens: int = None   # per-request cap; default model max_seq_len
+    spec: bool = None            # MXNET_SERVE_SPEC (not ported: raises)
+    spec_k: int = None
+    events_max: int = None       # scheduler event-ring bound
+    # context-parallel long-prompt prefill (model.cp_prefill_kv):
+    mesh: object = None
+    cp_kind: str = "ring"
+    cp_seq_axis: str = "seq"
+    cp_min_tokens: int = None
+    cp_chunk: int = None
+    # idle-stream reaper: a StreamHandle nobody consumes for this many
+    # seconds is cancelled and its KV blocks freed (0 = off)
+    stream_idle_s: float = None
+
+    def __post_init__(self):
+        if self.block_size is None:
+            self.block_size = _env_int("MXNET_SERVE_BLOCK_SIZE", 16)
+        if self.num_blocks is None:
+            self.num_blocks = _env_int("MXNET_SERVE_KV_BLOCKS", 256)
+        if self.max_batch is None:
+            self.max_batch = _env_int("MXNET_SERVE_MAX_BATCH", 8)
+        if self.max_active is None:
+            self.max_active = _env_int("MXNET_SERVE_MAX_ACTIVE",
+                                       2 * self.max_batch)
+        if self.prefill_chunk is None:
+            self.prefill_chunk = _env_int("MXNET_SERVE_PREFILL_CHUNK", 64)
+        if self.spec is None:
+            self.spec = _env_bool("MXNET_SERVE_SPEC", False)
+        if self.spec_k is None:
+            self.spec_k = _env_int("MXNET_SERVE_SPEC_K", 4)
+        if self.token_budget is None:
+            decode_cost = (1 + self.spec_k) if self.spec else 1
+            self.token_budget = _env_int(
+                "MXNET_SERVE_TOKEN_BUDGET",
+                self.max_batch * decode_cost + self.prefill_chunk)
+        if self.max_queue_depth is None:
+            self.max_queue_depth = _env_int("MXNET_SERVE_MAX_QUEUE", 64)
+        if self.cp_min_tokens is None:
+            self.cp_min_tokens = _env_int("MXNET_SERVE_CP_MIN_TOKENS", 2048)
+        if self.stream_idle_s is None:
+            try:
+                self.stream_idle_s = float(
+                    os.environ.get("MXNET_SERVE_STREAM_IDLE_S", "") or 0.0)
+            except ValueError:
+                self.stream_idle_s = 0.0
+
+
+class StreamHandle:
+    """Per-request token stream + control surface."""
+
+    def __init__(self, engine, req):
+        self._engine = engine
+        self._req = req
+        self._q = _queue.Queue()
+        self.status = "running"
+        # last time a consumer pulled a token: the idle reaper's signal
+        self._touched_t = time.monotonic()
+        req.stream = self
+
+    @property
+    def request_id(self):
+        return self._req.rid
+
+    def _emit(self, token):
+        self._q.put(int(token))
+
+    def _idle_abandoned(self, now, idle_s):
+        """True when nobody has consumed for ``idle_s`` seconds while
+        tokens sat ready."""
+        return (self.status == "running" and self._q.qsize() > 0
+                and now - self._touched_t > idle_s)
+
+    def _end(self, status):
+        self.status = status
+        self._q.put(_END)
+
+    def cancel(self):
+        """Request cancellation; takes effect at the next scheduler
+        sweep (blocks are freed, stream ends with status "cancelled")."""
+        self._engine.cancel(self._req)
+
+    def tokens(self, timeout=None):
+        """Iterate generated tokens as they land; ends when the request
+        finishes or is cancelled."""
+        while True:
+            item = self._q.get(timeout=timeout)
+            self._touched_t = time.monotonic()
+            if item is _END:
+                return
+            yield item
+
+    def result(self, timeout=None):
+        """Block until the stream ends; returns the full token list."""
+        return list(self.tokens(timeout=timeout))
+
+
+class Engine:
+    """Continuous-batching serving engine over a transformer LM.
+
+    Parameters
+    ----------
+    params : dict of tensors
+        ``models/transformer.py`` params; moved to ``device`` if they
+        live elsewhere.
+    model_cfg : TransformerConfig
+    cfg : ServingConfig, optional
+    device : torch.device, str or Context, optional
+        Where the engine runs; default ``cuda:0`` (raises without CUDA).
+    """
+
+    def __init__(self, params, model_cfg, cfg=None, draft_params=None,
+                 draft_cfg=None, device=None):
+        self.cfg = cfg or ServingConfig()
+        if self.cfg.spec or draft_params is not None or draft_cfg is not None:
+            raise NotImplementedError(_SPEC_NOT_PORTED)
+        self.device = resolve_device(device)
+        self.params = _to_device(params, self.device)
+        self.model_cfg = model_cfg
+        # cp prefill samples its first token from f32 x_last @ embed.T:
+        # the f32 unembedding is made once here, not per long prompt
+        self._unembed = (self.params["embed"].float().T.contiguous()
+                         if self.cfg.mesh is not None else None)
+        bs = self.cfg.block_size
+        max_seq = min(self.cfg.max_seq_tokens or model_cfg.max_seq_len,
+                      model_cfg.max_seq_len)
+        self.max_seq_tokens = max_seq
+        self.pool = PagedKVPool(
+            model_cfg.num_layers, model_cfg.num_heads, model_cfg.head_dim,
+            self.cfg.num_blocks, bs, dtype=model_cfg.dtype,
+            device=self.device)
+        w = blocks_for_tokens(max_seq, bs)
+        # buckets cover the prefill batch too, which can span the whole
+        # admission depth (max_active), not just the decode width
+        top = max(self.cfg.max_batch, self.cfg.max_active)
+        batch_buckets = sorted({1, 2, 4, 8, 16, 32, 64, self.cfg.max_batch,
+                                top})
+        batch_buckets = [b for b in batch_buckets if b <= top]
+        chunk_buckets = sorted({8, 16, 32, 64, 128, 256,
+                                self.cfg.prefill_chunk})
+        chunk_buckets = [c for c in chunk_buckets
+                         if c <= self.cfg.prefill_chunk]
+        self.model = ServingModel(model_cfg, bs, w,
+                                  batch_buckets=batch_buckets,
+                                  chunk_buckets=chunk_buckets)
+        self.sched = Scheduler(
+            self.pool, max_batch=self.cfg.max_batch,
+            prefill_chunk=self.cfg.prefill_chunk,
+            token_budget=self.cfg.token_budget, policy=self.cfg.policy,
+            max_active=self.cfg.max_active, events_max=self.cfg.events_max)
+        self._lock = threading.RLock()
+        # serializes whole steps: model execution runs outside _lock
+        # (submit must not block on a dispatch), so two concurrent
+        # step loops would otherwise write the same pool at once
+        self._step_lock = threading.Lock()
+        self._work = threading.Condition(self._lock)
+        self._by_rid = {}
+        self._last_counts = {}
+        self._stats = {"admitted": 0, "completed": 0, "evicted": 0,
+                       "rejected": 0, "cancelled": 0, "tokens_emitted": 0,
+                       "steps": 0, "streams_reaped": 0, "cp_prefills": 0}
+        self._ttfts = []
+        self._token_lats = []
+        self._rate_window = []  # (t, cumulative tokens) for tokens/s
+        self._thread = None
+        self._stop = False
+        self._last_rate = 0.0
+
+    # -- intake --------------------------------------------------------------
+    def submit(self, prompt, max_new_tokens=16, eos_id=None,
+               temperature=0.0, top_k=0, top_p=1.0, seed=0,
+               prefix_tokens=None):
+        """Queue a generation request; returns a StreamHandle.
+
+        ``temperature`` 0 (the default) is exact greedy decode; a
+        positive temperature raises NotImplementedError in this
+        release. ``prefix_tokens`` are tokens this request already
+        streamed elsewhere: they are folded into the recompute context
+        and count against ``max_new_tokens`` without being re-emitted.
+
+        Raises QueueFullError past ``max_queue_depth`` and MXNetError for
+        requests that could never fit the KV pool / position table.
+        """
+        if temperature < 0 or top_k < 0 or not 0.0 < top_p <= 1.0:
+            with self._lock:
+                self._reject()
+            raise MXNetError(
+                "invalid sampling params: temperature >= 0, top_k >= 0 "
+                "and 0 < top_p <= 1 required (got %r, %r, %r)"
+                % (temperature, top_k, top_p))
+        if temperature > 0:
+            raise NotImplementedError(_samp.SAMPLED_NOT_PORTED)
+        req = Request(prompt, max_new_tokens,
+                      eos_id=self.cfg.eos_id if eos_id is None else eos_id,
+                      temperature=temperature, top_k=top_k, top_p=top_p,
+                      seed=seed)
+        if prefix_tokens is not None and len(prefix_tokens):
+            pre = np.asarray(prefix_tokens, np.int32).reshape(-1)
+            if pre.shape[0] >= max_new_tokens:
+                with self._lock:
+                    self._reject()
+                raise MXNetError(
+                    "prefix_tokens (%d) already meets max_new_tokens "
+                    "(%d) — nothing left to generate" % (pre.shape[0],
+                                                         max_new_tokens))
+            req.context = np.concatenate([req.context, pre])
+            req.generated = [int(t) for t in pre]
+        total = req.total_len()
+        limit = min(self.max_seq_tokens,
+                    self.sched.max_request_tokens(),
+                    self.model.max_blocks * self.cfg.block_size)
+        with self._lock:
+            if total > limit:
+                self._reject()
+                raise MXNetError(
+                    "request needs %d tokens; engine limit is %d "
+                    "(pool/max_seq geometry)" % (total, limit))
+            if len(self.sched.queue) >= self.cfg.max_queue_depth:
+                depth = len(self.sched.queue)
+                self._reject()
+                raise QueueFullError(
+                    "admission queue full (%d)" % self.cfg.max_queue_depth,
+                    queue_depth=depth,
+                    retry_after_s=self._retry_after_locked())
+            req.submit_t = time.monotonic()
+            handle = StreamHandle(self, req)
+            self._by_rid[req.rid] = req
+            self.sched.submit(req)
+            self._work.notify_all()
+        return handle
+
+    def cancel(self, req):
+        with self._lock:
+            self.sched.cancel(req)
+            self._work.notify_all()
+
+    def _reap_idle_locked(self, now):
+        """Cancel streams nobody is consuming (caller holds _lock); the
+        blocks free on the next plan()."""
+        idle = self.cfg.stream_idle_s
+        if not idle or idle <= 0:
+            return
+        for req in list(self._by_rid.values()):
+            s = req.stream
+            if s is not None and s._idle_abandoned(now, idle):
+                self._stats["streams_reaped"] += 1
+                self.sched.cancel(req)
+
+    def _reject(self):
+        self._stats["rejected"] += 1
+
+    def _retry_after_locked(self):
+        """Backoff hint for a rejected submit: expected seconds until
+        one admission slot frees at the current token rate, clamped to
+        [0.05, 30]; 1 s when idle or cold."""
+        rate = self._last_rate
+        active = len(self.sched.active)
+        if rate <= 0.0 or not active:
+            return 1.0
+        remaining = min(
+            max(1, r.max_new_tokens - len(r.generated))
+            for r in self.sched.active)
+        return float(min(30.0, max(0.05, remaining * active / rate)))
+
+    # -- synchronous batch API -----------------------------------------------
+    def generate(self, prompts, max_new_tokens=16):
+        """Submit all prompts, drive the loop to completion, return the
+        generated token lists."""
+        handles = [self.submit(p, max_new_tokens) for p in prompts]
+        with self._lock:
+            background = self._thread is not None
+        if not background:
+            self.run_until_idle()
+        return [h.result() for h in handles]
+
+    # -- the step loop -------------------------------------------------------
+    def step(self):
+        """Run one scheduler step (<=1 decode batch + <=1 prefill
+        batch). Returns True when any work ran."""
+        with self._step_lock:
+            with self._lock:
+                self._reap_idle_locked(time.monotonic())
+                plan = self.sched.plan()
+                self._mirror_events()
+                decode = list(plan.decode)
+                prefill = list(plan.prefill)
+            worked = False
+            if decode:
+                self._run_plain_decode(decode)
+                worked = True
+            if prefill:
+                self._run_prefill(prefill)
+                worked = True
+            if worked:
+                with self._lock:
+                    self._stats["steps"] += 1
+                    self._mirror_events()
+                    self._update_rate()
+            return worked
+
+    def run_until_idle(self, max_steps=None):
+        """Drive step() until no work remains; returns steps run."""
+        n = 0
+        while self.step():
+            n += 1
+            if max_steps is not None and n >= max_steps:
+                break
+        return n
+
+    def start(self):
+        """Serve from a background thread (submit() wakes it)."""
+
+        def loop():
+            while True:
+                with self._lock:
+                    if self._stop:
+                        break
+                if not self.step():
+                    with self._work:
+                        if self._stop:
+                            break
+                        self._work.wait(timeout=0.05)
+
+        with self._lock:
+            if self._thread is not None:
+                return
+            self._stop = False
+            self._thread = threading.Thread(target=loop, name="mx-serve",
+                                            daemon=True)
+            self._thread.start()
+
+    def stop(self):
+        with self._lock:
+            thread = self._thread
+            if thread is None:
+                return
+            self._stop = True
+            self._work.notify_all()
+        # join outside the lock (the loop's step() takes it); clear
+        # _thread only after the join so a racing start() no-ops
+        thread.join()
+        with self._lock:
+            if self._thread is thread:
+                self._thread = None
+
+    # -- batch execution -----------------------------------------------------
+    def _tables(self, reqs):
+        w = self.model.max_blocks
+        bt = np.zeros((len(reqs), w), np.int32)
+        for i, r in enumerate(reqs):
+            bt[i, :len(r.blocks)] = r.blocks
+        return bt
+
+    def _run_plain_decode(self, reqs):
+        B = len(reqs)
+        tokens = np.asarray([[r.generated[-1]] for r in reqs], np.int32)
+        start = np.asarray(
+            [len(r.prompt) + len(r.generated) - 1 for r in reqs], np.int32)
+        # static policy = fixed-shape serving: decode dispatches at the
+        # full batch width even as the batch drains
+        min_b = self.cfg.max_batch if self.cfg.policy == "static" else None
+        nxt = self.model.step(
+            self.params, self.pool.k, self.pool.v, tokens, start,
+            np.ones((B,), np.int32), self._tables(reqs),
+            np.ones((B,), bool), min_batch_bucket=min_b)
+        now = time.monotonic()
+        with self._lock:
+            for r, t in zip(reqs, nxt):
+                if r.state != DECODE:   # cancelled while stepping
+                    continue
+                self._emit(r, int(t), now)
+
+    def _run_prefill(self, chunks):
+        # context-parallel long prompts take their own path, off the
+        # bucketed batch (model.cp_prefill_kv)
+        batched = []
+        for req, cs, clen in chunks:
+            if (self.cfg.mesh is not None and cs == 0
+                    and req.ctx_len >= self.cfg.cp_min_tokens
+                    and self._cp_eligible(req)):
+                self._run_cp_prefill(req)
+            else:
+                batched.append((req, cs, clen))
+        if not batched:
+            return
+        B = len(batched)
+        C = max(clen for _, _, clen in batched)
+        reqs = [r for r, _, _ in batched]
+        tokens = np.zeros((B, C), np.int32)
+        start = np.zeros((B,), np.int32)
+        chunk_len = np.zeros((B,), np.int32)
+        for i, (req, cs, clen) in enumerate(batched):
+            tokens[i, :clen] = req.context[cs:cs + clen]
+            start[i] = cs
+            chunk_len[i] = clen
+        nxt = self.model.step(
+            self.params, self.pool.k, self.pool.v, tokens, start,
+            chunk_len, self._tables(reqs), np.ones((B,), bool))
+        now = time.monotonic()
+        with self._lock:
+            for i, (req, cs, clen) in enumerate(batched):
+                if req.state != PREFILL:   # cancelled while stepping
+                    continue
+                self.sched.note_prefilled(req, clen)
+                if req.state == DECODE:
+                    # the final prefill chunk's logits give the first
+                    # new token
+                    self._emit(req, int(nxt[i]), now)
+
+    def _cp_eligible(self, req):
+        n = self.cfg.mesh.shape[self.cfg.cp_seq_axis]
+        chunk = self.cfg.cp_chunk or req.ctx_len
+        return chunk % n == 0 and req.ctx_len % chunk == 0
+
+    def _run_cp_prefill(self, req):
+        """Whole-prompt context-parallel prefill over the mesh, then
+        scatter the dense K/V into this request's pool blocks."""
+        cfg = self.model_cfg
+        k, v, x_last = cp_prefill_kv(
+            self.params, cfg, req.context, self.cfg.mesh,
+            kind=self.cfg.cp_kind, chunk=self.cfg.cp_chunk,
+            seq_axis=self.cfg.cp_seq_axis)
+        bs = self.cfg.block_size
+        T = req.ctx_len
+        nb = blocks_for_tokens(T, bs)
+        pad = nb * bs - T
+        if pad:
+            zpad = k.new_zeros((cfg.num_layers, pad) + tuple(k.shape[2:]))
+            k = torch.cat([k, zpad], dim=1)
+            v = torch.cat([v, zpad], dim=1)
+        k = k.reshape(cfg.num_layers, nb, bs, cfg.num_heads, cfg.head_dim)
+        v = v.reshape(cfg.num_layers, nb, bs, cfg.num_heads, cfg.head_dim)
+        blocks = torch.as_tensor(np.asarray(req.blocks[:nb], np.int64),
+                                 device=self.device)
+        # the pool write and the logits run outside _lock (every
+        # pool-writing path serializes on _step_lock)
+        with torch.no_grad():
+            self.pool.k[:, blocks] = k.to(self.pool.k.dtype)
+            self.pool.v[:, blocks] = v.to(self.pool.v.dtype)
+            logits = x_last @ self._unembed
+        first = _samp.host_sample(logits, req.temperature, req.top_k,
+                                  req.top_p, req.seed, T)
+        now = time.monotonic()
+        with self._lock:
+            self._stats["cp_prefills"] += 1
+            if req.state != PREFILL:
+                return
+            self.sched.note_prefilled(req, T - req.prefilled)
+            self._emit(req, first, now)
+
+    # -- per-token bookkeeping (under self._lock) ----------------------------
+    def _emit(self, req, token, now):
+        req.generated.append(token)
+        stream = req.stream
+        if req.first_token_t is None:
+            req.first_token_t = now
+            self._ttfts.append(now - req.submit_t)
+        if req.last_token_t is not None:
+            self._token_lats.append(now - req.last_token_t)
+        req.last_token_t = now
+        self._stats["tokens_emitted"] += 1
+        self._rate_window.append((now, self._stats["tokens_emitted"]))
+        if stream is not None:
+            stream._emit(token)
+        # len(generated) is the client-visible stream length — eviction
+        # folds tokens into the recompute context but never drops them
+        done = len(req.generated) >= req.max_new_tokens
+        if req.eos_id is not None and token == req.eos_id:
+            done = True
+        if done:
+            req.finish_t = now
+            self.sched.finish(req)
+            self._mirror_events()
+            if stream is not None:
+                stream._end("finished")
+
+    def _mirror_events(self):
+        """Fold scheduler event counts into stats and close out
+        cancelled streams."""
+        mapping = {"admit": "admitted", "complete": "completed",
+                   "evict": "evicted", "cancel": "cancelled"}
+        for ev, stat in mapping.items():
+            n = self.sched.counts.get(ev, 0)
+            d = n - self._last_counts.get(ev, 0)
+            if d:
+                self._stats[stat] += d
+                self._last_counts[ev] = n
+        for rid, req in list(self._by_rid.items()):
+            if req.state == CANCELLED:
+                if req.stream is not None and req.stream.status == "running":
+                    req.stream._end("cancelled")
+                del self._by_rid[rid]
+            elif req.state == FINISHED:
+                del self._by_rid[rid]
+
+    def _update_rate(self):
+        """tokens/s over a sliding 2 s window of emissions."""
+        now = time.monotonic()
+        win = [x for x in self._rate_window if now - x[0] <= 2.0]
+        self._rate_window = win
+        rate = 0.0
+        if len(win) >= 2 and win[-1][0] > win[0][0]:
+            rate = (win[-1][1] - win[0][1]) / (win[-1][0] - win[0][0])
+        self._last_rate = rate
+
+    # -- reporting -----------------------------------------------------------
+    def latency_samples(self):
+        """Copies of the raw TTFT / per-token latency sample lists."""
+        with self._lock:
+            return list(self._ttfts), list(self._token_lats)
+
+    def stats(self):
+        """Plain-number serving metrics."""
+        def pct(xs, q):
+            if not xs:
+                return None
+            return float(np.percentile(np.asarray(xs), q))
+
+        with self._lock:
+            out = dict(self._stats)
+            out.update({
+                "kv_pool_utilization": self.pool.utilization(),
+                "kv_pool_hwm_blocks": self.pool.high_water_mark(),
+                "queue_depth": len(self.sched.queue),
+                "active": len(self.sched.active),
+                "tokens_per_s_window": self._last_rate,
+                "ttft_p50_s": pct(self._ttfts, 50),
+                "ttft_p99_s": pct(self._ttfts, 99),
+                "token_latency_p50_s": pct(self._token_lats, 50),
+                "token_latency_p99_s": pct(self._token_lats, 99),
+            })
+        return out
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    return tree.to(device)

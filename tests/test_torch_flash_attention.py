@@ -1,0 +1,101 @@
+"""mxnet_tpu_torch flash attention against the JAX package's.
+
+CPU side: the port's ``flash_attention`` on CPU tensors is its plain
+version ``attention_reference``; it is held against the JAX Pallas
+kernel run in interpret mode (``MXNET_PALLAS=1``) and against
+``_attention_reference``, in f32, within 2e-5. The CUDA kernel itself
+runs only on the card: its tests are in
+``test_torch_flash_kernel_cuda.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from mxnet_tpu.ops import pallas_kernels as pk
+from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.ops import flash_attention as fa
+
+TOL = 2e-5
+
+
+def _qkv(seed, b, h, t, d, tk=None):
+    rng = np.random.RandomState(seed)
+    tk = t if tk is None else tk
+    return (rng.randn(b, h, t, d).astype(np.float32),
+            rng.randn(b, h, tk, d).astype(np.float32),
+            rng.randn(b, h, tk, d).astype(np.float32))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [128, 256])
+@pytest.mark.parametrize("d", [16, 32])
+def test_matches_jax_pallas_interpret(monkeypatch, causal, t, d):
+    monkeypatch.setenv("MXNET_PALLAS", "1")
+    q, k, v = _qkv(t + d + causal, 1, 2, t, d)
+    scale = 1.0 / np.sqrt(d)
+    assert pk.flash_kernel_usable(t, t, d, d)
+    ref_kernel = np.asarray(pk.flash_attention(q, k, v, causal=causal))
+    ref_plain = np.asarray(pk._attention_reference(q, k, v, causal, scale))
+    out = fa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), causal=causal).numpy()
+    np.testing.assert_allclose(out, ref_kernel, atol=TOL, rtol=0)
+    np.testing.assert_allclose(out, ref_plain, atol=TOL, rtol=0)
+
+    # lse against row 0 of the Pallas kernel's 8-row-broadcast lse
+    bq, bk, ok = pk._select_blocks(t, t)
+    assert ok
+    _, lse_j = pk._flash_attention_pallas(q, k, v, causal, scale, bq, bk)
+    lse_j = np.asarray(lse_j)[:, 0, :].reshape(1, 2, t)
+    _, lse = fa.attention_reference(torch.from_numpy(q), torch.from_numpy(k),
+                                    torch.from_numpy(v), causal=causal)
+    np.testing.assert_allclose(lse.numpy(), lse_j, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ragged_and_rectangular_match_jax_reference(causal):
+    """Lengths off the TPU's 128 grid, and tq != tk (top-left causal
+    rule), against the JAX plain attention."""
+    q, k, v = _qkv(3, 2, 2, 100, 16, tk=150)
+    scale = 0.3
+    ref = np.asarray(pk._attention_reference(q, k, v, causal, scale))
+    out = fa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), causal=causal,
+                             scale=scale).numpy()
+    np.testing.assert_allclose(out, ref, atol=TOL, rtol=0)
+
+
+def test_lse_is_logsumexp_of_scaled_masked_scores():
+    q, k, v = _qkv(4, 1, 1, 40, 8)
+    o, lse = fa.attention_reference(torch.from_numpy(q), torch.from_numpy(k),
+                                    torch.from_numpy(v), causal=True)
+    s = np.einsum("bhqd,bhkd->bhqk", q, k) / np.sqrt(8)
+    s = np.where(np.tril(np.ones((40, 40), bool)), s, -np.inf)
+    want = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) \
+        + s.max(-1)
+    np.testing.assert_allclose(lse.numpy(), want, atol=TOL, rtol=0)
+    assert o.dtype == torch.float32 and lse.shape == (1, 1, 40)
+
+
+def test_kernel_gate(monkeypatch):
+    assert fa.flash_kernel_usable(2048, 2048, 128, 128)
+    assert fa.flash_kernel_usable(2000, 2000, 64, 64)
+    assert not fa.flash_kernel_usable(256, 256, 32, 32)
+    assert not fa.flash_kernel_usable(256, 256, 64, 128)
+    monkeypatch.setenv("MXNET_FLASH_MIN_T", "512")
+    assert not fa.flash_kernel_usable(256, 256, 64, 64)
+    assert fa.flash_kernel_usable(512, 512, 64, 64)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """No fallback: the kernel wrapper raises on what the kernel does
+    not take, before anything is built."""
+    q = torch.zeros(1, 1, 8, 64)
+    with pytest.raises(MXNetError, match="CUDA"):
+        fa.flash_attention_fwd(q, q, q)
+
+
+def test_cpu_path_counts_no_launch():
+    q = torch.randn(1, 2, 16, 64)
+    before = fa.flash_attention.launches
+    fa.flash_attention(q, q, q)
+    assert fa.flash_attention.launches == before

@@ -1,0 +1,97 @@
+"""The Hopper flash-attention forward kernel on the card.
+
+A CUDA kernel has no CPU mode, so every test here carries the ``cuda``
+marker and skips without a GPU. The file imports neither ``jax`` nor
+``mxnet_tpu``, so it runs on a machine with the card and no JAX; the
+repository's ``tests/conftest.py`` pins JAX, so skip it there:
+
+    python -m pytest --noconftest tests/test_torch_flash_kernel_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.ops import flash_attention as fa
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _qkv(card, shape, dtype, tk=None, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    b, h, t, d = shape
+    kv_shape = (b, h, t if tk is None else tk, d)
+    return (torch.randn(shape, generator=g, device=card).to(dtype),
+            torch.randn(kv_shape, generator=g, device=card).to(dtype),
+            torch.randn(kv_shape, generator=g, device=card).to(dtype))
+
+
+@pytest.mark.parametrize("shape,dtype,causal,tk", [
+    ((1, 8, 2048, 128), torch.bfloat16, True, None),
+    ((2, 4, 2000, 64), torch.bfloat16, False, None),
+    ((2, 4, 2000, 64), torch.bfloat16, True, None),
+    ((1, 2, 100, 64), torch.bfloat16, True, 150),
+    ((1, 2, 200, 128), torch.float32, False, 70),
+    ((1, 8, 384, 128), torch.float32, True, None),
+])
+def test_kernel_matches_reference(card, shape, dtype, causal, tk):
+    q, k, v = _qkv(card, shape, dtype, tk)
+    before = fa.flash_attention.launches
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    assert fa.flash_attention.launches == before + 1
+    o_ref, lse_ref = fa.attention_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert o.dtype == dtype and lse.shape == shape[:3]
+    assert (o.float() - o_ref.float()).abs().max().item() <= tol
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+def test_kernel_refuses_what_it_does_not_take(card):
+    q, k, v = _qkv(card, (1, 2, 64, 32), torch.bfloat16)
+    with pytest.raises(MXNetError, match="head_dim"):
+        fa.flash_attention(q, k, v)
+    q, k, v = _qkv(card, (1, 2, 64, 64), torch.float16)
+    with pytest.raises(MXNetError, match="dtype"):
+        fa.flash_attention(q, k, v)
+    q, k, v = _qkv(card, (1, 2, 64, 64), torch.bfloat16)
+    q.requires_grad_(True)
+    with pytest.raises(MXNetError, match="forward only"):
+        fa.flash_attention(q, k, v)
+
+
+def test_ulysses_cp_prefill_launches_the_kernel_once_per_layer(card):
+    """The serving path's long-prompt prefill on the card goes through
+    the kernel, once per layer, and agrees with the same prefill on the
+    CPU (the plain version there); f32, so only the kernel and the
+    matmuls' summation order differ."""
+    from mxnet_tpu_torch.models.transformer import (TransformerConfig,
+                                                    init_params)
+    from mxnet_tpu_torch.parallel import create_mesh
+    from mxnet_tpu_torch.serving import cp_prefill_kv
+    from mxnet_tpu_torch.serving.engine import _to_device
+
+    cfg = TransformerConfig(vocab_size=64, num_layers=3, d_model=256,
+                            num_heads=2, d_ff=512, max_seq_len=512,
+                            dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = _to_device(params, card)
+    tokens = np.random.RandomState(0).randint(0, 64, (300,))
+    before = fa.flash_attention.launches
+    k, v, x_last = cp_prefill_kv(
+        on_card, cfg, tokens, create_mesh((1,), ("seq",), devices=[card]),
+        kind="ulysses")
+    assert fa.flash_attention.launches == before + cfg.num_layers
+    k_cpu, _, x_cpu = cp_prefill_kv(
+        params, cfg, tokens, create_mesh((1,), ("seq",), devices=["cpu"]),
+        kind="ulysses")
+    assert k.shape == (3, 300, 2, 128)
+    assert (k.cpu() - k_cpu).abs().max().item() <= 1e-3
+    assert (x_last.cpu() - x_cpu).abs().max().item() <= 1e-3

@@ -1,0 +1,101 @@
+"""mxnet_tpu_torch stands alone: no jax, nothing of mxnet_tpu.
+
+- a fresh interpreter that imports the package and every submodule has
+  neither ``jax`` nor ``mxnet_tpu`` in ``sys.modules``;
+- no source of the port, nor ``chip_smoke.py``, the profile tool or
+  the card's test file, imports either;
+- on the CPU path the kernel build module ``ops._build`` is never
+  imported;
+- the host-only scheduler copy matches its original below the imports.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "mxnet_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
+
+
+_PROBE = """
+import sys, pkgutil, importlib
+import numpy as np, torch
+from mxnet_tpu_torch.models.transformer import TransformerConfig, init_params
+from mxnet_tpu_torch.parallel import create_mesh
+from mxnet_tpu_torch.serving import Engine, ServingConfig
+
+def forbidden():
+    return sorted(m for m in sys.modules if m.split('.')[0] in %r)
+
+cfg = TransformerConfig(vocab_size=17, num_layers=1, d_model=128,
+                        num_heads=2, d_ff=32, max_seq_len=64, dtype='float32')
+p = init_params(cfg, torch.Generator().manual_seed(0), 'cpu')
+mesh = create_mesh((1,), ('seq',), devices=['cpu'])
+e = Engine(p, cfg, ServingConfig(block_size=8, num_blocks=12, mesh=mesh,
+                                 cp_kind='ulysses', cp_min_tokens=16),
+           device='cpu')
+out = e.generate([np.arange(32) %% 17], max_new_tokens=2)
+assert len(out[0]) == 2 and e.stats()['cp_prefills'] == 1
+print('cpu_path', 'mxnet_tpu_torch.ops._build' in sys.modules, forbidden())
+import mxnet_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                               'mxnet_tpu_torch.')]
+assert 'mxnet_tpu_torch.serving.engine' in names, names
+for n in names:
+    importlib.import_module(n)
+print('all_modules', forbidden())
+""" % (FORBIDDEN,)
+
+
+@pytest.fixture(scope="module")
+def probe():
+    """One fresh interpreter: serve on the CPU path, then import every
+    submodule; returns its report lines by name."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return {line.split(" ", 1)[0]: line.split(" ", 1)[1]
+            for line in proc.stdout.strip().splitlines()}
+
+
+def test_import_every_submodule_leaves_jax_out(probe):
+    assert probe["all_modules"] == "[]"
+
+
+def test_cpu_path_never_imports_the_kernel_build_module(probe):
+    assert probe["cpu_path"] == "False []"
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PKG.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tools" / "torch_serve_profile.py",
+        ROOT / "tests" / "test_torch_flash_kernel_cuda.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, "%s imports %s" % (path, bad)
+
+
+def test_scheduler_copy_matches_original():
+    def body(p):
+        text = p.read_text()
+        return text[text.index("from __future__"):]
+
+    assert body(PKG / "serving" / "scheduler.py") == body(
+        ROOT / "mxnet_tpu" / "serving" / "scheduler.py")
