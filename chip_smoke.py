@@ -6,21 +6,33 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. setup: torch/CUDA versions, the card's name and power limit, and the
-   build of every CUDA kernel from ``mxnet_tpu_torch/ops/csrc``;
+   build of every CUDA kernel from ``mxnet_tpu_torch/ops/csrc`` (one
+   ``nvcc`` per source, all started together);
 2. each kernel against its plain PyTorch version on the same card
-   tensors, at the serving path's shape and at a ragged and an f32
-   shape, within the stated tolerances, then timed with CUDA events
-   beside the plain version and one PyTorch library call;
-3. serving: ``Engine.generate`` at the full width of the flagship LM
-   (bench_lm.py's 190M-parameter config, random seeded weights on the
-   card), two 2048-token prompts through the context-parallel Ulysses
-   prefill (the flash kernel, once per layer) and two short prompts
-   through the paged path; the kernel counts are zeroed just before and
-   read just after, and the outputs are held against the plain
-   ``transformer.forward``;
-4. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
-   main path, error, times and bound;
-5. the last line: ``{"ok": true, "device": {...}}``.
+   tensors, within the stated tolerances, then timed with CUDA events
+   beside the plain version and one PyTorch library call: the forward
+   K2 at the serving and training shapes and at a ragged and an f32
+   shape; the backward K3 (dQ) and K4 (dK/dV) at the training shape, a
+   ragged shape (causal and not) and an f32 shape, with a check that the
+   limit rejects outputs 5% off on the back half of a causal head;
+3. gradients: one training step's gradients through the kernels
+   against the same step with the plain attention under autograd, per
+   parameter tensor, at 2 layers of the flagship's full width;
+4. serving: ``Engine.generate`` at the full width of the flagship LM
+   (bench_lm.py's width, random seeded weights on the card), two
+   2048-token prompts through the context-parallel Ulysses prefill (K2,
+   once per layer) and two short prompts through the paged path; the
+   kernel counts are zeroed just before and read just after, and the
+   outputs are held against the plain ``transformer.forward``;
+5. training: ``ShardedTrainer`` over ``loss_fn`` at bench_lm.py's
+   configuration (12 layers, d_model 1024, seq 1024, batch 16, Adam
+   1e-4; 184,862,720 parameters), one warm-up and 4 timed steps on a
+   fixed seeded batch; the counts are zeroed just before and read just
+   after (12 launches each of K2, K3 and K4 per step), the step-0 loss
+   is checked against ln(vocab) and the loss must fall;
+6. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
+   main paths, error, times and bound;
+7. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or run from a directory that lacks the package, it exits
 non-zero and prints no result.
@@ -40,6 +52,10 @@ PEAK_BYTES = 3.35e12
 
 FLAGSHIP = dict(vocab_size=32000, num_layers=12, d_model=1024, num_heads=8,
                 d_ff=4096, max_seq_len=4096, dtype="bfloat16")
+# bench_lm.py:69-78, 97-104: the training configuration
+TRAIN = dict(FLAGSHIP, max_seq_len=1024)
+TRAIN_BATCH = 16
+TRAIN_SHAPE = (TRAIN_BATCH, 8, 1024, 128)   # attention [B, H, T, D]
 
 
 def log(obj):
@@ -61,22 +77,73 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def attention_flops(b, h, tq, tk, d, causal):
-    """Operations the attention forward needs on these inputs: two
-    products of 2*d per visible (query, key) pair (top-left causal)."""
-    pairs = sum(min(i + 1, tk) for i in range(tq)) if causal else tq * tk
-    return 4.0 * b * h * d * pairs
+def attention_pairs(tq, tk, causal):
+    """Visible (query, key) pairs of one head (top-left causal rule)."""
+    return sum(min(i + 1, tk) for i in range(tq)) if causal else tq * tk
 
 
-def attention_bound_ms(b, h, tq, tk, d, causal, elem_bytes, peak):
-    """Least time for the attention forward on these inputs: the larger
-    of its operations over the type's peak and its bytes (Q, K, V read
-    once, O and the f32 lse written once) over the memory rate."""
-    flops = attention_flops(b, h, tq, tk, d, causal)
-    nbytes = elem_bytes * b * h * (2 * tq * d + 2 * tk * d) + 4 * b * h * tq
+def attention_flops(b, h, tq, tk, d, causal, products=2):
+    """Operations on these inputs: ``products`` products of 2*d per
+    visible pair (forward 2: S, PV; K3 3: S, dP, dQ; K4 4: S, dP, dV,
+    dK)."""
+    return 2.0 * products * b * h * d * attention_pairs(tq, tk, causal)
+
+
+# kernel -> (products, [Tq, D] tensors, [Tk, D] tensors, f32 [Tq] rows)
+# read once or written once: K2 reads Q, K, V and writes O and lse; K3
+# reads Q, dO, K, V, lse, D and writes dQ; K4 reads Q, dO, K, V, lse, D
+# and writes dK, dV
+WORK = {"flash_fwd": (2, 2, 2, 1), "flash_bwd_dq": (3, 3, 2, 2),
+        "flash_bwd_dkv": (4, 2, 4, 2)}
+
+
+def bound_ms(kernel, b, h, tq, tk, d, causal, elem_bytes, peak):
+    """Least time for ``kernel`` on these inputs: the larger of its
+    operations over the type's peak and its bytes over the memory
+    rate; returns (ms, "operations" or "bytes")."""
+    products, nq, nk, stats = WORK[kernel]
+    flops = attention_flops(b, h, tq, tk, d, causal, products)
+    nbytes = (elem_bytes * b * h * (nq * tq * d + nk * tk * d)
+              + 4 * stats * b * h * tq)
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def model_flops_per_token(cfg, seq_len):
+    """bench_lm.py:61-65: matmul FLOPs per trained token (forward and
+    backward), attention at 12*T*d per layer with no causal discount."""
+    d, L, V, T = cfg.d_model, cfg.num_layers, cfg.vocab_size, seq_len
+    return 3 * (L * 24 * d * d + 2 * d * V) + L * 12 * T * d
+
+
+def closeness(got, want, tol):
+    """``got`` against ``want`` under the limit, per element,
+    |got - want| <= tol * (rms(want) + |want|), and
+    ||got - want|| <= tol * ||want||. Returns the max abs error, the
+    worst ratio of an element's error to its limit (``elem``, <= 1 to
+    pass) and the relative L2 error (``rel_l2``, <= tol to pass).
+
+    The limit follows each entry, not the largest: under the causal
+    mask a head's rows differ some 30x in size (|dq| falls as
+    1/sqrt(row)), so a limit scaled by the largest entry is as large as
+    a typical late row. bf16, tol 1e-2: kernel and plain version each
+    round their output to bf16, whose step is 2^-8 to 2^-7 of the value,
+    so they differ by at most one step (<= 0.78e-2 |want|) beside the
+    kernel's error before rounding, which the hi + lo terms keep near
+    2^-16; the rms term (1.3 to 2.6 bf16 steps at the rms) covers
+    entries near zero, where dS cancels. f32, tol 1e-4: summation order
+    only."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    lim = tol * (w.pow(2).mean().sqrt() + w.abs())
+    return {"abs": diff.max().item(),
+            "elem": (diff / lim.clamp_min(1e-30)).max().item(),
+            "rel_l2": ((g - w).norm() / w.norm().clamp_min(1e-30)).item()}
+
+
+def within(c, tol):
+    return c["elem"] <= 1.0 and c["rel_l2"] <= tol
 
 
 def phase_setup():
@@ -103,7 +170,7 @@ def phase_setup():
 
 
 def phase_kernels():
-    """Flash forward on the card against attention_reference."""
+    """Flash forward (K2) on the card against attention_reference."""
     import torch
     import torch.nn.functional as F
 
@@ -113,7 +180,8 @@ def phase_kernels():
     cases = [((1, 8, 2048, 128), torch.bfloat16, True),
              ((2, 4, 2000, 64), torch.bfloat16, True),
              ((2, 4, 2000, 64), torch.bfloat16, False),
-             ((1, 8, 384, 128), torch.float32, True)]
+             ((1, 8, 384, 128), torch.float32, True),
+             (TRAIN_SHAPE, torch.bfloat16, True)]
     results = []
     for shape, dtype, causal in cases:
         g = torch.Generator(device="cuda").manual_seed(len(results))
@@ -125,6 +193,8 @@ def phase_kernels():
         err_o = (o.float() - o_ref.float()).abs().max().item()
         err_lse = (lse - lse_ref).abs().max().item()
         tol_o = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        tol_c = 1e-2 if dtype == torch.bfloat16 else 1e-4
+        close = closeness(o, o_ref, tol_c)
         ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, causal=causal))
         plain_ms = cuda_ms(
             lambda: attention_reference(q, k, v, causal=causal))
@@ -132,23 +202,230 @@ def phase_kernels():
             q, k, v, is_causal=causal))
         b, h, t, d = shape
         bf16 = dtype == torch.bfloat16
-        bound, by = attention_bound_ms(b, h, t, t, d, causal, 2 if bf16
-                                       else 4, PEAK_BF16 if bf16
-                                       else PEAK_F32)
+        bound, by = bound_ms("flash_fwd", b, h, t, t, d, causal,
+                             2 if bf16 else 4,
+                             PEAK_BF16 if bf16 else PEAK_F32)
         rec = {"phase": "kernel_check", "kernel": "flash_fwd",
                "shape": list(shape), "dtype": str(dtype).split(".")[1],
                "causal": causal, "max_abs_err": err_o,
                "max_abs_err_lse": err_lse, "tol": tol_o, "tol_lse": 1e-3,
+               "closeness": close, "tol_closeness": tol_c,
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": bound, "bound_by": by,
                "achieved_tflops": attention_flops(b, h, t, t, d, causal)
                / (ms * 1e-3) / 1e12}
         log(rec)
-        if not (err_o <= tol_o and err_lse <= 1e-3):
+        if not (err_o <= tol_o and err_lse <= 1e-3
+                and within(close, tol_c)):
             raise AssertionError("flash_fwd disagrees with its plain "
                                  "version at %s: %r" % (shape, rec))
         results.append(rec)
     return results
+
+
+def phase_bwd_kernels():
+    """Flash backward K3 and K4 on the card against
+    attention_bwd_reference, per output within :func:`closeness`'s limit
+    (tol 1e-2 bf16, 1e-4 f32). At the training shape the same limit must
+    reject the plain outputs made 5% low on the back half of the query
+    rows (dq) or of the keys (dk, dv)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    cases = [(TRAIN_SHAPE, torch.bfloat16, True),
+             ((2, 4, 2000, 64), torch.bfloat16, True),
+             ((2, 4, 2000, 64), torch.bfloat16, False),
+             ((1, 8, 384, 128), torch.float32, True)]
+    results = []
+    for shape, dtype, causal in cases:
+        g = torch.Generator(device="cuda").manual_seed(10 + len(results))
+        q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(
+            dtype) for _ in range(4))
+        b, h, t, d = shape
+        scale = 1.0 / d ** 0.5
+        o, lse = fa.attention_reference(q, k, v, causal=causal)
+        dcap = (do.float() * o.float()).sum(-1)
+        want = fa.attention_bwd_reference(q, k, v, o, lse, do,
+                                          causal=causal)
+        bf16 = dtype == torch.bfloat16
+        tol = 1e-2 if bf16 else 1e-4
+        got = (fa.flash_bwd_dq(q, k, v, do, lse, dcap, causal, scale),) + \
+            fa.flash_bwd_dkv(q, k, v, do, lse, dcap, causal, scale)
+        torch.cuda.synchronize()
+        names = ("dq", "dk", "dv")
+        err = {n: closeness(a, w, tol) for n, a, w in zip(names, got, want)}
+        for n, w in zip(names, want):
+            wf = w.float()
+            err[n].update(max_plain=wf.abs().max().item(),
+                          rms_plain=wf.pow(2).mean().sqrt().item(),
+                          rms_plain_back_half=wf[:, :, t // 2:].pow(
+                              2).mean().sqrt().item())
+        rec = {"phase": "kernel_check", "kernel": "flash_bwd",
+               "shape": list(shape), "dtype": str(dtype).split(".")[1],
+               "causal": causal, "err": err, "tol": tol}
+        if len(results) == 0:
+            bad = {}
+            for n, w in zip(names, want):
+                wrong = w.clone()
+                wrong[:, :, t // 2:] *= 0.95
+                bad[n] = closeness(wrong, w, tol)
+            rec["limit_rejects_5pct_back_half"] = bad
+            if any(within(c, tol) for c in bad.values()):
+                raise AssertionError("the limit passes outputs 5%% off on "
+                                     "the back half: %r" % bad)
+        ms = {"dq": cuda_ms(lambda: fa.flash_bwd_dq(
+                  q, k, v, do, lse, dcap, causal, scale)),
+              "dkv": cuda_ms(lambda: fa.flash_bwd_dkv(
+                  q, k, v, do, lse, dcap, causal, scale))}
+        plain_ms = cuda_ms(lambda: fa.attention_bwd_reference(
+            q, k, v, o, lse, do, causal=causal), iters=5)
+        qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, (qr, kr, vr), do, retain_graph=True))
+        peak = PEAK_BF16 if bf16 else PEAK_F32
+        for n, kname, products in (("dq", "flash_bwd_dq", 3),
+                                   ("dkv", "flash_bwd_dkv", 4)):
+            bound, by = bound_ms(kname, b, h, t, t, d, causal,
+                                 2 if bf16 else 4, peak)
+            rec[n] = {"ms": ms[n], "bound_ms": bound, "bound_by": by,
+                      "achieved_tflops": attention_flops(
+                          b, h, t, t, d, causal, products)
+                      / (ms[n] * 1e-3) / 1e12}
+        rec.update({"plain_bwd_ms": plain_ms, "sdpa_bwd_ms": lib_ms})
+        log(rec)
+        if not all(within(e, tol) for e in err.values()):
+            raise AssertionError("flash backward disagrees with its plain "
+                                 "version at %s: %r" % (shape, rec))
+        results.append(rec)
+        del qr, kr, vr, out
+    return results
+
+
+def _train_batch(cfg, batch, seed=0):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    # seq + 1 tokens a row: loss_fn shifts them for next-token targets
+    return {"tokens": rng.randint(0, cfg.vocab_size,
+                                  (batch, cfg.max_seq_len + 1)).astype(
+                                      np.int32)}
+
+
+def phase_grad_check(device="cuda", model_kw=dict(TRAIN, num_layers=2),
+                     batch=TRAIN_BATCH):
+    """One step's gradients through the kernels (K2/K3/K4 inside
+    FlashAttention) against the same loss with the plain attention under
+    autograd, per parameter tensor, at 2 layers of the full width:
+    ||g - g_plain|| <= 5e-2 ||g_plain||. The paths differ only where
+    they round to bf16 (steps of 2^-8, about 1.1e-3 rms relative per
+    rounding), and the difference compounds from the attention down to
+    the first layer's weights: on the CPU, where both paths are plain
+    PyTorch and differ only in the backward's formula, the same check
+    at 2 layers of width 128 gives up to 6.4e-3. A wrong gradient is off
+    by O(1)."""
+    import torch
+
+    from mxnet_tpu_torch.models.transformer import (TransformerConfig,
+                                                    init_params, loss_fn)
+    from mxnet_tpu_torch.ops.flash_attention import attention_reference
+
+    cfg = TransformerConfig(**model_kw)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(1),
+                         device)
+    data = _train_batch(cfg, batch, seed=1)
+
+    def grads(attn_fn):
+        p = _tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+        loss = loss_fn(cfg, attn_fn=attn_fn)(p, data, None)
+        loss.backward()
+        return loss.item(), [t.grad.float() for t in _leaves(p)]
+
+    l_k, g_k = grads(None)
+    l_p, g_p = grads(
+        lambda q, k, v: attention_reference(q, k, v, causal=True)[0])
+    rel = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+           for a, b in zip(g_k, g_p)]
+    rec = {"phase": "grad_check", "layers": cfg.num_layers,
+           "batch": batch, "seq": cfg.max_seq_len, "loss": l_k,
+           "loss_plain": l_p, "tensors": len(rel), "max_rel_l2": max(rel),
+           "rel_l2": rel, "tol_rel_l2": 5e-2}
+    log(rec)
+    if not (abs(l_k - l_p) <= 1e-2 and max(rel) <= 5e-2):
+        raise AssertionError("kernel gradients disagree with the plain "
+                             "attention's: %r" % rec)
+    return rec
+
+
+def phase_training(device="cuda", model_kw=TRAIN, batch=TRAIN_BATCH,
+                   steps=5):
+    """The training path: ShardedTrainer over loss_fn with Adam 1e-4,
+    one warm-up step and ``steps - 1`` timed steps on a fixed batch.
+    ``device``/``model_kw``/``batch`` let a CPU rehearsal run the same
+    code at a tiny size. Returns the launch counts."""
+    import math
+
+    import torch
+
+    from mxnet_tpu_torch.models.transformer import (TransformerConfig,
+                                                    init_params, loss_fn)
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    cfg = TransformerConfig(**model_kw)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    n_params = sum(t.numel() for t in _leaves(params))
+    data = _train_batch(cfg, batch)
+    trainer = ShardedTrainer(loss_fn(cfg), params,
+                             lambda ps: torch.optim.Adam(ps, lr=1e-4))
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    fa.flash_attention.launches = 0
+    fa.flash_bwd_dq.launches = 0
+    fa.flash_bwd_dkv.launches = 0
+    losses, secs = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(trainer.step(data).item())
+        sync()
+        secs.append(time.perf_counter() - t0)
+    counts = {"flash_fwd": fa.flash_attention.launches,
+              "flash_bwd_dq": fa.flash_bwd_dq.launches,
+              "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+
+    step_s = sum(secs[1:]) / len(secs[1:])
+    tokens = batch * cfg.max_seq_len
+    flops = model_flops_per_token(cfg, cfg.max_seq_len) * tokens
+    rec = {"phase": "training", "params": n_params, "batch": batch,
+           "seq": cfg.max_seq_len, "optimizer": "adam 1e-4",
+           "steps": steps, "losses": losses, "step_s": secs,
+           "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+           "model_tflop_per_step": flops / 1e12,
+           "mfu": flops / step_s / PEAK_BF16 if device == "cuda" else None,
+           "launches": counts,
+           "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                           if device == "cuda" else None)}
+    log(rec)
+    expected = cfg.num_layers * steps if device == "cuda" else 0
+    if any(n != expected for n in counts.values()):
+        raise AssertionError("training launched %r, expected %d each"
+                             % (counts, expected))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite loss: %r" % losses)
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
+        raise AssertionError("step-0 loss %g is not within 0.5 of ln(%d)"
+                             % (losses[0], cfg.vocab_size))
+    if not losses[-1] < losses[0]:
+        raise AssertionError("loss did not fall: %r" % losses)
+    return counts
 
 
 def phase_serving(device="cuda", model_kw=FLAGSHIP, long_len=2048):
@@ -268,6 +545,14 @@ def _leaves(tree):
         yield tree
 
 
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
 def main():
     import torch
 
@@ -284,19 +569,47 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     phase_setup()
-    checks = phase_kernels()
-    launches = phase_serving()
-    main_shape = checks[0]
-    log({"kernels": [{
+    fwd_checks = phase_kernels()
+    bwd_checks = phase_bwd_kernels()
+    phase_grad_check()
+    torch.cuda.empty_cache()
+    serving = phase_serving()
+    torch.cuda.empty_cache()
+    training = phase_training()
+    fwd_main = fwd_checks[-1]   # the training shape
+    bwd_main = bwd_checks[0]
+    kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:93",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in checks),
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": main_shape["library_ms"]}]})
+        "launches": serving + training["flash_fwd"],
+        "launches_by_path": {"serving": serving,
+                             "training": training["flash_fwd"]},
+        "max_abs_err": max(c["max_abs_err"] for c in fwd_checks),
+        "shape": fwd_main["shape"], "ms": fwd_main["ms"],
+        "plain_ms": fwd_main["plain_ms"], "bound_ms": fwd_main["bound_ms"],
+        "bound_by": fwd_main["bound_by"],
+        "library_ms": fwd_main["library_ms"]}]
+    for name, n, line, outs in (("flash_bwd_dq", "dq", 145, ("dq",)),
+                                ("flash_bwd_dkv", "dkv", 185,
+                                 ("dk", "dv"))):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mxnet_tpu_torch/ops/csrc/flash_bwd.cu",
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:%d" % line,
+            "launches": training[name],
+            "launches_by_path": {"training": training[name]},
+            "max_abs_err": max(c["err"][o]["abs"] for c in bwd_checks
+                               for o in outs),
+            "max_err_to_limit": max(c["err"][o]["elem"] for c in bwd_checks
+                                    for o in outs),
+            "shape": bwd_main["shape"], "ms": bwd_main[n]["ms"],
+            # the plain version and SDPA compute dq, dk and dv together
+            "plain_ms": bwd_main["plain_bwd_ms"],
+            "bound_ms": bwd_main[n]["bound_ms"],
+            "bound_by": bwd_main[n]["bound_by"],
+            "library_ms": bwd_main["sdpa_bwd_ms"]})
+    log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

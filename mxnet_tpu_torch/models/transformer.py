@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from ..context import resolve_device
 
 __all__ = ["TransformerConfig", "init_params", "params_from_numpy",
-           "forward"]
+           "params_to_numpy", "forward", "loss_fn"]
 
 
 @dataclasses.dataclass
@@ -122,6 +122,24 @@ def params_from_numpy(tree, device=None, dtype=None):
     return out
 
 
+def params_to_numpy(params):
+    """The inverse of :func:`params_from_numpy`: a tree of f32 numpy
+    arrays (bf16 leaves widen exactly), detached and on the host."""
+    def leaf(t):
+        return t.detach().float().cpu().numpy()
+
+    def ln(p):
+        return {"scale": leaf(p["scale"]), "bias": leaf(p["bias"])}
+
+    return {"embed": leaf(params["embed"]),
+            "pos_embed": leaf(params["pos_embed"]),
+            "ln_f": ln(params["ln_f"]),
+            "layers": [{"ln1": ln(lp["ln1"]), "wqkv": leaf(lp["wqkv"]),
+                        "wo": leaf(lp["wo"]), "ln2": ln(lp["ln2"]),
+                        "w1": leaf(lp["w1"]), "w2": leaf(lp["w2"])}
+                       for lp in params["layers"]]}
+
+
 def _layer_norm(x, p, eps=1e-5):
     """f32 layer norm with population variance, output in x's dtype."""
     xf = x.float()
@@ -179,3 +197,24 @@ def forward(params, tokens, cfg: TransformerConfig, mesh=None,
         x = x + _gelu(h @ lp["w1"]) @ lp["w2"]
     x = _layer_norm(x, params["ln_f"])
     return x @ embed.T
+
+
+def loss_fn(cfg: TransformerConfig, mesh=None, attn_fn=None):
+    """Next-token cross-entropy loss closure for
+    :func:`mxnet_tpu_torch.parallel.make_train_step`; batch =
+    ``dict(tokens=[B, T+1] int)``. The mean NLL of ``tokens[:, 1:]``
+    under :func:`forward` of ``tokens[:, :-1]``, log-softmax in f32.
+    ``attn_fn`` is passed to :func:`forward` (default: the flash kernels
+    on CUDA tensors)."""
+
+    def f(params, batch, rng):
+        del rng
+        tokens = torch.as_tensor(batch["tokens"],
+                                 device=params["embed"].device).long()
+        logits = forward(params, tokens[:, :-1], cfg, mesh=mesh,
+                         attn_fn=attn_fn)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(-1, tokens[:, 1:, None])[..., 0]
+        return nll.mean()
+
+    return f

@@ -38,6 +38,12 @@ SOURCES = {
         "mx_flash_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                           _P], _I),
     }),
+    "flash_bwd": ("flash_bwd.cu", {
+        "mx_flash_bwd_dq": ([_P] * 7 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
+                            _I),
+        "mx_flash_bwd_dkv": ([_P] * 8 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
+                             _I),
+    }),
 }
 
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,20 +1,24 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain
-version.
+"""Flash attention: the hand-written Hopper kernels and their plain
+versions.
 
-Counterpart of ``flash_attention`` in ``mxnet_tpu/ops/pallas_kernels.py``
-(the Pallas forward ``_flash_fwd_kernel``). Layout ``[B, H, T, D]``.
+Counterpart of ``flash_attention`` in ``mxnet_tpu/ops/pallas_kernels.py``:
+the Pallas forward ``_flash_fwd_kernel`` (K2, ``csrc/flash_fwd.cu``) and
+the backward ``_flash_bwd_dq_kernel`` (K3) and ``_flash_bwd_dkv_kernel``
+(K4), both in ``csrc/flash_bwd.cu``. Layout ``[B, H, T, D]``.
 
-- On CPU tensors ``flash_attention`` computes :func:`attention_reference`,
-  the plain PyTorch version.
-- On CUDA tensors it launches the kernel in ``csrc/flash_fwd.cu`` and
-  nothing else: a shape or dtype the kernel does not take raises, and so
-  does a failed build or launch.
+- On CPU tensors the forward is :func:`attention_reference` and the
+  backward :func:`attention_bwd_reference`, the plain PyTorch versions.
+- On CUDA tensors the kernels are launched and nothing else: a shape or
+  dtype the kernels do not take raises, and so does a failed build or
+  launch.
+- :class:`FlashAttention` wires forward and backward as one
+  ``torch.autograd.Function``, as the JAX ``custom_vjp`` does;
+  :func:`flash_attention` goes through it when grad is enabled and an
+  input requires grad, and launches the forward alone otherwise.
 
-This slice is forward-only (serving): a CUDA tensor that requires grad
-raises, because the backward kernels belong to the training slice.
-
-``flash_attention.launches`` counts kernel launches (a plain int, bumped
-where the kernel is launched and nowhere else).
+Each kernel wrapper counts its launches in a plain int bumped where the
+kernel is launched and nowhere else: ``flash_attention.launches`` (K2),
+``flash_bwd_dq.launches`` (K3), ``flash_bwd_dkv.launches`` (K4).
 """
 from __future__ import annotations
 
@@ -24,7 +28,9 @@ import torch
 
 from ..base import MXNetError, env_int
 
-__all__ = ["attention_reference", "flash_attention", "flash_attention_fwd",
+__all__ = ["attention_reference", "attention_bwd_reference",
+           "flash_attention", "flash_attention_fwd", "flash_attention_bwd",
+           "flash_bwd_dq", "flash_bwd_dkv", "FlashAttention",
            "flash_kernel_usable", "SUPPORTED_HEAD_DIMS"]
 
 SUPPORTED_HEAD_DIMS = (64, 128)
@@ -43,6 +49,15 @@ def attention_reference(q, k, v, causal=True, scale=None):
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = _scores(q, k, causal, scale)
+    lse = torch.logsumexp(scores, dim=-1)
+    p = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return o.to(q.dtype), lse
+
+
+def _scores(q, k, causal, scale):
+    """f32 scale * Q K^T, masked to -1e30 with the top-left causal rule."""
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if causal:
         tq, tk = scores.shape[-2], scores.shape[-1]
@@ -50,10 +65,29 @@ def attention_reference(q, k, v, causal=True, scale=None):
         ik = torch.arange(tk, device=q.device)[None, :]
         scores = torch.where(ik <= iq, scores,
                              torch.full((), _NEG, device=q.device))
-    lse = torch.logsumexp(scores, dim=-1)
-    p = torch.softmax(scores, dim=-1)
-    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
-    return o.to(q.dtype), lse
+    return scores
+
+
+def attention_bwd_reference(q, k, v, o, lse, do, causal=True, scale=None):
+    """Plain attention backward; returns ``(dq, dk, dv)`` in the inputs'
+    dtypes.
+
+    The plain version of ``_flash_attention_bwd_pallas``: a dense f32
+    recompute from the saved ``lse`` (``[B, H, Tq]`` f32), with
+    P = exp(S - lse), dV = P^T dO, D = rowsum(dO * O),
+    dS = P * (dO V^T - D), dQ = scale dS K, dK = scale dS^T Q.
+    """
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(_scores(q, k, causal, scale) - lse[..., None])
+    dof = do.float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
+    dcap = (dof * o.float()).sum(-1, keepdim=True)
+    ds = p * (dp - dcap)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_kernel_usable(tq, tk, d, dv):
@@ -77,9 +111,7 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None):
     _check_kernel_operands(q, k, v)
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    # the kernel reads 16-byte vectors: contiguous, 16-byte aligned rows
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
+    q, k, v = _aligned(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     from . import _build
@@ -119,17 +151,147 @@ def _check_kernel_operands(q, k, v):
             "flash kernel: head_dim %d / dv %d / T %d not taken (head_dim "
             "%s with dv == head_dim, tk >= MXNET_FLASH_MIN_T)"
             % (d, v.shape[3], k.shape[2], SUPPORTED_HEAD_DIMS))
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise MXNetError("flash kernel: forward only in this release "
-                         "(backward kernels come with the training port)")
+
+
+def _aligned(*ts):
+    """The kernels read 16-byte vectors: contiguous, 16-byte aligned
+    rows (``grad_output`` after the head transpose is neither)."""
+    ts = (t.detach().contiguous() for t in ts)
+    return tuple(t.clone() if t.data_ptr() % 16 else t for t in ts)
+
+
+def _check_ready(q, k, v, do, lse, dcap):
+    """What K3/K4 read: the operands of :func:`_check_kernel_operands`,
+    do like q, lse and D f32 ``[B, H, Tq]``, all contiguous and 16-byte
+    aligned on one card."""
+    _check_kernel_operands(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise MXNetError("flash backward: do %s %s, q %s %s"
+                         % (tuple(do.shape), do.dtype, tuple(q.shape),
+                            q.dtype))
+    for t in (lse, dcap):
+        if t.shape != q.shape[:3] or t.dtype != torch.float32:
+            raise MXNetError("flash backward: lse and D must be f32 %s, "
+                             "got %s %s" % (tuple(q.shape[:3]), t.dtype,
+                                            tuple(t.shape)))
+    for t in (q, k, v, do, lse, dcap):
+        if (t.device != q.device or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise MXNetError("flash backward: operands must be contiguous, "
+                             "16-byte aligned and on one device")
+
+
+def _launch_check(name, err):
+    if err != 0:
+        raise MXNetError("%s kernel launch failed: cudaError %d"
+                         % (name, err))
+
+
+def flash_bwd_dq(q, k, v, do, lse, dcap, causal, scale):
+    """Launch K3 on aligned CUDA operands; returns dq. ``dcap`` is
+    D = rowsum(dO * O), f32 ``[B, H, Tq]``."""
+    _check_ready(q, k, v, do, lse, dcap)
+    b, h, tq, d = q.shape
+    dq = torch.empty_like(q)
+    from . import _build
+
+    lib = _build.library("flash_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.mx_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dcap.data_ptr(), dq.data_ptr(), b * h, tq,
+            k.shape[2], d, float(scale), int(causal),
+            int(q.dtype == torch.bfloat16), stream)
+        flash_bwd_dq.launches += 1
+    _launch_check("flash_bwd_dq", err)
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, dcap, causal, scale):
+    """Launch K4 on aligned CUDA operands; returns ``(dk, dv)``."""
+    _check_ready(q, k, v, do, lse, dcap)
+    b, h, tq, d = q.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    from . import _build
+
+    lib = _build.library("flash_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.mx_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dcap.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b * h, tq, k.shape[2], d, float(scale), int(causal),
+            int(q.dtype == torch.bfloat16), stream)
+        flash_bwd_dkv.launches += 1
+    _launch_check("flash_bwd_dkv", err)
+    return dk, dv
+
+
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=None):
+    """The backward on CUDA tensors; returns ``(dq, dk, dv)``.
+    Counterpart of ``_flash_attention_bwd_pallas``: D = rowsum(dO * O)
+    in f32 with torch (the JAX package does it in XLA), then K3 and K4,
+    one launch each."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if o.shape != q.shape or o.dtype != q.dtype or do.shape != q.shape:
+        raise MXNetError("flash backward: o %s %s and do %s must match q "
+                         "%s %s" % (tuple(o.shape), o.dtype, tuple(do.shape),
+                                    tuple(q.shape), q.dtype))
+    q, k, v, o, do, lse = _aligned(q, k, v, o, do, lse)
+    dcap = (do.float() * o.float()).sum(-1)
+    dq = flash_bwd_dq(q, k, v, do, lse, dcap, causal, scale)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, dcap, causal, scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K2 forward and K3/K4 backward as one autograd function (the plain
+    versions on CPU tensors). Saves q, k, v, o and lse; on the card the
+    contiguous copies K2 launched on, so the backward copies only dO."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        if q.is_cuda:
+            q, k, v = _aligned(q, k, v)
+            o, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                         scale=scale)
+        else:
+            o, lse = attention_reference(q, k, v, causal=causal,
+                                         scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd if q.is_cuda else attention_bwd_reference
+        dq, dk, dv = bwd(q, k, v, o, lse, do, causal=ctx.causal,
+                         scale=ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, causal=True, scale=None):
     """Blockwise-softmax attention, q,k,v ``[batch, heads, time, d]``.
 
-    CPU tensors take :func:`attention_reference`; CUDA tensors launch
-    the Hopper kernel (and raise where it does not apply)."""
+    With grad enabled and an input that requires grad it goes through
+    :class:`FlashAttention`; otherwise CPU tensors take
+    :func:`attention_reference` and CUDA tensors launch the forward
+    kernel alone. On CUDA tensors the kernels raise where they do not
+    apply."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, scale)
     if q.is_cuda:
         return flash_attention_fwd(q, k, v, causal=causal, scale=scale)[0]
     return attention_reference(q, k, v, causal=causal, scale=scale)[0]

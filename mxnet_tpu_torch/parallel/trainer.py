@@ -1,0 +1,134 @@
+"""Training steps on one device.
+
+Counterpart of ``mxnet_tpu/parallel/trainer.py``. There, one jitted XLA
+program per step runs forward, backward and the optax update with
+donated buffers. Here the step is eager PyTorch: ``loss_fn``'s forward,
+``loss.backward()`` through ``torch.autograd`` (the flash-attention
+kernels K2/K3/K4 inside the transformer's attention) and a
+``torch.optim`` update, which changes the params in place (the
+counterpart of buffer donation).
+
+- ``optimizer`` is a factory ``params_list -> torch.optim.Optimizer``;
+  the default ``SGD(lr=0.01)`` is the counterpart of ``optax.sgd(0.01)``.
+  ``torch.optim.Adam(lr)`` applies the same update as ``optax.adam(lr)``
+  and ``SGD(lr, momentum=0.9)`` as ``optax.sgd(lr, momentum=0.9)``; both
+  keep their moments in the param dtype, as optax does.
+- ``rng`` is a ``torch.Generator``.
+- Only a one-device mesh exists: ``create_mesh`` raises for more, and
+  shardings (``param_spec``, ``batch_spec``, :func:`data_parallel_spec`)
+  raise until the multi-GPU slice lands.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["data_parallel_spec", "make_train_step", "ShardedTrainer"]
+
+_SHARDING = ("shardings are not ported yet: ROADMAP queue 1, multi-GPU "
+             "mesh over NCCL (data parallelism included)")
+
+
+def data_parallel_spec(mesh, batch_axis="data"):
+    """Raises: data parallelism comes with the multi-GPU slice."""
+    raise NotImplementedError(_SHARDING)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _sgd(params):
+    return torch.optim.SGD(params, lr=0.01)
+
+
+def make_train_step(loss_fn, optimizer=None, mesh=None, param_spec=None,
+                    batch_spec=None, donate=True, has_aux=False):
+    """Build a train step (forward, backward, update).
+
+    ``loss_fn(params, batch, rng)`` -> loss (or ``(loss, aux)`` when
+    ``has_aux``). The batch's leaves are carried to the params' device
+    (the mesh's with a mesh) as tensors. ``donate`` is accepted: the
+    update is in place whatever its value.
+
+    Returns ``(step_fn, init_state)``: ``init_state(params)`` marks the
+    params as requiring grad and builds the optimizer over them;
+    ``step_fn(params, opt_state, batch, rng)`` -> ``(params, opt_state,
+    loss[, aux])`` with ``loss`` a detached scalar tensor.
+    """
+    del donate
+    if param_spec is not None or batch_spec is not None:
+        raise NotImplementedError(_SHARDING)
+    if optimizer is None:
+        optimizer = _sgd
+
+    def step_fn(params, opt_state, batch, rng):
+        device = (mesh.device if mesh is not None
+                  else next(_leaves(params)).device)
+        batch = _tree_map(lambda x: torch.as_tensor(x, device=device), batch)
+        opt_state.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            out = loss_fn(params, batch, rng)
+            loss, aux = out if has_aux else (out, None)
+            loss.backward()
+        opt_state.step()
+        if has_aux:
+            return params, opt_state, loss.detach(), aux
+        return params, opt_state, loss.detach()
+
+    def init_state(params):
+        leaves = list(_leaves(params))
+        for t in leaves:
+            t.requires_grad_(True)
+        return optimizer(leaves)
+
+    return step_fn, init_state
+
+
+class ShardedTrainer:
+    """Stateful wrapper: puts the params on the mesh's device, builds
+    the step, keeps the optimizer and the generator.
+
+    Example::
+
+        trainer = ShardedTrainer(loss_fn(cfg), params,
+                                 lambda ps: torch.optim.Adam(ps, lr=1e-4))
+        for batch in data:
+            loss = trainer.step(batch)
+    """
+
+    def __init__(self, loss_fn, params, optimizer=None, mesh=None,
+                 param_spec=None, batch_spec=None, donate=True, seed=0,
+                 has_aux=False):
+        self.mesh = mesh
+        self.has_aux = has_aux
+        if mesh is not None:
+            params = _tree_map(lambda t: t.detach().to(mesh.device), params)
+        self.params = params
+        self._step_fn, init_state = make_train_step(
+            loss_fn, optimizer=optimizer, mesh=mesh, param_spec=param_spec,
+            batch_spec=batch_spec, donate=donate, has_aux=has_aux)
+        self.opt_state = init_state(params)
+        self._rng = torch.Generator().manual_seed(seed)
+
+    def step(self, batch):
+        out = self._step_fn(self.params, self.opt_state, batch, self._rng)
+        if self.has_aux:
+            self.params, self.opt_state, loss, aux = out
+            return loss, aux
+        self.params, self.opt_state, loss = out
+        return loss

@@ -1,4 +1,5 @@
-"""The Hopper flash-attention forward kernel on the card.
+"""The Hopper flash-attention forward kernel on the card (the backward
+kernels have their own file, ``test_torch_flash_bwd_kernel_cuda.py``).
 
 A CUDA kernel has no CPU mode, so every test here carries the ``cuda``
 marker and skips without a GPU. The file imports neither ``jax`` nor
@@ -22,6 +23,13 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     return torch.device("cuda", 0)
+
+
+def _close(got, want, tol):
+    """Per element |got - want| <= tol * (rms(want) + |want|): a causal
+    head's late rows are far smaller than its first."""
+    g, w = got.float(), want.float()
+    return ((g - w).abs() <= tol * (w.pow(2).mean().sqrt() + w.abs())).all()
 
 
 def _qkv(card, shape, dtype, tk=None, seed=0):
@@ -51,6 +59,7 @@ def test_kernel_matches_reference(card, shape, dtype, causal, tk):
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     assert o.dtype == dtype and lse.shape == shape[:3]
     assert (o.float() - o_ref.float()).abs().max().item() <= tol
+    assert _close(o, o_ref, 1e-2 if dtype == torch.bfloat16 else 1e-4)
     assert (lse - lse_ref).abs().max().item() <= 1e-3
 
 
@@ -61,10 +70,24 @@ def test_kernel_refuses_what_it_does_not_take(card):
     q, k, v = _qkv(card, (1, 2, 64, 64), torch.float16)
     with pytest.raises(MXNetError, match="dtype"):
         fa.flash_attention(q, k, v)
+
+
+def test_grad_input_launches_forward_then_both_backward_kernels(card):
+    """A CUDA input that requires grad goes through FlashAttention: K2
+    once in the forward, then K3 and K4 once each in the backward."""
     q, k, v = _qkv(card, (1, 2, 64, 64), torch.bfloat16)
     q.requires_grad_(True)
-    with pytest.raises(MXNetError, match="forward only"):
-        fa.flash_attention(q, k, v)
+    counts = (fa.flash_attention.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches)
+    o = fa.flash_attention(q, k, v)
+    assert fa.flash_attention.launches == counts[0] + 1
+    assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == counts[1:]
+    (dq,) = torch.autograd.grad(o.float().sum(), (q,))
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == (counts[0] + 1, counts[1] + 1,
+                                           counts[2] + 1)
+    assert dq.shape == q.shape and torch.isfinite(dq.float()).all()
 
 
 def test_ulysses_cp_prefill_launches_the_kernel_once_per_layer(card):

@@ -2,8 +2,8 @@
 
 - a fresh interpreter that imports the package and every submodule has
   neither ``jax`` nor ``mxnet_tpu`` in ``sys.modules``;
-- no source of the port, nor ``chip_smoke.py``, the profile tool or
-  the card's test file, imports either;
+- no source of the port, nor ``chip_smoke.py``, the profile tools or
+  the card's test files, imports either;
 - on the CPU path the kernel build module ``ops._build`` is never
   imported;
 - the host-only scheduler copy matches its original below the imports.
@@ -40,6 +40,10 @@ e = Engine(p, cfg, ServingConfig(block_size=8, num_blocks=12, mesh=mesh,
            device='cpu')
 out = e.generate([np.arange(32) %% 17], max_new_tokens=2)
 assert len(out[0]) == 2 and e.stats()['cp_prefills'] == 1
+from mxnet_tpu_torch.models.transformer import loss_fn
+from mxnet_tpu_torch.parallel import ShardedTrainer
+tr = ShardedTrainer(loss_fn(cfg), p)
+assert np.isfinite(float(tr.step({'tokens': np.arange(66).reshape(2, 33) %% 17})))
 print('cpu_path', 'mxnet_tpu_torch.ops._build' in sys.modules, forbidden())
 import mxnet_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
@@ -85,7 +89,9 @@ def _imports(path):
 @pytest.mark.parametrize(
     "path", sorted(PKG.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "torch_serve_profile.py",
-        ROOT / "tests" / "test_torch_flash_kernel_cuda.py"],
+        ROOT / "tools" / "torch_train_profile.py",
+        ROOT / "tests" / "test_torch_flash_kernel_cuda.py",
+        ROOT / "tests" / "test_torch_flash_bwd_kernel_cuda.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_the_jax_package(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
