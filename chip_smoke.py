@@ -30,9 +30,31 @@ Phases (any failure raises and the script exits non-zero):
    fixed seeded batch; the counts are zeroed just before and read just
    after (12 launches each of K2, K3 and K4 per step), the step-0 loss
    is checked against ln(vocab) and the loss must fall;
-6. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
+6. the row-softmax kernel K1 against its plain version at the Symbol
+   paths' shapes ([64, 10], [128, 1000] f32), at [128, 1000] scaled by
+   50, [1000, 1001] f16, [4096, 32000] bf16, [8, 2097152] f32 (8 MB
+   rows, past the TPU kernel's fallback) and [3, 1], each timed beside
+   the plain version, ``torch.softmax`` and its bytes bound;
+7. the Symbol path, LeNet: the canonical ``FeedForward.fit`` of the
+   verify recipe on ``gpu(0)`` (MNISTIter 1024 synthetic digits, batch
+   64, 3 epochs, lr 0.1, momentum 0.9, Xavier), which must score > 0.9
+   on the 512-digit validation set; K1's count is zeroed just before
+   and read just after;
+8. the Symbol path, ResNet-50 at bench.py's width (batch 128,
+   3x224x224, 1000 classes, f32, conv7 stem): first one bound Executor
+   step's gradients with SoftmaxOutput through K1 against the same step
+   through the plain softmax, per tensor (relative L2 <= 1e-3); then
+   ``FeedForward.fit`` with SGD lr 0.05, momentum 0.9 (the default
+   initializer, Uniform(0.01)) on an NDArrayIter
+   of 4 seeded batches for 2 epochs, printing per-batch ms (synchronised,
+   first batch excluded), img/s, peak memory and each batch's
+   cross-entropy (finite, step 0 within 0.5 of ln 1000);
+9. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
    main paths, error, times and bound;
-7. the last line: ``{"ok": true, "device": {...}}``.
+10. the last line: ``{"ok": true, "device": {...}}``.
+
+TF32 is off for matrix products and cuDNN convolutions in every phase
+(set once in ``main``), so f32 work runs in full f32.
 
 Without CUDA, or run from a directory that lacks the package, it exits
 non-zero and prints no result.
@@ -72,6 +94,31 @@ def cuda_ms(fn, iters=20, warmup=3):
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=20):
+    """Device time of ``fn``: ``iters`` calls captured in one CUDA graph
+    and replayed, so the host's launch cost, which hides a microsecond
+    kernel behind :func:`cuda_ms`, drops out."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()   # warm: allocator and library state outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -534,6 +581,277 @@ def phase_serving(device="cuda", model_kw=FLAGSHIP, long_len=2048):
     return launches
 
 
+# the row-softmax kernel K1: (shape, dtype name, input scale)
+SOFTMAX_CASES = [((64, 10), "float32", 1.0), ((128, 1000), "float32", 1.0),
+                 ((128, 1000), "float32", 50.0),
+                 ((1000, 1001), "float16", 1.0),
+                 ((4096, 32000), "bfloat16", 1.0),
+                 ((8, 2097152), "float32", 1.0), ((3, 1), "float32", 1.0)]
+SOFTMAX_OPS = 5   # f32 operations an element: max, subtract, exp, sum, divide
+
+
+def softmax_bound_ms(n, c, elem_bytes):
+    """Least time for a row softmax: x read once and y written once at
+    the memory rate, against 5 f32 operations an element at the f32
+    peak; returns (ms, "bytes" or "operations")."""
+    t_bytes = 2.0 * n * c * elem_bytes / PEAK_BYTES
+    t_ops = SOFTMAX_OPS * n * c / PEAK_F32
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_softmax_kernel():
+    """K1 on the card against softmax_reference under :func:`closeness`
+    (tol 1e-4 f32: summation order only; 1e-2 bf16/f16: both round
+    their output to the type, one step apart at most). Times: ``ms`` and
+    ``library_ms`` (``torch.softmax``) by CUDA events around 20 calls
+    from the host, ``graph_ms``/``library_graph_ms`` from a CUDA graph of
+    20 calls (device time alone)."""
+    import torch
+
+    from mxnet_tpu_torch.ops.softmax import fused_softmax, softmax_reference
+
+    results = []
+    for shape, dtype_name, scale in SOFTMAX_CASES:
+        dtype = getattr(torch, dtype_name)
+        g = torch.Generator(device="cuda").manual_seed(20 + len(results))
+        x = (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
+        y = fused_softmax(x)
+        want = softmax_reference(x)
+        torch.cuda.synchronize()
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        close = closeness(y, want, tol)
+        elem = x.element_size()
+        bound, by = softmax_bound_ms(shape[0], shape[1], elem)
+        rec = {"phase": "kernel_check", "kernel": "softmax",
+               "shape": list(shape), "dtype": dtype_name, "scale": scale,
+               "max_abs_err": close["abs"], "closeness": close, "tol": tol,
+               "ms": cuda_ms(lambda: fused_softmax(x)),
+               "plain_ms": cuda_ms(lambda: softmax_reference(x)),
+               "library_ms": cuda_ms(lambda: torch.softmax(x, dim=-1)),
+               "graph_ms": graph_ms(lambda: fused_softmax(x)),
+               "library_graph_ms": graph_ms(
+                   lambda: torch.softmax(x, dim=-1)),
+               "bound_ms": bound, "bound_by": by,
+               "bytes": 2 * shape[0] * shape[1] * elem}
+        rec["achieved_tb_s"] = rec["bytes"] / (rec["ms"] * 1e-3) / 1e12
+        log(rec)
+        if not (y.dtype == dtype and y.shape == x.shape
+                and within(close, tol)):
+            raise AssertionError("softmax kernel disagrees with its plain "
+                                 "version at %s: %r" % (shape, rec))
+        results.append(rec)
+        del x, y, want
+    return results
+
+
+def _sync(device):
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _ctx(device):
+    import mxnet_tpu_torch as mx
+
+    return mx.gpu(0) if device == "cuda" else mx.cpu()
+
+
+def phase_lenet(device="cuda"):
+    """The verify recipe's canonical LeNet fit on the device; returns
+    K1's launches in it."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import softmax as sm
+
+    mx.random.seed(0)
+    train = mx.io.MNISTIter(batch_size=64, num_synthetic=1024, seed=1)
+    val = mx.io.MNISTIter(batch_size=64, num_synthetic=512, seed=2,
+                          shuffle=False)
+    model = mx.FeedForward(mx.models.get_lenet(), ctx=_ctx(device),
+                           num_epoch=3, learning_rate=0.1, momentum=0.9,
+                           initializer=mx.initializer.Xavier())
+    _sync(device)
+    sm.fused_softmax.launches = 0
+    t0 = time.perf_counter()
+    model.fit(X=train, eval_data=val)
+    score = model.score(val)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = sm.fused_softmax.launches
+    rec = {"phase": "lenet", "score": score, "wall_s": wall,
+           "batches": 3 * 16, "softmax_launches": launches}
+    log(rec)
+    if not score > 0.9:
+        raise AssertionError("LeNet scored %g <= 0.9" % score)
+    if device == "cuda" and launches == 0:
+        raise AssertionError("the LeNet fit never launched K1")
+    return launches
+
+
+def symbol_products(sym, **shapes):
+    """(forward, training) FLOPs of a graph's convolutions and FC
+    layers at ``shapes``: 2 operations a multiply-add; training adds
+    each layer's weight gradient and each input gradient but the first
+    layer's (the data takes no gradient)."""
+    import numpy as np
+
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    arg = dict(zip(sym.list_arguments(), arg_shapes))
+    internals = sym.get_internals()
+    _, out_shapes, _ = internals.infer_shape(**shapes)
+    out = dict(zip(internals.list_outputs(), out_shapes))
+    layers = []
+    for n in sym.nodes:
+        if n.is_variable or n.op.name not in ("Convolution",
+                                              "FullyConnected"):
+            continue
+        w = arg["%s_weight" % n.name]
+        o = out["%s_output" % n.name]
+        cols = np.prod(o) // o[1] if n.op.name == "Convolution" else o[0]
+        layers.append(2.0 * cols * np.prod(w))
+    fwd = sum(layers)
+    return fwd, fwd + sum(layers) + sum(layers[1:])
+
+
+def _resnet_inputs(batch, image, classes, n_batches=1, seed=0):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    x = rng.rand(n_batches * batch, 3, image, image).astype(np.float32)
+    y = rng.randint(0, classes, n_batches * batch).astype(np.float32)
+    return x, y
+
+
+def phase_resnet_grad_check(device="cuda", batch=128, image=224,
+                            classes=1000):
+    """One bound ResNet-50 Executor step with SoftmaxOutput through K1
+    against the same step through softmax_reference, every parameter
+    gradient within relative L2 1e-3. The two steps differ only in the
+    softmax's summation order (1e-7 relative on the probabilities),
+    which the backward carries through 50 layers of BatchNorm-normalised
+    convolutions; a wrong kernel is off by O(1)."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import loss as loss_mod
+    from mxnet_tpu_torch.ops.softmax import softmax_reference
+
+    sym = mx.models.get_resnet(num_classes=classes, num_layers=50)
+    inputs = ("data", "softmax_label")
+    req = {n: ("null" if n in inputs else "write")
+           for n in sym.list_arguments()}
+    exe = sym.simple_bind(_ctx(device), grad_req=req,
+                          data=(batch, 3, image, image),
+                          softmax_label=(batch,))
+    mx.random.seed(1)
+    init = mx.initializer.Xavier()
+    for name, arr in exe.arg_dict.items():
+        if name not in inputs:
+            init(name, arr)
+    x, y = _resnet_inputs(batch, image, classes, seed=1)
+    exe.arg_dict["data"][:] = x
+    exe.arg_dict["softmax_label"][:] = y
+
+    def grads():
+        exe.forward(is_train=True)
+        exe.backward()
+        return {n: g._data.detach().clone()
+                for n, g in exe.grad_dict.items() if g is not None}
+
+    g_kernel = grads()
+    fused = loss_mod.fused_softmax
+    loss_mod.fused_softmax = softmax_reference
+    try:
+        g_plain = grads()
+    finally:
+        loss_mod.fused_softmax = fused
+    rel = {n: ((g_kernel[n].float() - g_plain[n].float()).norm()
+               / g_plain[n].float().norm().clamp_min(1e-30)).item()
+           for n in g_plain}
+    worst = max(rel, key=rel.get)
+    rec = {"phase": "resnet_grad_check", "batch": batch, "image": image,
+           "tensors": len(rel), "max_rel_l2": rel[worst], "worst": worst,
+           "tol_rel_l2": 1e-3}
+    log(rec)
+    if not rel[worst] <= 1e-3:
+        raise AssertionError("ResNet-50 gradients through K1 disagree with "
+                             "the plain softmax's: %r" % rec)
+    del exe, g_kernel, g_plain
+    return rec
+
+
+def phase_resnet_fit(device="cuda", batch=128, image=224, classes=1000,
+                     n_batches=4, epochs=2):
+    """``FeedForward.fit`` of ResNet-50 at bench.py's width: SGD lr 0.05,
+    momentum 0.9, FeedForward's default initializer (Uniform(0.01), whose
+    near-zero logits put the step-0 cross-entropy at ln(classes); Xavier's
+    put it near ln(classes) + 1), NDArrayIter over ``n_batches`` seeded
+    batches for ``epochs`` epochs. Returns K1's launches."""
+    import math
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import softmax as sm
+
+    x, y = _resnet_inputs(batch, image, classes, n_batches, seed=0)
+    it = mx.io.NDArrayIter(x, y, batch_size=batch)
+    mx.random.seed(0)
+    model = mx.FeedForward(mx.models.get_resnet(classes, 50),
+                           ctx=_ctx(device), num_epoch=epochs,
+                           learning_rate=0.05, momentum=0.9)
+    stamps, losses = [], []
+
+    def on_batch(param):
+        ex = param.locals["executor_manager"].curr_execgrp.train_execs[0]
+        prob = ex.outputs[0]._data.float()
+        lab = ex.arg_dict["softmax_label"]._data.long()
+        ce = -torch.log(prob.gather(1, lab[:, None]).clamp_min(1e-30))
+        losses.append(ce.mean().item())   # a sync: the step has finished
+        stamps.append(time.perf_counter())
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _sync(device)
+    sm.fused_softmax.launches = 0
+    t0 = time.perf_counter()
+    model.fit(X=it, batch_end_callback=on_batch)
+    _sync(device)
+    launches = sm.fused_softmax.launches
+    steps = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    step_ms = 1e3 * sum(steps[1:]) / len(steps[1:])
+    _, train_flops = symbol_products(
+        model.symbol, data=(batch, 3, image, image), softmax_label=(batch,))
+    n_params = sum(v.size for v in model.arg_params.values())
+    rec = {"phase": "resnet_fit", "batch": batch, "image": image,
+           "classes": classes, "batches": len(steps),
+           "optimizer": "sgd lr 0.05 momentum 0.9",
+           "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                    "cudnn": torch.backends.cudnn.allow_tf32},
+           "cudnn_benchmark": torch.backends.cudnn.benchmark,
+           "step_ms": [1e3 * s for s in steps],
+           "mean_step_ms_after_first": step_ms,
+           "img_per_s": batch / (step_ms * 1e-3),
+           "params": n_params,
+           "conv_fc_tflop_per_step": train_flops / 1e12,
+           "conv_fc_tflop_s": train_flops / (step_ms * 1e-3) / 1e12,
+           "cross_entropy": losses, "softmax_launches": launches,
+           "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                           if device == "cuda" else None)}
+    log(rec)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("non-finite cross-entropy: %r" % losses)
+    if abs(losses[0] - math.log(classes)) > 0.5:
+        raise AssertionError("step-0 cross-entropy %g is not within 0.5 of "
+                             "ln(%d)" % (losses[0], classes))
+    expected = n_batches * epochs if device == "cuda" else 0
+    if launches != expected:
+        raise AssertionError("the ResNet-50 fit launched K1 %d times, "
+                             "expected %d" % (launches, expected))
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -576,6 +894,12 @@ def main():
     serving = phase_serving()
     torch.cuda.empty_cache()
     training = phase_training()
+    torch.cuda.empty_cache()
+    softmax_checks = phase_softmax_kernel()
+    lenet = phase_lenet()
+    phase_resnet_grad_check()
+    torch.cuda.empty_cache()
+    resnet = phase_resnet_fit()
     fwd_main = fwd_checks[-1]   # the training shape
     bwd_main = bwd_checks[0]
     kernels = [{
@@ -609,6 +933,22 @@ def main():
             "bound_ms": bwd_main[n]["bound_ms"],
             "bound_by": bwd_main[n]["bound_by"],
             "library_ms": bwd_main["sdpa_bwd_ms"]})
+    sm_main = softmax_checks[1]   # [128, 1000] f32, ResNet-50's shape
+    kernels.append({
+        "name": "softmax", "route": "cuda",
+        "source": "mxnet_tpu_torch/ops/csrc/softmax.cu",
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:517",
+        "launches": lenet + resnet,
+        "launches_by_path": {"lenet_fit": lenet, "resnet50_fit": resnet},
+        "max_abs_err": max(c["max_abs_err"] for c in softmax_checks),
+        "max_err_to_limit": max(c["closeness"]["elem"]
+                                for c in softmax_checks),
+        "shape": sm_main["shape"], "ms": sm_main["ms"],
+        "graph_ms": sm_main["graph_ms"],
+        "plain_ms": sm_main["plain_ms"], "bound_ms": sm_main["bound_ms"],
+        "bound_by": sm_main["bound_by"],
+        "library_ms": sm_main["library_ms"],
+        "library_graph_ms": sm_main["library_graph_ms"]})
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

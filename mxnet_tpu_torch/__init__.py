@@ -2,21 +2,32 @@
 
 The JAX package ``mxnet_tpu`` stays the reference; this package imports
 ``torch`` and never ``jax`` or anything of ``mxnet_tpu``. It keeps the
-JAX package's module names and layout. This release carries two paths
-of the transformer LM on one card:
+JAX package's module names and layout. This release carries three paths
+on one card:
 
-- serving: ``serving.Engine``, with long prompts prefilled through
-  Ulysses attention on a one-device mesh, whose local attention is the
-  hand-written Hopper flash-attention forward kernel
+- serving the transformer LM: ``serving.Engine``, with long prompts
+  prefilled through Ulysses attention on a one-device mesh, whose local
+  attention is the hand-written Hopper flash-attention forward kernel
   (``ops/csrc/flash_fwd.cu``);
-- training: ``parallel.ShardedTrainer`` (or ``make_train_step``) over
-  ``models.transformer.loss_fn``, with gradients from ``torch.autograd``;
-  the attention goes through ``ops.flash_attention.FlashAttention``, the
-  forward kernel and the hand-written backward kernels
-  (``ops/csrc/flash_bwd.cu``).
+- training the LM: ``parallel.ShardedTrainer`` (or ``make_train_step``)
+  over ``models.transformer.loss_fn``, with gradients from
+  ``torch.autograd``; the attention goes through
+  ``ops.flash_attention.FlashAttention``, the forward kernel and the
+  hand-written backward kernels (``ops/csrc/flash_bwd.cu``);
+- the Symbol path: ``sym`` graphs (``models.get_lenet``,
+  ``models.get_resnet``), ``nd`` arrays, ``Executor`` and
+  ``FeedForward`` fit/predict/score/save/load, with SoftmaxOutput's row
+  softmax as a hand-written kernel (``ops/csrc/softmax.cu``)::
 
-Entry points run on ``cuda:0`` unless given ``device=...``; without CUDA
-and without a device they raise.
+      import mxnet_tpu_torch as mx
+      train = mx.io.MNISTIter(batch_size=64, num_synthetic=1024, seed=1)
+      model = mx.FeedForward(mx.models.get_lenet(), ctx=mx.gpu(0),
+                             num_epoch=3, learning_rate=0.1, momentum=0.9,
+                             initializer=mx.initializer.Xavier())
+      model.fit(X=train)
+
+Entry points run on ``cuda:0`` unless given a device or context; without
+CUDA and without one they raise.
 """
 from __future__ import annotations
 
@@ -24,10 +35,35 @@ __version__ = "0.1.0"
 
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_devices
+from . import ndarray
+from . import ndarray as nd
+from . import random
+from .attribute import AttrScope
+from .name import NameManager, Prefix
+from . import symbol
+from . import symbol as sym
+from .symbol import Group, Symbol, Variable
 from . import ops
-from . import models
-from . import parallel
-from . import serving
+
+ops.install(ndarray_module=ndarray, symbol_module=symbol)
+
+from .ndarray import NDArray  # noqa: E402
+from .executor import Executor  # noqa: E402
+from . import initializer  # noqa: E402
+from . import optimizer  # noqa: E402
+from . import lr_scheduler  # noqa: E402
+from . import metric  # noqa: E402
+from . import callback  # noqa: E402
+from . import io  # noqa: E402
+from . import model  # noqa: E402
+from .model import FeedForward  # noqa: E402
+from . import models  # noqa: E402
+from . import parallel  # noqa: E402
+from . import serving  # noqa: E402
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
-           "num_devices", "ops", "models", "parallel", "serving"]
+           "num_devices", "nd", "ndarray", "random", "sym", "symbol",
+           "Symbol", "Variable", "Group", "AttrScope", "NameManager",
+           "Prefix", "NDArray", "Executor", "initializer", "optimizer",
+           "lr_scheduler", "metric", "callback", "io", "model",
+           "FeedForward", "ops", "models", "parallel", "serving"]

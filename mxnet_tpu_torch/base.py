@@ -1,19 +1,92 @@
-"""Error type and environment knobs for mxnet_tpu_torch.
+"""Error types, dtype tables and environment knobs for mxnet_tpu_torch.
 
-The port's own copy of the pieces of ``mxnet_tpu/base.py`` the serving
-slice needs (``MXNetError``, ``env_int``, ``env_bool``): importing the
-JAX package's module would run ``mxnet_tpu/__init__.py``, which imports
-jax.
+The port's own copy of the pieces of ``mxnet_tpu/base.py`` it needs
+(``MXNetError``, ``InferShapeFatal``, the dtype codes, ``env_int``,
+``env_bool``): importing the JAX package's module would run
+``mxnet_tpu/__init__.py``, which imports jax.
+
+The dtype codes are the reference's type flags (float32 0 ... int64 6)
+plus bfloat16 as code 7, as in the JAX package. numpy has no bfloat16
+without ``ml_dtypes`` (which the machine with the card lacks), so code 7
+maps to ``torch.bfloat16`` in the torch table and has no entry in the
+numpy table.
 """
 from __future__ import annotations
 
 import os
 
-__all__ = ["MXNetError", "env_int", "env_bool"]
+import numpy as _np
+import torch
+
+__all__ = ["MXNetError", "InferShapeFatal", "string_types", "numeric_types",
+           "mx_real_t", "_DTYPE_NP_TO_MX", "_DTYPE_MX_TO_NP",
+           "_DTYPE_TORCH_TO_MX", "_DTYPE_MX_TO_TORCH", "torch_dtype",
+           "np_dtype", "env_int", "env_bool"]
 
 
 class MXNetError(Exception):
     """Error raised by the framework."""
+
+
+class InferShapeFatal(MXNetError):
+    """Shape-inference failure that is NOT "inputs not yet known": the
+    graph fixed point (``symbol._infer_shape_impl``) retries an op whose
+    ``infer_shape`` raises a plain MXNetError once more inputs resolve,
+    and aborts on this subclass."""
+
+
+string_types = (str,)
+numeric_types = (float, int, _np.generic)
+
+_DTYPE_NP_TO_MX = {
+    _np.dtype(_np.float32): 0,
+    _np.dtype(_np.float64): 1,
+    _np.dtype(_np.float16): 2,
+    _np.dtype(_np.uint8): 3,
+    _np.dtype(_np.int32): 4,
+    _np.dtype(_np.int8): 5,
+    _np.dtype(_np.int64): 6,
+}
+_DTYPE_MX_TO_NP = {v: k for k, v in _DTYPE_NP_TO_MX.items()}
+
+_DTYPE_TORCH_TO_MX = {
+    torch.float32: 0,
+    torch.float64: 1,
+    torch.float16: 2,
+    torch.uint8: 3,
+    torch.int32: 4,
+    torch.int8: 5,
+    torch.int64: 6,
+    torch.bfloat16: 7,
+}
+_DTYPE_MX_TO_TORCH = {v: k for k, v in _DTYPE_TORCH_TO_MX.items()}
+
+mx_real_t = _np.float32   # default real type
+
+
+def torch_dtype(dtype):
+    """The ``torch.dtype`` of a numpy dtype, a dtype name or a torch
+    dtype; ``None`` is ``mx_real_t``."""
+    if dtype is None:
+        return torch.float32
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    # a name, or ml_dtypes' bfloat16 type or numpy dtype
+    if getattr(dtype, "__name__", str(dtype)) in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    code = _DTYPE_NP_TO_MX.get(_np.dtype(dtype))
+    if code is None:
+        raise MXNetError("unsupported dtype %r" % (dtype,))
+    return _DTYPE_MX_TO_TORCH[code]
+
+
+def np_dtype(dtype):
+    """The numpy dtype of a torch dtype; bfloat16, which numpy lacks,
+    stays ``torch.bfloat16``."""
+    code = _DTYPE_TORCH_TO_MX.get(torch_dtype(dtype))
+    if code is None:
+        raise MXNetError("unsupported dtype %r" % (dtype,))
+    return _DTYPE_MX_TO_NP.get(code, torch.bfloat16)
 
 
 def env_int(name, default):

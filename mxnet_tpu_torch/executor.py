@@ -1,0 +1,388 @@
+"""Executor: a Symbol bound to arrays on one device.
+
+Counterpart of ``mxnet_tpu/executor.py``. The JAX package traces the
+graph into jitted programs (forward, and forward+backward through
+``jax.vjp``); here the graph is evaluated node by node in topological
+order on ``torch.Tensor``s, and gradients come from ``torch.autograd``:
+
+- ``forward(is_train=True)`` with arguments to differentiate runs the
+  graph with autograd recording, over leaves that share storage with
+  the bound argument arrays, and keeps the graph for ``backward``;
+  ``forward(is_train=False)`` records nothing. Aux states (BatchNorm's
+  moving stats) are written, in place, only when ``is_train``.
+- ``backward(out_grads=None)`` seeds loss heads (``no_head_grad`` ops,
+  whose backward ignores the seed) with ones and other heads with
+  ``out_grads``, takes the gradients of the ``grad_req`` write/add
+  arguments, and writes them into ``grad_arrays`` (write) or adds them
+  (add); ``null`` arguments get none. As in the JAX package the
+  gradients of a loss-headed graph are cached against the argument and
+  aux versions, so a second ``backward`` without a new forward applies
+  them again (``grad_req="add"`` then accumulates); if an argument was
+  written since the forward, ``backward`` recomputes the forward
+  (without writing aux) first.
+- ``arg_dict``/``grad_dict``/``aux_dict`` arrays are the bound arrays:
+  ``exe.arg_dict["data"][:] = x`` is what the next forward reads.
+
+Not in this slice: the hybrid host-op engine, mirror/remat, group2ctx
+model parallelism and bucketing's ``shared_exec`` (both raise),
+``reshape``, monitors, profiling and the compile verifier.
+"""
+from __future__ import annotations
+
+import torch
+
+from .base import MXNetError
+from .context import Context
+from .ndarray import NDArray, _as_tensor, ones, zeros
+
+__all__ = ["Executor"]
+
+
+def _as_req_list(grad_req, arg_names):
+    if isinstance(grad_req, str):
+        return [grad_req] * len(arg_names)
+    if isinstance(grad_req, (list, tuple)):
+        return list(grad_req)
+    if isinstance(grad_req, dict):
+        return [grad_req.get(n, "null") for n in arg_names]
+    raise MXNetError("invalid grad_req %r" % (grad_req,))
+
+
+class Executor:
+    def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
+                 aux_states=None, group2ctx=None, shared_exec=None,
+                 _compile_opts=None):
+        if group2ctx:
+            raise MXNetError("group2ctx (model parallelism) is not ported: "
+                             "the port's Executor runs on one device")
+        if shared_exec is not None:
+            raise MXNetError("shared_exec (bucketing's shared memory) is "
+                             "not ported")
+        self._symbol = symbol
+        self._ctx = ctx if isinstance(ctx, Context) else Context(ctx)
+        self._device = self._ctx.torch_device
+
+        self._arg_names = symbol.list_arguments()
+        self._aux_names = symbol.list_auxiliary_states()
+        self._output_names = symbol.list_outputs()
+
+        if isinstance(args, dict):
+            missing = [n for n in self._arg_names if n not in args]
+            if missing:
+                raise MXNetError("bind: missing arguments %s" % missing)
+            self.arg_arrays = [args[n] for n in self._arg_names]
+        else:
+            if len(args) != len(self._arg_names):
+                raise MXNetError("bind: expected %d args, got %d"
+                                 % (len(self._arg_names), len(args)))
+            self.arg_arrays = list(args)
+
+        if args_grad is None:
+            self.grad_arrays = [None] * len(self._arg_names)
+        elif isinstance(args_grad, dict):
+            self.grad_arrays = [args_grad.get(n) for n in self._arg_names]
+        else:
+            self.grad_arrays = list(args_grad)
+            while len(self.grad_arrays) < len(self._arg_names):
+                self.grad_arrays.append(None)
+
+        self._reqs = _as_req_list(grad_req, self._arg_names)
+        for i, (g, r) in enumerate(zip(self.grad_arrays, self._reqs)):
+            if g is None and r != "null":
+                self._reqs[i] = "null"
+
+        if aux_states is None:
+            if self._aux_names:
+                _, _, aux_shapes = symbol.infer_shape(
+                    **{n: a.shape for n, a in zip(self._arg_names,
+                                                  self.arg_arrays)})
+                if aux_shapes is None or any(s is None for s in aux_shapes):
+                    raise MXNetError("bind: aux_states required (shapes "
+                                     "underdetermined)")
+                self.aux_arrays = [zeros(s, self._ctx) for s in aux_shapes]
+            else:
+                self.aux_arrays = []
+        elif isinstance(aux_states, dict):
+            self.aux_arrays = [aux_states[n] for n in self._aux_names]
+        else:
+            self.aux_arrays = list(aux_states)
+
+        for kind, arrs in (("argument", self.arg_arrays),
+                           ("gradient", self.grad_arrays),
+                           ("aux state", self.aux_arrays)):
+            for a in arrs:
+                if a is not None and a._data.device != self._device:
+                    raise MXNetError("bind: %s array on %s, executor on %s"
+                                     % (kind, a._data.device, self._device))
+
+        self._nodes = symbol.nodes
+        self._var_argidx = {}
+        ai = 0
+        for n in self._nodes:
+            if n.is_variable:
+                self._var_argidx[id(n)] = ai
+                ai += 1
+        self._node_aux = {}
+        pos = 0
+        for n in self._nodes:
+            if n.is_variable:
+                continue
+            na = len(n.op.list_auxiliary_states(n.params))
+            if na:
+                self._node_aux[id(n)] = (pos, pos + na)
+                pos += na
+        nid = {id(n): i for i, n in enumerate(self._nodes)}
+        self._heads = [(nid[id(nd)], i) for nd, i in symbol._outputs]
+        self._head_no_grad = [
+            (not nd.is_variable) and nd.op.head_no_grad(nd.params)
+            for nd, _ in symbol._outputs]
+        self._grad_idx = [i for i, r in enumerate(self._reqs) if r != "null"]
+        self._release = self._plan_release()
+
+        self._outputs_nd = None
+        self._graph = None       # (versions, output tensors, leaves)
+        self._grad_cache = None  # (versions, grads)
+
+    def _plan_release(self):
+        """serial -> env keys whose last reader is that node, so the
+        walk drops an intermediate as soon as nothing else reads it."""
+        last = {}
+        for serial, n in enumerate(self._nodes):
+            for s, i in n.inputs:
+                last[(id(s), i)] = serial
+        heads = {(id(self._nodes[i]), j) for i, j in self._heads}
+        release = {}
+        for key, serial in last.items():
+            if key not in heads:
+                release.setdefault(serial, []).append(key)
+        return release
+
+    # -- the graph walk --------------------------------------------------------
+    def _run(self, arg_vals, aux_vals, is_train):
+        env = {}
+        new_aux = list(aux_vals)
+        for serial, n in enumerate(self._nodes):
+            if n.is_variable:
+                env[(id(n), 0)] = arg_vals[self._var_argidx[id(n)]]
+                continue
+            ins = [env[(id(s), i)] for s, i in n.inputs]
+            sl = self._node_aux.get(id(n))
+            aux_in = new_aux[sl[0]:sl[1]] if sl else []
+            outs, n_aux = n.op.apply(n.params, ins, aux_in, is_train, None)
+            for i, o in enumerate(outs):
+                env[(id(n), i)] = o
+            if sl:
+                new_aux[sl[0]:sl[1]] = n_aux
+            for key in self._release.get(serial, ()):
+                env.pop(key, None)
+        outputs = [env[(id(self._nodes[i]), j)] for i, j in self._heads]
+        return outputs, new_aux
+
+    def _forward_graph(self, write_aux):
+        """Forward with autograd recording over the differentiated
+        arguments; keeps (versions, outputs, leaves) for backward."""
+        vals = [a._data for a in self.arg_arrays]
+        leaves = []
+        for i in self._grad_idx:
+            leaf = vals[i].detach().requires_grad_(
+                vals[i].is_floating_point())
+            vals[i] = leaf
+            leaves.append(leaf)
+        with torch.enable_grad():
+            outs, new_aux = self._run(vals, self._aux_vals(), True)
+        self._write_outputs(outs)
+        if write_aux:
+            self._write_aux(new_aux)
+        self._graph = (self._versions(), outs, leaves)
+
+    # -- helpers ---------------------------------------------------------------
+    def _aux_vals(self):
+        return [a._data for a in self.aux_arrays]
+
+    def _versions(self):
+        return tuple(a.version for a in self.arg_arrays) + tuple(
+            a.version for a in self.aux_arrays)
+
+    def _write_outputs(self, outs):
+        outs = [o.detach() for o in outs]
+        if self._outputs_nd is None:
+            self._outputs_nd = [NDArray(o, self._ctx) for o in outs]
+        else:
+            for nd, o in zip(self._outputs_nd, outs):
+                nd._data = o
+
+    def _write_aux(self, new_aux):
+        with torch.no_grad():
+            for nd, v in zip(self.aux_arrays, new_aux):
+                if v is not nd._data:
+                    nd._data.copy_(v)
+
+    def _default_head_grads(self):
+        """Ones for loss heads, zeros for others, None for integer
+        heads (no gradient exists)."""
+        if self._outputs_nd is None:
+            raise MXNetError("backward before forward")
+        hg = []
+        for out_nd, no_grad in zip(self._outputs_nd, self._head_no_grad):
+            t = out_nd._data
+            if not t.is_floating_point():
+                hg.append(None)
+                continue
+            hg.append(torch.ones_like(t) if no_grad else torch.zeros_like(t))
+        return hg
+
+    # -- public API ------------------------------------------------------------
+    @property
+    def outputs(self):
+        if self._outputs_nd is None:
+            self.forward(is_train=False)
+        return self._outputs_nd
+
+    @property
+    def arg_dict(self):
+        return dict(zip(self._arg_names, self.arg_arrays))
+
+    @property
+    def grad_dict(self):
+        return dict(zip(self._arg_names, self.grad_arrays))
+
+    @property
+    def aux_dict(self):
+        return dict(zip(self._aux_names, self.aux_arrays))
+
+    @property
+    def output_dict(self):
+        return dict(zip(self._output_names, self.outputs))
+
+    def forward(self, is_train=False, **kwargs):
+        """Run the graph; ``kwargs`` are written into the named argument
+        arrays first."""
+        if kwargs:
+            arg_dict = self.arg_dict
+            for k, v in kwargs.items():
+                if k not in arg_dict:
+                    raise MXNetError("forward: unknown argument %s" % k)
+                if isinstance(v, NDArray):
+                    v.copyto(arg_dict[k])
+                else:
+                    arg_dict[k][:] = v
+        self._graph = None
+        self._grad_cache = None
+        if is_train and self._grad_idx:
+            self._forward_graph(write_aux=True)
+        else:
+            with torch.no_grad():
+                outs, new_aux = self._run(
+                    [a._data for a in self.arg_arrays], self._aux_vals(),
+                    is_train)
+            self._write_outputs(outs)
+            if is_train:
+                self._write_aux(new_aux)
+        return self.outputs
+
+    def backward(self, out_grads=None):
+        """Gradients into ``grad_arrays`` per ``grad_req``; without
+        ``out_grads`` every head must be a loss op."""
+        if not self._grad_idx:
+            return
+        if out_grads is None:
+            if not all(self._head_no_grad):
+                raise MXNetError(
+                    "backward() without out_grads requires loss-op heads; "
+                    "pass out_grads for outputs %s"
+                    % [n for n, ng in zip(self._output_names,
+                                          self._head_no_grad) if not ng])
+            if self._grad_cache is not None and \
+                    self._grad_cache[0] == self._versions():
+                self._apply_grads(self._grad_cache[1])
+                return
+            if self._outputs_nd is None:
+                self.forward(is_train=False)
+            hg = self._default_head_grads()
+        else:
+            if isinstance(out_grads, NDArray):
+                out_grads = [out_grads]
+            if isinstance(out_grads, dict):
+                out_grads = [out_grads[n] for n in self._output_names]
+            if self._outputs_nd is None:
+                self.forward(is_train=False)
+            hg = [None if not o._data.is_floating_point()
+                  else _as_tensor(g, self._device, o._data.dtype)
+                  for g, o in zip(out_grads, self._outputs_nd)]
+        if self._graph is None or self._graph[0] != self._versions():
+            self._forward_graph(write_aux=False)
+        _, outs, leaves = self._graph
+        self._graph = None
+        pairs = [(o, g) for o, g in zip(outs, hg)
+                 if g is not None and o.requires_grad]
+        diff = [k for k, leaf in enumerate(leaves) if leaf.requires_grad]
+        grads = [None] * len(leaves)
+        if pairs and diff:
+            got = torch.autograd.grad(
+                [o for o, _ in pairs], [leaves[k] for k in diff],
+                [g for _, g in pairs], allow_unused=True)
+            for k, g in zip(diff, got):
+                grads[k] = g
+        grads = [torch.zeros_like(leaf) if g is None else g
+                 for g, leaf in zip(grads, leaves)]
+        if out_grads is None:
+            self._grad_cache = (self._versions(), grads)
+        self._apply_grads(grads)
+
+    def _apply_grads(self, grads):
+        with torch.no_grad():
+            for slot, i in enumerate(self._grad_idx):
+                tgt = self.grad_arrays[i]._data
+                g = grads[slot].to(tgt.dtype)
+                if self._reqs[i] == "write":
+                    tgt.copy_(g)
+                elif self._reqs[i] == "add":
+                    tgt.add_(g)
+
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params=False):
+        for name, arr in arg_params.items():
+            if name in self.arg_dict:
+                arr.copyto(self.arg_dict[name])
+            elif not allow_extra_params:
+                raise MXNetError("copy_params_from: %s not an argument"
+                                 % name)
+        if aux_params:
+            for name, arr in aux_params.items():
+                if name in self.aux_dict:
+                    arr.copyto(self.aux_dict[name])
+                elif not allow_extra_params:
+                    raise MXNetError("copy_params_from: %s not an aux state"
+                                     % name)
+
+    def debug_str(self):
+        return self._symbol.debug_str()
+
+    # -- simple_bind -----------------------------------------------------------
+    @staticmethod
+    def _simple_bind(symbol, ctx, grad_req="write", type_dict=None,
+                     group2ctx=None, shared_exec=None, **kwargs):
+        """Allocate argument, gradient and aux arrays from inferred
+        shapes (aux states named ``*var*`` start at one, the rest at
+        zero)."""
+        ctx = ctx if isinstance(ctx, Context) else Context(ctx)
+        arg_shapes, out_shapes, aux_shapes = symbol.infer_shape(**kwargs)
+        if arg_shapes is None:
+            raise MXNetError("simple_bind: cannot infer shapes from %s"
+                             % kwargs)
+        arg_names = symbol.list_arguments()
+        aux_names = symbol.list_auxiliary_states()
+        arg_types, _, aux_types = symbol.infer_type(**dict(type_dict or {}))
+        args = {name: zeros(shape, ctx, dtype=t)
+                for name, shape, t in zip(arg_names, arg_shapes, arg_types)}
+        reqs = _as_req_list(grad_req, arg_names)
+        args_grad = {name: zeros(shape, ctx, dtype=t)
+                     for name, shape, t, r in zip(arg_names, arg_shapes,
+                                                  arg_types, reqs)
+                     if r != "null"}
+        aux_states = [(ones if "var" in name else zeros)(shape, ctx, dtype=t)
+                      for name, shape, t in zip(aux_names, aux_shapes,
+                                                aux_types)]
+        return Executor(symbol, ctx, args, args_grad=args_grad or None,
+                        grad_req=grad_req, aux_states=aux_states,
+                        group2ctx=group2ctx, shared_exec=shared_exec)

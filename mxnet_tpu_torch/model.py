@@ -1,0 +1,438 @@
+"""FeedForward estimator and checkpoints.
+
+Counterpart of ``mxnet_tpu/model.py``: ``FeedForward`` with ``fit``,
+``predict``, ``score``, ``save`` and ``load``, and
+``save_checkpoint``/``load_checkpoint`` (``prefix-symbol.json`` and
+``prefix-%04d.params`` with ``arg:``/``aux:`` name prefixes, the JAX
+package's files byte for byte). ``fit`` runs the per-batch loop of the
+JAX package's ``_train_multi_device`` (``model.py:491-566``) on one
+device with no kvstore: load the batch, forward with ``is_train``,
+backward, one optimizer update per parameter in parameter order, then
+the metric. The optimizer is created with ``rescale_grad=1/batch_size``.
+``ctx=None`` means ``gpu(0)``.
+
+A kvstore other than a local one and more than one device raise. Not
+in this slice: the scanned fit (``parallel/fit_trainer.py``), the
+guardian, telemetry, bucketing, monitors and ``resume``.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import time
+from collections import namedtuple
+
+import numpy as _np
+
+from .base import MXNetError
+from .context import Context, current_context
+from .ndarray import NDArray, array, load as nd_load, save as nd_save, zeros
+from . import io
+from . import metric as metric_mod
+from . import optimizer as opt
+from .executor_manager import DataParallelExecutorManager, _check_arguments
+from .initializer import Uniform
+from .symbol import Symbol, load as sym_load
+
+__all__ = ["FeedForward", "save_checkpoint", "load_checkpoint",
+           "params_from_numpy", "BatchEndParam"]
+
+BatchEndParam = namedtuple(
+    "BatchEndParams", ["epoch", "nbatch", "eval_metric", "locals"])
+
+
+def params_from_numpy(arg_params, aux_params=None, ctx=None):
+    """Numpy dicts of parameters (from the JAX package or anywhere) ->
+    NDArray dicts on ``ctx``; returns ``(arg_params, aux_params)``."""
+    ctx = ctx or current_context()
+    args = {k: array(_np.asarray(v), ctx=ctx) for k, v in arg_params.items()}
+    auxs = {k: array(_np.asarray(v), ctx=ctx)
+            for k, v in (aux_params or {}).items()}
+    return args, auxs
+
+
+def _desc_name(d):
+    return d.name if isinstance(d, io.DataDesc) else d[0]
+
+
+def _update_params(param_arrays, grad_arrays, updater, num_device):
+    for index, pair in enumerate(zip(param_arrays, grad_arrays)):
+        arg_list, grad_list = pair
+        if grad_list[0] is None:
+            continue
+        for k, p in enumerate(zip(arg_list, grad_list)):
+            w, g = p
+            updater(index * num_device + k, g, w)
+
+
+def _multiple_callbacks(callbacks, *args, **kwargs):
+    if isinstance(callbacks, list):
+        for cb in callbacks:
+            cb(*args, **kwargs)
+        return
+    if callbacks:
+        callbacks(*args, **kwargs)
+
+
+def _train_multi_device(symbol, ctx, arg_names, param_names, aux_names,
+                        arg_params, aux_params, begin_epoch, end_epoch,
+                        epoch_size, optimizer, train_data, eval_data=None,
+                        eval_metric=None, epoch_end_callback=None,
+                        batch_end_callback=None, logger=None,
+                        eval_batch_end_callback=None):
+    """The per-batch training loop on one device."""
+    if logger is None:
+        logger = logging
+    executor_manager = DataParallelExecutorManager(
+        symbol=symbol, ctx=ctx, train_data=train_data,
+        param_names=param_names, arg_names=arg_names, aux_names=aux_names,
+        logger=logger)
+    executor_manager.set_params(arg_params, aux_params)
+    updater = opt.get_updater(optimizer)
+
+    def _train_one_batch(data_batch, epoch, nbatch, eval_metric):
+        executor_manager.load_data_batch(data_batch)
+        executor_manager.forward(is_train=True)
+        executor_manager.backward()
+        _update_params(executor_manager.param_arrays,
+                       executor_manager.grad_arrays, updater=updater,
+                       num_device=len(ctx))
+        executor_manager.update_metric(eval_metric, data_batch.label)
+        if batch_end_callback is not None:
+            batch_end_params = BatchEndParam(
+                epoch=epoch, nbatch=nbatch, eval_metric=eval_metric,
+                locals=dict(locals(), executor_manager=executor_manager,
+                            symbol=symbol, arg_params=arg_params,
+                            aux_params=aux_params))
+            _multiple_callbacks(batch_end_callback, batch_end_params)
+
+    def _train_one_epoch(epoch):
+        tic = time.time()
+        eval_metric.reset()
+        nbatch = 0
+        while True:
+            do_reset = True
+            for data_batch in train_data:
+                nbatch += 1
+                _train_one_batch(data_batch, epoch, nbatch, eval_metric)
+                if epoch_size is not None and nbatch >= epoch_size:
+                    do_reset = False
+                    break
+            if do_reset:
+                logger.info("Epoch[%d] Resetting Data Iterator", epoch)
+                train_data.reset()
+            if epoch_size is None or nbatch >= epoch_size:
+                break
+        toc = time.time()
+        logger.info("Epoch[%d] Time cost=%.3f", epoch, toc - tic)
+
+        if epoch_end_callback or epoch + 1 == end_epoch:
+            executor_manager.copy_to(arg_params, aux_params)
+        _multiple_callbacks(epoch_end_callback, epoch, symbol, arg_params,
+                            aux_params)
+
+        if eval_data:
+            eval_metric.reset()
+            eval_data.reset()
+            for i, eval_batch in enumerate(eval_data):
+                executor_manager.load_data_batch(eval_batch)
+                executor_manager.forward(is_train=False)
+                executor_manager.update_metric(eval_metric, eval_batch.label)
+                if eval_batch_end_callback is not None:
+                    _multiple_callbacks(eval_batch_end_callback, BatchEndParam(
+                        epoch=epoch, nbatch=i, eval_metric=eval_metric,
+                        locals=locals()))
+            for name, value in eval_metric.get_name_value():
+                logger.info("Epoch[%d] Validation-%s=%f", epoch, name, value)
+            eval_data.reset()
+
+    train_data.reset()
+    for epoch in range(begin_epoch, end_epoch):
+        _train_one_epoch(epoch)
+
+
+def _write_params_atomic(param_name, save_dict):
+    """tmp file, fsync, atomic rename: ``param_name`` is always absent,
+    the previous file or the new one."""
+    tmp = "%s.tmp-%d" % (param_name, os.getpid())
+    nd_save(tmp, save_dict)
+    with open(tmp, "rb") as f:
+        os.fsync(f.fileno())
+    os.replace(tmp, param_name)
+
+
+def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
+    """Write ``prefix-symbol.json`` and ``prefix-%04d.params``
+    (synchronously)."""
+    if symbol is not None:
+        symbol.save("%s-symbol.json" % prefix)
+    save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
+    save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
+    param_name = "%s-%04d.params" % (prefix, epoch)
+    _write_params_atomic(param_name, save_dict)
+    logging.info('Saved checkpoint to "%s"', param_name)
+
+
+def load_checkpoint(prefix, epoch):
+    """``(symbol, arg_params, aux_params)`` with the arrays on the
+    host."""
+    symbol = sym_load("%s-symbol.json" % prefix)
+    save_dict = nd_load("%s-%04d.params" % (prefix, epoch))
+    arg_params = {}
+    aux_params = {}
+    for k, v in save_dict.items():
+        tp, name = k.split(":", 1)
+        if tp == "arg":
+            arg_params[name] = v
+        if tp == "aux":
+            aux_params[name] = v
+    return (symbol, arg_params, aux_params)
+
+
+def _load_data(batch, targets):
+    for d_src, d_target in zip(batch.data, targets):
+        d_src.copyto(d_target)
+
+
+class FeedForward:
+    """The estimator API (ref: python/mxnet/model.py:378)."""
+
+    def __init__(self, symbol, ctx=None, num_epoch=None, epoch_size=None,
+                 optimizer="sgd", initializer=Uniform(0.01),
+                 numpy_batch_size=128, arg_params=None, aux_params=None,
+                 allow_extra_params=False, begin_epoch=0, **kwargs):
+        if not isinstance(symbol, Symbol):
+            raise MXNetError("FeedForward takes a Symbol (bucketing "
+                             "symbol generators are not ported)")
+        self.symbol = symbol
+        self.arg_params = arg_params
+        self.aux_params = aux_params
+        self.allow_extra_params = allow_extra_params
+        self.argument_checked = False
+        self._check_arguments()
+        if ctx is None:
+            ctx = [current_context()]
+        elif isinstance(ctx, Context):
+            ctx = [ctx]
+        if len(ctx) != 1:
+            raise MXNetError("FeedForward runs on one device in this port, "
+                             "got %s" % (ctx,))
+        self.ctx = ctx
+        self.num_epoch = num_epoch
+        self.epoch_size = epoch_size
+        self.kwargs = kwargs.copy()
+        self.optimizer = optimizer
+        self.initializer = initializer
+        self.numpy_batch_size = numpy_batch_size
+        self._pred_exec = None
+        self.begin_epoch = begin_epoch
+
+    def _check_arguments(self):
+        if self.argument_checked:
+            return
+        self.argument_checked = True
+        _check_arguments(self.symbol)
+        if self.allow_extra_params:
+            if self.arg_params:
+                arg_names = set(self.symbol.list_arguments())
+                self.arg_params = {k: v for k, v in self.arg_params.items()
+                                   if k in arg_names}
+            if self.aux_params:
+                aux_names = set(self.symbol.list_auxiliary_states())
+                self.aux_params = {k: v for k, v in self.aux_params.items()
+                                   if k in aux_names}
+
+    def _init_params(self, inputs, overwrite=False):
+        inputs = [x if isinstance(x, io.DataDesc) else io.DataDesc(*x)
+                  for x in inputs]
+        input_shapes = {item.name: item.shape for item in inputs}
+        arg_shapes, _, aux_shapes = self.symbol.infer_shape(**input_shapes)
+        assert arg_shapes is not None
+        arg_names = self.symbol.list_arguments()
+        input_names = input_shapes.keys()
+        param_names = [key for key in arg_names if key not in input_names]
+        aux_names = self.symbol.list_auxiliary_states()
+
+        ctx = self.ctx[0]
+        arg_params = {k: zeros(s, ctx) for k, s in zip(arg_names, arg_shapes)
+                      if k in param_names}
+        aux_params = {k: zeros(s, ctx) for k, s in zip(aux_names, aux_shapes)}
+
+        for k, v in arg_params.items():
+            if self.arg_params and k in self.arg_params and not overwrite:
+                arg_params[k][:] = self.arg_params[k]
+            else:
+                self.initializer(k, v)
+        for k, v in aux_params.items():
+            if self.aux_params and k in self.aux_params and not overwrite:
+                aux_params[k][:] = self.aux_params[k]
+            else:
+                self.initializer(k, v)
+
+        self.arg_params = arg_params
+        self.aux_params = aux_params
+        return (arg_names, list(param_names), aux_names)
+
+    def _init_predictor(self, input_shapes, type_dict=None):
+        if self._pred_exec is not None:
+            arg_shapes, _, _ = self.symbol.infer_shape(**dict(input_shapes))
+            assert arg_shapes is not None, "Incomplete input shapes"
+            pred_shapes = [x.shape for x in self._pred_exec.arg_arrays]
+            if arg_shapes == pred_shapes:
+                return
+        pred_exec = self.symbol.simple_bind(
+            self.ctx[0], grad_req="null", type_dict=type_dict,
+            **dict(input_shapes))
+        pred_exec.copy_params_from(self.arg_params, self.aux_params)
+        self._pred_exec = pred_exec
+
+    def _init_iter(self, X, y, is_train):
+        if isinstance(X, (_np.ndarray, NDArray)):
+            if y is None:
+                if is_train:
+                    raise ValueError("y must be specified when X is numpy.ndarray")
+                y = _np.zeros(X.shape[0])
+            if not isinstance(y, (_np.ndarray, NDArray)):
+                raise TypeError("y must be ndarray when X is numpy.ndarray")
+            X = X.asnumpy() if isinstance(X, NDArray) else X
+            y = y.asnumpy() if isinstance(y, NDArray) else y
+            if X.shape[0] != y.shape[0]:
+                raise ValueError("The numbers of data points and labels not equal")
+            if y.ndim == 2 and y.shape[1] == 1:
+                y = y.flatten()
+            if y.ndim != 1:
+                raise ValueError("Label must be 1D or 2D (with 2nd dimension being 1)")
+            if is_train:
+                return io.NDArrayIter(
+                    X, y, int(min(X.shape[0] // 2, self.numpy_batch_size)),
+                    shuffle=is_train, last_batch_handle="roll_over")
+            return io.NDArrayIter(
+                X, y, int(min(X.shape[0], self.numpy_batch_size)),
+                shuffle=False)
+        if not isinstance(X, io.DataIter):
+            raise TypeError("X must be DataIter, NDArray or numpy.ndarray")
+        return X
+
+    def _type_dict(self, X):
+        type_dict = {k: v.dtype for k, v in self.arg_params.items()}
+        for x in X.provide_data:
+            type_dict[_desc_name(x)] = (x.dtype if isinstance(x, io.DataDesc)
+                                        else _np.float32)
+        return type_dict
+
+    def predict(self, X, num_batch=None, return_data=False, reset=True):
+        X = self._init_iter(X, None, is_train=False)
+        if reset:
+            X.reset()
+        data_shapes = X.provide_data
+        data_names = [x[0] for x in data_shapes]
+        self._init_predictor(data_shapes, self._type_dict(X))
+        batch_size = X.batch_size
+        data_arrays = [self._pred_exec.arg_dict[name] for name in data_names]
+        output_list = [[] for _ in range(len(self._pred_exec.outputs))]
+        if return_data:
+            data_list = [[] for _ in X.provide_data]
+            label_list = [[] for _ in X.provide_label]
+        i = 0
+        for batch in X:
+            _load_data(batch, data_arrays)
+            self._pred_exec.forward(is_train=False)
+            real_size = batch_size - batch.pad
+            for o_list, o_nd in zip(output_list, self._pred_exec.outputs):
+                o_list.append(o_nd[0:real_size].asnumpy())
+            if return_data:
+                for j, x in enumerate(batch.data):
+                    data_list[j].append(x[0:real_size].asnumpy())
+                for j, x in enumerate(batch.label):
+                    label_list[j].append(x[0:real_size].asnumpy())
+            i += 1
+            if num_batch is not None and i == num_batch:
+                break
+        outputs = [_np.concatenate(x) for x in output_list]
+        if len(outputs) == 1:
+            outputs = outputs[0]
+        if return_data:
+            data = [_np.concatenate(x) for x in data_list]
+            label = [_np.concatenate(x) for x in label_list]
+            if len(data) == 1:
+                data = data[0]
+            if len(label) == 1:
+                label = label[0]
+            return outputs, data, label
+        return outputs
+
+    def score(self, X, eval_metric="acc", num_batch=None,
+              batch_end_callback=None, reset=True):
+        X = self._init_iter(X, None, is_train=False)
+        if reset:
+            X.reset()
+        data_names = [x[0] for x in X.provide_data]
+        self._init_predictor(X.provide_data, self._type_dict(X))
+        if not isinstance(eval_metric, metric_mod.EvalMetric):
+            eval_metric = metric_mod.create(eval_metric)
+        data_arrays = [self._pred_exec.arg_dict[name] for name in data_names]
+        for i, batch in enumerate(X):
+            if num_batch is not None and i == num_batch:
+                break
+            _load_data(batch, data_arrays)
+            self._pred_exec.forward(is_train=False)
+            eval_metric.update(batch.label, self._pred_exec.outputs)
+            if batch_end_callback is not None:
+                _multiple_callbacks(batch_end_callback, BatchEndParam(
+                    epoch=0, nbatch=i, eval_metric=eval_metric,
+                    locals=locals()))
+        return eval_metric.get()[1]
+
+    def fit(self, X, y=None, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None,
+            kvstore="local", logger=None, eval_batch_end_callback=None):
+        """Train for ``num_epoch`` epochs. ``kvstore`` may only name a
+        local store, which on one device is none."""
+        if logger is None:
+            logger = logging
+        if kvstore is not None and (not isinstance(kvstore, str)
+                                    or "dist" in kvstore):
+            raise MXNetError("kvstore %r: kvstores are not ported; fit "
+                             "runs on one device without one" % (kvstore,))
+        data = self._init_iter(X, y, is_train=True)
+        if isinstance(eval_data, (tuple, list)) and len(eval_data) == 2:
+            eval_data = self._init_iter(eval_data[0], eval_data[1],
+                                        is_train=True)
+        self.kwargs["sym"] = self.symbol
+
+        arg_names, param_names, aux_names = self._init_params(
+            data.provide_data + data.provide_label)
+        if not isinstance(eval_metric, metric_mod.EvalMetric):
+            eval_metric = metric_mod.create(eval_metric)
+        self.kwargs["param_idx2name"] = dict(enumerate(param_names))
+
+        if isinstance(self.optimizer, str):
+            optimizer = opt.create(self.optimizer,
+                                   rescale_grad=(1.0 / data.batch_size),
+                                   **self.kwargs)
+        else:
+            optimizer = self.optimizer
+
+        _train_multi_device(
+            self.symbol, self.ctx, arg_names, param_names, aux_names,
+            self.arg_params, self.aux_params,
+            begin_epoch=self.begin_epoch, end_epoch=self.num_epoch,
+            epoch_size=self.epoch_size, optimizer=optimizer,
+            train_data=data, eval_data=eval_data, eval_metric=eval_metric,
+            epoch_end_callback=epoch_end_callback,
+            batch_end_callback=batch_end_callback, logger=logger,
+            eval_batch_end_callback=eval_batch_end_callback)
+
+    def save(self, prefix, epoch=None):
+        if epoch is None:
+            epoch = self.num_epoch
+        assert epoch is not None
+        save_checkpoint(prefix, epoch, self.symbol, self.arg_params,
+                        self.aux_params)
+
+    @staticmethod
+    def load(prefix, epoch, ctx=None, **kwargs):
+        symbol, arg_params, aux_params = load_checkpoint(prefix, epoch)
+        return FeedForward(symbol, ctx=ctx, arg_params=arg_params,
+                           aux_params=aux_params, begin_epoch=epoch,
+                           **kwargs)

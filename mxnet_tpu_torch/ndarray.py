@@ -1,0 +1,419 @@
+"""NDArray: a mutable array on one device, over a ``torch.Tensor``.
+
+Counterpart of ``mxnet_tpu/ndarray.py``. The JAX package wraps an
+immutable ``jax.Array`` and rebuilds it on every write; here the
+NDArray owns a ``torch.Tensor`` and writes go into its storage
+(``copy_``, indexed assignment), so a handle taken before a write sees
+it, and so does every basic-index view (a torch view of the same
+storage). The executor relies on that: ``exe.arg_dict["data"][:] = x``
+writes the tensor that the next ``forward`` reads, and the optimizer
+updates the weights the executor reads in place. ``version`` is the
+tensor's in-place version counter.
+
+The device is explicit: creation functions take ``ctx`` and default to
+the current context, ``gpu(0)``, which raises without CUDA, so a program
+never runs on the CPU unless it asked for ``cpu()``.
+
+Arithmetic operators dispatch to the registered ops (``_plus``,
+``_mul_scalar``, ...) that ``ops.install`` attaches to this module as
+imperative functions.
+
+``save``/``load``/``load_frombuffer`` read and write the JAX package's
+binary format byte for byte (``mxnet_tpu/ndarray.py`` ``_write_tensor``
+and ``save``), on local paths; bfloat16 (dtype code 7) is written from
+the tensor's int16 view.
+"""
+from __future__ import annotations
+
+import io as _io
+import struct
+
+import numpy as _np
+import torch
+
+from .base import (MXNetError, _DTYPE_MX_TO_NP, _DTYPE_MX_TO_TORCH,
+                   _DTYPE_TORCH_TO_MX, mx_real_t, np_dtype, numeric_types,
+                   torch_dtype)
+from .context import Context, cpu, current_context, gpu
+
+__all__ = ["NDArray", "zeros", "ones", "full", "empty", "array", "arange",
+           "load", "save", "load_frombuffer"]
+
+
+def _ctx_of(tensor):
+    dev = tensor.device
+    return gpu(dev.index or 0) if dev.type == "cuda" else cpu()
+
+
+def _as_tensor(value, device, dtype=None):
+    """A tensor on ``device`` from an NDArray, tensor, numpy array or
+    scalar."""
+    if isinstance(value, NDArray):
+        value = value._data
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=dtype)
+    arr = _np.asarray(value)
+    if arr.dtype.name == "bfloat16":   # an ml_dtypes array
+        t = torch.from_numpy(_np.array(arr, copy=True).view(_np.int16))
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(_np.array(arr, copy=True))
+    return t.to(device=device, dtype=dtype)
+
+
+class NDArray:
+    """A handle on a ``torch.Tensor`` on one device; see the module
+    docstring. Basic-index ``__getitem__`` returns a view sharing the
+    storage, as the reference's slices do; advanced indices copy."""
+
+    __slots__ = ("_data", "_ctx", "writable")
+
+    def __init__(self, data, ctx=None, writable=True):
+        if isinstance(data, torch.Tensor) and ctx is None:
+            ctx = _ctx_of(data)
+        if ctx is None:
+            ctx = current_context()
+        self._ctx = ctx
+        self._data = _as_tensor(data, ctx.torch_device)
+        self.writable = writable
+
+    def _set_data(self, new_data):
+        """Write ``new_data`` into this array's storage (cast to its
+        dtype, broadcast to its shape)."""
+        if not self.writable:
+            raise MXNetError("trying to write to a read-only NDArray")
+        src = _as_tensor(new_data, self._data.device)
+        if src.shape != self._data.shape:
+            try:
+                src = src.expand(self._data.shape)
+            except RuntimeError:
+                raise MXNetError("cannot write shape %s into %s"
+                                 % (tuple(src.shape), self.shape))
+        with torch.no_grad():
+            self._data.copy_(src)
+
+    @property
+    def version(self):
+        """The content generation: the tensor's in-place version count,
+        shared with every view of the same storage."""
+        return self._data._version
+
+    # -- basic properties ----------------------------------------------------
+    @property
+    def shape(self):
+        return tuple(self._data.shape)
+
+    @property
+    def size(self):
+        return self._data.numel()
+
+    @property
+    def ndim(self):
+        return self._data.dim()
+
+    @property
+    def context(self):
+        return self._ctx
+
+    ctx = context
+
+    @property
+    def dtype(self):
+        """numpy dtype; bfloat16, which numpy lacks, is
+        ``torch.bfloat16``."""
+        return np_dtype(self._data.dtype)
+
+    # -- conversion ----------------------------------------------------------
+    def asnumpy(self):
+        """Blocking copy to a host numpy array (bfloat16 comes back as
+        float32)."""
+        t = self._data.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        if t.is_cuda:
+            return t.cpu().numpy()
+        return t.numpy().copy()
+
+    def astype(self, dtype):
+        return NDArray(self._data.to(torch_dtype(dtype), copy=True),
+                       self._ctx)
+
+    def copyto(self, other):
+        """Copy into an NDArray (its storage, device and dtype) or onto
+        a Context (a new array)."""
+        if isinstance(other, NDArray):
+            if other is self:
+                return other
+            if other.shape != self.shape:
+                raise MXNetError("copyto shape mismatch: %s vs %s"
+                                 % (self.shape, other.shape))
+            other._set_data(self._data)
+            return other
+        if isinstance(other, Context):
+            return NDArray(self._data.to(other.torch_device, copy=True),
+                           other)
+        raise TypeError("copyto does not support type " + str(type(other)))
+
+    def copy(self):
+        return self.copyto(self._ctx)
+
+    def as_in_context(self, context):
+        if self._ctx == context:
+            return self
+        return self.copyto(context)
+
+    # -- shape ---------------------------------------------------------------
+    def reshape(self, new_shape):
+        """A view of the same storage where the strides allow it (one
+        -1 wildcard)."""
+        return NDArray(self._data.reshape(tuple(new_shape)), self._ctx,
+                       writable=self.writable)
+
+    # -- indexing ------------------------------------------------------------
+    def __getitem__(self, key):
+        # torch indexing: a view for ints, slices and Ellipsis, a copy
+        # for index arrays and masks
+        return NDArray(self._data[key], self._ctx, writable=self.writable)
+
+    def __setitem__(self, key, value):
+        if not self.writable:
+            raise MXNetError("trying to write to a read-only NDArray")
+        if isinstance(value, numeric_types):
+            with torch.no_grad():
+                self._data[key] = value
+            return
+        src = _as_tensor(value, self._data.device, self._data.dtype)
+        with torch.no_grad():
+            self._data[key] = src
+
+    def __len__(self):
+        if not self.shape:
+            raise TypeError("len() of unsized object")
+        return self.shape[0]
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+    # -- arithmetic, through the op registry ----------------------------------
+    def _binary(self, other, op, scalar_op):
+        if isinstance(other, NDArray):
+            if other._ctx != self._ctx:
+                raise MXNetError("operands are on different contexts: %s "
+                                 "vs %s" % (self._ctx, other._ctx))
+            return globals()[op](self, other)
+        if isinstance(other, numeric_types):
+            return globals()[scalar_op](self, scalar=float(other))
+        return NotImplemented
+
+    def __add__(self, other):
+        return self._binary(other, "_plus", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binary(other, "_minus", "_minus_scalar")
+
+    def __rsub__(self, other):
+        return self._binary(other, "_minus", "_rminus_scalar")
+
+    def __mul__(self, other):
+        return self._binary(other, "_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binary(other, "_div", "_div_scalar")
+
+    def __rtruediv__(self, other):
+        return self._binary(other, "_div", "_rdiv_scalar")
+
+    def __pow__(self, other):
+        return self._binary(other, "_power", "_power_scalar")
+
+    def __rpow__(self, other):
+        return self._binary(other, "_power", "_rpower_scalar")
+
+    def __neg__(self):
+        return NDArray(torch.neg(self._data), self._ctx)
+
+    def _inplace(self, other, fn):
+        out = fn(other)
+        if out is NotImplemented:
+            return NotImplemented
+        self._set_data(out._data)
+        return self
+
+    def __iadd__(self, other):
+        return self._inplace(other, self.__add__)
+
+    def __isub__(self, other):
+        return self._inplace(other, self.__sub__)
+
+    def __imul__(self, other):
+        return self._inplace(other, self.__mul__)
+
+    def __itruediv__(self, other):
+        return self._inplace(other, self.__truediv__)
+
+    __hash__ = None  # mutable handle
+
+    def __repr__(self):
+        return "<NDArray %s @%s>" % ("x".join(str(d) for d in self.shape),
+                                     self._ctx)
+
+
+# -- creation ----------------------------------------------------------------
+
+def _shape(shape):
+    return (shape,) if isinstance(shape, int) else tuple(shape)
+
+
+def _device(ctx):
+    ctx = ctx or current_context()
+    return ctx, ctx.torch_device
+
+
+def empty(shape, ctx=None, dtype=mx_real_t):
+    ctx, dev = _device(ctx)
+    return NDArray(torch.empty(_shape(shape), dtype=torch_dtype(dtype),
+                               device=dev), ctx)
+
+
+def zeros(shape, ctx=None, dtype=mx_real_t):
+    ctx, dev = _device(ctx)
+    return NDArray(torch.zeros(_shape(shape), dtype=torch_dtype(dtype),
+                               device=dev), ctx)
+
+
+def ones(shape, ctx=None, dtype=mx_real_t):
+    ctx, dev = _device(ctx)
+    return NDArray(torch.ones(_shape(shape), dtype=torch_dtype(dtype),
+                              device=dev), ctx)
+
+
+def full(shape, val, ctx=None, dtype=mx_real_t):
+    ctx, dev = _device(ctx)
+    return NDArray(torch.full(_shape(shape), val, dtype=torch_dtype(dtype),
+                              device=dev), ctx)
+
+
+def array(source_array, ctx=None, dtype=None):
+    """An array from a numpy array, list or NDArray; float64 sources
+    become float32 unless ``dtype`` says otherwise."""
+    if isinstance(source_array, NDArray):
+        src = source_array._data
+        if dtype is None:
+            dtype = src.dtype
+    else:
+        src = _np.asarray(source_array)
+        if dtype is None:
+            dtype = (torch.bfloat16 if src.dtype.name == "bfloat16"
+                     else src.dtype if src.dtype != _np.float64
+                     else mx_real_t)
+    ctx, dev = _device(ctx)
+    return NDArray(_as_tensor(src, dev, torch_dtype(dtype)), ctx)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=mx_real_t):
+    ctx, dev = _device(ctx)
+    if stop is None:
+        start, stop = 0, start
+    data = torch.arange(start, stop, step, dtype=torch_dtype(dtype),
+                        device=dev)
+    if repeat != 1:
+        data = data.repeat_interleave(repeat)
+    return NDArray(data, ctx)
+
+
+# -- serialization -----------------------------------------------------------
+# file  := MAGIC(u64) RESERVED(u64) count(u64) names(u64) [len(u64) name]
+#          [tensor]
+# tensor:= ndim(u32) shape(u32*ndim) dtype_code(u32) raw little-endian data
+_ND_MAGIC = 0x112
+
+
+def _write_tensor(f, arr):
+    t = arr._data if isinstance(arr, NDArray) else arr
+    if not isinstance(t, torch.Tensor):
+        t = _as_tensor(t, "cpu")
+    t = t.detach().contiguous().cpu()
+    code = _DTYPE_TORCH_TO_MX.get(t.dtype)
+    if code is None:
+        raise MXNetError("save: unsupported dtype %s" % t.dtype)
+    f.write(struct.pack("<I", t.dim()))
+    for d in t.shape:
+        f.write(struct.pack("<I", d))
+    f.write(struct.pack("<I", code))
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    f.write(t.numpy().tobytes())
+
+
+def _read_tensor(f, ctx):
+    ndim = struct.unpack("<I", f.read(4))[0]
+    shape = tuple(struct.unpack("<I", f.read(4))[0] for _ in range(ndim))
+    code = struct.unpack("<I", f.read(4))[0]
+    tdtype = _DTYPE_MX_TO_TORCH[code]
+    npdtype = _DTYPE_MX_TO_NP.get(code, _np.dtype(_np.int16))
+    n = int(_np.prod(shape)) if shape else 1
+    raw = f.read(n * npdtype.itemsize)
+    if len(raw) != n * npdtype.itemsize:
+        raise MXNetError("truncated tensor data")
+    t = torch.from_numpy(_np.frombuffer(raw, dtype=npdtype).copy())
+    if tdtype == torch.bfloat16:
+        t = t.view(torch.bfloat16)
+    return NDArray(t.reshape(shape), ctx)
+
+
+def save(fname, data):
+    """Save a list or dict of NDArray to a local file."""
+    if isinstance(data, dict):
+        names = list(data.keys())
+        arrays = [data[k] for k in names]
+    elif isinstance(data, (list, tuple)):
+        names = []
+        arrays = list(data)
+    else:
+        raise MXNetError("save requires a list or dict of NDArray")
+    with open(fname, "wb") as f:
+        f.write(struct.pack("<QQQ", _ND_MAGIC, 0, len(arrays)))
+        f.write(struct.pack("<Q", len(names)))
+        for name in names:
+            enc = name.encode("utf-8")
+            f.write(struct.pack("<Q", len(enc)))
+            f.write(enc)
+        for arr in arrays:
+            _write_tensor(f, arr)
+
+
+def load(fname, ctx=None):
+    """Load a list or dict of NDArray from a local file (onto ``ctx``,
+    by default the host)."""
+    with open(fname, "rb") as f:
+        return load_frombuffer(f.read(), ctx)
+
+
+def load_frombuffer(buf, ctx=None):
+    """Load a list or dict of NDArray from the bytes of a ``.params``
+    file."""
+    if ctx is None:
+        ctx = cpu()
+    f = _io.BytesIO(buf)
+    try:
+        magic, _, count = struct.unpack("<QQQ", f.read(24))
+        if magic != _ND_MAGIC:
+            raise MXNetError("invalid NDArray buffer")
+        num_names = struct.unpack("<Q", f.read(8))[0]
+        names = []
+        for _ in range(num_names):
+            ln = struct.unpack("<Q", f.read(8))[0]
+            names.append(f.read(ln).decode("utf-8"))
+        arrays = [_read_tensor(f, ctx) for _ in range(count)]
+    except MXNetError:
+        raise
+    except Exception as exc:
+        raise MXNetError("invalid or truncated NDArray buffer: %s" % exc)
+    if names:
+        return dict(zip(names, arrays))
+    return arrays

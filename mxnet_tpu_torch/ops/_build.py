@@ -33,6 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 SOURCES = {
     "flash_fwd": ("flash_fwd.cu", {
         "mx_flash_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
@@ -43,6 +44,9 @@ SOURCES = {
                             _I),
         "mx_flash_bwd_dkv": ([_P] * 8 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
                              _I),
+    }),
+    "softmax": ("softmax.cu", {
+        "mx_softmax": ([_P, _P, _L, _L, _I, _P], _I),
     }),
 }
 

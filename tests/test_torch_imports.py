@@ -4,7 +4,8 @@
   neither ``jax`` nor ``mxnet_tpu`` in ``sys.modules``;
 - no source of the port, nor ``chip_smoke.py``, the profile tools or
   the card's test files, imports either;
-- on the CPU path the kernel build module ``ops._build`` is never
+- on the CPU path (serving, LM training, a LeNet ``FeedForward`` fit
+  and predict) the kernel build module ``ops._build`` is never
   imported;
 - the host-only scheduler copy matches its original below the imports.
 """
@@ -44,11 +45,19 @@ from mxnet_tpu_torch.models.transformer import loss_fn
 from mxnet_tpu_torch.parallel import ShardedTrainer
 tr = ShardedTrainer(loss_fn(cfg), p)
 assert np.isfinite(float(tr.step({'tokens': np.arange(66).reshape(2, 33) %% 17})))
+import mxnet_tpu_torch as mx
+it = mx.io.NDArrayIter(np.random.RandomState(0).rand(16, 1, 28, 28),
+                       np.arange(16) %% 10, batch_size=8)
+model = mx.FeedForward(mx.models.get_lenet(), ctx=mx.cpu(), num_epoch=1,
+                       learning_rate=0.1, momentum=0.9)
+model.fit(X=it)
+assert model.predict(it).shape == (16, 10)
 print('cpu_path', 'mxnet_tpu_torch.ops._build' in sys.modules, forbidden())
 import mxnet_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                'mxnet_tpu_torch.')]
 assert 'mxnet_tpu_torch.serving.engine' in names, names
+assert 'mxnet_tpu_torch.model' in names, names
 for n in names:
     importlib.import_module(n)
 print('all_modules', forbidden())
@@ -90,8 +99,10 @@ def _imports(path):
     "path", sorted(PKG.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "torch_serve_profile.py",
         ROOT / "tools" / "torch_train_profile.py",
+        ROOT / "tools" / "torch_fit_profile.py",
         ROOT / "tests" / "test_torch_flash_kernel_cuda.py",
-        ROOT / "tests" / "test_torch_flash_bwd_kernel_cuda.py"],
+        ROOT / "tests" / "test_torch_flash_bwd_kernel_cuda.py",
+        ROOT / "tests" / "test_torch_softmax_kernel_cuda.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_the_jax_package(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]

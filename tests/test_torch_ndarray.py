@@ -1,0 +1,122 @@
+"""The port's NDArray against the JAX package's and numpy, on the CPU.
+
+- ``nd.save`` of one dict of arrays in f32, f16, int32 and bf16 writes
+  the same bytes in both packages (the JAX side's bf16 through
+  ``ml_dtypes``, the port's from the tensor's int16 view), and each
+  package loads the other's file;
+- arithmetic through the op registry and in-place writes (``[:]``, a
+  basic-index view, ``+=``) match numpy and land in the same storage.
+"""
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+import mxnet_tpu as mj
+import mxnet_tpu_torch as mt
+
+_RNG = np.random.RandomState(0)
+ARRAYS = {
+    "w_f32": _RNG.randn(3, 5).astype(np.float32),
+    "h_f16": _RNG.randn(7).astype(np.float16),
+    "i_int32": _RNG.randint(-9, 9, (2, 2, 3)).astype(np.int32),
+    "b_bf16": _RNG.randn(4, 6).astype(np.float32),
+    "scalar": np.asarray([2.5], np.float32),
+}
+
+
+def _jax_dict():
+    out = {}
+    for k, v in ARRAYS.items():
+        if k.endswith("bf16"):
+            v = v.astype(ml_dtypes.bfloat16)
+        out[k] = mj.nd.array(v, ctx=mj.cpu(), dtype=v.dtype)
+    return out
+
+
+def _torch_dict():
+    return {k: mt.nd.array(v, ctx=mt.cpu(),
+                           dtype="bfloat16" if k.endswith("bf16") else None)
+            for k, v in ARRAYS.items()}
+
+
+def test_save_bytes_equal(tmp_path):
+    mj.nd.save(str(tmp_path / "j.params"), _jax_dict())
+    mt.nd.save(str(tmp_path / "t.params"), _torch_dict())
+    assert (tmp_path / "j.params").read_bytes() == \
+        (tmp_path / "t.params").read_bytes()
+
+
+def test_list_save_bytes_equal(tmp_path):
+    mj.nd.save(str(tmp_path / "j"), list(_jax_dict().values()))
+    mt.nd.save(str(tmp_path / "t"), list(_torch_dict().values()))
+    assert (tmp_path / "j").read_bytes() == (tmp_path / "t").read_bytes()
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_each_package_loads_the_other(tmp_path, writer):
+    path = str(tmp_path / "x.params")
+    if writer == "jax":
+        mj.nd.save(path, _jax_dict())
+        got = {k: v._data for k, v in mt.nd.load(path).items()}
+        for k, v in got.items():
+            want = torch.from_numpy(np.asarray(ARRAYS[k]))
+            if k.endswith("bf16"):
+                assert v.dtype == torch.bfloat16
+                want = want.to(torch.bfloat16)
+            assert torch.equal(v, want), k
+    else:
+        mt.nd.save(path, _torch_dict())
+        got = mj.nd.load(path)
+        for k, v in got.items():
+            want = ARRAYS[k]
+            if k.endswith("bf16"):
+                want = want.astype(ml_dtypes.bfloat16)
+            assert v.dtype == want.dtype, k
+            np.testing.assert_array_equal(v.asnumpy(), want, err_msg=k)
+
+
+def test_corrupt_buffer_raises():
+    with pytest.raises(mt.MXNetError):
+        mt.nd.load_frombuffer(b"\x00" * 16)
+
+
+def test_arithmetic_matches_numpy():
+    a_np = _RNG.randn(4, 5).astype(np.float32)
+    b_np = _RNG.rand(4, 5).astype(np.float32) + 0.5
+    a = mt.nd.array(a_np, ctx=mt.cpu())
+    b = mt.nd.array(b_np, ctx=mt.cpu())
+    cases = [(a + b, a_np + b_np), (a - b, a_np - b_np),
+             (a * b, a_np * b_np), (a / b, a_np / b_np),
+             (a + 2, a_np + 2), (3 - a, 3 - a_np), (a * 0.5, a_np * 0.5),
+             (2 / b, 2 / b_np), (b ** 2, b_np ** 2), (-a, -a_np)]
+    for got, want in cases:
+        assert got.context == mt.cpu()
+        np.testing.assert_allclose(got.asnumpy(), want, rtol=1e-6)
+
+
+def test_inplace_writes_share_storage():
+    a = mt.nd.zeros((4, 5), ctx=mt.cpu())
+    view = a[1:3]
+    a[:] = 1.0
+    np.testing.assert_array_equal(view.asnumpy(), np.ones((2, 5)))
+    view[:] = np.full((2, 5), 7.0, np.float32)
+    want = np.ones((4, 5), np.float32)
+    want[1:3] = 7.0
+    np.testing.assert_array_equal(a.asnumpy(), want)
+    before = a.version
+    a += 1
+    assert a.version > before
+    np.testing.assert_array_equal(view.asnumpy(), np.full((2, 5), 8.0))
+    a[0, 1] = -1.0
+    assert a.asnumpy()[0, 1] == -1.0
+    c = a.copy()
+    c[:] = 0.0
+    assert a.asnumpy()[0, 0] == 2.0
+
+
+def test_default_device_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(mt.MXNetError):
+        mt.nd.zeros((2,))
