@@ -5,9 +5,10 @@
 
 Phases (any failure raises and the script exits non-zero):
 
-1. setup: torch/CUDA versions, the card's name and power limit, and the
+1. setup: torch/CUDA versions, the card's name and power limit, the
    build of every CUDA kernel from ``mxnet_tpu_torch/ops/csrc`` (one
-   ``nvcc`` per source, all started together);
+   ``nvcc`` per source, all started together) and the NVRTC library
+   that RTC loads (path and version on the build line);
 2. each kernel against its plain PyTorch version on the same card
    tensors, within the stated tolerances, then timed with CUDA events
    beside the plain version and one PyTorch library call: the forward
@@ -49,9 +50,24 @@ Phases (any failure raises and the script exits non-zero):
    of 4 seeded batches for 2 epochs, printing per-batch ms (synchronised,
    first batch excluded), img/s, peak memory and each batch's
    cross-entropy (finite, step 0 within 0.5 of ln 1000);
-9. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
+9. the Module API: ``examples/module/mnist_mlp.py``'s three workflows
+   (explicit Module, SequentialModule, a Python loss through
+   ``backward(out_grads=...)``) at its defaults, each to validation
+   accuracy > 0.9; LeNet's canonical recipe through ``Module.fit``
+   (score > 0.9); ``BucketingModule`` at buckets 10 and 20 over one
+   storage on the card; a ``Monitor`` over one LeNet batch, every tap
+   finite; K1's count zeroed just before and read just after;
+10. ResNet-50 through ``Module.fit`` at phase 8's widths and batches, one
+   epoch, its warm step and img/s printed beside FeedForward's;
+11. RTC (K5): the CUDA C bodies of ``RTC_BODIES`` compiled by NVRTC and
+   pushed through ``mx.rtc.Rtc`` on ``gpu(0)``, each held against its
+   plain PyTorch twin; the real-size body (a*b + c over 2^26 elements,
+   f32 and bf16) timed beside its twin, ``torch.addcmul`` and its bytes
+   bound; the cold NVRTC compile and a cached push's host time; a body
+   with a syntax error must raise;
+12. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
    main paths, error, times and bound;
-10. the last line: ``{"ok": true, "device": {...}}``.
+13. the last line: ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matrix products and cuDNN convolutions in every phase
 (set once in ``main``), so f32 work runs in full f32.
@@ -196,7 +212,7 @@ def within(c, tol):
 def phase_setup():
     import torch
 
-    from mxnet_tpu_torch.ops import _build
+    from mxnet_tpu_torch.ops import _build, _nvrtc
 
     log("torch %s cuda %s python %s" % (torch.__version__,
                                         torch.version.cuda,
@@ -209,10 +225,16 @@ def phase_setup():
         "nvidia-smi: %s" % smi.stderr.strip()
     log(card)
     secs = _build.build_all()
+    t0 = time.perf_counter()
+    _nvrtc._load()
     log({"phase": "build", "seconds": secs,
          "libraries": {n: {"seconds": v["seconds"],
                            "ptxas": v["ptxas"].splitlines()}
-                       for n, v in _build.build_log.items()}})
+                       for n, v in _build.build_log.items()},
+         "nvrtc": {"path": _nvrtc.info["nvrtc_path"],
+                   "version": _nvrtc.info["nvrtc_version"],
+                   "include": _nvrtc.info["include"],
+                   "load_ms": (time.perf_counter() - t0) * 1e3}})
     return card
 
 
@@ -787,7 +809,8 @@ def phase_resnet_fit(device="cuda", batch=128, image=224, classes=1000,
     momentum 0.9, FeedForward's default initializer (Uniform(0.01), whose
     near-zero logits put the step-0 cross-entropy at ln(classes); Xavier's
     put it near ln(classes) + 1), NDArrayIter over ``n_batches`` seeded
-    batches for ``epochs`` epochs. Returns K1's launches."""
+    batches for ``epochs`` epochs. Returns its record (K1's launches in
+    ``softmax_launches``)."""
     import math
 
     import torch
@@ -849,6 +872,493 @@ def phase_resnet_fit(device="cuda", batch=128, image=224, classes=1000,
     if launches != expected:
         raise AssertionError("the ResNet-50 fit launched K1 %d times, "
                              "expected %d" % (launches, expected))
+    return rec
+
+
+# K5: the CUDA C bodies that phase_rtc pushes through mx.rtc.Rtc, each
+# beside its plain twin in PyTorch: name -> (body, twin). The first three
+# are tests/unittest/test_rtc.py's cases; "mul_add" is the real-size body
+# (f32 and bf16, computed in f32 and rounded once)
+RTC_BODIES = {
+    "abc": ("y[threadIdx.x] = expf(x[threadIdx.x] * 5.0f);",
+            lambda x: (x * 5.0).exp()),
+    "axpb": ("const int i = threadIdx.x;\n"
+             "if (i < a_dims[0] * a_dims[1]) out[i] = a[i] * b[i] + 1.0f;",
+             lambda a, b: a * b + 1.0),
+    "rowscale": ("const int i = blockIdx.x;\n"
+                 "for (int j = 0; j < x_dims[1]; ++j)\n"
+                 "  y[i * x_dims[1] + j] = x[i * x_dims[1] + j]"
+                 " * (float)(i + 1);",
+                 lambda x: x * (1.0 + _arange_like(x)[:, None])),
+    "mul_add": ("for (long long i = blockIdx.x * (long long)blockDim.x"
+                " + threadIdx.x; i < out_dims[0];\n"
+                "     i += (long long)gridDim.x * blockDim.x)\n"
+                "  out[i] = (float)a[i] * (float)b[i] + (float)c[i];",
+                lambda a, b, c: (a.float() * b.float() + c.float()).to(
+                    a.dtype)),
+}
+RTC_N = 1 << 26          # the real-size body's elements
+RTC_BLOCK = 256
+RTC_GRID = 132 * 8       # one wave: 8 blocks of 256 threads on each SM
+
+
+def _arange_like(x):
+    import torch
+
+    return torch.arange(x.shape[0], dtype=x.dtype, device=x.device)
+
+
+def rtc_bound_ms(n, elem_bytes):
+    """Least time for out = a*b + c over n elements: a, b, c read once
+    and out written once at the memory rate, against 2 f32 operations
+    an element at the f32 peak; returns (ms, "bytes" or "operations")."""
+    t_bytes = 4.0 * n * elem_bytes / PEAK_BYTES
+    t_ops = 2.0 * n / PEAK_F32
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_rtc():
+    """K5: every body of RTC_BODIES through ``mx.rtc.Rtc`` on ``gpu(0)``,
+    held against its plain twin under :func:`closeness` (tol 1e-4 f32:
+    expf and the fused multiply-add against torch's exp, mul and add;
+    1e-2 bf16: both round the f32 result to bf16 once). The launch count
+    is zeroed just before the pushes and read just after; then the
+    real-size body is timed beside its twin and ``torch.addcmul``, the
+    cold NVRTC compile of each body and the host's wall time of a cached
+    push at [10] are read, and a body with a syntax error must raise."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.ops import _nvrtc
+
+    ctx = mx.gpu(0)
+    rng = np.random.RandomState(30)
+
+    def arr(a, dtype="float32"):
+        return mx.nd.array(a, ctx=ctx, dtype=dtype)
+
+    def kernel(name, ins, outs):
+        return mx.rtc.Rtc(name, ins, outs, RTC_BODIES[name][0])
+
+    # (label, body, Rtc, inputs, outputs, grid, block, tol)
+    cases = []
+    x = arr(rng.rand(10))
+    cases.append(("abc", "abc", kernel("abc", [("x", x)],
+                                       [("y", arr(np.zeros(10)))]),
+                  [x], [arr(np.zeros(10))], (1, 1, 1), (10, 1, 1), 1e-4))
+    a, b = arr(rng.rand(3, 4)), arr(rng.rand(3, 4))
+    k = kernel("axpb", [("a", a), ("b", b)], [("out", arr(np.zeros((3, 4))))])
+    cases.append(("axpb", "axpb", k, [a, b], [arr(np.zeros((3, 4)))],
+                  (1, 1, 1), (12, 1, 1), 1e-4))
+    # the reference's contract: the same kernel on other arrays
+    cases.append(("axpb_again", "axpb", k, [arr(rng.rand(3, 4)), b],
+                  [arr(np.zeros((3, 4)))], (1, 1, 1), (12, 1, 1), 1e-4))
+    x = arr(rng.rand(4, 2))
+    cases.append(("rowscale", "rowscale",
+                  kernel("rowscale", [("x", x)],
+                         [("y", arr(np.zeros((4, 2))))]),
+                  [x], [arr(np.zeros((4, 2)))], (4, 1, 1), (1, 1, 1), 1e-4))
+    g = torch.Generator(device="cuda").manual_seed(31)
+    big = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        ins = [mx.nd.NDArray(torch.randn(RTC_N, generator=g, device="cuda")
+                             .to(dtype)) for _ in range(3)]
+        out = mx.nd.NDArray(torch.zeros(RTC_N, device="cuda", dtype=dtype))
+        k = kernel("mul_add", list(zip("abc", ins)), [("out", out)])
+        label = "mul_add_" + str(dtype).split(".")[1]
+        cases.append((label, "mul_add", k, ins, [out], (RTC_GRID, 1, 1),
+                      (RTC_BLOCK, 1, 1), tol))
+        big[label] = (k, ins, out)
+
+    compile_ms = {}
+    for label, _, k, *_ in cases:
+        if label == "axpb_again":
+            continue
+        t0 = time.perf_counter()
+        k._compile(0)
+        compile_ms[label] = (time.perf_counter() - t0) * 1e3
+    log({"phase": "rtc_build", "nvrtc": _nvrtc.info["nvrtc_path"],
+         "nvrtc_version": _nvrtc.info["nvrtc_version"], "arch": _nvrtc.ARCH,
+         "compile_ms": compile_ms, "compiles": rtc.compiles})
+
+    torch.cuda.synchronize()
+    rtc.launches = 0
+    for _, _, k, ins, outs, grid, block, _ in cases:
+        k.push(ins, outs, grid, block)
+    torch.cuda.synchronize()
+    launches = rtc.launches
+
+    checks = {}
+    for label, body, _, ins, outs, _, _, tol in cases:
+        want = RTC_BODIES[body][1](*[t._data for t in ins])
+        close = closeness(outs[0]._data, want, tol)
+        checks[label] = dict(close, tol=tol)
+        if not within(close, tol):
+            raise AssertionError("rtc body %s disagrees with its plain twin: "
+                                 "%r" % (label, close))
+    if launches != len(cases):
+        raise AssertionError("rtc launched %d times for %d pushes"
+                             % (launches, len(cases)))
+
+    timing = {}
+    for label, (k, ins, out) in big.items():
+        a_, b_, c_ = (t._data for t in ins)
+        twin = RTC_BODIES["mul_add"][1]
+        bound, by = rtc_bound_ms(RTC_N, a_.element_size())
+        timing[label] = {
+            "ms": cuda_ms(lambda: k.push(ins, [out], (RTC_GRID, 1, 1),
+                                         (RTC_BLOCK, 1, 1))),
+            "plain_ms": cuda_ms(lambda: twin(a_, b_, c_)),
+            "library_ms": cuda_ms(lambda: torch.addcmul(c_, a_, b_)),
+            "bound_ms": bound, "bound_by": by,
+            "bytes": 4 * RTC_N * a_.element_size()}
+        timing[label]["achieved_tb_s"] = (timing[label]["bytes"]
+                                          / (timing[label]["ms"] * 1e-3)
+                                          / 1e12)
+    _, _, k, ins, outs, grid, block, _ = cases[0]
+    k.push(ins, outs, grid, block)
+    torch.cuda.synchronize()
+    reps = 1000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        k.push(ins, outs, grid, block)
+    push_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+
+    bad = mx.rtc.Rtc("bad", [("x", ins[0])], [("y", outs[0])],
+                     "y[0] = x[0] +;")
+    try:
+        bad.push(ins, outs)
+    except mx.MXNetError as exc:
+        syntax_error = str(exc).splitlines()[-1][:200]
+    else:
+        raise AssertionError("a body with a syntax error compiled")
+    rec = {"phase": "rtc", "launches": launches, "checks": checks,
+           "timing": timing, "compile_ms": compile_ms,
+           "cached_push_host_us": push_us,
+           "syntax_error": syntax_error, "compiles": rtc.compiles}
+    log(rec)
+    return rec
+
+
+def _mlp_symbol(hidden_layers):
+    """examples/module/mnist_mlp.py's nets: ``hidden_layers`` FC+relu of
+    the given widths, then fc2 10 and SoftmaxOutput."""
+    import mxnet_tpu_torch as mx
+
+    net = mx.sym.Variable("data")
+    for i, h in enumerate(hidden_layers):
+        net = mx.sym.Activation(mx.sym.FullyConnected(
+            net, num_hidden=h, name="fc%d" % (i + 1)), act_type="relu")
+    return mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+        net, num_hidden=10, name="fc2"), name="softmax")
+
+
+def _mnist_iters(batch, n_train, n_val):
+    import mxnet_tpu_torch as mx
+
+    train = mx.io.MNISTIter(batch_size=batch, num_synthetic=n_train,
+                            seed=1, flat=True)
+    val = mx.io.MNISTIter(batch_size=batch, num_synthetic=n_val, seed=2,
+                          flat=True, shuffle=False)
+    return train, val
+
+
+def mnist_explicit(ctx, epochs=3, batch=100, n_train=2000, n_val=1000):
+    """examples/module/mnist_mlp.py's explicit Module workflow (fc1 128,
+    relu, fc2 10, SoftmaxOutput; SGD 0.1, momentum 0.9); returns the
+    validation accuracy."""
+    import mxnet_tpu_torch as mx
+
+    train, val = _mnist_iters(batch, n_train, n_val)
+    mod = mx.module.Module(_mlp_symbol([128]), context=ctx)
+    mod.bind(data_shapes=train.provide_data,
+             label_shapes=train.provide_label)
+    mod.init_params(mx.initializer.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": 0.1, "momentum": 0.9})
+    metric = mx.metric.Accuracy()
+    for _ in range(epochs):
+        train.reset()
+        metric.reset()
+        for b in train:
+            mod.forward(b, is_train=True)
+            mod.update_metric(metric, b.label)
+            mod.backward()
+            mod.update()
+    return dict(mod.score(val, mx.metric.Accuracy()))["accuracy"]
+
+
+def mnist_sequential(ctx, epochs=3, batch=100, n_train=2000, n_val=1000):
+    """The example's SequentialModule workflow (fc1 64 + relu | fc2 10 +
+    SoftmaxOutput, auto_wiring, take_labels; SGD 0.1)."""
+    import mxnet_tpu_torch as mx
+
+    train, val = _mnist_iters(batch, n_train, n_val)
+    net1 = mx.sym.Activation(mx.sym.FullyConnected(
+        mx.sym.Variable("data"), num_hidden=64, name="fc1"),
+        act_type="relu")
+    net2 = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+        mx.sym.Variable("data"), num_hidden=10, name="fc2"),
+        name="softmax")
+    mod = mx.module.SequentialModule()
+    mod.add(mx.module.Module(net1, label_names=(), context=ctx))
+    mod.add(mx.module.Module(net2, context=ctx), take_labels=True,
+            auto_wiring=True)
+    mod.bind(data_shapes=train.provide_data,
+             label_shapes=train.provide_label)
+    mod.init_params(mx.initializer.Xavier())
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.1})
+    for _ in range(epochs):
+        train.reset()
+        for b in train:
+            mod.forward(b, is_train=True)
+            mod.backward()
+            mod.update()
+    metric = mx.metric.Accuracy()
+    val.reset()
+    for b in val:
+        mod.forward(b, is_train=False)
+        mod.update_metric(metric, b.label)
+    return metric.get()[1]
+
+
+def mnist_python_loss(ctx, epochs=3, batch=100, n_train=2000, n_val=1000):
+    """The example's Python-loss workflow: raw logits (fc1 64, relu, fc2
+    10), the softmax cross-entropy gradient computed in numpy and fed
+    back through ``backward(out_grads=...)``; SGD 0.5."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+
+    train, val = _mnist_iters(batch, n_train, n_val)
+    net = mx.sym.FullyConnected(mx.sym.Activation(mx.sym.FullyConnected(
+        mx.sym.Variable("data"), num_hidden=64, name="fc1"),
+        act_type="relu"), num_hidden=10, name="fc2")
+
+    def softmax_ce_grad(scores, labels):
+        e = np.exp(scores - scores.max(1, keepdims=True))
+        p = e / e.sum(1, keepdims=True)
+        p[np.arange(len(labels)), labels.astype(int)] -= 1.0
+        return p / len(labels)
+
+    feat = mx.module.Module(net, label_names=(), context=ctx)
+    feat.bind(data_shapes=train.provide_data, inputs_need_grad=False,
+              for_training=True)
+    feat.init_params(mx.initializer.Xavier())
+    feat.init_optimizer(optimizer="sgd",
+                        optimizer_params={"learning_rate": 0.5})
+    for _ in range(epochs):
+        train.reset()
+        for b in train:
+            feat.forward(b, is_train=True)
+            scores = feat.get_outputs()[0].asnumpy()
+            g = softmax_ce_grad(scores, b.label[0].asnumpy())
+            feat.backward(out_grads=[mx.nd.array(g, ctx=ctx)])
+            feat.update()
+    val.reset()
+    correct = total = 0
+    for b in val:
+        feat.forward(b, is_train=False)
+        pred = feat.get_outputs()[0].asnumpy().argmax(1)
+        correct += (pred == b.label[0].asnumpy()).sum()
+        total += len(pred)
+    return float(correct / total)
+
+
+def phase_module(device="cuda", n_train=2000, n_val=1000, batch=100,
+                 epochs=3):
+    """The Module API on the device: examples/module/mnist_mlp.py's three
+    workflows at its defaults (MNISTIter(flat=True), 2000/1000 synthetic
+    digits, batch 100, 3 epochs), each to validation accuracy > 0.9;
+    LeNet's canonical recipe through ``Module.fit`` (score > 0.9);
+    bucketing's sym_gen at buckets 10 and 20 (one storage on the card,
+    an update through one bucket seen by the other); a Monitor over one
+    LeNet batch (every tap finite). K1's count is zeroed just before and
+    read just after; returns it."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import softmax as sm
+
+    ctx = _ctx(device)
+
+    def lenet_fit():
+        train = mx.io.MNISTIter(batch_size=64, num_synthetic=1024, seed=1)
+        val = mx.io.MNISTIter(batch_size=64, num_synthetic=512, seed=2,
+                              shuffle=False)
+        mod = mx.module.Module(mx.models.get_lenet(), context=ctx)
+        mod.fit(train, eval_data=val, num_epoch=3,
+                optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+                initializer=mx.initializer.Xavier())
+        return dict(mod.score(val, "acc"))["accuracy"], mod
+
+    def bucketing():
+        def sym_gen(seq_len):
+            data = mx.sym.Variable("data")
+            emb = mx.sym.Embedding(data, input_dim=20, output_dim=8,
+                                   name="emb")
+            bn = mx.sym.BatchNorm(mx.sym.sum(emb, axis=(1,)), name="bn")
+            out = mx.sym.FullyConnected(bn, num_hidden=2, name="out")
+            return (mx.sym.SoftmaxOutput(out, name="softmax"), ("data",),
+                    ("softmax_label",))
+
+        d = mx.io.DataDesc
+        mod = mx.module.BucketingModule(sym_gen, default_bucket_key=10,
+                                        context=ctx)
+        mod.bind(data_shapes=[d("data", (4, 10))],
+                 label_shapes=[d("softmax_label", (4,))])
+        mod.init_params()
+        mod.init_optimizer(optimizer_params={"learning_rate": 0.5,
+                                             "momentum": 0.9})
+        rng = np.random.RandomState(3)
+        seen = []
+        for step in range(6):
+            key = (10, 20)[step % 2]
+            x = rng.randint(0, 20, (4, key)).astype(np.float32)
+            b = mx.io.DataBatch(
+                data=[mx.nd.array(x, ctx=ctx)],
+                label=[mx.nd.array((x[:, 0] >= 10).astype(np.float32),
+                                   ctx=ctx)], pad=0, index=None,
+                bucket_key=key, provide_data=[d("data", (4, key))],
+                provide_label=[d("softmax_label", (4,))])
+            mod.forward(b)
+            mod.backward()
+            mod.update()
+            seen.append(mod._buckets[10]._execs[0].arg_dict[
+                "out_weight"].asnumpy())
+        m10 = mod._buckets[10]._execs[0]
+        m20 = mod._buckets[20]._execs[0]
+        names = ("emb_weight", "bn_gamma", "bn_beta", "out_weight",
+                 "out_bias")
+        shared = all(m20.arg_dict[n] is m10.arg_dict[n]
+                     and m20.grad_dict[n] is m10.grad_dict[n]
+                     and m20.arg_dict[n]._data.data_ptr()
+                     == m10.arg_dict[n]._data.data_ptr()
+                     and m20.arg_dict[n]._data.device.type == (
+                         "cuda" if device == "cuda" else "cpu")
+                     for n in names)
+        shared &= all(m20.aux_dict[n] is m10.aux_dict[n]
+                      for n in ("bn_moving_mean", "bn_moving_var"))
+        # every step, through either bucket, moved the one weight
+        moved = all(not np.array_equal(p, q) for p, q in zip(seen, seen[1:]))
+        out = mod.get_outputs()[0].asnumpy()
+        return {"shared_storage": bool(shared), "updates_seen": bool(moved),
+                "finite": bool(np.isfinite(out).all())}
+
+    def monitor(mod):
+        it = mx.io.MNISTIter(batch_size=64, num_synthetic=64, seed=2,
+                             shuffle=False)
+        mon = mx.Monitor(1, nan_aware=True)
+        mod.install_monitor(mon)
+        mon.tic()
+        mod.forward(next(iter(it)), is_train=False)
+        taps = mon.toc()
+        finite = all(np.isfinite(float(v)) for _, _, v in taps)
+        return {"taps": len(taps), "names": [k for _, k, _ in taps][:12],
+                "finite": finite and not mon.nonfinite}
+
+    # the example's seed, for the weights (mx.random) and for the
+    # training iterators' shuffles (numpy's global generator)
+    mx.random.seed(0)
+    np.random.seed(0)
+    _sync(device)
+    sm.fused_softmax.launches = 0
+    t0 = time.perf_counter()
+    sizes = dict(epochs=epochs, batch=batch, n_train=n_train, n_val=n_val)
+    acc = {"explicit": mnist_explicit(ctx, **sizes),
+           "sequential": mnist_sequential(ctx, **sizes),
+           "python_loss": mnist_python_loss(ctx, **sizes)}
+    lenet_score, lenet_mod = lenet_fit()
+    buckets = bucketing()
+    mon = monitor(lenet_mod)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = sm.fused_softmax.launches
+    rec = {"phase": "module", "val_acc": acc, "lenet_module_score":
+           lenet_score, "bucketing": buckets, "monitor": mon,
+           "wall_s": wall, "softmax_launches": launches}
+    log(rec)
+    if not min(acc.values()) > 0.9:
+        raise AssertionError("mnist_mlp workflows: %r" % acc)
+    if not lenet_score > 0.9:
+        raise AssertionError("LeNet Module.fit scored %g" % lenet_score)
+    if not all(buckets.values()):
+        raise AssertionError("bucketing: %r" % buckets)
+    if not (mon["finite"] and mon["taps"] > 0):
+        raise AssertionError("monitor: %r" % mon)
+    if device == "cuda" and launches == 0:
+        raise AssertionError("the Module path never launched K1")
+    return launches
+
+
+def phase_resnet_module_fit(device="cuda", batch=128, image=224,
+                            classes=1000, n_batches=4, epochs=1,
+                            feedforward=None):
+    """ResNet-50 (conv7 stem) at phase_resnet_fit's widths through
+    ``Module.fit``: SGD lr 0.05, momentum 0.9, the default initializer
+    (Uniform(0.01)), the same seeded batches, one epoch. Prints the mean
+    warm step and img/s beside ``feedforward`` (phase_resnet_fit's
+    record from the same run). Returns K1's launches."""
+    import math
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import softmax as sm
+
+    x, y = _resnet_inputs(batch, image, classes, n_batches, seed=0)
+    it = mx.io.NDArrayIter(x, y, batch_size=batch)
+    mx.random.seed(0)
+    mod = mx.module.Module(mx.models.get_resnet(classes, 50),
+                           context=_ctx(device))
+    stamps, losses = [], []
+
+    def on_batch(param):
+        ex = mod._execs[0]
+        prob = ex.outputs[0]._data.float()
+        lab = ex.arg_dict["softmax_label"]._data.long()
+        ce = -torch.log(prob.gather(1, lab[:, None]).clamp_min(1e-30))
+        losses.append(ce.mean().item())   # a sync: the step has finished
+        stamps.append(time.perf_counter())
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _sync(device)
+    sm.fused_softmax.launches = 0
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=epochs, batch_end_callback=on_batch,
+            optimizer_params={"learning_rate": 0.05, "momentum": 0.9})
+    _sync(device)
+    launches = sm.fused_softmax.launches
+    steps = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    step_ms = 1e3 * sum(steps[1:]) / len(steps[1:])
+    rec = {"phase": "resnet_module_fit", "batch": batch, "image": image,
+           "classes": classes, "batches": len(steps),
+           "optimizer": "sgd lr 0.05 momentum 0.9",
+           "step_ms": [1e3 * s for s in steps],
+           "mean_step_ms_after_first": step_ms,
+           "img_per_s": batch / (step_ms * 1e-3),
+           "feedforward_mean_step_ms_after_first": (
+               feedforward or {}).get("mean_step_ms_after_first"),
+           "feedforward_img_per_s": (feedforward or {}).get("img_per_s"),
+           "cross_entropy": losses, "softmax_launches": launches,
+           "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                           if device == "cuda" else None)}
+    log(rec)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("non-finite cross-entropy: %r" % losses)
+    if abs(losses[0] - math.log(classes)) > 0.5:
+        raise AssertionError("step-0 cross-entropy %g is not within 0.5 of "
+                             "ln(%d)" % (losses[0], classes))
+    expected = n_batches * epochs if device == "cuda" else 0
+    if launches != expected:
+        raise AssertionError("the ResNet-50 Module fit launched K1 %d times, "
+                             "expected %d" % (launches, expected))
     return launches
 
 
@@ -899,7 +1409,13 @@ def main():
     lenet = phase_lenet()
     phase_resnet_grad_check()
     torch.cuda.empty_cache()
-    resnet = phase_resnet_fit()
+    resnet_ff = phase_resnet_fit()
+    resnet = resnet_ff["softmax_launches"]
+    torch.cuda.empty_cache()
+    module = phase_module()
+    resnet_module = phase_resnet_module_fit(feedforward=resnet_ff)
+    torch.cuda.empty_cache()
+    rtc = phase_rtc()
     fwd_main = fwd_checks[-1]   # the training shape
     bwd_main = bwd_checks[0]
     kernels = [{
@@ -938,8 +1454,10 @@ def main():
         "name": "softmax", "route": "cuda",
         "source": "mxnet_tpu_torch/ops/csrc/softmax.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:517",
-        "launches": lenet + resnet,
-        "launches_by_path": {"lenet_fit": lenet, "resnet50_fit": resnet},
+        "launches": lenet + resnet + module + resnet_module,
+        "launches_by_path": {"lenet_fit": lenet, "resnet50_fit": resnet,
+                             "module": module,
+                             "resnet50_module_fit": resnet_module},
         "max_abs_err": max(c["max_abs_err"] for c in softmax_checks),
         "max_err_to_limit": max(c["closeness"]["elem"]
                                 for c in softmax_checks),
@@ -949,6 +1467,24 @@ def main():
         "bound_by": sm_main["bound_by"],
         "library_ms": sm_main["library_ms"],
         "library_graph_ms": sm_main["library_graph_ms"]})
+    f32, bf16 = (rtc["timing"]["mul_add_" + t]
+                 for t in ("float32", "bfloat16"))
+    kernels.append({
+        "name": "rtc", "route": "cuda",
+        "source": "mxnet_tpu_torch/rtc.py",
+        "bodies": "chip_smoke.py RTC_BODIES (CUDA C, compiled by NVRTC)",
+        "replaces": "mxnet_tpu/rtc.py:107",
+        "launches": rtc["launches"],
+        "launches_by_path": {"rtc": rtc["launches"]},
+        "max_abs_err": max(c["abs"] for c in rtc["checks"].values()),
+        "max_err_to_limit": max(c["elem"] for c in rtc["checks"].values()),
+        "shape": [RTC_N], "dtype": "float32", "ms": f32["ms"],
+        "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+        "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
+        "bfloat16": {k: bf16[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "library_ms")},
+        "nvrtc_compile_ms": rtc["compile_ms"]["mul_add_float32"],
+        "cached_push_host_us": rtc["cached_push_host_us"]})
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

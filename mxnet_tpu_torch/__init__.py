@@ -2,7 +2,7 @@
 
 The JAX package ``mxnet_tpu`` stays the reference; this package imports
 ``torch`` and never ``jax`` or anything of ``mxnet_tpu``. It keeps the
-JAX package's module names and layout. This release carries three paths
+JAX package's module names and layout. This release carries these paths
 on one card:
 
 - serving the transformer LM: ``serving.Engine``, with long prompts
@@ -25,6 +25,13 @@ on one card:
                              num_epoch=3, learning_rate=0.1, momentum=0.9,
                              initializer=mx.initializer.Xavier())
       model.fit(X=train)
+
+- the Module API: ``module.Module``, ``SequentialModule``,
+  ``PythonLossModule`` and ``BucketingModule`` over the same executor
+  (bucketing's shared storage, ``Executor.reshape``, ``Monitor`` taps);
+- runtime-compiled kernels: ``rtc.Rtc`` wraps a user's CUDA C kernel
+  body, compiles it with NVRTC for ``sm_90a`` and launches it on
+  NDArrays on the card.
 
 Entry points run on ``cuda:0`` unless given a device or context; without
 CUDA and without one they raise.
@@ -58,6 +65,10 @@ from . import io  # noqa: E402
 from . import model  # noqa: E402
 from .model import FeedForward  # noqa: E402
 from . import models  # noqa: E402
+from . import monitor  # noqa: E402
+from .monitor import Monitor  # noqa: E402
+from . import module  # noqa: E402
+from . import rtc  # noqa: E402
 from . import parallel  # noqa: E402
 from . import serving  # noqa: E402
 
@@ -66,4 +77,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "Symbol", "Variable", "Group", "AttrScope", "NameManager",
            "Prefix", "NDArray", "Executor", "initializer", "optimizer",
            "lr_scheduler", "metric", "callback", "io", "model",
-           "FeedForward", "ops", "models", "parallel", "serving"]
+           "FeedForward", "ops", "models", "monitor", "Monitor", "module",
+           "rtc", "parallel", "serving"]

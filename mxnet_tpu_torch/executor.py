@@ -23,15 +23,27 @@ order on ``torch.Tensor``s, and gradients come from ``torch.autograd``:
 - ``arg_dict``/``grad_dict``/``aux_dict`` arrays are the bound arrays:
   ``exe.arg_dict["data"][:] = x`` is what the next forward reads.
 
+- ``simple_bind(shared_exec=...)`` (bucketing's shared memory,
+  ``mxnet_tpu/executor.py:1043-1113``) reuses the shared executor's
+  argument, gradient and aux NDArray objects by name where shape and
+  dtype match and allocates the rest; a gradient is shared only where
+  both sides have ``grad_req="write"``. Every forward and backward reads
+  ``arg_arrays[i]._data`` afresh and SGD updates in place, so one
+  bucket's update is what the next bucket reads. ``reshape`` binds the
+  same graph at new shapes over the same parameter arrays.
+- ``set_monitor_callback(cb)`` taps every op output during ``forward``,
+  in node order, as ``cb("%s_%s" % (node, output), NDArray)``: the walk
+  is node by node already, so the taps are inline (the JAX package
+  replays the graph eagerly for them).
+
 Not in this slice: the hybrid host-op engine, mirror/remat, group2ctx
-model parallelism and bucketing's ``shared_exec`` (both raise),
-``reshape``, monitors, profiling and the compile verifier.
+model parallelism (raises), profiling and the compile verifier.
 """
 from __future__ import annotations
 
 import torch
 
-from .base import MXNetError
+from .base import MXNetError, torch_dtype
 from .context import Context
 from .ndarray import NDArray, _as_tensor, ones, zeros
 
@@ -55,9 +67,6 @@ class Executor:
         if group2ctx:
             raise MXNetError("group2ctx (model parallelism) is not ported: "
                              "the port's Executor runs on one device")
-        if shared_exec is not None:
-            raise MXNetError("shared_exec (bucketing's shared memory) is "
-                             "not ported")
         self._symbol = symbol
         self._ctx = ctx if isinstance(ctx, Context) else Context(ctx)
         self._device = self._ctx.torch_device
@@ -142,6 +151,7 @@ class Executor:
         self._outputs_nd = None
         self._graph = None       # (versions, output tensors, leaves)
         self._grad_cache = None  # (versions, grads)
+        self._monitor_callback = None
 
     def _plan_release(self):
         """serial -> env keys whose last reader is that node, so the
@@ -158,9 +168,12 @@ class Executor:
         return release
 
     # -- the graph walk --------------------------------------------------------
-    def _run(self, arg_vals, aux_vals, is_train):
+    def _run(self, arg_vals, aux_vals, is_train, tap=False):
+        """Walk the graph; with ``tap`` every op output goes to the
+        monitor callback as it is made."""
         env = {}
         new_aux = list(aux_vals)
+        monitor = self._monitor_callback if tap else None
         for serial, n in enumerate(self._nodes):
             if n.is_variable:
                 env[(id(n), 0)] = arg_vals[self._var_argidx[id(n)]]
@@ -169,8 +182,12 @@ class Executor:
             sl = self._node_aux.get(id(n))
             aux_in = new_aux[sl[0]:sl[1]] if sl else []
             outs, n_aux = n.op.apply(n.params, ins, aux_in, is_train, None)
+            onames = n.op.list_outputs(n.params) if monitor else ()
             for i, o in enumerate(outs):
                 env[(id(n), i)] = o
+                if monitor is not None:
+                    monitor("%s_%s" % (n.name, onames[i]),
+                            NDArray(o.detach(), self._ctx))
             if sl:
                 new_aux[sl[0]:sl[1]] = n_aux
             for key in self._release.get(serial, ()):
@@ -178,7 +195,7 @@ class Executor:
         outputs = [env[(id(self._nodes[i]), j)] for i, j in self._heads]
         return outputs, new_aux
 
-    def _forward_graph(self, write_aux):
+    def _forward_graph(self, write_aux, tap=False):
         """Forward with autograd recording over the differentiated
         arguments; keeps (versions, outputs, leaves) for backward."""
         vals = [a._data for a in self.arg_arrays]
@@ -189,7 +206,7 @@ class Executor:
             vals[i] = leaf
             leaves.append(leaf)
         with torch.enable_grad():
-            outs, new_aux = self._run(vals, self._aux_vals(), True)
+            outs, new_aux = self._run(vals, self._aux_vals(), True, tap)
         self._write_outputs(outs)
         if write_aux:
             self._write_aux(new_aux)
@@ -269,12 +286,12 @@ class Executor:
         self._graph = None
         self._grad_cache = None
         if is_train and self._grad_idx:
-            self._forward_graph(write_aux=True)
+            self._forward_graph(write_aux=True, tap=True)
         else:
             with torch.no_grad():
                 outs, new_aux = self._run(
                     [a._data for a in self.arg_arrays], self._aux_vals(),
-                    is_train)
+                    is_train, tap=True)
             self._write_outputs(outs)
             if is_train:
                 self._write_aux(new_aux)
@@ -355,6 +372,39 @@ class Executor:
                     raise MXNetError("copy_params_from: %s not an aux state"
                                      % name)
 
+    def set_monitor_callback(self, callback):
+        """``callback(name, NDArray)`` for every op output of every
+        forward (ref: python/mxnet/executor.py:86)."""
+        self._monitor_callback = callback
+
+    def reshape(self, partial_shaping=False, allow_up_sizing=False, **kwargs):
+        """A new executor of the same graph at the shapes ``kwargs``
+        give, over this one's arrays where the shape holds (the
+        parameters) and fresh zeros where it does not (the data), as
+        ``mxnet_tpu/executor.py:1007-1035`` does; ``partial_shaping`` and
+        ``allow_up_sizing`` are accepted and not checked, there too."""
+        arg_shapes, _, _ = self._symbol.infer_shape_partial(**kwargs)
+        arg_dict = self.arg_dict
+        new_args = {}
+        for name, s in zip(self._arg_names, arg_shapes):
+            cur = arg_dict[name]
+            if s is not None and tuple(s) != cur.shape:
+                new_args[name] = zeros(s, cur.context, cur.dtype)
+            else:
+                new_args[name] = cur
+        new_grads = {}
+        for n, g in zip(self._arg_names, self.grad_arrays):
+            if g is None:
+                continue
+            tgt_shape = new_args[n].shape
+            new_grads[n] = g if g.shape == tgt_shape else zeros(
+                tgt_shape, g.context, g.dtype)
+        return Executor(
+            self._symbol, self._ctx, new_args,
+            args_grad=new_grads or None,
+            grad_req={n: r for n, r in zip(self._arg_names, self._reqs)},
+            aux_states=self.aux_arrays)
+
     def debug_str(self):
         return self._symbol.debug_str()
 
@@ -364,7 +414,10 @@ class Executor:
                      group2ctx=None, shared_exec=None, **kwargs):
         """Allocate argument, gradient and aux arrays from inferred
         shapes (aux states named ``*var*`` start at one, the rest at
-        zero)."""
+        zero). With ``shared_exec``, reuse its argument, gradient and aux
+        NDArrays where name, shape and dtype match; a gradient only
+        where both executors write it (an ``add`` accumulator stays
+        private on both sides)."""
         ctx = ctx if isinstance(ctx, Context) else Context(ctx)
         arg_shapes, out_shapes, aux_shapes = symbol.infer_shape(**kwargs)
         if arg_shapes is None:
@@ -373,16 +426,41 @@ class Executor:
         arg_names = symbol.list_arguments()
         aux_names = symbol.list_auxiliary_states()
         arg_types, _, aux_types = symbol.infer_type(**dict(type_dict or {}))
-        args = {name: zeros(shape, ctx, dtype=t)
-                for name, shape, t in zip(arg_names, arg_shapes, arg_types)}
+        if shared_exec is not None:
+            shared_args = shared_exec.arg_dict
+            shared_grads = shared_exec.grad_dict
+            shared_aux = shared_exec.aux_dict
+            shared_reqs = dict(zip(shared_exec._arg_names,
+                                   shared_exec._reqs))
+        else:
+            shared_args = shared_grads = shared_aux = shared_reqs = {}
+
+        def reuse(cand, shape, t):
+            return (cand is not None and cand.shape == tuple(shape)
+                    and cand._data.dtype == torch_dtype(t))
+
+        args = {}
+        for name, shape, t in zip(arg_names, arg_shapes, arg_types):
+            cand = shared_args.get(name)
+            args[name] = cand if reuse(cand, shape, t) else zeros(
+                shape, ctx, dtype=t)
         reqs = _as_req_list(grad_req, arg_names)
-        args_grad = {name: zeros(shape, ctx, dtype=t)
-                     for name, shape, t, r in zip(arg_names, arg_shapes,
-                                                  arg_types, reqs)
-                     if r != "null"}
-        aux_states = [(ones if "var" in name else zeros)(shape, ctx, dtype=t)
-                      for name, shape, t in zip(aux_names, aux_shapes,
-                                                aux_types)]
+        args_grad = {}
+        for name, shape, t, r in zip(arg_names, arg_shapes, arg_types, reqs):
+            if r == "null":
+                continue
+            cand = shared_grads.get(name)
+            if r == "write" and shared_reqs.get(name) == "write" and \
+                    reuse(cand, shape, t):
+                args_grad[name] = cand
+            else:
+                args_grad[name] = zeros(shape, ctx, dtype=t)
+        aux_states = []
+        for name, shape, t in zip(aux_names, aux_shapes, aux_types):
+            cand = shared_aux.get(name)
+            aux_states.append(cand if reuse(cand, shape, t) else
+                              (ones if "var" in name else zeros)(
+                                  shape, ctx, dtype=t))
         return Executor(symbol, ctx, args, args_grad=args_grad or None,
                         grad_req=grad_req, aux_states=aux_states,
                         group2ctx=group2ctx, shared_exec=shared_exec)

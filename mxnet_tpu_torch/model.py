@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import logging
 import os
+import re
 import time
 from collections import namedtuple
 
@@ -35,7 +36,7 @@ from .initializer import Uniform
 from .symbol import Symbol, load as sym_load
 
 __all__ = ["FeedForward", "save_checkpoint", "load_checkpoint",
-           "params_from_numpy", "BatchEndParam"]
+           "find_latest_checkpoint", "params_from_numpy", "BatchEndParam"]
 
 BatchEndParam = namedtuple(
     "BatchEndParams", ["epoch", "nbatch", "eval_metric", "locals"])
@@ -171,6 +172,30 @@ def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
     param_name = "%s-%04d.params" % (prefix, epoch)
     _write_params_atomic(param_name, save_dict)
     logging.info('Saved checkpoint to "%s"', param_name)
+
+
+def find_latest_checkpoint(prefix):
+    """The newest epoch whose ``prefix-NNNN.params`` loads, or None;
+    a corrupt or partial file is skipped with a warning (the JAX
+    package's ``find_latest_checkpoint``, checked by loading)."""
+    d = os.path.dirname(os.path.abspath(prefix)) or "."
+    base = os.path.basename(prefix)
+    try:
+        names = os.listdir(d)
+    except OSError:
+        return None
+    epochs = sorted({int(m.group(1)) for m in (
+        re.fullmatch(re.escape(base) + r"-(\d{4,})\.params", fn)
+        for fn in names) if m}, reverse=True)
+    for epoch in epochs:
+        path = "%s-%04d.params" % (prefix, epoch)
+        try:
+            nd_load(path)
+        except (MXNetError, OSError):
+            logging.warning('Skipping corrupt/partial checkpoint "%s"', path)
+            continue
+        return epoch
+    return None
 
 
 def load_checkpoint(prefix, epoch):

@@ -37,7 +37,7 @@ from .base import (MXNetError, _DTYPE_MX_TO_NP, _DTYPE_MX_TO_TORCH,
 from .context import Context, cpu, current_context, gpu
 
 __all__ = ["NDArray", "zeros", "ones", "full", "empty", "array", "arange",
-           "load", "save", "load_frombuffer"]
+           "concatenate", "load", "save", "load_frombuffer"]
 
 
 def _ctx_of(tensor):
@@ -97,6 +97,12 @@ class NDArray:
         """The content generation: the tensor's in-place version count,
         shared with every view of the same storage."""
         return self._data._version
+
+    def wait_to_read(self):
+        """Block until the work that writes this array has finished (a
+        synchronisation of its device; nothing on the host)."""
+        if self._data.is_cuda:
+            torch.cuda.synchronize(self._data.device)
 
     # -- basic properties ----------------------------------------------------
     @property
@@ -237,6 +243,9 @@ class NDArray:
     def __neg__(self):
         return NDArray(torch.neg(self._data), self._ctx)
 
+    def __abs__(self):
+        return NDArray(torch.abs(self._data), self._ctx)
+
     def _inplace(self, other, fn):
         out = fn(other)
         if out is NotImplemented:
@@ -324,6 +333,18 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=mx_real_t):
     if repeat != 1:
         data = data.repeat_interleave(repeat)
     return NDArray(data, ctx)
+
+
+def concatenate(arrays, axis=0, always_copy=True):
+    """One array of ``arrays`` joined along ``axis``, on the first
+    array's context (ref: python/mxnet/ndarray.py:824)."""
+    if not arrays:
+        raise MXNetError("need at least one array to concatenate")
+    if len(arrays) == 1 and not always_copy:
+        return arrays[0]
+    ctx = arrays[0].context
+    return NDArray(torch.cat([_as_tensor(a, ctx.torch_device)
+                              for a in arrays], dim=axis), ctx)
 
 
 # -- serialization -----------------------------------------------------------

@@ -1,8 +1,9 @@
-"""Neural-network layer ops: the subset LeNet and ResNet run.
+"""Neural-network layer ops: the subset LeNet, ResNet and the bucketing
+graphs of the Module tests run.
 
 Counterpart of ``mxnet_tpu/ops/nn.py``: ``Activation`` (:57),
 ``FullyConnected`` (:148), ``Convolution`` (:230), ``Pooling`` (:403),
-``BatchNorm`` (:555) and ``Flatten`` (:773), with the same parameter
+``BatchNorm`` (:555), ``Embedding`` (:684) and ``Flatten`` (:773), with the same parameter
 fields, defaults, inputs, aux states and shape inference (copied), so
 graphs serialise to the same JSON. The forwards are torch: the
 convolution is ``F.conv*d`` and the FC product ``torch.matmul``, as the
@@ -376,6 +377,34 @@ register(
         aux=("moving_mean", "moving_var"),
         infer_shape=_bn_shape,
         init_aux=_bn_init_aux,
+    )
+)
+
+
+# -- Embedding -----------------------------------------------------------------
+def _embedding_fwd(params, inputs, aux, is_train, rng):
+    data, weight = inputs
+    # float indices truncate toward zero, as the JAX package's astype
+    return [F.embedding(data.to(torch.int64), weight)], []
+
+
+def _embedding_shape(params, in_shapes):
+    if in_shapes[0] is None:
+        raise MXNetError("Embedding: data shape unknown")
+    d, o = params["input_dim"], params["output_dim"]
+    return [in_shapes[0], (d, o)], [tuple(in_shapes[0]) + (o,)], []
+
+
+register(
+    OpDef(
+        "Embedding",
+        _embedding_fwd,
+        params={
+            "input_dim": Field("int", required=True),
+            "output_dim": Field("int", required=True),
+        },
+        arguments=("data", "weight"),
+        infer_shape=_embedding_shape,
     )
 )
 

@@ -5,8 +5,12 @@
 - no source of the port, nor ``chip_smoke.py``, the profile tools or
   the card's test files, imports either;
 - on the CPU path (serving, LM training, a LeNet ``FeedForward`` fit
-  and predict) the kernel build module ``ops._build`` is never
-  imported;
+  and predict, a LeNet ``Module`` fit and predict, a callable ``Rtc``
+  push) neither the kernel build module ``ops._build`` nor the NVRTC
+  binding ``ops._nvrtc`` is imported; the walk over every submodule
+  reaches ``rtc``, ``ops._nvrtc``, ``monitor`` and ``module/``;
+- every card test file (``tests/test_torch_*_cuda.py``) carries the
+  ``cuda`` marker;
 - the host-only scheduler copy matches its original below the imports.
 """
 import ast
@@ -52,12 +56,22 @@ model = mx.FeedForward(mx.models.get_lenet(), ctx=mx.cpu(), num_epoch=1,
                        learning_rate=0.1, momentum=0.9)
 model.fit(X=it)
 assert model.predict(it).shape == (16, 10)
-print('cpu_path', 'mxnet_tpu_torch.ops._build' in sys.modules, forbidden())
+mod = mx.module.Module(mx.models.get_lenet(), context=mx.cpu())
+mod.fit(it, num_epoch=1)
+assert mod.predict(it).shape == (16, 10)
+x = mx.nd.array(np.arange(4.0), ctx=mx.cpu())
+k = mx.rtc.Rtc('sq', [('x', x)], [('y', x)], lambda a, b: b.mul_(a))
+k.push([x], [x])
+print('cpu_path', 'mxnet_tpu_torch.ops._build' in sys.modules,
+      'mxnet_tpu_torch.ops._nvrtc' in sys.modules, forbidden())
 import mxnet_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                'mxnet_tpu_torch.')]
 assert 'mxnet_tpu_torch.serving.engine' in names, names
-assert 'mxnet_tpu_torch.model' in names, names
+for must in ('model', 'rtc', 'ops._nvrtc', 'monitor', 'module',
+             'module.module', 'module.base_module', 'module.python_module',
+             'module.sequential_module', 'module.bucketing_module'):
+    assert 'mxnet_tpu_torch.' + must in names, (must, names)
 for n in names:
     importlib.import_module(n)
 print('all_modules', forbidden())
@@ -82,7 +96,7 @@ def test_import_every_submodule_leaves_jax_out(probe):
 
 
 def test_cpu_path_never_imports_the_kernel_build_module(probe):
-    assert probe["cpu_path"] == "False []"
+    assert probe["cpu_path"] == "False False []"
 
 
 def _imports(path):
@@ -102,11 +116,26 @@ def _imports(path):
         ROOT / "tools" / "torch_fit_profile.py",
         ROOT / "tests" / "test_torch_flash_kernel_cuda.py",
         ROOT / "tests" / "test_torch_flash_bwd_kernel_cuda.py",
-        ROOT / "tests" / "test_torch_softmax_kernel_cuda.py"],
+        ROOT / "tests" / "test_torch_softmax_kernel_cuda.py",
+        ROOT / "tests" / "test_torch_rtc_kernel_cuda.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_the_jax_package(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, "%s imports %s" % (path, bad)
+
+
+@pytest.mark.parametrize(
+    "path", sorted((ROOT / "tests").glob("test_torch_*_cuda.py")),
+    ids=lambda p: p.name)
+def test_card_test_files_carry_the_cuda_marker(path):
+    """Every test of a card file is marked ``cuda`` (``pytestmark``), so
+    ``-m 'not cuda'`` and the README's card command select them."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    marks = [ast.unparse(n.value) for n in tree.body
+             if isinstance(n, ast.Assign)
+             and [t.id for t in n.targets if isinstance(t, ast.Name)]
+             == ["pytestmark"]]
+    assert marks == ["pytest.mark.cuda"], (path.name, marks)
 
 
 def test_scheduler_copy_matches_original():
