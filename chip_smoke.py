@@ -65,9 +65,17 @@ Phases (any failure raises and the script exits non-zero):
    f32 and bf16) timed beside its twin, ``torch.addcmul`` and its bytes
    bound; the cold NVRTC compile and a cached push's host time; a body
    with a syntax error must raise;
-12. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
+12. the matmul with column statistics (K6) against its plain version at
+   the probe's four shapes (ResNet-50's 1x1 convolutions at batch 128 as
+   matmuls), a ragged M and a nonzero-mean x (the limit must reject a sum
+   with one row tile dropped); then the probe's path,
+   ``tools/torch_probe_matmul_stats.py``'s ``run`` (its checks against
+   the unfused matmul-then-statistics sequence, K6, plain,
+   ``torch.matmul`` and sequence times), K6's count zeroed just before
+   and read just after;
+13. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
    main paths, error, times and bound;
-13. the last line: ``{"ok": true, "device": {...}}``.
+14. the last line: ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matrix products and cuDNN convolutions in every phase
 (set once in ``main``), so f32 work runs in full f32.
@@ -665,6 +673,125 @@ def phase_softmax_kernel():
         results.append(rec)
         del x, y, want
     return results
+
+
+# K6, the matmul with column statistics: (M, K, N, mean of x) beside the
+# probe's four shapes (tools/torch_probe_matmul_stats.py SHAPES): a ragged
+# M, and shape C with x = randn + 0.5, whose column sums are far from zero,
+# so a dropped or doubled row tile moves them well past the limit
+MATMUL_STATS_EXTRA = [(1000, 64, 256, 0.0), (128 * 28 * 28, 512, 128, 0.5)]
+
+
+def matmul_stats_bound_ms(m, k, n):
+    """Least time for K6 on [m, k] x [k, n] bf16: x and w read once, y
+    (bf16) and s, s2 (f32) written once at the memory rate, against
+    2*m*k*n operations at the bf16 tensor-core peak; returns (ms, "bytes"
+    or "operations")."""
+    t_bytes = (2.0 * (m * k + k * n + m * n) + 8.0 * n) / PEAK_BYTES
+    t_ops = 2.0 * m * k * n / PEAK_BF16
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def matmul_stats_check(got, want, x, w):
+    """K6's ``(y, s, s2)`` against its plain version's: y under
+    :func:`closeness` (tol 1e-2: both round the f32 acc to bf16 once, one
+    step apart at most); each column of s within 1e-5 of that column's
+    sum of |acc| (the sums differ only in order, and a sum of signed terms
+    errs in proportion to the sum of their sizes); s2 within 1e-5 of
+    itself (its terms are all positive). Returns each output's max abs
+    error and worst ratio to its limit, and ``ok``."""
+    y, s, s2 = got
+    yr, sr, s2r = want
+    acc_abs = (x.float() @ w.float()).abs().sum(0, keepdim=True)
+    ds, ds2 = (s - sr).abs(), (s2 - s2r).abs()
+    out = {"y": closeness(y, yr, 1e-2),
+           "s": {"abs": ds.max().item(),
+                 "elem": (ds / (1e-5 * acc_abs).clamp_min(1e-30)).max()
+                 .item()},
+           "s2": {"abs": ds2.max().item(),
+                  "elem": (ds2 / (1e-5 * s2r.abs()).clamp_min(1e-30)).max()
+                  .item()}}
+    out["worst"] = max(out["y"]["elem"], out["y"]["rel_l2"] / 1e-2,
+                       out["s"]["elem"], out["s2"]["elem"])
+    out["ok"] = (y.dtype == yr.dtype and y.shape == yr.shape
+                 and s.shape == sr.shape and s2.shape == s2r.shape
+                 and out["worst"] <= 1.0)
+    return out
+
+
+def load_probe():
+    """``tools/torch_probe_matmul_stats.py``, K6's entry point, as a
+    module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_probe_matmul_stats.py")
+    spec = importlib.util.spec_from_file_location("torch_probe_matmul_stats",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_matmul_stats(device="cuda", probe_shapes=None, extra=None):
+    """K6 on the card against matmul_stats_reference under
+    :func:`matmul_stats_check` at the probe's four shapes and
+    MATMUL_STATS_EXTRA (inputs seeded on the device), with a check that
+    the limit on s rejects the plain s with one 64-row tile dropped at the
+    nonzero-mean shape; then the probe's path (``run`` of
+    ``tools/torch_probe_matmul_stats.py``: its checks against the unfused
+    sequence and its times) with K6's count zeroed just before and read
+    just after. ``probe_shapes`` and ``extra`` shrink it for a CPU
+    rehearsal, where the kernel is its plain version."""
+    import torch
+
+    from mxnet_tpu_torch.ops import matmul_stats as ms
+
+    probe = load_probe()
+    probe_shapes = probe.SHAPES if probe_shapes is None else probe_shapes
+    extra = MATMUL_STATS_EXTRA if extra is None else extra
+    cases = [(m, k, n, 0.0) for m, k, n in probe_shapes] + list(extra)
+    checks = []
+    for i, (m, k, n, mean) in enumerate(cases):
+        g = torch.Generator(device=device).manual_seed(40 + i)
+        x = (torch.randn(m, k, generator=g, device=device) + mean).to(
+            torch.bfloat16)
+        w = (torch.randn(k, n, generator=g, device=device) * 0.05).to(
+            torch.bfloat16)
+        got = ms.matmul_stats(x, w)
+        want = ms.matmul_stats_reference(x, w)
+        _sync(device)
+        rec = {"phase": "kernel_check", "kernel": "matmul_stats",
+               "shape": [m, k, n], "x_mean": mean,
+               "check": matmul_stats_check(got, want, x, w)}
+        if mean:
+            acc_top = (x[:ms.ROW_TILE].float() @ w.float()).sum(
+                0, keepdim=True)
+            dropped = matmul_stats_check(
+                (want[0], want[1] - acc_top, want[2]), want, x, w)
+            rec["limit_rejects_dropped_tile"] = dropped["s"]
+            if dropped["ok"]:
+                raise AssertionError("the limit on s passes a sum with a "
+                                     "row tile dropped: %r" % dropped)
+        log(rec)
+        if not rec["check"]["ok"]:
+            raise AssertionError("matmul_stats kernel disagrees with its "
+                                 "plain version at %s: %r" % (cases[i], rec))
+        checks.append(rec)
+        del x, w, got, want
+
+    _sync(device)
+    ms.matmul_stats.launches = 0
+    records = probe.run(device, probe_shapes)
+    _sync(device)
+    launches = ms.matmul_stats.launches
+    rec = {"phase": "probe_matmul_stats", "launches": launches,
+           "shapes": [r["shape"] for r in records]}
+    log(rec)
+    if device == "cuda" and launches == 0:
+        raise AssertionError("the probe's path did not launch matmul_stats")
+    return {"checks": checks, "probe": records, "launches": launches}
 
 
 def _sync(device):
@@ -1416,6 +1543,8 @@ def main():
     resnet_module = phase_resnet_module_fit(feedforward=resnet_ff)
     torch.cuda.empty_cache()
     rtc = phase_rtc()
+    torch.cuda.empty_cache()
+    mm_stats = phase_matmul_stats()
     fwd_main = fwd_checks[-1]   # the training shape
     bwd_main = bwd_checks[0]
     kernels = [{
@@ -1485,6 +1614,29 @@ def main():
                                           "library_ms")},
         "nvrtc_compile_ms": rtc["compile_ms"]["mul_add_float32"],
         "cached_push_host_us": rtc["cached_push_host_us"]})
+    probe_a = mm_stats["probe"][0]   # shape A, the probe's first
+    kernels.append({
+        "name": "matmul_stats", "route": "cuda",
+        "source": "mxnet_tpu_torch/ops/csrc/matmul_stats.cu",
+        "replaces": "tools/probe_matmul_stats.py:36",
+        "launches": mm_stats["launches"],
+        "launches_by_path": {"probe": mm_stats["launches"]},
+        "max_abs_err": max(c["check"]["y"]["abs"]
+                           for c in mm_stats["checks"]),
+        "max_abs_err_s": max(c["check"]["s"]["abs"]
+                             for c in mm_stats["checks"]),
+        "max_abs_err_s2": max(c["check"]["s2"]["abs"]
+                              for c in mm_stats["checks"]),
+        "max_err_to_limit": max(c["check"]["worst"]
+                                for c in mm_stats["checks"]),
+        "shape": probe_a["shape"], "dtype": "bfloat16", "ms": probe_a["ms"],
+        "plain_ms": probe_a["plain_ms"], "bound_ms": probe_a["bound_ms"],
+        "bound_by": probe_a["bound_by"], "library_ms": probe_a["matmul_ms"],
+        "sequence_ms": probe_a["sequence_ms"],
+        "by_shape": [{k: r[k] for k in ("shape", "ms", "plain_ms",
+                                        "matmul_ms", "sequence_ms",
+                                        "bound_ms")}
+                     for r in mm_stats["probe"]]})
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

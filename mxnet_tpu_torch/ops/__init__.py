@@ -7,6 +7,9 @@ Kernels, each beside its plain PyTorch version:
   their plain versions and the ``FlashAttention`` autograd function.
 - :mod:`.softmax` — the row softmax (``csrc/softmax.cu``) under
   SoftmaxOutput.
+- :mod:`.matmul_stats` — a bf16 matmul whose epilogue also sums each
+  output column and its square (``csrc/matmul_stats.cu``), run by
+  ``tools/torch_probe_matmul_stats.py``.
 
 The operator registry of the Symbol path: importing this package
 registers the ops of :mod:`.tensor`, :mod:`.nn` and :mod:`.loss`;

@@ -48,6 +48,9 @@ SOURCES = {
     "softmax": ("softmax.cu", {
         "mx_softmax": ([_P, _P, _L, _L, _I, _P], _I),
     }),
+    "matmul_stats": ("matmul_stats.cu", {
+        "mx_matmul_stats": ([_P] * 6 + [_I] * 3 + [_P], _I),
+    }),
 }
 
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -6,9 +6,11 @@
   the card's test files, imports either;
 - on the CPU path (serving, LM training, a LeNet ``FeedForward`` fit
   and predict, a LeNet ``Module`` fit and predict, a callable ``Rtc``
-  push) neither the kernel build module ``ops._build`` nor the NVRTC
-  binding ``ops._nvrtc`` is imported; the walk over every submodule
-  reaches ``rtc``, ``ops._nvrtc``, ``monitor`` and ``module/``;
+  push, ``matmul_stats`` on CPU tensors) neither the kernel build
+  module ``ops._build`` nor the NVRTC binding ``ops._nvrtc`` is
+  imported; the walk over every submodule
+  reaches ``rtc``, ``ops._nvrtc``, ``ops.matmul_stats``, ``monitor`` and
+  ``module/``;
 - every card test file (``tests/test_torch_*_cuda.py``) carries the
   ``cuda`` marker;
 - the host-only scheduler copy matches its original below the imports.
@@ -62,14 +64,18 @@ assert mod.predict(it).shape == (16, 10)
 x = mx.nd.array(np.arange(4.0), ctx=mx.cpu())
 k = mx.rtc.Rtc('sq', [('x', x)], [('y', x)], lambda a, b: b.mul_(a))
 k.push([x], [x])
+from mxnet_tpu_torch.ops.matmul_stats import matmul_stats
+y, s, s2 = matmul_stats(torch.ones(3, 16, dtype=torch.bfloat16),
+                        torch.ones(16, 8, dtype=torch.bfloat16))
+assert float(s2.sum()) == 8 * 3 * 256.0 and matmul_stats.launches == 0
 print('cpu_path', 'mxnet_tpu_torch.ops._build' in sys.modules,
       'mxnet_tpu_torch.ops._nvrtc' in sys.modules, forbidden())
 import mxnet_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                'mxnet_tpu_torch.')]
 assert 'mxnet_tpu_torch.serving.engine' in names, names
-for must in ('model', 'rtc', 'ops._nvrtc', 'monitor', 'module',
-             'module.module', 'module.base_module', 'module.python_module',
+for must in ('model', 'rtc', 'ops._nvrtc', 'ops.matmul_stats', 'monitor',
+             'module', 'module.module', 'module.base_module', 'module.python_module',
              'module.sequential_module', 'module.bucketing_module'):
     assert 'mxnet_tpu_torch.' + must in names, (must, names)
 for n in names:
@@ -114,10 +120,12 @@ def _imports(path):
         ROOT / "chip_smoke.py", ROOT / "tools" / "torch_serve_profile.py",
         ROOT / "tools" / "torch_train_profile.py",
         ROOT / "tools" / "torch_fit_profile.py",
+        ROOT / "tools" / "torch_probe_matmul_stats.py",
         ROOT / "tests" / "test_torch_flash_kernel_cuda.py",
         ROOT / "tests" / "test_torch_flash_bwd_kernel_cuda.py",
         ROOT / "tests" / "test_torch_softmax_kernel_cuda.py",
-        ROOT / "tests" / "test_torch_rtc_kernel_cuda.py"],
+        ROOT / "tests" / "test_torch_rtc_kernel_cuda.py",
+        ROOT / "tests" / "test_torch_matmul_stats_kernel_cuda.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_the_jax_package(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
