@@ -12,8 +12,10 @@ Phases (any failure raises and the script exits non-zero):
 2. each kernel against its plain PyTorch version on the same card
    tensors, within the stated tolerances, then timed with CUDA events
    beside the plain version and one PyTorch library call: the forward
-   K2 at the serving and training shapes and at a ragged and an f32
-   shape; the backward K3 (dQ) and K4 (dK/dV) at the training shape, a
+   K2 at the serving and training shapes (the latter also as the LM's
+   strided q/k/v views, which it must read in place, allocating only o
+   and lse), in both of its bf16 block shapes, at ragged, Tq != Tk and
+   f32 shapes and on operands the wrapper copies first; the backward K3 (dQ) and K4 (dK/dV) at the training shape, a
    ragged shape (causal and not) and an f32 shape, with a check that the
    limit rejects outputs 5% off on the back half of a causal head;
 3. gradients: one training step's gradients through the kernels
@@ -246,25 +248,71 @@ def phase_setup():
     return card
 
 
+def _kernel_inputs(shape, dtype, tk, layout, seed):
+    """q, k, v on the card: ``plain`` contiguous tensors; ``lm`` the
+    transformer's views (chunks of one [B, T, 3HD] product, reshaped to
+    heads and transposed), which K2 reads in place; ``copy`` a q that
+    starts 2 bytes off 16 and a k with 264-byte rows, which the wrapper
+    copies first."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, h, t, d = shape
+    tk = t if tk is None else tk
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device="cuda").to(dtype)
+
+    if layout == "lm":
+        return tuple(x.reshape(b, t, h, d).transpose(1, 2)
+                     for x in randn(b, t, 3 * h * d).chunk(3, dim=-1))
+    if layout == "copy":
+        return (randn(b, h, t, d + 8)[..., 1:d + 1],
+                randn(b, h, tk, d + 4)[..., :d], randn(b, h, tk, d))
+    return randn(b, h, t, d), randn(b, h, tk, d), randn(b, h, tk, d)
+
+
+# K2's cases: (shape, dtype, causal, Tk or None, layout, variant); the
+# training shape in the LM's strided layout last: it is the main path's
+FWD_CASES = [((1, 8, 2048, 128), "bfloat16", True, None, "plain", 0),
+             ((1, 8, 2048, 128), "bfloat16", True, None, "plain", 1),
+             ((2, 4, 2000, 64), "bfloat16", True, None, "plain", 0),
+             ((2, 4, 2000, 64), "bfloat16", False, None, "plain", 0),
+             ((2, 4, 2000, 64), "bfloat16", True, None, "plain", 2),
+             ((1, 2, 100, 64), "bfloat16", True, 150, "plain", 0),
+             ((1, 4, 300, 128), "bfloat16", True, None, "copy", 0),
+             ((1, 8, 384, 128), "float32", True, None, "plain", 0),
+             (TRAIN_SHAPE, "bfloat16", True, None, "plain", 0),
+             (TRAIN_SHAPE, "bfloat16", True, None, "lm", 0)]
+
+
 def phase_kernels():
-    """Flash forward (K2) on the card against attention_reference."""
+    """Flash forward (K2) on the card against attention_reference, in
+    both of the bf16 kernel's block shapes (``variant`` 1: 128 query rows
+    a block, 2: 64; 0: chosen by the grid), on contiguous tensors, on the
+    LM's strided views (read in place: the call must allocate o and lse
+    and nothing else) and on operands the wrapper copies first."""
     import torch
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops.flash_attention import (attention_reference,
-                                                     flash_attention_fwd)
+                                                     flash_attention_fwd,
+                                                     tma_strides)
 
-    cases = [((1, 8, 2048, 128), torch.bfloat16, True),
-             ((2, 4, 2000, 64), torch.bfloat16, True),
-             ((2, 4, 2000, 64), torch.bfloat16, False),
-             ((1, 8, 384, 128), torch.float32, True),
-             (TRAIN_SHAPE, torch.bfloat16, True)]
+    def block(nbytes):   # the caching allocator's booking
+        return -(-nbytes // 512) * 512
+
     results = []
-    for shape, dtype, causal in cases:
-        g = torch.Generator(device="cuda").manual_seed(len(results))
-        q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
-                   for _ in range(3))
-        o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    for shape, dtype_name, causal, tk, layout, variant in FWD_CASES:
+        dtype = getattr(torch, dtype_name)
+        q, k, v = _kernel_inputs(shape, dtype, tk, layout, len(results))
+        in_place = all(tma_strides(x) is not None for x in (q, k, v))
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        got = flash_attention_fwd(q, k, v, causal=causal, variant=variant)
+        # before the last case's o and lse are let go
+        new_bytes = torch.cuda.memory_allocated() - mem0
+        o, lse = got
         o_ref, lse_ref = attention_reference(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err_o = (o.float() - o_ref.float()).abs().max().item()
@@ -272,30 +320,43 @@ def phase_kernels():
         tol_o = 2e-2 if dtype == torch.bfloat16 else 1e-4
         tol_c = 1e-2 if dtype == torch.bfloat16 else 1e-4
         close = closeness(o, o_ref, tol_c)
-        ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, causal=causal))
+        ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, causal=causal,
+                                                 variant=variant))
+        # device time alone: the wrapper's host cost (tensor maps, checks)
+        # hides a short kernel behind cuda_ms
+        dev_ms = graph_ms(lambda: flash_attention_fwd(
+            q, k, v, causal=causal, variant=variant))
         plain_ms = cuda_ms(
             lambda: attention_reference(q, k, v, causal=causal))
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal))
         b, h, t, d = shape
+        tk_ = t if tk is None else tk
         bf16 = dtype == torch.bfloat16
-        bound, by = bound_ms("flash_fwd", b, h, t, t, d, causal,
+        bound, by = bound_ms("flash_fwd", b, h, t, tk_, d, causal,
                              2 if bf16 else 4,
                              PEAK_BF16 if bf16 else PEAK_F32)
         rec = {"phase": "kernel_check", "kernel": "flash_fwd",
-               "shape": list(shape), "dtype": str(dtype).split(".")[1],
-               "causal": causal, "max_abs_err": err_o,
+               "shape": list(shape), "tk": tk_, "dtype": dtype_name,
+               "causal": causal, "layout": layout, "variant": variant,
+               "read_in_place": in_place, "new_device_bytes": new_bytes,
+               "max_abs_err": err_o,
                "max_abs_err_lse": err_lse, "tol": tol_o, "tol_lse": 1e-3,
                "closeness": close, "tol_closeness": tol_c,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_ms": bound, "bound_by": by,
-               "achieved_tflops": attention_flops(b, h, t, t, d, causal)
-               / (ms * 1e-3) / 1e12}
+               "ms": ms, "graph_ms": dev_ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+               "achieved_tflops": attention_flops(b, h, t, tk_, d, causal)
+               / (dev_ms * 1e-3) / 1e12}
         log(rec)
         if not (err_o <= tol_o and err_lse <= 1e-3
                 and within(close, tol_c)):
             raise AssertionError("flash_fwd disagrees with its plain "
                                  "version at %s: %r" % (shape, rec))
+        if layout == "lm" and not (
+                in_place and new_bytes == block(o.numel() * 2)
+                + block(lse.numel() * 4)):
+            raise AssertionError("the LM's views were not read in place: "
+                                 "%r" % rec)
         results.append(rec)
     return results
 
@@ -1545,7 +1606,7 @@ def main():
     rtc = phase_rtc()
     torch.cuda.empty_cache()
     mm_stats = phase_matmul_stats()
-    fwd_main = fwd_checks[-1]   # the training shape
+    fwd_main = fwd_checks[-1]   # the training shape, the LM's views
     bwd_main = bwd_checks[0]
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
@@ -1555,10 +1616,14 @@ def main():
         "launches_by_path": {"serving": serving,
                              "training": training["flash_fwd"]},
         "max_abs_err": max(c["max_abs_err"] for c in fwd_checks),
-        "shape": fwd_main["shape"], "ms": fwd_main["ms"],
+        "shape": fwd_main["shape"], "layout": fwd_main["layout"],
+        "ms": fwd_main["ms"], "graph_ms": fwd_main["graph_ms"],
         "plain_ms": fwd_main["plain_ms"], "bound_ms": fwd_main["bound_ms"],
         "bound_by": fwd_main["bound_by"],
-        "library_ms": fwd_main["library_ms"]}]
+        "library_ms": fwd_main["library_ms"],
+        "serving_shape": {k: fwd_checks[0][k] for k in (
+            "shape", "ms", "graph_ms", "plain_ms", "bound_ms",
+            "library_ms")}}]
     for name, n, line, outs in (("flash_bwd_dq", "dq", 145, ("dq",)),
                                 ("flash_bwd_dkv", "dkv", 185,
                                  ("dk", "dv"))):

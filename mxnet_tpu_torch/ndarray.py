@@ -14,9 +14,12 @@ The device is explicit: creation functions take ``ctx`` and default to
 the current context, ``gpu(0)``, which raises without CUDA, so a program
 never runs on the CPU unless it asked for ``cpu()``.
 
-Arithmetic operators dispatch to the registered ops (``_plus``,
-``_mul_scalar``, ...) that ``ops.install`` attaches to this module as
-imperative functions.
+Arithmetic and comparison operators apply torch to the tensors, as the
+JAX package's apply ``jax.numpy`` (a Python scalar keeps its weak type:
+int32 arrays stay int32 under ``+ - * **``; comparisons give float32
+0/1). The registered ops (``_plus``, ``_mul_scalar``, ...) that
+``ops.install`` attaches to this module as imperative functions stay
+the Symbol path's.
 
 ``save``/``load``/``load_frombuffer`` read and write the JAX package's
 binary format byte for byte (``mxnet_tpu/ndarray.py`` ``_write_tensor``
@@ -26,6 +29,7 @@ the tensor's int16 view.
 from __future__ import annotations
 
 import io as _io
+import operator as _operator
 import struct
 
 import numpy as _np
@@ -201,44 +205,52 @@ class NDArray:
         for i in range(len(self)):
             yield self[i]
 
-    # -- arithmetic, through the op registry ----------------------------------
-    def _binary(self, other, op, scalar_op):
+    # -- arithmetic ----------------------------------------------------------
+    def _binary(self, other, fn, reverse=False):
+        """``fn(self, other)`` on the tensors (``fn(other, self)`` when
+        ``reverse``). A Python scalar goes in as it is, so torch's
+        promotion gives what JAX's weak typing gives in the JAX package:
+        an int32 array stays int32 under ``+ - * **`` with an int, and
+        ``/`` gives float32."""
         if isinstance(other, NDArray):
             if other._ctx != self._ctx:
                 raise MXNetError("operands are on different contexts: %s "
                                  "vs %s" % (self._ctx, other._ctx))
-            return globals()[op](self, other)
-        if isinstance(other, numeric_types):
-            return globals()[scalar_op](self, scalar=float(other))
-        return NotImplemented
+            rhs = other._data
+        elif isinstance(other, numeric_types):
+            rhs = other.item() if isinstance(other, _np.generic) else other
+        else:
+            return NotImplemented
+        a, b = (rhs, self._data) if reverse else (self._data, rhs)
+        return NDArray(fn(a, b), self._ctx)
 
     def __add__(self, other):
-        return self._binary(other, "_plus", "_plus_scalar")
+        return self._binary(other, _operator.add)
 
     __radd__ = __add__
 
     def __sub__(self, other):
-        return self._binary(other, "_minus", "_minus_scalar")
+        return self._binary(other, _operator.sub)
 
     def __rsub__(self, other):
-        return self._binary(other, "_minus", "_rminus_scalar")
+        return self._binary(other, _operator.sub, reverse=True)
 
     def __mul__(self, other):
-        return self._binary(other, "_mul", "_mul_scalar")
+        return self._binary(other, _operator.mul)
 
     __rmul__ = __mul__
 
     def __truediv__(self, other):
-        return self._binary(other, "_div", "_div_scalar")
+        return self._binary(other, _operator.truediv)
 
     def __rtruediv__(self, other):
-        return self._binary(other, "_div", "_rdiv_scalar")
+        return self._binary(other, _operator.truediv, reverse=True)
 
     def __pow__(self, other):
-        return self._binary(other, "_power", "_power_scalar")
+        return self._binary(other, _operator.pow)
 
     def __rpow__(self, other):
-        return self._binary(other, "_power", "_rpower_scalar")
+        return self._binary(other, _operator.pow, reverse=True)
 
     def __neg__(self):
         return NDArray(torch.neg(self._data), self._ctx)
@@ -264,6 +276,34 @@ class NDArray:
 
     def __itruediv__(self, other):
         return self._inplace(other, self.__truediv__)
+
+    # comparisons give float32 0/1 arrays, as the JAX package's do
+    def _cmp(self, other, fn):
+        return self._binary(other, lambda a, b: fn(a, b).to(torch.float32))
+
+    def __eq__(self, other):
+        return self._cmp(other, _operator.eq)
+
+    def __ne__(self, other):
+        return self._cmp(other, _operator.ne)
+
+    def __gt__(self, other):
+        return self._cmp(other, _operator.gt)
+
+    def __ge__(self, other):
+        return self._cmp(other, _operator.ge)
+
+    def __lt__(self, other):
+        return self._cmp(other, _operator.lt)
+
+    def __le__(self, other):
+        return self._cmp(other, _operator.le)
+
+    def __bool__(self):
+        if self.size == 1:
+            return bool(self._data.reshape(-1)[0].item())
+        raise ValueError("The truth value of an NDArray with more than one "
+                         "element is ambiguous")
 
     __hash__ = None  # mutable handle
 
@@ -307,9 +347,14 @@ def full(shape, val, ctx=None, dtype=mx_real_t):
                               device=dev), ctx)
 
 
+# numpy's 64-bit defaults -> the JAX package's 32-bit types
+_X32 = {_np.dtype(_np.float64): mx_real_t, _np.dtype(_np.int64): _np.int32}
+
+
 def array(source_array, ctx=None, dtype=None):
     """An array from a numpy array, list or NDArray; float64 sources
-    become float32 unless ``dtype`` says otherwise."""
+    become float32 and int64 sources int32 unless ``dtype`` says
+    otherwise, as in the JAX package (JAX's default 32-bit mode)."""
     if isinstance(source_array, NDArray):
         src = source_array._data
         if dtype is None:
@@ -318,8 +363,7 @@ def array(source_array, ctx=None, dtype=None):
         src = _np.asarray(source_array)
         if dtype is None:
             dtype = (torch.bfloat16 if src.dtype.name == "bfloat16"
-                     else src.dtype if src.dtype != _np.float64
-                     else mx_real_t)
+                     else _X32.get(src.dtype, src.dtype))
     ctx, dev = _device(ctx)
     return NDArray(_as_tensor(src, dev, torch_dtype(dtype)), ctx)
 

@@ -36,8 +36,8 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 SOURCES = {
     "flash_fwd": ("flash_fwd.cu", {
-        "mx_flash_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
-                          _P], _I),
+        "mx_flash_fwd": ([_P] * 5 + [_I] * 5 + [_L] * 9 + [_F] + [_I] * 3
+                         + [_P], _I),
     }),
     "flash_bwd": ("flash_bwd.cu", {
         "mx_flash_bwd_dq": ([_P] * 7 + [_I] * 4 + [_F] + [_I] * 2 + [_P],

@@ -10,7 +10,8 @@ the backward ``_flash_bwd_dq_kernel`` (K3) and ``_flash_bwd_dkv_kernel``
   backward :func:`attention_bwd_reference`, the plain PyTorch versions.
 - On CUDA tensors the kernels are launched and nothing else: a shape or
   dtype the kernels do not take raises, and so does a failed build or
-  launch.
+  launch. The bf16 forward reads q, k, v through their strides
+  (:func:`tma_strides`); the backward reads contiguous copies.
 - :class:`FlashAttention` wires forward and backward as one
   ``torch.autograd.Function``, as the JAX ``custom_vjp`` does;
   :func:`flash_attention` goes through it when grad is enabled and an
@@ -31,7 +32,7 @@ from ..base import MXNetError, env_int
 __all__ = ["attention_reference", "attention_bwd_reference",
            "flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_bwd_dq", "flash_bwd_dkv", "FlashAttention",
-           "flash_kernel_usable", "SUPPORTED_HEAD_DIMS"]
+           "flash_kernel_usable", "tma_strides", "SUPPORTED_HEAD_DIMS"]
 
 SUPPORTED_HEAD_DIMS = (64, 128)
 _NEG = -1e30
@@ -102,17 +103,36 @@ def flash_kernel_usable(tq, tk, d, dv):
             and tk >= env_int("MXNET_FLASH_MIN_T", 0))
 
 
-def flash_attention_fwd(q, k, v, causal=True, scale=None):
+def flash_attention_fwd(q, k, v, causal=True, scale=None, variant=0):
     """Launch the forward kernel on CUDA tensors; returns ``(o, lse)``
-    with ``lse`` f32 ``[B, H, Tq]``. Counterpart of
-    ``_flash_attention_pallas``."""
+    with o a contiguous ``[B, H, Tq, D]`` and ``lse`` f32 ``[B, H, Tq]``.
+    Counterpart of ``_flash_attention_pallas``.
+
+    bf16 q, k, v are read in place through their strides wherever
+    :func:`tma_strides` takes them (the transformer's heads of one qkv
+    product, Ulysses' local views); an operand it refuses is copied
+    into a contiguous tensor first, a change of layout and not of path.
+    The f32 kernel reads contiguous operands. ``variant`` picks the bf16
+    kernel's block shape: 0 by the grid's size, 1 for 128 query rows a
+    block, 2 for 64 (``csrc/flash_fwd.cu``)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     _check_kernel_operands(q, k, v)
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    q, k, v = _aligned(q, k, v)
-    o = torch.empty_like(q)
+    if q.dtype == torch.bfloat16:
+        ops, strides = [], []
+        for t in (q, k, v):
+            st = tma_strides(t)
+            if st is None:
+                t = _aligned(t)[0]
+                st = tma_strides(t)
+            ops.append(t)
+            strides.append(st)
+    else:
+        ops = _aligned(q, k, v)
+        strides = [t.stride()[:3] for t in ops]
+    o = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     from . import _build
 
@@ -120,14 +140,50 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mx_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b * h, tq, tk, d, float(scale), int(causal),
-            int(q.dtype == torch.bfloat16), stream)
+            ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
+            o.data_ptr(), lse.data_ptr(), b, h, tq, tk, d,
+            *strides[0], *strides[1], *strides[2], float(scale),
+            int(causal), int(q.dtype == torch.bfloat16), int(variant),
+            stream)
         flash_attention.launches += 1
     if err != 0:
-        raise MXNetError("flash_fwd kernel launch failed: cudaError %d"
-                         % err)
+        raise MXNetError("flash_fwd kernel launch failed: %s"
+                         % _fwd_error(err))
     return o, lse
+
+
+def _fwd_error(err):
+    if err == 1999:
+        return "libcuda's cuTensorMapEncodeTiled was not found"
+    if err >= 2000:
+        return "cuTensorMapEncodeTiled returned CUresult %d" % (err - 2000)
+    return "cudaError %d" % err
+
+
+def tma_strides(t):
+    """The (B, H, T) strides, in elements, through which the bf16
+    forward kernel's TMA tensor maps read the ``[B, H, T, D]`` view
+    ``t``; None when ``t`` has to be copied first.
+
+    A map needs the last dimension contiguous, the start 16-byte aligned
+    and every other stride a positive multiple of 16 bytes below 2^40
+    bytes. A dimension of extent 1 is never stepped, so its stride (which
+    torch leaves free) is given as the view's span rounded up to 16
+    bytes."""
+    strides, shape = t.stride(), t.shape
+    if strides[3] != 1 or t.data_ptr() % 16:
+        return None
+    es = t.element_size()
+    out = strides[:3]
+    if 1 in shape[:3]:
+        unit = 16 // es
+        span = 1 + sum((n - 1) * st for n, st in zip(shape, strides))
+        span = -(-span // unit) * unit
+        out = tuple(span if n == 1 else st for n, st in zip(shape, out))
+    for st in out:
+        if st <= 0 or (st * es) % 16 or st * es >= 1 << 40:
+            return None
+    return out
 
 
 def _check_kernel_operands(q, k, v):
@@ -253,13 +309,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=None):
 
 class FlashAttention(torch.autograd.Function):
     """K2 forward and K3/K4 backward as one autograd function (the plain
-    versions on CPU tensors). Saves q, k, v, o and lse; on the card the
-    contiguous copies K2 launched on, so the backward copies only dO."""
+    versions on CPU tensors). Saves q, k, v as given, o and lse: K2 reads
+    bf16 views through their strides, and the backward makes the
+    contiguous copies that K3/K4 read."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
         if q.is_cuda:
-            q, k, v = _aligned(q, k, v)
             o, lse = flash_attention_fwd(q, k, v, causal=causal,
                                          scale=scale)
         else:

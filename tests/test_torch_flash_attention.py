@@ -5,7 +5,9 @@ version ``attention_reference``; it is held against the JAX Pallas
 kernel run in interpret mode (``MXNET_PALLAS=1``) and against
 ``_attention_reference``, in f32, within 2e-5. The CUDA kernel itself
 runs only on the card: its tests are in
-``test_torch_flash_kernel_cuda.py``.
+``test_torch_flash_kernel_cuda.py``. The rule by which the bf16 kernel
+reads q, k, v through their strides (``tma_strides``) is plain Python
+and is held here.
 """
 import numpy as np
 import pytest
@@ -99,3 +101,63 @@ def test_cpu_path_counts_no_launch():
     before = fa.flash_attention.launches
     fa.flash_attention(q, q, q)
     assert fa.flash_attention.launches == before
+
+
+def _lm_views(qkv, b, t, h, d):
+    """q, k, v as the transformer hands them over: chunks of one
+    ``[B, T, 3HD]`` product, reshaped to heads and transposed."""
+    return tuple(x.reshape(b, t, h, d).transpose(1, 2)
+                 for x in qkv.chunk(3, dim=-1))
+
+
+def test_plain_path_on_lm_strided_views_matches_jax_reference():
+    """The layout the LM forward gives the kernel: the plain path on
+    those views equals the JAX plain attention on contiguous copies, and
+    its gradients reach the one qkv tensor as they do through
+    contiguous copies."""
+    b, t, h, d = 2, 48, 2, 16
+    qkv_np = np.random.RandomState(5).randn(b, t, 3 * h * d).astype(
+        np.float32)
+    qkv = torch.from_numpy(qkv_np).requires_grad_()
+    q, k, v = _lm_views(qkv, b, t, h, d)
+    assert not q.is_contiguous()
+    out = fa.flash_attention(q, k, v, causal=True)
+    qn, kn, vn = (np.ascontiguousarray(x.detach().numpy()) for x in (q, k, v))
+    ref = np.asarray(pk._attention_reference(qn, kn, vn, True,
+                                             1.0 / np.sqrt(d)))
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=TOL, rtol=0)
+    (g,) = torch.autograd.grad(out.square().sum(), (qkv,))
+    qkv2 = torch.from_numpy(qkv_np).requires_grad_()
+    out2 = fa.flash_attention(*(x.contiguous() for x in
+                                _lm_views(qkv2, b, t, h, d)), causal=True)
+    (g2,) = torch.autograd.grad(out2.square().sum(), (qkv2,))
+    np.testing.assert_allclose(g.numpy(), g2.numpy(), atol=1e-6, rtol=0)
+
+
+def test_tma_strides_rule():
+    """Which views the bf16 kernel reads in place, and through which
+    (B, H, T) element strides; None means the wrapper copies first."""
+    bf = torch.bfloat16
+    x = torch.zeros(2, 4, 64, 64, dtype=bf)
+    assert fa.tma_strides(x) == (4 * 64 * 64, 64 * 64, 64)
+    # the LM's heads of one qkv product: no copy
+    q, k, v = _lm_views(torch.zeros(2, 64, 3 * 4 * 128, dtype=bf),
+                        2, 64, 4, 128)
+    for view in (q, k, v):
+        assert fa.tma_strides(view) == (64 * 1536, 128, 1536)
+    # extent 1: its free stride becomes the view's span
+    assert fa.tma_strides(torch.zeros(1, 4, 64, 64, dtype=bf)) == \
+        (4 * 64 * 64, 64 * 64, 64)
+    assert fa.tma_strides(torch.zeros(1, 1, 5, 64, dtype=bf)) == \
+        (320, 320, 64)
+    # f32 rows of 64 are 256 bytes
+    assert fa.tma_strides(torch.zeros(1, 2, 3, 64)) == (384, 192, 64)
+    # refused: D not contiguous, a start off 16 bytes, a row stride that
+    # is not a multiple of 16 bytes
+    assert fa.tma_strides(x.transpose(2, 3)) is None
+    assert fa.tma_strides(torch.zeros(1, 2, 8, 72, dtype=bf)[..., 1:65]) \
+        is None
+    assert fa.tma_strides(torch.zeros(1, 2, 8, 68, dtype=bf)[..., :64]) \
+        is None
+    assert fa.tma_strides(torch.zeros(2, 2, 8, 72, dtype=bf)[..., :64]) \
+        == (2 * 8 * 72, 8 * 72, 72)

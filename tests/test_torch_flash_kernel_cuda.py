@@ -1,5 +1,9 @@
 """The Hopper flash-attention forward kernel on the card (the backward
-kernels have their own file, ``test_torch_flash_bwd_kernel_cuda.py``).
+kernels have their own file, ``test_torch_flash_bwd_kernel_cuda.py``):
+against the plain version at ragged, rectangular, D = 64 and 128 and f32
+shapes, in both of the bf16 kernel's block shapes, on the LM's strided
+q/k/v views (read in place: the call allocates only o and lse) and on
+operands that have to be copied first.
 
 A CUDA kernel has no CPU mode, so every test here carries the ``cuda``
 marker and skips without a GPU. The file imports neither ``jax`` nor
@@ -60,6 +64,84 @@ def test_kernel_matches_reference(card, shape, dtype, causal, tk):
     assert o.dtype == dtype and lse.shape == shape[:3]
     assert (o.float() - o_ref.float()).abs().max().item() <= tol
     assert _close(o, o_ref, 1e-2 if dtype == torch.bfloat16 else 1e-4)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("variant", [1, 2])
+@pytest.mark.parametrize("shape,causal,tk", [
+    ((2, 4, 2000, 64), True, None),
+    ((2, 4, 2000, 128), False, None),
+    ((1, 2, 100, 64), True, 150),
+    ((2, 3, 300, 128), True, 77),
+])
+def test_both_block_shapes_match_reference(card, variant, shape, causal, tk):
+    """The bf16 kernel's two block shapes (128 query rows in two
+    warpgroups, 64 in one), each at D = 64 and 128, ragged and Tq != Tk,
+    whatever the shape would pick by itself."""
+    q, k, v = _qkv(card, shape, torch.bfloat16, tk)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, variant=variant)
+    o_ref, lse_ref = fa.attention_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
+    assert _close(o, o_ref, 1e-2)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+def _lm_qkv(card, b, t, h, d, seed=0):
+    """q, k, v as the transformer builds them: chunks of one
+    [B, T, 3HD] product, reshaped to heads and transposed."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    qkv = torch.randn((b, t, 3 * h * d), generator=g, device=card).to(
+        torch.bfloat16)
+    return tuple(x.reshape(b, t, h, d).transpose(1, 2)
+                 for x in qkv.chunk(3, dim=-1))
+
+
+def _block(nbytes):
+    """What the caching allocator books for a tensor of nbytes."""
+    return -(-nbytes // 512) * 512
+
+
+@pytest.mark.parametrize("b,t,h,d", [(2, 1000, 8, 128), (1, 2048, 8, 128),
+                                     (2, 512, 4, 64)])
+def test_lm_strided_views_are_read_in_place(card, b, t, h, d):
+    """The LM's views go to the kernel as they are: the call allocates
+    o and lse and nothing else, and agrees with the plain version."""
+    q, k, v = _lm_qkv(card, b, t, h, d)
+    assert not q.is_contiguous() and fa.tma_strides(q) is not None
+    fa.flash_attention_fwd(q, k, v)       # build and warm
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(card)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    assert torch.cuda.memory_allocated(card) - before == \
+        _block(o.numel() * 2) + _block(lse.numel() * 4)
+    assert o.is_contiguous() and o.shape == (b, h, t, d)
+    o_ref, lse_ref = fa.attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
+    assert _close(o, o_ref, 1e-2)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+def test_operand_off_the_rule_is_copied_first(card):
+    """q starting 2 bytes off 16 and k with rows of 264 bytes break the
+    tensor maps' rule: the wrapper copies them, and the kernel still
+    runs once and agrees."""
+    g = torch.Generator(device=card).manual_seed(3)
+    wide = torch.randn((1, 4, 300, 136), generator=g, device=card).to(
+        torch.bfloat16)
+    q = wide[..., 1:129]
+    k = torch.randn((1, 4, 300, 132), generator=g, device=card).to(
+        torch.bfloat16)[..., :128]
+    v = torch.randn((1, 4, 300, 128), generator=g, device=card).to(
+        torch.bfloat16)
+    assert fa.tma_strides(q) is None and fa.tma_strides(k) is None
+    before = fa.flash_attention.launches
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    assert fa.flash_attention.launches == before + 1
+    o_ref, lse_ref = fa.attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert _close(o, o_ref, 1e-2)
     assert (lse - lse_ref).abs().max().item() <= 1e-3
 
 

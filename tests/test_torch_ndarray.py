@@ -4,8 +4,11 @@
   the same bytes in both packages (the JAX side's bf16 through
   ``ml_dtypes``, the port's from the tensor's int16 view), and each
   package loads the other's file;
-- arithmetic through the op registry and in-place writes (``[:]``, a
-  basic-index view, ``+=``) match numpy and land in the same storage.
+- arithmetic and in-place writes (``[:]``, a basic-index view, ``+=``)
+  match numpy and land in the same storage;
+- comparisons, truth values, integer arrays under scalar arithmetic and
+  the default integer type match the JAX package's (value and dtype),
+  and ``nd.save`` of an integer list writes the JAX package's bytes.
 """
 import ml_dtypes
 import numpy as np
@@ -113,6 +116,98 @@ def test_inplace_writes_share_storage():
     c = a.copy()
     c[:] = 0.0
     assert a.asnumpy()[0, 0] == 2.0
+
+
+def _both(fn):
+    """``fn(package)`` through the JAX package and the port."""
+    return fn(mj), fn(mt)
+
+
+CMP_OPS = ["==", "!=", "<", "<=", ">", ">="]
+
+
+@pytest.mark.parametrize("op", CMP_OPS)
+@pytest.mark.parametrize("rhs", ["array", "scalar"])
+def test_comparisons_give_float32_arrays_as_the_jax_package(op, rhs):
+    a_np = np.asarray([[1, 2, 3], [4, 5, 6]], np.float32)
+    b_np = np.asarray([[1, 0, 3], [7, 5, 2]], np.float32)
+
+    def run(pkg):
+        a = pkg.nd.array(a_np, ctx=pkg.cpu())
+        b = pkg.nd.array(b_np, ctx=pkg.cpu()) if rhs == "array" else 3
+        return eval("a %s b" % op)
+
+    j, t = _both(run)
+    assert isinstance(t, mt.nd.NDArray)
+    assert t.dtype == j.dtype == np.float32
+    np.testing.assert_array_equal(t.asnumpy(), np.asarray(j.asnumpy()))
+    want = eval("a_np %s (b_np if rhs == 'array' else 3)" % op)
+    np.testing.assert_array_equal(t.asnumpy(), want.astype(np.float32))
+
+
+def test_equal_arrays_compare_equal_elementwise():
+    a = mt.nd.array(np.ones((2, 3), np.float32), ctx=mt.cpu())
+    b = mt.nd.array(np.ones((2, 3), np.float32), ctx=mt.cpu())
+    np.testing.assert_array_equal((a == b).asnumpy(), np.ones((2, 3)))
+    assert a.__hash__ is None and mt.nd.NDArray.__hash__ is None
+
+
+@pytest.mark.parametrize("value,want", [([0.0], False), ([2.5], True),
+                                        ([[0]], False), ([[-1]], True)])
+def test_truth_of_one_element_as_the_jax_package(value, want):
+    j, t = _both(lambda pkg: bool(pkg.nd.array(value, ctx=pkg.cpu())))
+    assert t is j is want
+
+
+@pytest.mark.parametrize("shape", [(2, 3), (0,)])
+def test_truth_of_other_sizes_raises_as_the_jax_package(shape):
+    for pkg in (mj, mt):
+        with pytest.raises(ValueError, match="ambiguous"):
+            bool(pkg.nd.zeros(shape, ctx=pkg.cpu()))
+
+
+INT_SCALAR_CASES = ["a + 1", "a - 2", "1 - a", "a * 2", "3 * a", "a ** 2",
+                    "2 ** a", "a / 2", "2 / a", "a + 1.5", "a * 0.5",
+                    "a + a", "a / a"]
+
+
+@pytest.mark.parametrize("expr", INT_SCALAR_CASES)
+def test_int32_under_scalar_arithmetic_as_the_jax_package(expr):
+    def run(pkg):
+        a = pkg.nd.array(np.asarray([1, 2, 3], np.int32), ctx=pkg.cpu())
+        return eval(expr)
+
+    j, t = _both(run)
+    assert t.dtype == j.dtype, expr
+    np.testing.assert_allclose(t.asnumpy(), np.asarray(j.asnumpy()),
+                               rtol=1e-6)
+
+
+def test_int32_inplace_scalar_add_stays_int32():
+    a = mt.nd.array(np.asarray([1, 2, 3], np.int32), ctx=mt.cpu())
+    a += 1
+    assert a.dtype == np.int32
+    np.testing.assert_array_equal(a.asnumpy(), [2, 3, 4])
+
+
+@pytest.mark.parametrize("source", [[1, 2, 3], np.arange(4),
+                                    [1.0, 2.0], np.zeros(2, np.float64)])
+def test_default_dtype_as_the_jax_package(source):
+    j, t = _both(lambda pkg: pkg.nd.array(source, ctx=pkg.cpu()).dtype)
+    assert t == np.dtype(j)
+
+
+def test_int_list_save_bytes_equal(tmp_path):
+    mj.nd.save(str(tmp_path / "j"), {"a": mj.nd.array([1, 2, 3],
+                                                        ctx=mj.cpu())})
+    mt.nd.save(str(tmp_path / "t"), {"a": mt.nd.array([1, 2, 3],
+                                                        ctx=mt.cpu())})
+    data = (tmp_path / "t").read_bytes()
+    assert data == (tmp_path / "j").read_bytes()
+    assert len(data) == 65
+    loaded = mj.nd.load(str(tmp_path / "t"))["a"]
+    assert loaded.dtype == np.int32
+    np.testing.assert_array_equal(loaded.asnumpy(), [1, 2, 3])
 
 
 def test_default_device_without_cuda_raises():

@@ -12,10 +12,10 @@ without the profiler, then profiles one step under ``torch.profiler``.
 Prints one JSON line per step and a final JSON line with the profiled
 step's device busy share (CUDA kernel time over wall time), the shares
 of device time of the flash kernels K2 (flash_fwd), K3 (flash_bwd_dq)
-and K4 (flash_bwd_dkv), the device time by kind of kernel (flash,
-cuBLAS products, softmax/cross-entropy, the rest), and the top CUDA
-kernels and host-side ops by time. Needs CUDA; exits non-zero without
-it.
+and K4 (flash_bwd_dkv), the device time and launches by kind of kernel
+(flash, cuBLAS products, softmax/cross-entropy, copies, the rest), and
+the top CUDA kernels and host-side ops by time. Needs CUDA; exits
+non-zero without it.
 """
 from __future__ import annotations
 
@@ -95,16 +95,21 @@ def main():
                                         if tag in e.key)}
 
     # device time by kind of kernel: the flash kernels, cuBLAS matrix
-    # products, the softmax/cross-entropy kernels and everything else
-    # (elementwise, copies, reductions, the optimizer)
-    groups = {"flash": 0.0, "gemm": 0.0, "softmax": 0.0, "other": 0.0}
+    # products, the softmax/cross-entropy kernels, copies (layout changes
+    # such as .contiguous()) and everything else (elementwise,
+    # reductions, the optimizer)
+    groups = {"flash": 0.0, "gemm": 0.0, "softmax": 0.0, "copy": 0.0,
+              "other": 0.0}
+    calls = dict.fromkeys(groups, 0)
     for e in kernels:
         name = e.key.lower()
         kind = ("flash" if "flash_" in name else
                 "gemm" if any(t in name for t in ("nvjet", "gemm",
                                                    "cutlass")) else
-                "softmax" if "softmax" in name or "nll" in name else "other")
+                "softmax" if "softmax" in name or "nll" in name else
+                "copy" if "copy" in name else "other")
         groups[kind] += dev_us(e)
+        calls[kind] += e.count
     host = sorted((e for e in events if e.key.startswith("aten::")),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     print(json.dumps({
@@ -115,6 +120,7 @@ def main():
         "flash_bwd_dq": share("flash_bwd_dq"),
         "flash_bwd_dkv": share("flash_bwd_dkv"),
         "device_ms_by_kind": {k: v / 1e3 for k, v in groups.items()},
+        "kernel_calls_by_kind": calls,
         "top_kernels": [{"name": e.key[:90], "device_ms": dev_us(e) / 1e3,
                          "calls": e.count} for e in kernels[:15]],
         "top_host_ops": [{"name": e.key, "self_cpu_ms":
