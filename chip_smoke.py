@@ -15,9 +15,13 @@ Phases (any failure raises and the script exits non-zero):
    K2 at the serving and training shapes (the latter also as the LM's
    strided q/k/v views, which it must read in place, allocating only o
    and lse), in both of its bf16 block shapes, at ragged, Tq != Tk and
-   f32 shapes and on operands the wrapper copies first; the backward K3 (dQ) and K4 (dK/dV) at the training shape, a
-   ragged shape (causal and not) and an f32 shape, with a check that the
-   limit rejects outputs 5% off on the back half of a causal head;
+   f32 shapes and on operands the wrapper copies first; the backward K3
+   (dQ) and K4 (dK/dV) at the training shape (also as the LM's strided
+   q/k/v and transposed dO, read in place: the two calls must allocate
+   dq, dk and dv and nothing else), a ragged shape (causal and not) and
+   an f32 shape, each call giving the same bits twice, with the one-term
+   form's errors beside and a check that the limit rejects outputs 5%
+   off on the back half of a causal head;
 3. gradients: one training step's gradients through the kernels
    against the same step with the plain attention under autograd, per
    parameter tensor, at 2 layers of the flagship's full width;
@@ -361,26 +365,62 @@ def phase_kernels():
     return results
 
 
+# K3/K4's cases: (shape, dtype, causal, layout); the training shape in
+# the LM's strided layout last: it is the main path's
+BWD_CASES = [(TRAIN_SHAPE, "bfloat16", True, "plain"),
+             ((2, 4, 2000, 64), "bfloat16", True, "plain"),
+             ((2, 4, 2000, 64), "bfloat16", False, "plain"),
+             ((1, 8, 384, 128), "float32", True, "plain"),
+             (TRAIN_SHAPE, "bfloat16", True, "lm")]
+
+
+def _bwd_inputs(shape, dtype, layout, seed):
+    """q, k, v as :func:`_kernel_inputs` makes them, and dO: for ``lm``
+    the head-transposed gradient of ``o.transpose(1, 2).reshape(B, T,
+    HD)``, which K3 and K4 read in place like the LM's q, k, v; for
+    ``plain`` a contiguous tensor."""
+    import torch
+
+    b, h, t, d = shape
+    q, k, v = _kernel_inputs(shape, dtype, None, layout, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    do = torch.randn(b, t, h * d, generator=g, device="cuda").to(
+        dtype).reshape(b, t, h, d).transpose(1, 2)
+    return q, k, v, (do if layout == "lm" else do.contiguous())
+
+
 def phase_bwd_kernels():
     """Flash backward K3 and K4 on the card against
     attention_bwd_reference, per output within :func:`closeness`'s limit
     (tol 1e-2 bf16, 1e-4 f32). At the training shape the same limit must
     reject the plain outputs made 5% low on the back half of the query
-    rows (dq) or of the keys (dk, dv)."""
+    rows (dq) or of the keys (dk, dv). On the LM's strided views the two
+    kernel calls must ask for dq, dk and dv and nothing else at any
+    moment, flash_attention_bwd (which decides what to copy) for no more
+    than its D = rowsum(dO * O) pass alone asks for, and two calls must
+    give the same bits. Times: CUDA events around the wrapper and
+    CUDA-graph device times."""
     import torch
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops import flash_attention as fa
 
-    cases = [(TRAIN_SHAPE, torch.bfloat16, True),
-             ((2, 4, 2000, 64), torch.bfloat16, True),
-             ((2, 4, 2000, 64), torch.bfloat16, False),
-             ((1, 8, 384, 128), torch.float32, True)]
+    def peak_new_bytes(fn):
+        """fn's result and the most bytes beyond those held before that
+        it asked of the caching allocator at any moment, unrounded: a
+        copy made and freed inside fn counts."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.memory_stats()["requested_bytes.all.peak"]
+                     - before)
+
     results = []
-    for shape, dtype, causal in cases:
-        g = torch.Generator(device="cuda").manual_seed(10 + len(results))
-        q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(
-            dtype) for _ in range(4))
+    for shape, dtype_name, causal, layout in BWD_CASES:
+        dtype = getattr(torch, dtype_name)
+        q, k, v, do = _bwd_inputs(shape, dtype, layout, 10 + len(results))
         b, h, t, d = shape
         scale = 1.0 / d ** 0.5
         o, lse = fa.attention_reference(q, k, v, causal=causal)
@@ -389,9 +429,18 @@ def phase_bwd_kernels():
                                           causal=causal)
         bf16 = dtype == torch.bfloat16
         tol = 1e-2 if bf16 else 1e-4
-        got = (fa.flash_bwd_dq(q, k, v, do, lse, dcap, causal, scale),) + \
-            fa.flash_bwd_dkv(q, k, v, do, lse, dcap, causal, scale)
+
+        def run():
+            return (fa.flash_bwd_dq(q, k, v, do, lse, dcap, causal,
+                                    scale),) + fa.flash_bwd_dkv(
+                q, k, v, do, lse, dcap, causal, scale)
+
+        got = None   # the last case's outputs, freed before counting
+        got, new_bytes = peak_new_bytes(run)
+        again = run()
         torch.cuda.synchronize()
+        same_bits = all(torch.equal(a, c) for a, c in zip(got, again))
+        del again
         names = ("dq", "dk", "dv")
         err = {n: closeness(a, w, tol) for n, a, w in zip(names, got, want)}
         for n, w in zip(names, want):
@@ -401,8 +450,25 @@ def phase_bwd_kernels():
                           rms_plain_back_half=wf[:, :, t // 2:].pow(
                               2).mean().sqrt().item())
         rec = {"phase": "kernel_check", "kernel": "flash_bwd",
-               "shape": list(shape), "dtype": str(dtype).split(".")[1],
-               "causal": causal, "err": err, "tol": tol}
+               "shape": list(shape), "dtype": dtype_name, "causal": causal,
+               "layout": layout,
+               "read_in_place": all(fa.tma_strides(x) is not None
+                                    for x in (q, k, v, do)),
+               "new_device_bytes": new_bytes, "same_bits": same_bits,
+               "err": err, "tol": tol}
+        if layout == "lm":
+            # the wrapper's own temporaries are D's f32 pass; a copy of
+            # q, k, v or dO would be held through it and add its bytes
+            _, d_bytes = peak_new_bytes(
+                lambda: (do.float() * o.float()).sum(-1))
+            full, full_bytes = peak_new_bytes(
+                lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                               causal=causal))
+            rec.update(bwd_new_device_bytes=full_bytes,
+                       d_pass_new_device_bytes=d_bytes,
+                       bwd_same_bits=all(torch.equal(a, c)
+                                         for a, c in zip(full, got)))
+            del full
         if len(results) == 0:
             bad = {}
             for n, w in zip(names, want):
@@ -413,10 +479,12 @@ def phase_bwd_kernels():
             if any(within(c, tol) for c in bad.values()):
                 raise AssertionError("the limit passes outputs 5%% off on "
                                      "the back half: %r" % bad)
-        ms = {"dq": cuda_ms(lambda: fa.flash_bwd_dq(
-                  q, k, v, do, lse, dcap, causal, scale)),
-              "dkv": cuda_ms(lambda: fa.flash_bwd_dkv(
-                  q, k, v, do, lse, dcap, causal, scale))}
+        calls = {"dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, dcap,
+                                               causal, scale),
+                 "dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, dcap,
+                                                 causal, scale)}
+        ms = {n: cuda_ms(f) for n, f in calls.items()}
+        dev_ms = {n: graph_ms(f) for n, f in calls.items()}
         plain_ms = cuda_ms(lambda: fa.attention_bwd_reference(
             q, k, v, o, lse, do, causal=causal), iters=5)
         qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
@@ -424,19 +492,27 @@ def phase_bwd_kernels():
         lib_ms = cuda_ms(lambda: torch.autograd.grad(
             out, (qr, kr, vr), do, retain_graph=True))
         peak = PEAK_BF16 if bf16 else PEAK_F32
-        for n, kname, products in (("dq", "flash_bwd_dq", 3),
-                                   ("dkv", "flash_bwd_dkv", 4)):
+        for n, kname in (("dq", "flash_bwd_dq"), ("dkv", "flash_bwd_dkv")):
             bound, by = bound_ms(kname, b, h, t, t, d, causal,
                                  2 if bf16 else 4, peak)
-            rec[n] = {"ms": ms[n], "bound_ms": bound, "bound_by": by,
-                      "achieved_tflops": attention_flops(
-                          b, h, t, t, d, causal, products)
-                      / (ms[n] * 1e-3) / 1e12}
+            flops = attention_flops(b, h, t, t, d, causal, WORK[kname][0])
+            rec[n] = {"ms": ms[n], "graph_ms": dev_ms[n], "bound_ms": bound,
+                      "bound_by": by,
+                      "achieved_tflops": flops / (dev_ms[n] * 1e-3) / 1e12}
         rec.update({"plain_bwd_ms": plain_ms, "sdpa_bwd_ms": lib_ms})
         log(rec)
         if not all(within(e, tol) for e in err.values()):
             raise AssertionError("flash backward disagrees with its plain "
                                  "version at %s: %r" % (shape, rec))
+        if not same_bits:
+            raise AssertionError("flash backward gave other bits on a "
+                                 "second call: %r" % rec)
+        if layout == "lm" and not (
+                rec["read_in_place"] and new_bytes == sum(
+                    x.numel() * x.element_size() for x in got)
+                and full_bytes == d_bytes and rec["bwd_same_bits"]):
+            raise AssertionError("the LM's views were not read in place: "
+                                 "%r" % rec)
         results.append(rec)
         del qr, kr, vr, out
     return results
@@ -1607,7 +1683,7 @@ def main():
     torch.cuda.empty_cache()
     mm_stats = phase_matmul_stats()
     fwd_main = fwd_checks[-1]   # the training shape, the LM's views
-    bwd_main = bwd_checks[0]
+    bwd_main = bwd_checks[-1]   # the training shape, the LM's views
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -1637,7 +1713,11 @@ def main():
                                for o in outs),
             "max_err_to_limit": max(c["err"][o]["elem"] for c in bwd_checks
                                     for o in outs),
-            "shape": bwd_main["shape"], "ms": bwd_main[n]["ms"],
+            "max_rel_l2_to_limit": max(c["err"][o]["rel_l2"] / c["tol"]
+                                       for c in bwd_checks for o in outs),
+            "shape": bwd_main["shape"], "layout": bwd_main["layout"],
+            "ms": bwd_main[n]["ms"], "graph_ms": bwd_main[n]["graph_ms"],
+            "achieved_tflops": bwd_main[n]["achieved_tflops"],
             # the plain version and SDPA compute dq, dk and dv together
             "plain_ms": bwd_main["plain_bwd_ms"],
             "bound_ms": bwd_main[n]["bound_ms"],

@@ -2,10 +2,12 @@
 
 Each ``csrc/*.cu`` source has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under
-``build/torch_kernels/`` of the checkout (named by the hash of its
-source, so an edited kernel rebuilds) at first use, and loaded with
-``ctypes``. Pointers and the stream are passed as ``c_void_p``; each C
-entry returns a ``cudaError_t`` that the caller checks.
+``build/torch_kernels/`` of the checkout at first use, and loaded with
+``ctypes``. A library is named by the hash of its source and of every
+header it includes from ``csrc/`` (``#include "..."``, followed
+through the headers), so an edited kernel or shared header rebuilds.
+Pointers and the stream are passed as ``c_void_p``; each C entry
+returns a ``cudaError_t`` that the caller checks.
 
 Imported only when a kernel is about to launch on a CUDA tensor: the
 CPU path never reaches this module.
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -40,10 +43,10 @@ SOURCES = {
                          + [_P], _I),
     }),
     "flash_bwd": ("flash_bwd.cu", {
-        "mx_flash_bwd_dq": ([_P] * 7 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
-                            _I),
-        "mx_flash_bwd_dkv": ([_P] * 8 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
-                             _I),
+        "mx_flash_bwd_dq": ([_P] * 7 + [_I] * 5 + [_L] * 12 + [_F]
+                            + [_I] * 2 + [_P], _I),
+        "mx_flash_bwd_dkv": ([_P] * 8 + [_I] * 5 + [_L] * 12 + [_F]
+                             + [_I] * 2 + [_P], _I),
     }),
     "softmax": ("softmax.cu", {
         "mx_softmax": ([_P, _P, _L, _L, _I, _P], _I),
@@ -69,10 +72,29 @@ def _nvcc():
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(src):
+    """``src`` and the ``csrc/`` headers it includes, directly or
+    through another header, in the order first met."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [_CSRC / m.decode() for m in _INCLUDE.findall(
+            path.read_bytes())]
+    return seen
+
+
 def _so_path(name):
     src = _CSRC / SOURCES[name][0]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return src, BUILD_DIR / ("lib%s-%s.so" % (name, digest))
+    h = hashlib.sha256()
+    for path in _sources(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return src, BUILD_DIR / ("lib%s-%s.so" % (name, h.hexdigest()[:16]))
 
 
 def _compile(name):

@@ -5,465 +5,512 @@
 // _flash_attention_bwd_pallas. Same functions: from the forward's saved
 // f32 log-sum-exp lse and D = rowsum(dO * O) (computed by the caller),
 // P = exp(scale * Q K^T - lse) is rebuilt tile by tile on the visible
-// pairs (top-left causal rule: key position <= query position), and
+// pairs (top-left causal rule: key position <= query position, Tq != Tk
+// allowed), and
 //   dS = P * (dO V^T - D),  dQ = scale * dS K,
 //   dK = scale * dS^T Q,    dV = P^T dO.
-// No [T, T] matrix touches device memory.
+// No [T, T] matrix touches device memory. Any Tq, Tk >= 1; D is 64 or
+// 128 (Dv == D).
 //
-// Layout: q, do [BH, Tq, D]; k, v [BH, Tk, D]; lse, dcap [BH, Tq] f32;
-// dq like q, dk and dv like k. All contiguous and 16-byte aligned, bf16
-// or f32; D is 64 or 128 (Dv == D).
+// Layout: q, do are [B, H, Tq, D] and k, v [B, H, Tk, D] views read
+// through their B, H and T strides (in elements; D contiguous). The bf16
+// path takes any view whose rows start 16-byte aligned with strides that
+// are multiples of 16 bytes: the transformer's heads of one qkv product
+// and the head-transposed gradient of its attention output arrive
+// without a copy. The f32 path takes contiguous tensors. lse and D are
+// contiguous f32 [B*H, Tq]; dq is a contiguous [B*H, Tq, D], dk and dv
+// contiguous [B*H, Tk, D].
 //
-// Design. The TPU split is kept and no atomics are used, so results are
-// deterministic: K3 runs one block per (64-query tile, b*h) and walks
-// the 64-key tiles up to the causal diagonal; K4 runs one block per
-// (64-key tile, b*h) and walks the 64-query tiles from the first one
-// that can see its keys. Ragged Tq, Tk and Tq != Tk are zero-filled at
-// the tile edges and masked.
+// The TPU split is kept and no atomics are used, so the bits are the same
+// from call to call: K3 runs one block per (query tile, b*h) and walks the
+// key tiles up to the causal diagonal; K4 runs one block per (key tile,
+// b*h) and walks the query tiles from the first that sees its keys. Both
+// take the longest causal walks first.
 //
 // Bound: at the training path's shape [16, 8, 1024, 128] bf16 causal K3
-// does three products (S, dP, dQ) over 524,800 visible pairs per head,
-// 51.6 GFLOP (52.2 us at 989 TFLOP/s), against 168.8 MB read and written
-// (50.4 us at 3.35 TB/s); K4 does four (S, dP, dV, dK), 68.8 GFLOP (69.6
-// us) against 202.4 MB (60.4 us). Both are bounded by operations, so the
-// products belong on the tensor cores.
+// does three products (S, dP, dQ) over 524,800 visible pairs a head, 51.6
+// GFLOP (52.2 us at 989 TFLOP/s), against 168.8 MB read and written (50.4
+// us at 3.35 TB/s); K4 does four (S, dP, dV, dK), 68.8 GFLOP (69.6 us)
+// against 202.4 MB (60.4 us). Both are bounded by operations: the products
+// belong on the tensor cores, fed without stalls. Expected: with the
+// tensor work at 250-390 TFLOP/s (K2 reaches 388), K3 + K4 take
+// 0.44-0.69 ms with P and dS as hi + lo terms, 0.31-0.48 ms with one.
 //
-// - bf16: each of the 4 warps owns 16 rows of the block's tile and runs
-//   every product as mma.sync m16n8k16 (bf16 in, f32 accumulate). The
-//   score tiles (S, dP, P, dS) live in registers; P and dS go straight
-//   from the accumulators into the next product as its A operand, as the
-//   forward feeds P. K4 computes the transposed products (S^T = K Q^T,
-//   dP^T = V dO^T) with key rows as the M dimension, so P^T and dS^T sit
-//   in the A layout of dV += P^T dO and dK += dS^T Q; lse and D are then
-//   indexed along columns. Register pressure: K4 holds the dK and dV
-//   accumulators (2 x 16 x D f32 per warp, 128 registers a thread at
-//   D = 128), so the K and V fragments are reloaded from shared memory
-//   at each k-step rather than kept in registers, dP^T is formed 16
-//   queries (one k-step of the dK product) at a time, and at D = 128
-//   the query tile is 32 rows (64 spilled: 255 registers). The operands that
-//   are not inputs (P, dS) each go into their product as two bf16 terms
-//   (hi + lo, ~16 mantissa bits, as in the forward) at the cost of a
-//   second mma: single terms doubled the error.
-// - f32: full f32 precision forbids the bf16 tensor cores, so the
-//   products run as f32 FMA on the CUDA cores: 128 threads as a 16 x 8
-//   grid, each owning 4 rows x 8 columns of the score tile and 4 rows x
-//   D/8 columns of the outputs, with all tiles staged in shared memory.
+// bf16, the training path. Design (Hopper's warp-specialised shape, as
+// K2 in flash_fwd.cu, on the helpers of flash_common.cuh):
+// - a producer, one thread of which issues every TMA load (4-d tensor
+//   maps over the strided views, 128-byte swizzle, rows past T zero-filled
+//   per head): the block's own operands once, then the walked operand's
+//   tiles into a ring of kStages stages; "full" mbarriers carry the bytes'
+//   arrival to the consumers and "empty" ones the stage's release back;
+// - consumer warpgroups of 64 rows each. The two score products run as
+//   wgmma.mma_async with A and B from shared memory (both K-major, D in
+//   64-column slabs of 128 bytes). P and dS are formed on the f32
+//   accumulator fragments, and the m64nN accumulator layout is, pair by
+//   pair, the bf16 register-A layout of the next wgmma, so they feed the
+//   gradient products from registers with no shuffle; those products read
+//   B (K, Q or dO, [rows, D] with D contiguous) from its TMA tile through
+//   the descriptor's MN-major mode, so nothing is transposed.
+// - K3 (dQ): the producer loads Q and dO once, then K and V tiles of 64
+//   keys. A consumer keeps its rows' lse and D in registers: S = Q K^T and
+//   dP = dO V^T (m64n64), dS = P (dP - D), dQ += dS K (m64nD, A = dS).
+//   Two block shapes: 2 consumer warpgroups (128 query rows) and a
+//   producer warpgroup that gives its registers to them (setmaxnreg 40 /
+//   232), 3 stages, one block an SM; or, for grids of fewer 128-row tiles
+//   than SMs, 1 consumer warpgroup (64 rows) and a producer warp, 2
+//   stages, two blocks an SM. See launch_dq_shape.
+// - K4 (dK, dV): 128 keys a block, 2 consumer warpgroups of 64 keys that
+//   hold their m64nD dK and dV accumulators for the whole walk, a producer
+//   warpgroup (setmaxnreg 40 / 232). The producer loads the block's K and
+//   V once, then streams 64-query tiles of Q and dO by TMA, and its 128
+//   threads copy each tile's lse (scaled by log2 e) and D into the same
+//   stage (the full barrier counts the TMA bytes and 129 arrivals). A
+//   consumer computes the transposed scores, with its keys as wgmma's M:
+//   S^T = K Q^T and dP^T = V dO^T (m64n64), P^T with lse and D indexed
+//   along columns, dS^T = P^T (dP^T - D), then dV += P^T dO and
+//   dK += dS^T Q (m64nD, A from registers). A warpgroup whose first
+//   visible query tile comes later, or whose keys lie past Tk, still waits
+//   for each stage's load and releases it, which keeps every stage's
+//   arrivals in its phase.
+// - ragged edges: TMA zero-fills rows past Tq or Tk. Only the tiles that
+//   cross the diagonal or an edge are masked (P = 0 there): a key past Tk
+//   in K3, or a query past Tq in K4, would otherwise meet exp(-lse) times
+//   a zero row, which is NaN where exp overflows.
+// - P and dS go into their products as hi + lo bf16 terms (~16 mantissa
+//   bits, as the f32 TPU kernel keeps them in f32): 10 product-equivalents
+//   of the function's 7. The checks' limit (chip_smoke.py closeness, per
+//   element and in L2) is already 0.46-0.74 used by the outputs' own bf16
+//   rounding with hi + lo; a build with one bf16 term used 0.92-5.21 of
+//   it (up to 5x over) for 11-18% less device time, so it was measured
+//   and taken out (PERF.md, the K3/K4 findings).
+// - registers: the tile that stays put (Q and dO in K3, K and V in K4)
+//   is read through opaque(), else the compiler hoists its 16 wgmma
+//   descriptors out of the walk (32 registers) and K4 at D = 128 and
+//   K3's one-warpgroup blocks at D = 128 spilled 36 bytes. ptxas: 168
+//   registers at launch in the two-warpgroup blocks (setmaxnreg gives
+//   the consumers 232), 125-166 in K3's one-warpgroup blocks; no spills.
 //
-// Not yet done: cp.async or TMA double buffering, wgmma, ldmatrix.
+// Measured on an H100 (700 W, chip_smoke.py) at the training shape,
+// the LM's strided views: K3 0.178 ms and K4 0.284-0.286 ms of device
+// time (CUDA graphs), the tensor cores running the hi + lo work at 386
+// and 361-364 TFLOP/s (289 and 240-243 of the function's); the kernels
+// they replace took 0.568-0.576 and 0.808-0.823 ms; SDPA's backward,
+// all three gradients, 0.320-0.328. Not yet tried: FlashAttention-3's
+// ping-pong of the two consumer warpgroups (it did not pay in K2),
+// larger key tiles, a persistent grid, the epilogue through shared
+// memory and TMA stores, one fused pass with dQ summed by f32 atomics
+// (5 products, not bitwise reproducible), D = rowsum(dO * O) folded
+// into K3.
+//
+// f32: full f32 precision forbids the bf16 tensor cores, so the products
+// run as f32 FMA on the CUDA cores: 128 threads as a 16 x 8 grid, each
+// owning 4 rows x 8 columns of the score tile and 4 rows x D/8 columns of
+// the outputs, with all tiles staged in shared memory.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
+using namespace flash;
 using bf16 = __nv_bfloat16;
 
-constexpr int kBlock = 64;   // rows of a query or key tile
-constexpr int kThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16)
+// bf16: TMA ring, wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x0, x1) = hi + lo with hi, lo bf16 pairs
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
-}
-
-// c += A(16x16, row) * B(16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Rows [r0, r0 + R) of a row-major [n, D] matrix into dst[R][LD], rows
-// past n zero (consecutive threads on consecutive 16-byte vectors).
-template <int D, int LD, int R = kBlock>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
-                                           int r0, int n) {
-  constexpr int kVec = D / 8;
-  for (int idx = threadIdx.x; idx < R * kVec; idx += kThreads) {
-    const int r = idx / kVec, c = (idx % kVec) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-// The same rows transposed into dst[D][LDT] (consecutive threads on
-// consecutive rows, so the 2-byte stores of one instruction hit distinct
-// banks).
-template <int D, int LDT, int R = kBlock>
-__device__ __forceinline__ void stage_cols(bf16* dst, const bf16* src,
-                                           int r0, int n) {
-  constexpr int kVec = D / 8;
-  for (int idx = threadIdx.x; idx < R * kVec; idx += kThreads) {
-    const int r = idx % R, c = (idx / R) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&val);
+// the m64nN accumulator acc as the register-A fragments of N / 16 wgmma
+// steps: columns 16kk .. 16kk + 15 are, pair by pair, step kk's fragment;
+// as hi + lo bf16 pairs
+template <int N>
+__device__ __forceinline__ void to_a(const float* acc, uint32_t (*hi)[4],
+                                     uint32_t (*lo)[4]) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(c + i) * LDT + r] = e[i];
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split_bf16(acc[8 * kk + 2 * r], acc[8 * kk + 2 * r + 1], hi[kk][r],
+                 lo[kk][r]);
+}
+
+// d += A B, m64nD over a depth of K: A the hi + lo fragments of to_a<K>,
+// B a [K rows, D] tile with D contiguous (its slabs K * 128 bytes apart),
+// read MN-major; issued, not committed
+template <int D, int K>
+__device__ __forceinline__ void wgmma_ab(float* d, const uint32_t (*hi)[4],
+                                         const uint32_t (*lo)[4], uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint64_t db = smem_desc(b + kk * 16 * 128, K * 128, 1024);
+    wgmma_rs<D>(d, hi[kk], db);
+    wgmma_rs<D>(d, lo[kk], db);
   }
 }
 
-// A operand of the k-step at columns [c0, c0 + 16) of a 16-row tile
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* base,
-                                       int ld, int c0, int g, int tg) {
-  a[0] = ld_pair(base + g * ld + c0 + tg * 2);
-  a[1] = ld_pair(base + (g + 8) * ld + c0 + tg * 2);
-  a[2] = ld_pair(base + g * ld + c0 + 8 + tg * 2);
-  a[3] = ld_pair(base + (g + 8) * ld + c0 + 8 + tg * 2);
-}
+template <int D, int kWG, int kStages>
+struct DqTiles {
+  static constexpr int BN = 64;             // keys a tile
+  static constexpr int kSlabs = D / 64;     // 128-byte column slabs of a row
+  static constexpr int BM = 64 * kWG;       // query rows of a block
+  // two consumer warpgroups take a whole producer warpgroup, so that
+  // setmaxnreg can move its registers to them; one takes a single warp
+  static constexpr int kProducerThreads = kWG == 2 ? 128 : 32;
+  static constexpr int kThreads = 128 * kWG + kProducerThreads;
+  static constexpr uint32_t kQBytes = BM * D * 2;      // Q or dO
+  static constexpr uint32_t kTileBytes = BN * D * 2;   // a K or V tile
+  // Q, dO, the K ring, the V ring (each slab 1024-byte aligned for the
+  // swizzle), then q_full, full[], empty[]; 1024 to align
+  static constexpr size_t kSmem =
+      1024 + 2 * kQBytes + 2 * kStages * kTileBytes + 8 * (1 + 2 * kStages);
+};
 
-// B operand B[k][n] = m[n0 + n][c0 + k] of a row-major tile m
-__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1,
-                                       const bf16* m, int ld, int n0,
-                                       int c0, int g, int tg) {
-  const bf16* p = m + (n0 + g) * ld + c0 + tg * 2;
-  b0 = ld_pair(p);
-  b1 = ld_pair(p + 8);
-}
-
-// The accumulators of two 8-column n-tiles as the A operand of one
-// 16-deep k-step, split into hi and the remainder lo.
-__device__ __forceinline__ void acc_to_a(const float t0[4],
-                                         const float t1[4], uint32_t hi[4],
-                                         uint32_t lo[4]) {
-  split_bf16(t0[0], t0[1], hi[0], lo[0]);
-  split_bf16(t0[2], t0[3], hi[1], lo[1]);
-  split_bf16(t1[0], t1[1], hi[2], lo[2]);
-  split_bf16(t1[2], t1[3], hi[3], lo[3]);
-}
-
-// c += (hi + lo) * B
-__device__ __forceinline__ void mma_acc(float c[4], const uint32_t hi[4],
-                                        const uint32_t lo[4], uint32_t b0,
-                                        uint32_t b1) {
-  mma_bf16(c, hi, b0, b1);
-  mma_bf16(c, lo, b0, b1);
-}
-
-template <int D>
-constexpr size_t dq_smem_bf16() {
-  // Q, dO, K, V tiles [64][D + 8] and K^T [D][64 + 8]
-  return sizeof(bf16) * (4 * kBlock * (D + 8) + D * (kBlock + 8));
-}
-
-// K3: dQ for one 64-query tile.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+// K3: dQ for one tile of 64 * kWG query rows.
+template <int D, int kWG, int kStages>
+__global__ void __launch_bounds__(DqTiles<D, kWG, kStages>::kThreads,
+                                  kWG == 1 ? 2 : 1)
+flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const __grid_constant__ CUtensorMap tm_do,
                   const float* __restrict__ lse,
                   const float* __restrict__ dcap, bf16* __restrict__ dq,
-                  int tq, int tk, float scale, int causal) {
-  constexpr int LD = D + 8;
-  constexpr int LDT = kBlock + 8;
-  constexpr int kSteps = D / 16;    // k-steps of the S and dP products
-  constexpr int kNT = kBlock / 8;   // 8-key n-tiles of the score tile
-  constexpr int kDT = D / 8;        // 8-column n-tiles of dQ
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + kBlock * LD;
-  bf16* ks = dos + kBlock * LD;
-  bf16* vs = ks + kBlock * LD;
-  bf16* kt = vs + kBlock * LD;
+                  int heads, int tq, int tk, float scale, int causal) {
+  using T = DqTiles<D, kWG, kStages>;
+  constexpr int BN = T::BN;
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sdo = sq + T::kQBytes;
+  const uint32_t sk = sdo + T::kQBytes;             // + stage * kTileBytes
+  const uint32_t sv = sk + kStages * T::kTileBytes;
+  const uint32_t q_full = sv + kStages * T::kTileBytes;
+  auto full = [&](int s) { return q_full + 8u * (1 + s); };
+  auto empty = [&](int s) { return q_full + 8u * (1 + kStages + s); };
 
-  const int bh = blockIdx.y;
-  // last query tile first: under the causal mask it walks the most keys
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlock;
-  const size_t qoff = (size_t)bh * tq * D, koff = (size_t)bh * tk * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  const int bh = blockIdx.x;
+  const int batch = bh / heads, head = bh % heads;
+  // grid.y counts query tiles from the last: under the causal mask the
+  // last has the most key tiles, so the long blocks start first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * T::BM;
+  const int n_k = (tk + BN - 1) / BN;
+  // key tiles that rows up to last_row see
+  auto tiles_upto = [&](int last_row) {
+    return causal ? min(n_k, last_row / BN + 1) : n_k;
+  };
+  const int n_block = tiles_upto(min(q0 + T::BM, tq) - 1);
 
-  stage_rows<D, LD>(qs, q + qoff, q0, tq);
-  stage_rows<D, LD>(dos, dout + qoff, q0, tq);
-  // rows past tq read lse = D = 0; their dQ is never written
-  const float l0 = row0 < tq ? lse[(size_t)bh * tq + row0] : 0.f;
-  const float l1 = row1 < tq ? lse[(size_t)bh * tq + row1] : 0.f;
-  const float c0 = row0 < tq ? dcap[(size_t)bh * tq + row0] : 0.f;
-  const float c1 = row1 < tq ? dcap[(size_t)bh * tq + row1] : 0.f;
-  const bf16* qw = qs + warp * 16 * LD;
-  const bf16* dow = dos + warp * 16 * LD;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 128 * kWG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  float acc[kDT][4];
-#pragma unroll
-  for (int j = 0; j < kDT; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  const int n_k = (tk + kBlock - 1) / kBlock;
-  int upper = n_k;
-  if (causal) {
-    const int u = (q0 + kBlock - 1) / kBlock + 1;
-    upper = u < n_k ? u : n_k;
+  const int wg = tid / 128;
+  if (wg == kWG) {
+    // producer: one thread issues every load
+    if constexpr (kWG == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 128 * kWG) {
+      mbar_expect_tx(q_full, 2 * T::kQBytes);
+      tma_rows<T::kSlabs>(sq, &tm_q, q_full, T::BM, q0, head, batch);
+      tma_rows<T::kSlabs>(sdo, &tm_do, q_full, T::BM, q0, head, batch);
+      for (int t = 0; t < n_block; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(empty(s), ((t / kStages) - 1) & 1);
+        mbar_expect_tx(full(s), 2 * T::kTileBytes);
+        tma_rows<T::kSlabs>(sk + s * T::kTileBytes, &tm_k, full(s), BN,
+                            t * BN, head, batch);
+        tma_rows<T::kSlabs>(sv + s * T::kTileBytes, &tm_v, full(s), BN,
+                            t * BN, head, batch);
+      }
+    }
+    return;
   }
 
-  for (int t = 0; t < upper; ++t) {
-    const int k0 = t * kBlock;
-    __syncthreads();  // the previous tile's reads are done
-    stage_rows<D, LD>(ks, k + koff, k0, tk);
-    stage_rows<D, LD>(vs, v + koff, k0, tk);
-    stage_cols<D, LDT>(kt, k + koff, k0, tk);
-    __syncthreads();
+  // consumer warpgroup wg: query rows r0 .. r0 + 63
+  if constexpr (kWG == 2)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const int r0 = q0 + wg * 64;
+  const int n_mine = r0 < tq ? tiles_upto(min(r0 + 64, tq) - 1) : 0;
+  const int row0 = r0 + warp * 16 + g, row1 = row0 + 8;   // this lane's rows
+  // the rows' lse (log2 domain) and D; rows past tq read 0 and are never
+  // written
+  const size_t rows = (size_t)bh * tq;
+  const float l0 = row0 < tq ? lse[rows + row0] * kLog2e : 0.f;
+  const float l1 = row1 < tq ? lse[rows + row1] * kLog2e : 0.f;
+  const float c0 = row0 < tq ? dcap[rows + row0] : 0.f;
+  const float c1 = row1 < tq ? dcap[rows + row1] : 0.f;
+  const float scale_log2 = scale * kLog2e;
 
-    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys per warp
-    float s[kNT][4], dp[kNT][4];
+  // m64nD f32 accumulator: element 4n + 2i + j is (row_i, 8n + 2tg + j)
+  float dqacc[D / 2];
 #pragma unroll
-    for (int n = 0; n < kNT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int st = 0; st < kSteps; ++st) {
-      uint32_t aq[4], ad[4];
-      load_a(aq, qw, LD, st * 16, g, tg);
-      load_a(ad, dow, LD, st * 16, g, tg);
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, ks, LD, n * 8, st * 16, g, tg);
-        mma_bf16(s[n], aq, b0, b1);
-        load_b(b0, b1, vs, LD, n * 8, st * 16, g, tg);
-        mma_bf16(dp[n], ad, b0, b1);
-      }
-    }
+  for (int i = 0; i < D / 2; ++i) dqacc[i] = 0.f;
+  const uint32_t sq_wg = sq + wg * 64 * 128, sdo_wg = sdo + wg * 64 * 128;
+  // tiles from first_masked on cross the diagonal or Tk
+  const int first_masked = min(causal ? (r0 + 1) / BN : n_k, tk / BN);
 
-    // P = exp(scale S - lse) on visible pairs; dS = P (dP - D), into s
+  float sacc[BN / 2], dpacc[BN / 2];
+  uint32_t hi[BN / 16][4], lo[BN / 16][4];
+  if (n_mine > 0) mbar_wait(q_full, 0);
+  for (int t = 0; t < n_block; ++t) {
+    const int s = t % kStages;
+    // past this warpgroup's diagonal the stage is only released in turn
+    // (waiting for its load keeps the arrivals in the stage's phase)
+    mbar_wait(full(s), (t / kStages) & 1);
+    if (t < n_mine) {
+      const uint32_t ks = sk + s * T::kTileBytes, vs = sv + s * T::kTileBytes;
+      // S = Q K^T, dP = dO V^T
+      fence_regs<BN / 2>(sacc);
+      fence_regs<BN / 2>(dpacc);
+      wgmma_fence();
+      wgmma_abt<BN, D>(sacc, opaque(sq_wg), T::BM, ks, BN);
+      wgmma_abt<BN, D>(dpacc, opaque(sdo_wg), T::BM, vs, BN);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<BN / 2>(sacc);
+      fence_regs<BN / 2>(dpacc);
+      // dS = P (dP - D), P = 2^(S scale log2(e) - lse log2(e)) where
+      // visible, into sacc
+      const bool mask = t >= first_masked;
 #pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + tg * 2 + (e & 1);
-        const int row = e < 2 ? row0 : row1;
-        const bool vis = col < tk && !(causal && col > row);
-        const float p = vis ? expf(s[n][e] * scale - (e < 2 ? l0 : l1))
-                            : 0.f;
-        s[n][e] = p * (dp[n][e] - (e < 2 ? c0 : c1));
-      }
-    }
-
-    // dQ += dS K: dS of key n-tiles 2j, 2j+1 is the A operand of k-step j
-#pragma unroll
-    for (int j = 0; j < kNT / 2; ++j) {
-      uint32_t hi[4], lo[4];
-      acc_to_a(s[2 * j], s[2 * j + 1], hi, lo);
-#pragma unroll
-      for (int dn = 0; dn < kDT; ++dn) {
-        uint32_t b0, b1;
-        load_b(b0, b1, kt, LDT, dn * 8, j * 16, g, tg);
-        mma_acc(acc[dn], hi, lo, b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int dn = 0; dn < kDT; ++dn) {
-    const int col = dn * 8 + tg * 2;
-    if (row0 < tq)
-      *reinterpret_cast<__nv_bfloat162*>(dq + qoff + (size_t)row0 * D +
-                                         col) =
-          __floats2bfloat162_rn(acc[dn][0] * scale, acc[dn][1] * scale);
-    if (row1 < tq)
-      *reinterpret_cast<__nv_bfloat162*>(dq + qoff + (size_t)row1 * D +
-                                         col) =
-          __floats2bfloat162_rn(acc[dn][2] * scale, acc[dn][3] * scale);
-  }
-}
-
-// K4's query tile: 64 rows, but 32 at D = 128, where the dK and dV
-// accumulators take 128 registers a thread and a 64-query P^T tile (32
-// more) made ptxas spill; the 32-query tile needs 16.
-template <int D>
-constexpr int kDkvRowsQ = D >= 128 ? 32 : 64;
-
-template <int D>
-constexpr size_t dkv_smem_bf16() {
-  // K, V tiles [64][D + 8]; Q, dO tiles [BQ][D + 8]; Q^T and dO^T
-  // [D][BQ + 8]; then the query tile's lse and D in f32
-  constexpr int BQ = kDkvRowsQ<D>;
-  return sizeof(bf16) * (2 * kBlock * (D + 8) + 2 * BQ * (D + 8) +
-                         2 * D * (BQ + 8)) +
-         sizeof(float) * 2 * BQ;
-}
-
-// K4: dK and dV for one 64-key tile.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ dcap, bf16* __restrict__ dk,
-                   bf16* __restrict__ dv, int tq, int tk, float scale,
-                   int causal) {
-  constexpr int BQ = kDkvRowsQ<D>;
-  constexpr int LD = D + 8;
-  constexpr int LDT = BQ + 8;
-  constexpr int kSteps = D / 16;
-  constexpr int kNT = BQ / 8;       // 8-query n-tiles of the score tile
-  constexpr int kDT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + kBlock * LD;
-  bf16* qs = vs + kBlock * LD;
-  bf16* dos = qs + BQ * LD;
-  bf16* qt = dos + BQ * LD;
-  bf16* dot = qt + D * LDT;
-  float* ls = reinterpret_cast<float*>(dot + D * LDT);
-  float* dcs = ls + BQ;
-
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kBlock;
-  const size_t qoff = (size_t)bh * tq * D, koff = (size_t)bh * tk * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const int krow0 = k0 + warp * 16 + g, krow1 = krow0 + 8;
-
-  stage_rows<D, LD>(ks, k + koff, k0, tk);
-  stage_rows<D, LD>(vs, v + koff, k0, tk);
-  const bf16* kw = ks + warp * 16 * LD;
-  const bf16* vw = vs + warp * 16 * LD;
-
-  float dka[kDT][4], dva[kDT][4];
-#pragma unroll
-  for (int j = 0; j < kDT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
-
-  const int n_q = (tq + BQ - 1) / BQ;
-  // causal: query tiles before this key tile's first position see none
-  // of its keys (a key tile at or past tq gets no query and writes zeros)
-  const int lower = causal ? k0 / BQ : 0;
-
-  for (int jt = lower; jt < n_q; ++jt) {
-    const int q0 = jt * BQ;
-    __syncthreads();  // the previous tile's reads are done
-    stage_rows<D, LD, BQ>(qs, q + qoff, q0, tq);
-    stage_rows<D, LD, BQ>(dos, dout + qoff, q0, tq);
-    stage_cols<D, LDT, BQ>(qt, q + qoff, q0, tq);
-    stage_cols<D, LDT, BQ>(dot, dout + qoff, q0, tq);
-    for (int i = threadIdx.x; i < BQ; i += kThreads) {
-      const bool in = q0 + i < tq;
-      ls[i] = in ? lse[(size_t)bh * tq + q0 + i] : 0.f;
-      dcs[i] = in ? dcap[(size_t)bh * tq + q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T: 16 keys x BQ queries per warp
-    float s[kNT][4];
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int st = 0; st < kSteps; ++st) {
-      uint32_t a[4];
-      load_a(a, kw, LD, st * 16, g, tg);
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, qs, LD, n * 8, st * 16, g, tg);
-        mma_bf16(s[n], a, b0, b1);
-      }
-    }
-
-    // P^T = exp(scale S^T - lse[query]) on visible pairs
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + tg * 2 + (e & 1);
-        const int qpos = q0 + col;
-        const int krow = e < 2 ? krow0 : krow1;
-        const bool vis = qpos < tq && krow < tk && !(causal && krow > qpos);
-        s[n][e] = vis ? expf(s[n][e] * scale - ls[col]) : 0.f;
-      }
-    }
-
-    // dV += P^T dO
-#pragma unroll
-    for (int j = 0; j < kNT / 2; ++j) {
-      uint32_t hi[4], lo[4];
-      acc_to_a(s[2 * j], s[2 * j + 1], hi, lo);
-#pragma unroll
-      for (int dn = 0; dn < kDT; ++dn) {
-        uint32_t b0, b1;
-        load_b(b0, b1, dot, LDT, dn * 8, j * 16, g, tg);
-        mma_acc(dva[dn], hi, lo, b0, b1);
-      }
-    }
-
-    // dP^T = V dO^T and dS^T = P^T (dP^T - D[query]), 16 queries at a
-    // time, each straight into dK += dS^T Q
-#pragma unroll
-    for (int j = 0; j < kNT / 2; ++j) {
-      float dp[2][4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) dp[h][0] = dp[h][1] = dp[h][2] = dp[h][3] = 0.f;
-#pragma unroll
-      for (int st = 0; st < kSteps; ++st) {
-        uint32_t a[4];
-        load_a(a, vw, LD, st * 16, g, tg);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          uint32_t b0, b1;
-          load_b(b0, b1, dos, LD, (2 * j + h) * 8, st * 16, g, tg);
-          mma_bf16(dp[h], a, b0, b1);
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
+      for (int n = 0; n < BN / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int col = (2 * j + h) * 8 + tg * 2 + (e & 1);
-          dp[h][e] = s[2 * j + h][e] * (dp[h][e] - dcs[col]);
+          const int i = 4 * n + e;
+          float p = ex2(fmaf(sacc[i], scale_log2, e < 2 ? -l0 : -l1));
+          if (mask) {
+            const int col = t * BN + 8 * n + 2 * tg + (e & 1);
+            if (col >= tk || (causal && col > (e < 2 ? row0 : row1))) p = 0.f;
+          }
+          sacc[i] = p * (dpacc[i] - (e < 2 ? c0 : c1));
         }
-      }
-      uint32_t hi[4], lo[4];
-      acc_to_a(dp[0], dp[1], hi, lo);
-#pragma unroll
-      for (int dn = 0; dn < kDT; ++dn) {
-        uint32_t b0, b1;
-        load_b(b0, b1, qt, LDT, dn * 8, j * 16, g, tg);
-        mma_acc(dka[dn], hi, lo, b0, b1);
-      }
+      // dQ += dS K
+      to_a<BN>(sacc, hi, lo);
+      fence_regs<D / 2>(dqacc);
+      wgmma_fence();
+      wgmma_ab<D, BN>(dqacc, hi, lo, ks);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<D / 2>(dqacc);
     }
+    mbar_arrive(empty(s));
+  }
+  if (n_mine == 0) return;
+
+  bf16* o0 = dq + (rows + row0) * D;
+  bf16* o1 = dq + (rows + row1) * D;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = n * 8 + tg * 2;
+    if (row0 < tq)
+      *reinterpret_cast<__nv_bfloat162*>(o0 + col) = __floats2bfloat162_rn(
+          dqacc[4 * n] * scale, dqacc[4 * n + 1] * scale);
+    if (row1 < tq)
+      *reinterpret_cast<__nv_bfloat162*>(o1 + col) = __floats2bfloat162_rn(
+          dqacc[4 * n + 2] * scale, dqacc[4 * n + 3] * scale);
+  }
+}
+
+template <int D, int kStages>
+struct DkvTiles {
+  static constexpr int kWG = 2;             // consumer warpgroups, 64 keys each
+  static constexpr int BK = 64 * kWG;       // keys of a block
+  static constexpr int BQ = 64;             // queries a tile
+  static constexpr int kSlabs = D / 64;
+  static constexpr int kThreads = 128 * (kWG + 1);
+  static constexpr uint32_t kKBytes = BK * D * 2;      // the block's K or V
+  static constexpr uint32_t kTileBytes = BQ * D * 2;   // a Q or dO tile
+  static constexpr uint32_t kStatBytes = 2 * BQ * 4;   // a tile's lse and D
+  // K, V, the Q ring, the dO ring, the lse/D ring, then kv_full, full[],
+  // empty[]; 1024 to align
+  static constexpr size_t kSmem = 1024 + 2 * kKBytes +
+                                  kStages * (2 * kTileBytes + kStatBytes) +
+                                  8 * (1 + 2 * kStages);
+};
+
+// K4: dK and dV for one tile of 128 keys.
+template <int D, int kStages>
+__global__ void __launch_bounds__(DkvTiles<D, kStages>::kThreads, 1)
+flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ dcap, bf16* __restrict__ dk,
+                   bf16* __restrict__ dv, int heads, int tq, int tk,
+                   float scale, int causal) {
+  using T = DkvTiles<D, kStages>;
+  constexpr int BQ = T::BQ, BK = T::BK, kWG = T::kWG;
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static_assert(2 * BQ == 128, "the producer's 128 threads copy lse and D");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sk = smem_u32(base);
+  const uint32_t sv = sk + T::kKBytes;
+  const uint32_t sq = sv + T::kKBytes;                // + stage * kTileBytes
+  const uint32_t sdo = sq + kStages * T::kTileBytes;
+  const uint32_t sst = sdo + kStages * T::kTileBytes; // + stage * kStatBytes
+  const uint32_t kv_full = sst + kStages * T::kStatBytes;
+  // stage s: lse (log2 domain) of its BQ queries, then their D
+  float* stats = reinterpret_cast<float*>(base + (sst - sk));
+  auto full = [&](int s) { return kv_full + 8u * (1 + s); };
+  auto empty = [&](int s) { return kv_full + 8u * (1 + kStages + s); };
+
+  const int bh = blockIdx.x;
+  const int batch = bh / heads, head = bh % heads;
+  // grid.y counts key tiles from the first: under the causal mask the
+  // first sees the most query tiles, so the long blocks start first
+  const int k0 = blockIdx.y * BK;
+  const int n_q = (tq + BQ - 1) / BQ;
+  // the first query tile that keys from first_key on see
+  auto first_tile = [&](int first_key) { return causal ? first_key / BQ : 0; };
+  const int j0 = first_tile(k0);
+  const int n_walk = max(0, n_q - j0);   // a key tile past tq sees none
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      // the TMA issuer's expect_tx and each producer thread's lse/D store
+      mbar_init(full(s), 1 + 128);
+      mbar_init(empty(s), 128 * kWG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  if (wg == kWG) {
+    // producer warpgroup: thread 0 issues every TMA load, all 128 copy
+    // each tile's lse and D
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int pt = tid - 128 * kWG;
+    if (pt == 0 && n_walk > 0) {
+      mbar_expect_tx(kv_full, 2 * T::kKBytes);
+      tma_rows<T::kSlabs>(sk, &tm_k, kv_full, BK, k0, head, batch);
+      tma_rows<T::kSlabs>(sv, &tm_v, kv_full, BK, k0, head, batch);
+    }
+    for (int i = 0; i < n_walk; ++i) {
+      const int s = i % kStages, q0 = (j0 + i) * BQ;
+      if (i >= kStages) mbar_wait(empty(s), ((i / kStages) - 1) & 1);
+      if (pt == 0) {
+        mbar_expect_tx(full(s), 2 * T::kTileBytes);
+        tma_rows<T::kSlabs>(sq + s * T::kTileBytes, &tm_q, full(s), BQ, q0,
+                            head, batch);
+        tma_rows<T::kSlabs>(sdo + s * T::kTileBytes, &tm_do, full(s), BQ,
+                            q0, head, batch);
+      }
+      // queries past tq read 0 (their tile is masked)
+      const int row = q0 + pt % BQ;
+      float x = 0.f;
+      if (row < tq)
+        x = pt < BQ ? lse[(size_t)bh * tq + row] * kLog2e
+                    : dcap[(size_t)bh * tq + row];
+      stats[s * 2 * BQ + pt] = x;
+      mbar_arrive(full(s));
+    }
+    return;
   }
 
+  // consumer warpgroup wg: keys kr0 .. kr0 + 63; each SM sub-partition
+  // holds one producer and two consumer warps: 40 + 2 * 232 registers a
+  // lane fill its 16384
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const int kr0 = k0 + wg * 64;
+  const bool mine = kr0 < tk;           // keys of its own to write
+  const int j_first = first_tile(kr0);
+  const int key0 = kr0 + warp * 16 + g, key1 = key0 + 8;   // this lane's keys
+  const float scale_log2 = scale * kLog2e;
+
+  float dkacc[D / 2], dvacc[D / 2];
 #pragma unroll
-  for (int dn = 0; dn < kDT; ++dn) {
-    const int col = dn * 8 + tg * 2;
-    if (krow0 < tk) {
-      const size_t o = koff + (size_t)krow0 * D + col;
-      *reinterpret_cast<__nv_bfloat162*>(dk + o) =
-          __floats2bfloat162_rn(dka[dn][0] * scale, dka[dn][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + o) =
-          __floats2bfloat162_rn(dva[dn][0], dva[dn][1]);
+  for (int i = 0; i < D / 2; ++i) dkacc[i] = dvacc[i] = 0.f;
+  const uint32_t sk_wg = sk + wg * 64 * 128, sv_wg = sv + wg * 64 * 128;
+
+  float sacc[BQ / 2], dpacc[BQ / 2];
+  uint32_t phi[BQ / 16][4], plo[BQ / 16][4], dhi[BQ / 16][4], dlo[BQ / 16][4];
+  if (mine && j_first < n_q) mbar_wait(kv_full, 0);
+  for (int i = 0; i < n_walk; ++i) {
+    const int j = j0 + i, s = i % kStages;
+    mbar_wait(full(s), (i / kStages) & 1);
+    if (mine && j >= j_first) {
+      const uint32_t qs = sq + s * T::kTileBytes, dos = sdo + s * T::kTileBytes;
+      const float* st = stats + s * 2 * BQ;
+      // S^T = K Q^T, dP^T = V dO^T
+      fence_regs<BQ / 2>(sacc);
+      fence_regs<BQ / 2>(dpacc);
+      wgmma_fence();
+      wgmma_abt<BQ, D>(sacc, opaque(sk_wg), BK, qs, BQ);
+      wgmma_abt<BQ, D>(dpacc, opaque(sv_wg), BK, dos, BQ);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<BQ / 2>(sacc);
+      fence_regs<BQ / 2>(dpacc);
+      // P^T into sacc and dS^T = P^T (dP^T - D) into dpacc, lse and D
+      // indexed by the query (column); the tile is masked where it
+      // crosses the diagonal or tq
+      const int q0 = j * BQ;
+      const bool mask = (causal && q0 < kr0 + 64) || q0 + BQ > tq;
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int idx = 4 * n + e;
+          const int c = 8 * n + 2 * tg + (e & 1);
+          float p = ex2(fmaf(sacc[idx], scale_log2, -st[c]));
+          if (mask && (q0 + c >= tq ||
+                       (causal && (e < 2 ? key0 : key1) > q0 + c)))
+            p = 0.f;
+          dpacc[idx] = p * (dpacc[idx] - st[BQ + c]);
+          sacc[idx] = p;
+        }
+      // dV += P^T dO, dK += dS^T Q
+      to_a<BQ>(sacc, phi, plo);
+      to_a<BQ>(dpacc, dhi, dlo);
+      fence_regs<D / 2>(dvacc);
+      fence_regs<D / 2>(dkacc);
+      wgmma_fence();
+      wgmma_ab<D, BQ>(dvacc, phi, plo, dos);
+      wgmma_ab<D, BQ>(dkacc, dhi, dlo, qs);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<D / 2>(dvacc);
+      fence_regs<D / 2>(dkacc);
     }
-    if (krow1 < tk) {
-      const size_t o = koff + (size_t)krow1 * D + col;
-      *reinterpret_cast<__nv_bfloat162*>(dk + o) =
-          __floats2bfloat162_rn(dka[dn][2] * scale, dka[dn][3] * scale);
+    mbar_arrive(empty(s));
+  }
+  if (!mine) return;
+
+  // keys that see no query (causal, past tq) write zeros
+  const size_t keys = (size_t)bh * tk;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = n * 8 + tg * 2;
+    if (key0 < tk) {
+      const size_t o = (keys + key0) * D + col;
+      *reinterpret_cast<__nv_bfloat162*>(dk + o) = __floats2bfloat162_rn(
+          dkacc[4 * n] * scale, dkacc[4 * n + 1] * scale);
       *reinterpret_cast<__nv_bfloat162*>(dv + o) =
-          __floats2bfloat162_rn(dva[dn][2], dva[dn][3]);
+          __floats2bfloat162_rn(dvacc[4 * n], dvacc[4 * n + 1]);
+    }
+    if (key1 < tk) {
+      const size_t o = (keys + key1) * D + col;
+      *reinterpret_cast<__nv_bfloat162*>(dk + o) = __floats2bfloat162_rn(
+          dkacc[4 * n + 2] * scale, dkacc[4 * n + 3] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + o) =
+          __floats2bfloat162_rn(dvacc[4 * n + 2], dvacc[4 * n + 3]);
     }
   }
 }
@@ -471,6 +518,9 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------------
 // f32: CUDA-core FMA
 // ---------------------------------------------------------------------------
+
+constexpr int kBlock = 64;   // rows of a query or key tile
+constexpr int kThreads = 128;
 
 constexpr int kRows = 4;   // tile rows per thread (kBlock / 16)
 constexpr int kCols = 8;   // tile columns per thread (kBlock / 8)
@@ -756,6 +806,74 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+template <int D, int kWG, int kStages>
+int launch_dq(const Operand& q, const Operand& k, const Operand& v,
+              const Operand& dout, const float* lse, const float* dcap,
+              void* dq, int b, int h, int tq, int tk, float scale,
+              int causal, cudaStream_t stream) {
+  using T = DqTiles<D, kWG, kStages>;
+  CUtensorMap mq, mk, mv, mdo;
+  int err = encode_map(&mq, q, b, h, tq, D, T::BM);
+  if (!err) err = encode_map(&mdo, dout, b, h, tq, D, T::BM);
+  if (!err) err = encode_map(&mk, k, b, h, tk, D, T::BN);
+  if (!err) err = encode_map(&mv, v, b, h, tk, D, T::BN);
+  if (err) return err;
+  constexpr auto kernel = flash_bwd_dq_bf16<D, kWG, kStages>;
+  const cudaError_t e = allow_smem<kernel>(T::kSmem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(b * h, (tq + T::BM - 1) / T::BM);
+  kernel<<<grid, T::kThreads, T::kSmem, stream>>>(
+      mq, mk, mv, mdo, lse, dcap, static_cast<bf16*>(dq), h, tq, tk, scale,
+      causal);
+  return cudaGetLastError();
+}
+
+// two consumer warpgroups (128 query rows a block, one block an SM) and 3
+// stages wherever the grid has at least as many 128-row tiles as the card
+// has SMs; else one warpgroup (64 rows, two blocks an SM) and 2 stages, as
+// K2 chooses
+template <int D>
+int launch_dq_shape(const Operand& q, const Operand& k, const Operand& v,
+                    const Operand& dout, const float* lse, const float* dcap,
+                    void* dq, int b, int h, int tq, int tk, float scale,
+                    int causal, cudaStream_t stream) {
+  int sms = 0;
+  const cudaError_t e = sm_count(&sms);
+  if (e != cudaSuccess) return e;
+  if ((long long)b * h * ((tq + 127) / 128) >= sms)
+    return launch_dq<D, 2, 3>(q, k, v, dout, lse, dcap, dq, b, h, tq, tk,
+                              scale, causal, stream);
+  return launch_dq<D, 1, 2>(q, k, v, dout, lse, dcap, dq, b, h, tq, tk,
+                            scale, causal, stream);
+}
+
+template <int D>
+int launch_dkv(const Operand& q, const Operand& k, const Operand& v,
+               const Operand& dout, const float* lse, const float* dcap,
+               void* dk, void* dv, int b, int h, int tq, int tk, float scale,
+               int causal, cudaStream_t stream) {
+  constexpr int kStages = 3;
+  using T = DkvTiles<D, kStages>;
+  CUtensorMap mq, mk, mv, mdo;
+  int err = encode_map(&mq, q, b, h, tq, D, T::BQ);
+  if (!err) err = encode_map(&mdo, dout, b, h, tq, D, T::BQ);
+  if (!err) err = encode_map(&mk, k, b, h, tk, D, T::BK);
+  if (!err) err = encode_map(&mv, v, b, h, tk, D, T::BK);
+  if (err) return err;
+  constexpr auto kernel = flash_bwd_dkv_bf16<D, kStages>;
+  const cudaError_t e = allow_smem<kernel>(T::kSmem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(b * h, (tk + T::BK - 1) / T::BK);
+  kernel<<<grid, T::kThreads, T::kSmem, stream>>>(
+      mq, mk, mv, mdo, lse, dcap, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), h, tq, tk, scale, causal);
+  return cudaGetLastError();
+}
+
 template <typename Kernel, typename... Args>
 cudaError_t launch(Kernel kernel, size_t smem, dim3 grid,
                    cudaStream_t stream, Args... args) {
@@ -764,18 +882,6 @@ cudaError_t launch(Kernel kernel, size_t smem, dim3 grid,
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t dq_bf16(const void* q, const void* k, const void* v,
-                    const void* dout, const float* lse, const float* dcap,
-                    void* dq, int bh, int tq, int tk, float scale,
-                    int causal, cudaStream_t s) {
-  const dim3 grid((tq + kBlock - 1) / kBlock, bh);
-  return launch(flash_bwd_dq_bf16<D>, dq_smem_bf16<D>(), grid, s,
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                lse, dcap, static_cast<bf16*>(dq), tq, tk, scale, causal);
 }
 
 template <int D>
@@ -789,19 +895,6 @@ cudaError_t dq_f32(const void* q, const void* k, const void* v,
                 static_cast<const float*>(v),
                 static_cast<const float*>(dout), lse, dcap,
                 static_cast<float*>(dq), tq, tk, scale, causal);
-}
-
-template <int D>
-cudaError_t dkv_bf16(const void* q, const void* k, const void* v,
-                     const void* dout, const float* lse, const float* dcap,
-                     void* dk, void* dv, int bh, int tq, int tk, float scale,
-                     int causal, cudaStream_t s) {
-  const dim3 grid((tk + kBlock - 1) / kBlock, bh);
-  return launch(flash_bwd_dkv_bf16<D>, dkv_smem_bf16<D>(), grid, s,
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                lse, dcap, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                tq, tk, scale, causal);
 }
 
 template <int D>
@@ -820,46 +913,68 @@ cudaError_t dkv_f32(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// K3. Returns a cudaError_t (0 on success). is_bf16: 1 = bf16, 0 = f32.
-extern "C" int mx_flash_bwd_dq(const void* q, const void* k, const void* v,
-                               const void* dout, const float* lse,
-                               const float* dcap, void* dq, int bh, int tq,
-                               int tk, int d, float scale, int causal,
-                               int is_bf16, void* stream) {
+// Both entries: q, do are [b, h, tq, d] and k, v [b, h, tk, d] with
+// element strides (s*b, s*h, s*t, 1); bf16 views need 16-byte aligned
+// rows and strides of 16-byte multiples, f32 tensors must be contiguous
+// (their strides are not read). lse, dcap: contiguous f32 [b*h, tq].
+// is_bf16: 1 = bf16, 0 = f32. Each returns a cudaError_t (0 on success),
+// 1999 when libcuda's tensor-map encoder cannot be found, or 2000 + the
+// CUresult of a failed encode.
+
+// K3. dq: contiguous [b*h, tq, d].
+extern "C" int mx_flash_bwd_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* dcap, void* dq, int b, int h, int tq,
+    int tk, int d, long long sqb, long long sqh, long long sqt,
+    long long skb, long long skh, long long skt, long long svb,
+    long long svh, long long svt, long long sdb, long long sdh,
+    long long sdt, float scale, int causal, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && d == 64)
-    return dq_bf16<64>(q, k, v, dout, lse, dcap, dq, bh, tq, tk, scale,
-                       causal, s);
-  if (is_bf16 && d == 128)
-    return dq_bf16<128>(q, k, v, dout, lse, dcap, dq, bh, tq, tk, scale,
-                        causal, s);
-  if (!is_bf16 && d == 64)
-    return dq_f32<64>(q, k, v, dout, lse, dcap, dq, bh, tq, tk, scale,
+  if (is_bf16) {
+    const Operand oq{q, sqb, sqh, sqt}, ok{k, skb, skh, skt},
+        ov{v, svb, svh, svt}, od{dout, sdb, sdh, sdt};
+    if (d == 64)
+      return launch_dq_shape<64>(oq, ok, ov, od, lse, dcap, dq, b, h, tq, tk,
+                                 scale, causal, s);
+    if (d == 128)
+      return launch_dq_shape<128>(oq, ok, ov, od, lse, dcap, dq, b, h, tq, tk,
+                                  scale, causal, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (d == 64)
+    return dq_f32<64>(q, k, v, dout, lse, dcap, dq, b * h, tq, tk, scale,
                       causal, s);
-  if (!is_bf16 && d == 128)
-    return dq_f32<128>(q, k, v, dout, lse, dcap, dq, bh, tq, tk, scale,
+  if (d == 128)
+    return dq_f32<128>(q, k, v, dout, lse, dcap, dq, b * h, tq, tk, scale,
                        causal, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// K4. Returns a cudaError_t (0 on success). is_bf16: 1 = bf16, 0 = f32.
-extern "C" int mx_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                const void* dout, const float* lse,
-                                const float* dcap, void* dk, void* dv,
-                                int bh, int tq, int tk, int d, float scale,
-                                int causal, int is_bf16, void* stream) {
+// K4. dk, dv: contiguous [b*h, tk, d].
+extern "C" int mx_flash_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* dcap, void* dk, void* dv, int b, int h,
+    int tq, int tk, int d, long long sqb, long long sqh, long long sqt,
+    long long skb, long long skh, long long skt, long long svb,
+    long long svh, long long svt, long long sdb, long long sdh,
+    long long sdt, float scale, int causal, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && d == 64)
-    return dkv_bf16<64>(q, k, v, dout, lse, dcap, dk, dv, bh, tq, tk,
-                        scale, causal, s);
-  if (is_bf16 && d == 128)
-    return dkv_bf16<128>(q, k, v, dout, lse, dcap, dk, dv, bh, tq, tk,
-                         scale, causal, s);
-  if (!is_bf16 && d == 64)
-    return dkv_f32<64>(q, k, v, dout, lse, dcap, dk, dv, bh, tq, tk, scale,
-                       causal, s);
-  if (!is_bf16 && d == 128)
-    return dkv_f32<128>(q, k, v, dout, lse, dcap, dk, dv, bh, tq, tk,
+  if (is_bf16) {
+    const Operand oq{q, sqb, sqh, sqt}, ok{k, skb, skh, skt},
+        ov{v, svb, svh, svt}, od{dout, sdb, sdh, sdt};
+    if (d == 64)
+      return launch_dkv<64>(oq, ok, ov, od, lse, dcap, dk, dv, b, h, tq, tk,
+                            scale, causal, s);
+    if (d == 128)
+      return launch_dkv<128>(oq, ok, ov, od, lse, dcap, dk, dv, b, h, tq, tk,
+                             scale, causal, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (d == 64)
+    return dkv_f32<64>(q, k, v, dout, lse, dcap, dk, dv, b * h, tq, tk,
+                       scale, causal, s);
+  if (d == 128)
+    return dkv_f32<128>(q, k, v, dout, lse, dcap, dk, dv, b * h, tq, tk,
                         scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }

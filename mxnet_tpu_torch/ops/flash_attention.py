@@ -10,8 +10,9 @@ the backward ``_flash_bwd_dq_kernel`` (K3) and ``_flash_bwd_dkv_kernel``
   backward :func:`attention_bwd_reference`, the plain PyTorch versions.
 - On CUDA tensors the kernels are launched and nothing else: a shape or
   dtype the kernels do not take raises, and so does a failed build or
-  launch. The bf16 forward reads q, k, v through their strides
-  (:func:`tma_strides`); the backward reads contiguous copies.
+  launch. The bf16 kernels read q, k, v (and the backward dO) through
+  their strides (:func:`tma_strides`), copying only a view that rule
+  refuses; the f32 kernels read contiguous copies.
 - :class:`FlashAttention` wires forward and backward as one
   ``torch.autograd.Function``, as the JAX ``custom_vjp`` does;
   :func:`flash_attention` goes through it when grad is enabled and an
@@ -121,14 +122,8 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, variant=0):
     b, h, tq, d = q.shape
     tk = k.shape[2]
     if q.dtype == torch.bfloat16:
-        ops, strides = [], []
-        for t in (q, k, v):
-            st = tma_strides(t)
-            if st is None:
-                t = _aligned(t)[0]
-                st = tma_strides(t)
-            ops.append(t)
-            strides.append(st)
+        ops = _tma_operands(q, k, v)
+        strides = [tma_strides(t) for t in ops]
     else:
         ops = _aligned(q, k, v)
         strides = [t.stride()[:3] for t in ops]
@@ -148,11 +143,11 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, variant=0):
         flash_attention.launches += 1
     if err != 0:
         raise MXNetError("flash_fwd kernel launch failed: %s"
-                         % _fwd_error(err))
+                         % _launch_error(err))
     return o, lse
 
 
-def _fwd_error(err):
+def _launch_error(err):
     if err == 1999:
         return "libcuda's cuTensorMapEncodeTiled was not found"
     if err >= 2000:
@@ -162,8 +157,8 @@ def _fwd_error(err):
 
 def tma_strides(t):
     """The (B, H, T) strides, in elements, through which the bf16
-    forward kernel's TMA tensor maps read the ``[B, H, T, D]`` view
-    ``t``; None when ``t`` has to be copied first.
+    kernels' TMA tensor maps read the ``[B, H, T, D]`` view ``t``; None
+    when ``t`` has to be copied first.
 
     A map needs the last dimension contiguous, the start 16-byte aligned
     and every other stride a positive multiple of 16 bytes below 2^40
@@ -210,16 +205,27 @@ def _check_kernel_operands(q, k, v):
 
 
 def _aligned(*ts):
-    """The kernels read 16-byte vectors: contiguous, 16-byte aligned
-    rows (``grad_output`` after the head transpose is neither)."""
+    """Contiguous tensors with 16-byte aligned starts: what the f32
+    kernels read, and what a bf16 view :func:`tma_strides` refuses
+    becomes."""
     ts = (t.detach().contiguous() for t in ts)
     return tuple(t.clone() if t.data_ptr() % 16 else t for t in ts)
 
 
+def _tma_operands(*ts):
+    """The bf16 views as the kernels read them: each as it is where
+    :func:`tma_strides` takes it, else a contiguous copy (a change of
+    layout, not of path)."""
+    return tuple(t if tma_strides(t) is not None else _aligned(t)[0]
+                 for t in ts)
+
+
 def _check_ready(q, k, v, do, lse, dcap):
     """What K3/K4 read: the operands of :func:`_check_kernel_operands`,
-    do like q, lse and D f32 ``[B, H, Tq]``, all contiguous and 16-byte
-    aligned on one card."""
+    do like q, lse and D contiguous f32 ``[B, H, Tq]``, all on one card;
+    bf16 q, k, v, do through strides that :func:`tma_strides` takes, f32
+    ones contiguous and 16-byte aligned. Returns the (B, H, T) strides
+    of q, k, v and do, in that order."""
     _check_kernel_operands(q, k, v)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise MXNetError("flash backward: do %s %s, q %s %s"
@@ -230,25 +236,38 @@ def _check_ready(q, k, v, do, lse, dcap):
             raise MXNetError("flash backward: lse and D must be f32 %s, "
                              "got %s %s" % (tuple(q.shape[:3]), t.dtype,
                                             tuple(t.shape)))
-    for t in (q, k, v, do, lse, dcap):
-        if (t.device != q.device or not t.is_contiguous()
-                or t.data_ptr() % 16):
-            raise MXNetError("flash backward: operands must be contiguous, "
-                             "16-byte aligned and on one device")
+    if any(t.device != q.device for t in (do, lse, dcap)):
+        raise MXNetError("flash backward: operands on different devices")
+    if not (lse.is_contiguous() and dcap.is_contiguous()):
+        raise MXNetError("flash backward: lse and D must be contiguous")
+    ops = (q, k, v, do)
+    if q.dtype == torch.bfloat16:
+        strides = [tma_strides(t) for t in ops]
+        if None in strides:
+            raise MXNetError("flash backward: a bf16 operand's strides are "
+                             "not ones the tensor maps read (tma_strides)")
+        return strides
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in ops):
+        raise MXNetError("flash backward: f32 operands must be contiguous "
+                         "and 16-byte aligned")
+    return [t.stride()[:3] for t in ops]
 
 
 def _launch_check(name, err):
     if err != 0:
-        raise MXNetError("%s kernel launch failed: cudaError %d"
-                         % (name, err))
+        raise MXNetError("%s kernel launch failed: %s"
+                         % (name, _launch_error(err)))
 
 
 def flash_bwd_dq(q, k, v, do, lse, dcap, causal, scale):
-    """Launch K3 on aligned CUDA operands; returns dq. ``dcap`` is
-    D = rowsum(dO * O), f32 ``[B, H, Tq]``."""
-    _check_ready(q, k, v, do, lse, dcap)
+    """Launch K3 on CUDA operands; returns dq, a contiguous
+    ``[B, H, Tq, D]``. ``dcap`` is D = rowsum(dO * O), f32
+    ``[B, H, Tq]``. bf16 q, k, v, do are read through their strides; the
+    bf16 kernel takes 128 query rows a block where the grid has at least
+    as many such tiles as the card has SMs, else 64."""
+    strides = _check_ready(q, k, v, do, lse, dcap)
     b, h, tq, d = q.shape
-    dq = torch.empty_like(q)
+    dq = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
     from . import _build
 
     lib = _build.library("flash_bwd")
@@ -256,20 +275,23 @@ def flash_bwd_dq(q, k, v, do, lse, dcap, causal, scale):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mx_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), dcap.data_ptr(), dq.data_ptr(), b * h, tq,
-            k.shape[2], d, float(scale), int(causal),
-            int(q.dtype == torch.bfloat16), stream)
+            lse.data_ptr(), dcap.data_ptr(), dq.data_ptr(), b, h, tq,
+            k.shape[2], d, *(s for st in strides for s in st),
+            float(scale), int(causal), int(q.dtype == torch.bfloat16),
+            stream)
         flash_bwd_dq.launches += 1
     _launch_check("flash_bwd_dq", err)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, dcap, causal, scale):
-    """Launch K4 on aligned CUDA operands; returns ``(dk, dv)``."""
-    _check_ready(q, k, v, do, lse, dcap)
+    """Launch K4 on CUDA operands; returns ``(dk, dv)``, contiguous
+    ``[B, H, Tk, D]``. Operands as for :func:`flash_bwd_dq`."""
+    strides = _check_ready(q, k, v, do, lse, dcap)
     b, h, tq, d = q.shape
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    tk = k.shape[2]
+    dk = torch.empty((b, h, tk, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, h, tk, d), dtype=v.dtype, device=v.device)
     from . import _build
 
     lib = _build.library("flash_bwd")
@@ -278,8 +300,9 @@ def flash_bwd_dkv(q, k, v, do, lse, dcap, causal, scale):
         err = lib.mx_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dcap.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b * h, tq, k.shape[2], d, float(scale), int(causal),
-            int(q.dtype == torch.bfloat16), stream)
+            b, h, tq, tk, d, *(s for st in strides for s in st),
+            float(scale), int(causal), int(q.dtype == torch.bfloat16),
+            stream)
         flash_bwd_dkv.launches += 1
     _launch_check("flash_bwd_dkv", err)
     return dk, dv
@@ -293,14 +316,21 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=None):
     """The backward on CUDA tensors; returns ``(dq, dk, dv)``.
     Counterpart of ``_flash_attention_bwd_pallas``: D = rowsum(dO * O)
     in f32 with torch (the JAX package does it in XLA), then K3 and K4,
-    one launch each."""
+    one launch each. bf16 q, k, v and do are read in place where
+    :func:`tma_strides` takes them (the LM's head views, the transposed
+    gradient of its attention output) and copied otherwise; f32 ones
+    are copied to contiguous tensors."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if o.shape != q.shape or o.dtype != q.dtype or do.shape != q.shape:
         raise MXNetError("flash backward: o %s %s and do %s must match q "
                          "%s %s" % (tuple(o.shape), o.dtype, tuple(do.shape),
                                     tuple(q.shape), q.dtype))
-    q, k, v, o, do, lse = _aligned(q, k, v, o, do, lse)
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = _tma_operands(q, k, v, do)
+    else:
+        q, k, v, do = _aligned(q, k, v, do)
+    lse = lse.detach().contiguous()
     dcap = (do.float() * o.float()).sum(-1)
     dq = flash_bwd_dq(q, k, v, do, lse, dcap, causal, scale)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, dcap, causal, scale)
@@ -309,9 +339,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=None):
 
 class FlashAttention(torch.autograd.Function):
     """K2 forward and K3/K4 backward as one autograd function (the plain
-    versions on CPU tensors). Saves q, k, v as given, o and lse: K2 reads
-    bf16 views through their strides, and the backward makes the
-    contiguous copies that K3/K4 read."""
+    versions on CPU tensors). Saves q, k, v as given, o and lse: the
+    bf16 kernels read the views through their strides."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):

@@ -161,3 +161,75 @@ def test_tma_strides_rule():
         is None
     assert fa.tma_strides(torch.zeros(2, 2, 8, 72, dtype=bf)[..., :64]) \
         == (2 * 8 * 72, 8 * 72, 72)
+    # the backward's dO: the gradient that o.transpose(1, 2).reshape(B, T,
+    # H*D) hands back to o, a head-transposed view read in place
+    do = _grad_output_view(2, 64, 4, 128)
+    assert not do.is_contiguous()
+    assert fa.tma_strides(do) == (64 * 512, 128, 512)
+    # refused: the same dO 8 bytes off 16, or from rows of H*D + 4
+    # elements (a T stride of 1032 bytes)
+    wide = torch.zeros(2, 64, 4 * 128 + 4, dtype=bf)
+    assert fa.tma_strides(
+        wide[..., 4:4 + 512].reshape(2, 64, 4, 128).transpose(1, 2)) is None
+    assert fa.tma_strides(
+        wide[..., :512].reshape(2, 64, 4, 128).transpose(1, 2)) is None
+
+
+def _grad_output_view(b, t, h, d):
+    """The gradient that reaches the attention output o ([B, H, T, D])
+    when the LM reads it as ``o.transpose(1, 2).reshape(B, T, H*D)``."""
+    o = torch.zeros(b, h, t, d, dtype=torch.bfloat16, requires_grad=True)
+    seen = []
+
+    class Tap(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            seen.append(g)
+            return g
+
+    y = Tap.apply(o).transpose(1, 2).reshape(b, t, h * d)
+    y.backward(torch.ones(b, t, h * d, dtype=torch.bfloat16))
+    return seen[0]
+
+
+def test_tma_operands_copy_only_what_the_rule_refuses():
+    """The bf16 kernels' wrappers pass a view the rule takes as it is
+    (the same storage, no copy) and copy one it refuses into a
+    contiguous, 16-byte aligned tensor with the same values."""
+    bf = torch.bfloat16
+    q, k, v = _lm_views(torch.randn(2, 64, 3 * 4 * 128).to(bf), 2, 64, 4,
+                        128)
+    do = _grad_output_view(2, 64, 4, 128)
+    off = torch.randn(1, 2, 8, 72).to(bf)[..., 4:68]
+    assert fa.tma_strides(off) is None
+    got = fa._tma_operands(q, k, v, do, off)
+    for a, b in zip(got[:4], (q, k, v, do)):
+        assert a is b
+    assert got[4].is_contiguous() and got[4].data_ptr() % 16 == 0
+    assert fa.tma_strides(got[4]) is not None
+    assert torch.equal(got[4], off)
+
+
+def test_kernel_build_hash_covers_included_headers(tmp_path, monkeypatch):
+    """A library is named by its source and the csrc headers it
+    includes, so an edit to the shared header rebuilds both flash
+    libraries and no other."""
+    from mxnet_tpu_torch.ops import _build
+
+    for name in ("flash_fwd", "flash_bwd"):
+        assert [p.name for p in _build._sources(
+            _build._CSRC / _build.SOURCES[name][0])] == [
+                _build.SOURCES[name][0], "flash_common.cuh"]
+    for f in _build._CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "_CSRC", tmp_path)
+    before = {n: _build._so_path(n)[1].name for n in _build.SOURCES}
+    header = tmp_path / "flash_common.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {n: _build._so_path(n)[1].name for n in _build.SOURCES}
+    assert {n for n in before if before[n] != after[n]} == {"flash_fwd",
+                                                           "flash_bwd"}
