@@ -93,6 +93,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -223,6 +224,28 @@ def within(c, tol):
     return c["elem"] <= 1.0 and c["rel_l2"] <= tol
 
 
+def ptxas_instances(text):
+    """Each kernel instance of an ``nvcc -Xptxas -v`` log with its
+    registers and spilled bytes: [{"kernel", "registers", "spill_stores",
+    "spill_loads"}]."""
+    out = []
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            out.append({"kernel": m.group(1), "registers": None,
+                        "spill_stores": None, "spill_loads": None})
+        elif out:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                out[-1]["spill_stores"] = int(m.group(1))
+                out[-1]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[-1]["registers"] = int(m.group(1))
+    return out
+
+
 def phase_setup():
     import torch
 
@@ -243,6 +266,7 @@ def phase_setup():
     _nvrtc._load()
     log({"phase": "build", "seconds": secs,
          "libraries": {n: {"seconds": v["seconds"],
+                           "instances": ptxas_instances(v["ptxas"]),
                            "ptxas": v["ptxas"].splitlines()}
                        for n, v in _build.build_log.items()},
          "nvrtc": {"path": _nvrtc.info["nvrtc_path"],
@@ -776,7 +800,8 @@ def phase_softmax_kernel():
     20 calls (device time alone)."""
     import torch
 
-    from mxnet_tpu_torch.ops.softmax import fused_softmax, softmax_reference
+    from mxnet_tpu_torch.ops.softmax import (fused_softmax, softmax_reference,
+                                             variant)
 
     results = []
     for shape, dtype_name, scale in SOFTMAX_CASES:
@@ -792,6 +817,7 @@ def phase_softmax_kernel():
         bound, by = softmax_bound_ms(shape[0], shape[1], elem)
         rec = {"phase": "kernel_check", "kernel": "softmax",
                "shape": list(shape), "dtype": dtype_name, "scale": scale,
+               "variant": variant(shape[1], x.element_size()),
                "max_abs_err": close["abs"], "closeness": close, "tol": tol,
                "ms": cuda_ms(lambda: fused_softmax(x)),
                "plain_ms": cuda_ms(lambda: softmax_reference(x)),
@@ -809,14 +835,76 @@ def phase_softmax_kernel():
                                  "version at %s: %r" % (shape, rec))
         results.append(rec)
         del x, y, want
+    softmax_edges()
     return results
+
+
+def softmax_edges():
+    """K1's edge cases on the card, each against softmax_reference:
+    37 rows (no multiple of any variant's rows a block) at the widths on
+    both sides of every variant boundary, in f32, bf16 and f16 (tolerances
+    as in :func:`phase_softmax_kernel`); and rows with some -inf, all
+    -inf, a NaN and a +inf at widths of four variants, which must give the
+    plain version's NaN pattern and its values elsewhere."""
+    import torch
+
+    from mxnet_tpu_torch.ops import softmax as sm
+
+    worst, cases, bad = 0.0, 0, []
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        elem = torch.tensor([], dtype=dtype).element_size()
+        v = 16 // elem
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        limits = list(sm.SCALAR_CAPACITY) + [cap * v + v - 1
+                                             for cap in sm.VECTOR_CAPACITY]
+        widths = sorted({1, 2, 10, 31, 32, 33}
+                        | {c + d for c in limits for d in (0, 1)})
+        g = torch.Generator(device="cuda").manual_seed(60)
+        for c in widths:
+            x = torch.randn(37, c, generator=g, device="cuda").to(dtype)
+            close = closeness(sm.fused_softmax(x), sm.softmax_reference(x),
+                              tol)
+            worst = max(worst, close["elem"])
+            cases += 1
+            if not within(close, tol):
+                bad.append(("width", str(dtype), c, close))
+        for c in (10, 1000, 20000, 40000):
+            x = torch.randn(6, c, generator=g, device="cuda").to(dtype)
+            x[1, ::3] = float("-inf")
+            x[2] = float("-inf")
+            x[3, c // 2] = float("nan")
+            x[4, c - 1] = float("inf")
+            y, want = sm.fused_softmax(x), sm.softmax_reference(x)
+            nan = torch.isnan(want.float())
+            ok = ~nan.any(dim=1)
+            cases += 1
+            if not (torch.equal(torch.isnan(y.float()), nan)
+                    and within(closeness(y[ok], want[ok], tol), tol)):
+                bad.append(("inf_nan", str(dtype), c))
+    torch.cuda.synchronize()
+    log({"phase": "kernel_edges", "kernel": "softmax", "cases": cases,
+         "worst_elem": worst, "failed": [repr(b) for b in bad]})
+    if bad:
+        raise AssertionError("softmax kernel fails edge cases: %r" % bad)
 
 
 # K6, the matmul with column statistics: (M, K, N, mean of x) beside the
 # probe's four shapes (tools/torch_probe_matmul_stats.py SHAPES): a ragged
 # M, and shape C with x = randn + 0.5, whose column sums are far from zero,
-# so a dropped or doubled row tile moves them well past the limit
-MATMUL_STATS_EXTRA = [(1000, 64, 256, 0.0), (128 * 28 * 28, 512, 128, 0.5)]
+# so a dropped or doubled row tile moves them well past the limit; then
+# edges: M not a multiple of 64, K of 16 and 48, N of 8, 72, 200 (136
+# pads to 256 with a slab of w never loaded), and K either side of the
+# w-resident threshold at N = 256 (192 resident, 208 streamed). One row
+# is a card test's case: the limit on s scales with the column's sum of
+# |acc| over rows, and with one row a column near zero can sit below the
+# f32 rounding of its K products' sum, which the kernel and the plain
+# version take in other orders.
+MATMUL_STATS_EXTRA = [(1000, 64, 256, 0.0), (128 * 28 * 28, 512, 128, 0.5),
+                      (8447, 64, 136, 0.5),
+                      (777, 16, 128, 0.5), (999, 48, 64, 0.5),
+                      (1000, 64, 8, 0.5), (1000, 64, 72, 0.5),
+                      (3000, 128, 200, 0.5), (20000, 192, 256, 0.5),
+                      (20000, 208, 256, 0.5)]
 
 
 def matmul_stats_bound_ms(m, k, n):
@@ -874,9 +962,10 @@ def load_probe():
 def phase_matmul_stats(device="cuda", probe_shapes=None, extra=None):
     """K6 on the card against matmul_stats_reference under
     :func:`matmul_stats_check` at the probe's four shapes and
-    MATMUL_STATS_EXTRA (inputs seeded on the device), with a check that
-    the limit on s rejects the plain s with one 64-row tile dropped at the
-    nonzero-mean shape; then the probe's path (``run`` of
+    MATMUL_STATS_EXTRA (inputs seeded on the device), and against itself
+    (the same bits on a second call), with a check that the limit on s
+    rejects the plain s with one 64-row tile (``ROW_TILE``) dropped at
+    each nonzero-mean shape; then the probe's path (``run`` of
     ``tools/torch_probe_matmul_stats.py``: its checks against the unfused
     sequence and its times) with K6's count zeroed just before and read
     just after. ``probe_shapes`` and ``extra`` shrink it for a CPU
@@ -897,11 +986,16 @@ def phase_matmul_stats(device="cuda", probe_shapes=None, extra=None):
         w = (torch.randn(k, n, generator=g, device=device) * 0.05).to(
             torch.bfloat16)
         got = ms.matmul_stats(x, w)
+        again = ms.matmul_stats(x, w)
         want = ms.matmul_stats_reference(x, w)
         _sync(device)
         rec = {"phase": "kernel_check", "kernel": "matmul_stats",
                "shape": [m, k, n], "x_mean": mean,
-               "check": matmul_stats_check(got, want, x, w)}
+               "plan": ms.plan(m, k, n) if device != "cuda" else ms.plan(
+                   m, k, n, ms.sm_count(x.device)),
+               "check": matmul_stats_check(got, want, x, w),
+               "same_bits": all(torch.equal(a, b)
+                                for a, b in zip(got, again))}
         if mean:
             acc_top = (x[:ms.ROW_TILE].float() @ w.float()).sum(
                 0, keepdim=True)
@@ -912,11 +1006,12 @@ def phase_matmul_stats(device="cuda", probe_shapes=None, extra=None):
                 raise AssertionError("the limit on s passes a sum with a "
                                      "row tile dropped: %r" % dropped)
         log(rec)
-        if not rec["check"]["ok"]:
+        if not (rec["check"]["ok"] and rec["same_bits"]):
             raise AssertionError("matmul_stats kernel disagrees with its "
-                                 "plain version at %s: %r" % (cases[i], rec))
+                                 "plain version, or with itself on a second "
+                                 "call, at %s: %r" % (cases[i], rec))
         checks.append(rec)
-        del x, w, got, want
+        del x, w, got, again, want
 
     _sync(device)
     ms.matmul_stats.launches = 0
@@ -1735,8 +1830,9 @@ def main():
         "max_abs_err": max(c["max_abs_err"] for c in softmax_checks),
         "max_err_to_limit": max(c["closeness"]["elem"]
                                 for c in softmax_checks),
-        "shape": sm_main["shape"], "ms": sm_main["ms"],
-        "graph_ms": sm_main["graph_ms"],
+        "shape": sm_main["shape"], "variant": sm_main["variant"],
+        "ms": sm_main["ms"], "graph_ms": sm_main["graph_ms"],
+        "events_minus_graph_ms": sm_main["ms"] - sm_main["graph_ms"],
         "plain_ms": sm_main["plain_ms"], "bound_ms": sm_main["bound_ms"],
         "bound_by": sm_main["bound_by"],
         "library_ms": sm_main["library_ms"],
@@ -1775,12 +1871,17 @@ def main():
         "max_err_to_limit": max(c["check"]["worst"]
                                 for c in mm_stats["checks"]),
         "shape": probe_a["shape"], "dtype": "bfloat16", "ms": probe_a["ms"],
+        "graph_ms": probe_a["graph_ms"],
         "plain_ms": probe_a["plain_ms"], "bound_ms": probe_a["bound_ms"],
         "bound_by": probe_a["bound_by"], "library_ms": probe_a["matmul_ms"],
+        "library": "torch.matmul without the statistics: a floor, not the "
+                   "same function",
         "sequence_ms": probe_a["sequence_ms"],
-        "by_shape": [{k: r[k] for k in ("shape", "ms", "plain_ms",
-                                        "matmul_ms", "sequence_ms",
-                                        "bound_ms")}
+        "same_bits": all(c["same_bits"] for c in mm_stats["checks"]),
+        "by_shape": [{k: r[k] for k in (
+            "shape", "ms", "graph_ms", "plain_ms", "matmul_ms",
+            "matmul_graph_ms", "sequence_ms", "bound_ms", "bound_share",
+            "graph_bound_share", "kernel_device_ms")}
                      for r in mm_stats["probe"]]})
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",

@@ -27,7 +27,8 @@ from pathlib import Path
 
 from ..base import MXNetError
 
-__all__ = ["SOURCES", "build_all", "library", "BUILD_DIR", "build_log"]
+__all__ = ["SOURCES", "build_all", "library", "raw_stream", "BUILD_DIR",
+           "build_log"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -49,10 +50,10 @@ SOURCES = {
                              + [_I] * 2 + [_P], _I),
     }),
     "softmax": ("softmax.cu", {
-        "mx_softmax": ([_P, _P, _L, _L, _I, _P], _I),
+        "mx_softmax": ([_P, _P, _L, _L, _I, _I, _P], _I),
     }),
     "matmul_stats": ("matmul_stats.cu", {
-        "mx_matmul_stats": ([_P] * 6 + [_I] * 3 + [_P], _I),
+        "mx_matmul_stats": ([_P] * 4 + [_I] * 6 + [_P], _I),
     }),
 }
 
@@ -137,8 +138,22 @@ def build_all():
     return time.monotonic() - t0
 
 
+def raw_stream(device_index):
+    """The handle of the current CUDA stream of a device, as an int,
+    without the ``torch.cuda.Stream`` object that
+    ``torch.cuda.current_stream`` builds (a few microseconds a launch)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
 def library(name):
-    """The loaded library ``name``, built on first use."""
+    """The loaded library ``name``, built on first use. Once it is loaded
+    the lookup takes no lock: a kernel's wrapper calls this on every
+    launch."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:

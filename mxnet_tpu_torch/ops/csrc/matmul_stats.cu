@@ -7,277 +7,321 @@
 //   y   = bf16(acc)       [M, N],
 //   s   = sum_rows acc    [1, N] f32 (of acc, not of the rounded y),
 //   s2  = sum_rows acc^2  [1, N] f32.
-// Limits: M >= 1 (any M: the last row tile is masked, where the TPU kernel
-// needed M % 512 == 0), K >= 16 and a multiple of 16, N a multiple of 8
-// and 8 <= N <= 256.
+// Limits: M >= 1 (any M: TMA zero-fills the rows past M and clips the
+// store there, where the TPU kernel needed M % 512 == 0), K >= 16 and a
+// multiple of 16, N a multiple of 8 and 8 <= N <= 256; x, w and y start
+// 16-byte aligned.
 //
 // Bound: at the probe's four shapes (ResNet-50's 1x1 convolutions at
-// batch 128) the work is 13.15 GFLOP, 13.3 us at the 989 TFLOP/s bf16
-// tensor-core rate, against 65-257 MB of x, w, y and the sums, 19-77 us at
-// 3.35 TB/s: bound by bytes, mostly the write of y. The products still run
-// on the tensor cores (bf16 mma.sync m16n8k16, f32 accumulate): on the CUDA
-// cores' 67 TFLOP/s f32 FMA they would take 196 us, longer than the bytes.
+// batch 128) the bytes of x, w, y and the sums take 19-77 us at 3.35 TB/s,
+// mostly the write of y (shapes A and B) or the read of x (C, D); the
+// 2MKN operations take 3.3-13.3 us at the 989 TFLOP/s bf16 tensor-core
+// rate. D ([25088, 1024] x [1024, 256]) sits near the balance: 13.3 us of
+// operations against 19.3 us of bytes, so it needs the tensor cores' rate
+// as well as the memory's.
 //
-// Design for this card rather than the Pallas grid carried over. On the
-// TPU the grid walks 512-row tiles in order on one core, holds all of w in
-// VMEM and carries s and s2 in one resident output block from step to
-// step. Here blocks run in parallel and in no order, so:
-// - One block of 256 threads (8 warps) owns a tile of 64 rows and all N
-//   columns (N <= 256), so it writes its y tile once and takes that tile's
-//   statistics in the same epilogue. 64 rows give 392 blocks at the
-//   smallest shape (25088 rows), some three per SM; 512 would give 49.
-// - w does not fit in shared memory (1024 x 256 bf16 is 512 KB), so the
-//   block walks K in chunks of 32: x [64, 32] and w [32, N] tiles are
-//   staged by cp.async into two buffers, the next chunk loading while the
-//   tensor cores work on this one. Rows past M, columns of w past N and
-//   depths past K are zero-filled, so they add nothing to acc or the sums.
-// - Warps 0-3 own 16 rows each of the left half of the columns, warps 4-7
-//   of the right half. A fragments come from the row-major x tile as 32-bit
-//   pairs, B fragments from the row-major w tile by ldmatrix.trans.
-// - Epilogue: y is rounded to bf16 into shared memory and written with
-//   16-byte stores. Column sums of acc and acc^2 are per-thread sums of the
-//   lane's two rows, then xor-shuffles over lanes 4, 8 and 16 (the lanes
-//   of one column pair), then a fixed-order sum over the 4 row warps in
-//   shared memory; each block writes its 64-row partials to a [2, nb, N]
-//   f32 scratch (nb = ceil(M / 64), allocated by the caller).
-// - A second kernel sums the partials per column in a fixed order (each
-//   thread a strided run of blocks, then a tree in shared memory). No
-//   atomics, so s and s2 are the same bits on every run.
+// Design (Hopper's shape: persistent, warp-specialised, TMA and wgmma):
+// - Persistent grid of 64-row tiles (all N columns): min(#SMs, tiles)
+//   blocks; block b walks the row tiles b, b + grid, ... in order and
+//   carries its column sums from tile to tile, so the sums are
+//   deterministic without atomics. 64 rows never put more rows on the
+//   busiest block than 128 do (D: 3 tiles of 64 against 2 of 128).
+// - A producer warp, one thread of which keeps TMA loads in flight in a
+//   ring of `stages` (up to 8) stages: each holds a [64, 64] x chunk
+//   (128-byte swizzle, 2-d map over x, rows past M and columns past K
+//   zero-filled). Full mbarriers carry the bytes' arrival, empty ones the
+//   consumers' release (one arrival a warp).
+// - w on chip. Where w (K rounded up to 64, N up to the wgmma width)
+//   fits beside a full ring and the y staging tile, the producer loads
+//   it once a block into shared memory and it stays there for the whole
+//   walk (A, B, C); else each stage also carries the matching [64, N]
+//   chunk of w (D), which every tile reads again from L2.
+// - Products: one consumer warpgroup runs wgmma.mma_async m64nNPk16
+//   (NP = N rounded up to 64, 128 or 256; the extra columns are zero or
+//   never loaded, and never stored): A = the x chunk (K-major), B = w
+//   [K, N] as it lies, read MN-major through the descriptor's transpose
+//   bit. A chunk's four k-steps are one commit group; the stage of the
+//   previous chunk is released once only the newest group is in flight.
+// - Epilogue, while the producer already loads the next tile: each
+//   thread rounds its accumulators to bf16 into a 128-byte-swizzled
+//   staging tile (conflict-free 4-byte stores) and one thread writes it
+//   with TMA stores, clipped at M and N. The statistics come from the
+//   f32 accumulators in place (each thread sums its two rows), then a
+//   reduce-scatter butterfly over the 8 lanes that share a column (7/8
+//   of a shuffle per value instead of 3), then a fixed-order sum over the
+//   4 warps through shared memory into the block's running [2, N]
+//   partial, held in registers by the threads that own it.
+// - Each block writes its partial once, to row 1 + block of a
+//   [2, 1 + grid, N] f32 buffer (grid <= 132 blocks: 270 KB at N = 256,
+//   where one block a tile wrote 12.8 MB); a second kernel sums the
+//   partials per column in a fixed order into row 0: s, and s2.
+// Measured and left out (PERF.md, section 6): 128-row tiles on two consumer
+// warpgroups, pairs of blocks in a cluster that multicast w's streamed
+// chunks (slower at every grid size), a second y staging buffer.
 // One call of mx_matmul_stats runs both kernels and counts as one launch
-// of K6. Not done yet: wgmma, TMA, a persistent grid that would carry the
-// sums in registers across tiles and shrink the partials.
+// of K6.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace flash;
 
-constexpr int kBM = 64;        // rows of a block's tile
-constexpr int kBK = 32;        // depth of a staged chunk
-constexpr int kThreads = 256;  // 8 warps: 4 row warps x 2 column halves
-constexpr int kRowWarps = 4;
-constexpr int kRedCols = 8;    // columns of one reduce block
+constexpr int kSmemMax = 232448;   // a block's dynamic shared memory
+constexpr int kBM = 64;            // rows of a tile
+constexpr int kConsumers = 128;    // one consumer warpgroup
+constexpr int kThreads = kConsumers + 32;   // and a producer warp
+constexpr int kRedCols = 8;        // columns of one reduce block
 constexpr int kRedThreads = 1024;
 constexpr int kRedGroups = kRedThreads / kRedCols;
 
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
-
-// Shared-memory layout of a block whose tile is NC columns wide. Rows are
-// padded by 8 halves so the fragment loads and stores hit distinct banks.
-template <int NC>
-struct Tile {
-  static constexpr int LDX = kBK + 8;  // halves per row of the x tile
-  static constexpr int LDW = NC + 8;   // halves per row of the w tile
-  static constexpr int LDY = NC + 8;   // halves per row of the y tile
-  static constexpr int kXStage = kBM * LDX;
-  static constexpr int kStage = kXStage + kBK * LDW;   // halves
-  static constexpr int kLoadBytes = 2 * 2 * kStage;    // two stages
-  static constexpr int kYBytes = 2 * kBM * LDY;
-  static constexpr int kRedBytes = 2 * kRowWarps * NC * 4;
-  static constexpr int kSmem = cmax(kLoadBytes, kYBytes + kRedBytes);
+// Byte offsets of a block's shared memory from its 1024-aligned base:
+// the y staging tile, w (resident), the ring, the warps' column sums,
+// the barriers; `total` includes the alignment slack. Every tile slab
+// starts 1024-aligned (128-byte swizzle). ops/matmul_stats.py `_smem`
+// sizes the same layout.
+struct Layout {
+  int ys, wres, ring, red, bars, stage_bytes, total;
 };
 
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+inline __host__ __device__ Layout layout(int np, int kp, int resident,
+                                         int stages) {
+  Layout L;
+  L.stage_bytes = kBM * 128 + (resident ? 0 : 64 * np * 2);
+  L.ys = 0;
+  L.wres = L.ys + kBM * np * 2;
+  L.ring = L.wres + (resident ? kp * np * 2 : 0);
+  L.red = L.ring + stages * L.stage_bytes;
+  L.bars = L.red + 4 * 2 * np * 4;
+  L.total = L.bars + 8 * (2 * stages + 1) + 1024;
+  return L;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, bypassing L1; zero-filled when !ok.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// Four 8x8 b16 matrices, transposed: lanes 8j..8j+7 give the row addresses
-// of matrix j; lane l receives, in r[j], matrix j's elements (2(l%4), l/4)
-// and (2(l%4) + 1, l/4): from a row-major [k][n] tile, the B fragment of
-// mma.m16n8k16.col.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += A(16x16, row) * B(16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Stage the chunk at depth k0: x rows [m0, m0 + 64), w columns [0, NC).
-template <int NC>
-__device__ __forceinline__ void load_chunk(bf16* xs, bf16* ws,
-                                           const bf16* x, const bf16* w,
-                                           int m0, int k0, int M, int K,
-                                           int N, int tid) {
-  using T = Tile<NC>;
-  constexpr int kXVec = kBK / 8;   // 16-byte vectors per x tile row
-  constexpr int kWVec = NC / 8;
-  for (int idx = tid; idx < kBM * kXVec; idx += kThreads) {
-    const int r = idx / kXVec, c = (idx % kXVec) * 8;
-    const bool ok = m0 + r < M && k0 + c < K;
-    cp_async16(xs + r * T::LDX + c,
-               ok ? x + (size_t)(m0 + r) * K + k0 + c : x, ok);
-  }
-  for (int idx = tid; idx < kBK * kWVec; idx += kThreads) {
-    const int r = idx / kWVec, c = (idx % kWVec) * 8;
-    const bool ok = k0 + r < K && c < N;
-    cp_async16(ws + r * T::LDW + c,
-               ok ? w + (size_t)(k0 + r) * N + c : w, ok);
+// One level of the reduce-scatter over lanes `mask` apart: of v[0, 2h)
+// this lane keeps the half its lane bit names and adds the partner's
+// copy of it; the kept half lands in v[0, h).
+template <int H, int MASK>
+__device__ __forceinline__ void scatter_level(float* v, int lane) {
+  const bool upper = (lane & MASK) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = upper ? v[i] : v[i + H];
+    const float keep = upper ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, MASK);
   }
 }
 
-template <int NC>
-__global__ void __launch_bounds__(kThreads, 2)
-matmul_stats_tile(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                  bf16* __restrict__ y, float* __restrict__ part, int M,
-                  int K, int N, int nb) {
-  using T = Tile<NC>;
-  constexpr int kWarpCols = NC / 2;
-  constexpr int NT = kWarpCols / 8;   // 8-column n-tiles of a warp
-  __shared__ __align__(16) unsigned char smem[T::kSmem];
-  bf16* stage0 = reinterpret_cast<bf16*>(smem);
+template <int NP>
+__global__ void __launch_bounds__(kThreads, 1)
+matmul_stats_tile(const __grid_constant__ CUtensorMap tm_x,
+                  const __grid_constant__ CUtensorMap tm_w,
+                  const __grid_constant__ CUtensorMap tm_y,
+                  float* __restrict__ stats, int M, int K, int N,
+                  int resident, int stages) {
+  constexpr int kV = NP / 2;   // accumulators a thread
+  // (stat, column) slots of the block's partial a consumer thread owns
+  constexpr int kSlots = (2 * NP + kConsumers - 1) / kConsumers;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const int kp = (K + 63) / 64 * 64, nk = kp / 64;
+  const Layout L = layout(NP, kp, resident, stages);
+  const uint32_t ys = base + L.ys, wres = base + L.wres;
+  const uint32_t ring = base + L.ring, bars = base + L.bars;
+  float* red = reinterpret_cast<float*>(gbase + L.red);   // [4][2][NP]
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (stages + s); };
+  const uint32_t w_full = bars + 8u * (2 * stages);
+  const int tiles = (M + kBM - 1) / kBM;
+  const int tid = threadIdx.x;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wr = warp % kRowWarps, wc = warp / kRowWarps;
-  const int g = lane >> 2;   // fragment row (and row + 8)
-  const int tg = lane & 3;   // fragment column pair
-  const int m0 = blockIdx.x * kBM;
-  const int nk = (K + kBK - 1) / kBK;
-
-  float acc[NT][4];
-#pragma unroll
-  for (int t = 0; t < NT; ++t)
-    acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-
-  load_chunk<NC>(stage0, stage0 + T::kXStage, x, w, m0, 0, M, K, N, tid);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      bf16* nxt = stage0 + ((kt + 1) & 1) * T::kStage;
-      load_chunk<NC>(nxt, nxt + T::kXStage, x, w, m0, (kt + 1) * kBK, M, K,
-                     N, tid);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4);   // one arrival a consumer warp
     }
-    cp_async_commit();   // possibly empty: keeps one group in flight
-    cp_async_wait<1>();  // chunk kt has landed (this thread's copies)
-    __syncthreads();     // ... and every thread's
-    const bf16* xs = stage0 + (kt & 1) * T::kStage;
-    const bf16* ws = xs + T::kXStage;
-#pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      uint32_t a[4];
-      const bf16* xa = xs + (wr * 16 + g) * T::LDX + ks * 16 + tg * 2;
-      a[0] = ld_pair(xa);
-      a[1] = ld_pair(xa + 8 * T::LDX);
-      a[2] = ld_pair(xa + 8);
-      a[3] = ld_pair(xa + 8 * T::LDX + 8);
-      // lane l addresses row l%8 of matrix l/8: matrices (k 0-7, n-tile
-      // 2p), (k 8-15, 2p), (k 0-7, 2p+1), (k 8-15, 2p+1)
-      const int j = lane >> 3;
-      const bf16* wb = ws + (ks * 16 + (j & 1) * 8 + (lane & 7)) * T::LDW +
-                       wc * kWarpCols + (j >> 1) * 8;
-#pragma unroll
-      for (int p = 0; p < NT / 2; ++p) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, wb + p * 16);
-        mma_bf16(acc[2 * p], a, b[0], b[1]);
-        mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();   // every read of this stage is done before reuse
-  }
-  cp_async_wait<0>();
-
-  // epilogue: the shared memory of the stages now holds the bf16 y tile
-  // and the row warps' column sums
-  bf16* ys = reinterpret_cast<bf16*>(smem);
-  float* red = reinterpret_cast<float*>(smem + T::kYBytes);  // [2][4][NC]
-  const int r = wr * 16 + g;
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    const int c = wc * kWarpCols + t * 8 + tg * 2;
-    *reinterpret_cast<uint32_t*>(ys + r * T::LDY + c) =
-        pack_bf16(acc[t][0], acc[t][1]);
-    *reinterpret_cast<uint32_t*>(ys + (r + 8) * T::LDY + c) =
-        pack_bf16(acc[t][2], acc[t][3]);
-    float s0 = acc[t][0] + acc[t][2], s1 = acc[t][1] + acc[t][3];
-    float q0 = acc[t][0] * acc[t][0] + acc[t][2] * acc[t][2];
-    float q1 = acc[t][1] * acc[t][1] + acc[t][3] * acc[t][3];
-#pragma unroll
-    for (int off = 4; off < 32; off <<= 1) {
-      s0 += __shfl_xor_sync(0xffffffffu, s0, off);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-      q0 += __shfl_xor_sync(0xffffffffu, q0, off);
-      q1 += __shfl_xor_sync(0xffffffffu, q1, off);
-    }
-    if (g == 0) {
-      red[wr * NC + c] = s0;
-      red[wr * NC + c + 1] = s1;
-      red[(kRowWarps + wr) * NC + c] = q0;
-      red[(kRowWarps + wr) * NC + c + 1] = q1;
-    }
+    mbar_init(w_full, 1);
+    mbar_init_fence();
   }
   __syncthreads();
-  if (tid < N) {   // N <= NC <= kThreads
-    const float* rs = red + tid;
-    const float* rq = red + kRowWarps * NC + tid;
-    part[(size_t)blockIdx.x * N + tid] =
-        (rs[0] + rs[NC]) + (rs[2 * NC] + rs[3 * NC]);
-    part[((size_t)nb + blockIdx.x) * N + tid] =
-        (rq[0] + rq[NC]) + (rq[2 * NC] + rq[3 * NC]);
+
+  if (tid >= kConsumers) {
+    // producer: one thread issues every load
+    if (tid == kConsumers) {
+      // w's slabs that hold a column below N; the others stay unloaded:
+      // they only reach accumulator columns that are never stored
+      const int wslabs = (N + 63) / 64;
+      if (resident) {
+        mbar_expect_tx(w_full, kp * wslabs * 128);
+        for (int kc = 0; kc < nk; ++kc)
+          for (int c = 0; c < wslabs; ++c)
+            tma_load_2d(wres + c * kp * 128 + kc * 64 * 128, &tm_w, w_full,
+                        c * 64, kc * 64);
+      }
+      const uint32_t stage_tx = kBM * 128 + (resident ? 0 : wslabs * 8192);
+      int s = 0;
+      uint32_t phase = 0;
+      bool wrapped = false;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        for (int kc = 0; kc < nk; ++kc) {
+          if (wrapped) mbar_wait(empty(s), phase ^ 1u);
+          const uint32_t st = ring + s * L.stage_bytes;
+          mbar_expect_tx(full(s), stage_tx);
+          tma_load_2d(st, &tm_x, full(s), kc * 64, t * kBM);
+          if (!resident) {
+            for (int c = 0; c < wslabs; ++c)
+              tma_load_2d(st + kBM * 128 + c * 64 * 128, &tm_w, full(s),
+                          c * 64, kc * 64);
+          }
+          if (++s == stages) {
+            s = 0;
+            phase ^= 1u;
+            wrapped = true;
+          }
+        }
+      }
+    }
+    return;
   }
-  constexpr int kYVec = NC / 8;
-  const int rows = M - m0 < kBM ? M - m0 : kBM;
-  for (int idx = tid; idx < kBM * kYVec; idx += kThreads) {
-    const int yr = idx / kYVec, c = (idx % kYVec) * 8;
-    if (yr < rows && c < N)
-      *reinterpret_cast<uint4*>(y + (size_t)(m0 + yr) * N + c) =
-          *reinterpret_cast<const uint4*>(ys + yr * T::LDY + c);
+
+  // the consumer warpgroup
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const int row0 = warp * 16 + g;   // and row0 + 8
+  // w's descriptor: resident slabs are kp rows, streamed ones 64
+  const uint32_t w_lbo = resident ? kp * 128 : 64 * 128;
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  };
+
+  // m64nNP f32 accumulator: element 4n + 2i + j is (row0 + 8i, 8n + 2tg + j)
+  float acc[kV];
+  float psum[kSlots];
+#pragma unroll
+  for (int i = 0; i < kSlots; ++i) psum[i] = 0.f;
+
+  int s = 0;
+  uint32_t phase = 0;
+  if (resident) mbar_wait(w_full, 0);
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    int prev = 0;
+    fence_regs<kV>(acc);
+    for (int kc = 0; kc < nk; ++kc) {
+      mbar_wait(full(s), phase);
+      const uint32_t xs = ring + s * L.stage_bytes;
+      const uint32_t wb = resident ? wres + kc * 64 * 128 : xs + kBM * 128;
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < 4; ++kd)
+        wgmma_ss_tb<NP>(acc, smem_desc(xs + kd * 32, 16, 1024),
+                        smem_desc(wb + kd * 16 * 128, w_lbo, 1024),
+                        kc > 0 || kd > 0);
+      wgmma_commit();
+      if (kc > 0) {
+        wgmma_wait<1>();   // the previous chunk's products are done
+        release(prev);
+      }
+      prev = s;
+      if (++s == stages) {
+        s = 0;
+        phase ^= 1u;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs<kV>(acc);
+    release(prev);
+
+    // the staging tile is free once the last tile's store has read it;
+    // the warps' column sums of the last tile have been read
+    if (tid == 0) bulk_wait_read<0>();
+    named_sync(1, kConsumers);
+
+    // y: bf16 pairs into the swizzled staging tile, slab n / 8, 16-byte
+    // chunk (n % 8) ^ (row % 8) of the row (row % 8 == g)
+#pragma unroll
+    for (int n = 0; n < NP / 8; ++n) {
+      const uint32_t a = ys + (n / 8) * kBM * 128 + row0 * 128 +
+                         (((n % 8) ^ g) * 16) + tg * 4;
+      st_shared_u32(a, pack_bf16(acc[4 * n], acc[4 * n + 1]));
+      st_shared_u32(a + 8 * 128, pack_bf16(acc[4 * n + 2], acc[4 * n + 3]));
+    }
+    fence_async_smem();
+
+    // statistics in place: v[4n + j] = sum, v[4n + 2 + j] = sum of
+    // squares of column 8n + 2tg + j over this lane's two rows
+#pragma unroll
+    for (int n = 0; n < NP / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float a = acc[4 * n + j], b = acc[4 * n + 2 + j];
+        acc[4 * n + j] = a + b;
+        acc[4 * n + 2 + j] = a * a + b * b;
+      }
+    // over the 8 lanes of a column (lane bits 4, 3, 2): this lane ends
+    // with v[0, kV / 8) = values hi * kV/2 + mid * kV/4 + lo * kV/8 + r
+    scatter_level<kV / 2, 16>(acc, lane);
+    scatter_level<kV / 4, 8>(acc, lane);
+    scatter_level<kV / 8, 4>(acc, lane);
+    const int i0 = ((lane >> 4) & 1) * (kV / 2) + ((lane >> 3) & 1) * (kV / 4) +
+                   ((lane >> 2) & 1) * (kV / 8);
+#pragma unroll
+    for (int r = 0; r < kV / 8; ++r) {
+      const int i = i0 + r;
+      const int stat = (i >> 1) & 1, col = 8 * (i >> 2) + 2 * tg + (i & 1);
+      red[(warp * 2 + stat) * NP + col] = acc[r];
+    }
+    named_sync(1, kConsumers);
+
+    if (tid == 0) {
+#pragma unroll
+      for (int c = 0; c < NP / 64; ++c)
+        if (c * 64 < N)
+          tma_store_2d(&tm_y, ys + c * kBM * 128, c * 64, t * kBM);
+      bulk_commit();
+    }
+    // the block's partial, in tile order, each slot over the warps in order
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      const int p = tid + i * kConsumers;
+      if (p < 2 * NP) {
+        const float* r = red + (p / NP) * NP + p % NP;
+        psum[i] += (r[0] + r[2 * NP]) + (r[4 * NP] + r[6 * NP]);
+      }
+    }
   }
+
+#pragma unroll
+  for (int i = 0; i < kSlots; ++i) {
+    const int p = tid + i * kConsumers;
+    const int stat = p / NP, col = p % NP;
+    if (p < 2 * NP && col < N)
+      stats[((size_t)stat * (gridDim.x + 1) + 1 + blockIdx.x) * N + col] =
+          psum[i];
+  }
+  if (tid == 0) bulk_wait_all();
 }
 
-// s[c] and s2[c] from the [2, nb, N] partials: a block owns 8 columns;
-// thread (group, column) sums blocks group, group + 128, ... in order,
-// then the 128 groups fold in a fixed tree in shared memory.
+// s[c] and s2[c] (rows 0 of the [2, 1 + nb, N] buffer) from the nb
+// blocks' partials (rows 1 ..): a block owns 8 columns; thread (group,
+// column) sums blocks group, group + 128, ... in order, then the 128
+// groups fold in a fixed tree in shared memory.
 __global__ void __launch_bounds__(kRedThreads)
-matmul_stats_reduce(const float* __restrict__ part, float* __restrict__ s,
-                    float* __restrict__ s2, int nb, int N) {
+matmul_stats_reduce(float* __restrict__ stats, int nb, int N) {
   __shared__ float sh[2][kRedGroups][kRedCols];
   const int c = threadIdx.x % kRedCols, grp = threadIdx.x / kRedCols;
   const int col = blockIdx.x * kRedCols + c;   // < N: N % 8 == 0
+  float* s = stats;
+  float* s2 = stats + (size_t)(nb + 1) * N;
   float a = 0.f, b = 0.f;
   for (int i = grp; i < nb; i += kRedGroups) {
-    a += part[(size_t)i * N + col];
-    b += part[((size_t)nb + i) * N + col];
+    a += s[(size_t)(1 + i) * N + col];
+    b += s2[(size_t)(1 + i) * N + col];
   }
   sh[0][grp][c] = a;
   sh[1][grp][c] = b;
@@ -295,36 +339,86 @@ matmul_stats_reduce(const float* __restrict__ part, float* __restrict__ s,
   }
 }
 
-template <int NC>
-cudaError_t launch_tiles(const void* x, const void* w, void* y, float* part,
-                         int M, int K, int N, int nb, cudaStream_t st) {
-  matmul_stats_tile<NC><<<nb, kThreads, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<bf16*>(y), part, M, K, N, nb);
-  return cudaGetLastError();
+template <int NP>
+int launch_tiles(const CUtensorMap& tx, const CUtensorMap& tw,
+                 const CUtensorMap& ty, float* stats, int M, int K, int N,
+                 int grid, int resident, int stages, int smem,
+                 cudaStream_t st) {
+  constexpr auto kernel = matmul_stats_tile<NP>;
+  cudaError_t e = allow_smem<kernel>(kSmemMax);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, kThreads, smem, st>>>(tx, tw, ty, stats, M, K, N, resident,
+                                       stages);
+  return (int)cudaGetLastError();
+}
+
+// The tensor map of a 2-d bf16 matrix (encode_map_2d), kept from the last
+// call of this thread in `slot`: a map is a function of its arguments
+// alone, and a caller that repeats its operands (or gets the same block
+// back from the caching allocator) skips the encode.
+int cached_map(int slot, CUtensorMap* map, const void* ptr, long long cols,
+               long long rows, int box_rows) {
+  struct Entry {
+    CUtensorMap map;
+    const void* ptr;
+    long long cols, rows;
+    int box_rows;
+    bool ok;
+  };
+  static thread_local Entry last[3];
+  Entry& e = last[slot];
+  if (!(e.ok && e.ptr == ptr && e.cols == cols && e.rows == rows &&
+        e.box_rows == box_rows)) {
+    e.ok = false;
+    const int r = encode_map_2d(&e.map, ptr, cols, rows, cols * 2, box_rows);
+    if (r != 0) return r;
+    e.ptr = ptr;
+    e.cols = cols;
+    e.rows = rows;
+    e.box_rows = box_rows;
+    e.ok = true;
+  }
+  *map = e.map;
+  return 0;
 }
 
 }  // namespace
 
 // x [M, K], w [K, N], y [M, N]: contiguous bf16 device buffers, 16-byte
-// aligned; s, s2: N f32 each; partials: 2 * ceil(M / 64) * N f32 of
-// scratch. Returns the cudaError_t of the two launches (0 on success).
+// aligned; stats: a [2, 1 + grid, N] f32 buffer, rows 0 s and s2 on
+// return, rows 1 .. grid scratch. The plan (ops/matmul_stats.py `plan`):
+// grid blocks (1 .. ceil(M / 64)), w resident (1) or streamed (0), ring
+// stages >= 2. Returns the cudaError_t of the two launches (0 on
+// success), or flash::kErrNoEncoder / kErrEncode + the CUresult when a
+// tensor map cannot be made.
 extern "C" int mx_matmul_stats(const void* x, const void* w, void* y,
-                               float* s, float* s2, float* partials, int M,
-                               int K, int N, void* stream) {
+                               float* stats, int M, int K, int N, int grid,
+                               int resident, int stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M < 1 || K < 16 || K % 16 != 0 || N < 8 || N % 8 != 0 || N > 256)
+  if (M < 1 || K < 16 || K % 16 != 0 || N < 8 || N % 8 != 0 || N > 256 ||
+      grid < 1 || grid > (M + kBM - 1) / kBM || stages < 2 ||
+      ((uintptr_t)x | (uintptr_t)w | (uintptr_t)y) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const int nb = (M + kBM - 1) / kBM;
-  cudaError_t err;
-  if (N <= 64)
-    err = launch_tiles<64>(x, w, y, partials, M, K, N, nb, st);
-  else if (N <= 128)
-    err = launch_tiles<128>(x, w, y, partials, M, K, N, nb, st);
+  const int np = N <= 64 ? 64 : N <= 128 ? 128 : 256;
+  const int kp = (K + 63) / 64 * 64;
+  const Layout L = layout(np, kp, resident != 0, stages);
+  if (L.total > kSmemMax) return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, tw, ty;
+  int r = cached_map(0, &tx, x, K, M, kBM);
+  if (r == 0) r = cached_map(1, &tw, w, N, K, 64);
+  if (r == 0) r = cached_map(2, &ty, y, N, M, kBM);
+  if (r != 0) return r;
+  const int res = resident != 0;
+  if (np == 64)
+    r = launch_tiles<64>(tx, tw, ty, stats, M, K, N, grid, res, stages,
+                         L.total, st);
+  else if (np == 128)
+    r = launch_tiles<128>(tx, tw, ty, stats, M, K, N, grid, res, stages,
+                          L.total, st);
   else
-    err = launch_tiles<256>(x, w, y, partials, M, K, N, nb, st);
-  if (err != cudaSuccess) return (int)err;
-  matmul_stats_reduce<<<N / kRedCols, kRedThreads, 0, st>>>(partials, s, s2,
-                                                            nb, N);
+    r = launch_tiles<256>(tx, tw, ty, stats, M, K, N, grid, res, stages,
+                          L.total, st);
+  if (r != 0) return r;
+  matmul_stats_reduce<<<N / kRedCols, kRedThreads, 0, st>>>(stats, grid, N);
   return (int)cudaGetLastError();
 }

@@ -7,38 +7,53 @@
 // caller is SoftmaxOutput's forward (mxnet_tpu/ops/loss.py:41-43): LeNet at
 // [64, 10] f32, ResNet-50 at [128, 1000] f32.
 //
-// Bound: two f32 operations a byte at most, so memory bound everywhere. The
+// Bound: five f32 operations an element, so memory bound everywhere. The
 // least traffic is one read of x and one write of y (2 N C elem bytes):
-// [128, 1000] f32 is 1.02 MB, 0.31 us at 3.35 TB/s; at such sizes a launch
-// costs more than the bytes.
+// [128, 1000] f32 is 1.02 MB, 0.31 us at 3.35 TB/s; at such sizes the
+// launch and one round trip to memory cost more than the bytes, so what
+// counts is the chain of dependent steps a row waits on.
 //
-// Design for this card rather than the TPU grid carried over. The TPU
-// kernel keeps a block of up to 256 whole rows in VMEM and falls back to
-// jax.nn.softmax when a row passes 4 MB. Here there is no row limit and
-// no fallback: a thread walks its share of the row once, keeping a running
-// max m and sum s (the online-softmax merge: a larger value v rescales the
-// sum, s = s * exp(m - v) + 1); the (m, s) pairs merge across the warp by
-// shuffles and across warps through shared memory; a second pass re-reads
-// the row (from L2 while it is still there) and writes exp(x - m) / s. The
-// row is read twice and written once; only two floats per thread live
-// across the passes, so any C fits.
+// Design: the row is read once, into registers, and every thread issues
+// all its loads before it uses any. Then the max (fmaxf over the
+// registers, shuffles within the row's threads, shared memory across
+// warps), the sum of exp(x - max) (kept in registers where they fit), the
+// write of exp(x - max) / sum from the registers. No per-element
+// rescaling. Variants by row width (the `variant` argument; ops/softmax.py
+// `variant` picks the first that holds the row), each spreading rows over
+// the SMs:
+//   id  threads a row  slots a thread          row capacity (f32; bf16/f16)
+//   1   4 lanes        2 scalars               C <= 8
+//   2   8 lanes        2 scalars               C <= 16
+//   3   8 lanes        4 scalars               C <= 32
+//   4   a warp         1 16-byte vector        C/v <= 32   (128; 256)
+//   5   a warp         2 vectors               C/v <= 64   (256; 512)
+//   6   a warp         4 vectors               C/v <= 128  (512; 1024)
+//   7   a warp         8 vectors               C/v <= 256  (1024; 2048)
+//   8   256 threads    8 vectors               C/v <= 2048 (8192; 16384)
+//   9   512 threads    8 vectors               C/v <= 4096 (16384; 32768)
+//   0   512 threads    two passes, online      any C
+// (v = elements a 16-byte vector: 4 f32, 8 bf16/f16.) Variants 1-3 hold
+// 128 threads a block (32, 16, 16 rows), 4-7 two warps (two rows), 8-9
+// one row a block. [128, 1000] f32 runs variant 7 on 64 blocks; [64, 10]
+// f32 variant 2 on 4 blocks (8 lanes a row ran faster than 4 on the
+// H100); [4096, 32000] bf16 variant 9, 4096 blocks of a row each. In 8-9
+// the 16-bit types keep the raw vectors and take exp again for the write
+// rather than hold 8 f32 values a vector in registers. Variant 0 is the
+// former kernel: a thread walks its share of the row keeping a running
+// (max, sum), the pairs merge across the block, a second pass re-reads
+// the row and writes; only two floats a thread live across the passes,
+// so any C fits ([8, 2097152] f32).
 //
-// - Narrow rows (C <= 1024, the paths' 10 and 1000): one warp per row,
-//   8 rows per 256-thread block, so a [128, 1000] problem is 16 blocks of
-//   full warps rather than 128 blocks of mostly idle threads.
-// - Wide rows: one 512-thread block per row.
-// Loads and stores are 16 bytes a thread (4 f32 or 8 bf16/f16) over the
-// 16-byte aligned body of each row; the unaligned head and the tail go
-// element by element, so unaligned rows (odd C) still vectorise their body.
-// The write pass vectorises when x's and y's rows share their alignment
-// (always, for a fresh y and an x without a storage offset), else it goes
-// element by element.
+// Vector variants read the 16-byte aligned body of each row as vectors;
+// the unaligned head and the tail (fewer than 2v elements in all) are one
+// scalar slot of the first threads. The write vectorises when x's and
+// y's rows share their alignment, else it writes element by element from
+// the same registers. Slots past the row hold -inf: exp(-inf - max) is 0,
+// and a row of -inf gives NaN as the plain version does (-inf - -inf).
 //
 // exp is the accurate expf (no fast-math flag), and the division is a true
 // f32 division, so the result differs from the plain f32 version only by
-// summation order. Not done yet: caching a row in shared memory for a
-// single read, and splitting a few huge rows across several blocks (the
-// [8, 2097152] f32 check runs 8 blocks on 132 SMs).
+// summation order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -48,9 +63,12 @@
 
 namespace {
 
-constexpr int kNarrowC = 1024;
-constexpr int kNarrowThreads = 256;   // 8 warps, one row each
-constexpr int kWideThreads = 512;
+constexpr int kWideThreads = 512;   // variant 0
+
+// Row capacity of variants 1-9 (the table above): 1-3 in elements, 4-9
+// in 16-byte vectors; variant 0 takes any row.
+constexpr long long kCapacity[10] = {0, 8, 16, 32, 32, 64, 128, 256,
+                                     2048, 4096};
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -89,6 +107,7 @@ __device__ __forceinline__ uint32_t bits(__half v) {
 template <typename T> struct Vec;
 template <> struct Vec<float> {
   static constexpr int n = 4;
+  static constexpr uint32_t kNegInf = 0xff800000u;   // a word of -inf
   __device__ static void load(const uint4& u, float (&f)[4]) {
     f[0] = __uint_as_float(u.x);
     f[1] = __uint_as_float(u.y);
@@ -102,6 +121,7 @@ template <> struct Vec<float> {
 };
 template <> struct Vec<__nv_bfloat16> {
   static constexpr int n = 8;
+  static constexpr uint32_t kNegInf = 0xff80ff80u;
   __device__ static void load(const uint4& u, float (&f)[8]) {
     const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
@@ -120,6 +140,7 @@ template <> struct Vec<__nv_bfloat16> {
 };
 template <> struct Vec<__half> {
   static constexpr int n = 8;
+  static constexpr uint32_t kNegInf = 0xfc00fc00u;
   __device__ static void load(const uint4& u, float (&f)[8]) {
     const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
@@ -220,23 +241,166 @@ __device__ void row_write(const T* row, T* out, long long c, int tid, int n,
     out[i] = from_f<T>(expf(to_f(row[i]) - m) / s);
 }
 
-// One warp per row.
-template <typename T>
-__global__ void __launch_bounds__(kNarrowThreads)
-softmax_narrow(const T* __restrict__ x, T* __restrict__ y, long long rows,
-               long long c) {
-  const int lane = threadIdx.x & 31;
-  const long long r =
-      (long long)blockIdx.x * (kNarrowThreads / 32) + (threadIdx.x >> 5);
-  if (r >= rows) return;   // whole warps leave together
-  const T* row = x + r * c;
-  float m = -INFINITY, s = 0.f;
-  row_stats(row, c, lane, 32, m, s);
-  warp_merge(m, s);
-  row_write(row, y + r * c, c, lane, 32, m, s);
+// Max and sum over the G threads of a row: G-aligned lanes of one warp.
+template <int G>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
 }
 
-// One block per row.
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// ... and over a block of kThreads threads that holds one row: each warp's
+// value through shared memory, every thread folding them in warp order
+template <int kThreads, bool kMax>
+__device__ __forceinline__ float block_reduce(float v, float* sh) {
+  v = kMax ? group_max<32>(v) : group_sum<32>(v);
+  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float r = sh[0];
+#pragma unroll
+  for (int i = 1; i < kThreads / 32; ++i)
+    r = kMax ? fmaxf(r, sh[i]) : r + sh[i];
+  return r;
+}
+
+// Variants 1-3: G lanes a row (4 or 8), S scalar slots a lane (element
+// lane + G * slot), 128 threads a block. Groups past the last row keep to
+// the shuffles and store nothing.
+template <typename T, int G, int S>
+__global__ void __launch_bounds__(128, 1)
+softmax_small(const T* __restrict__ x, T* __restrict__ y, long long rows,
+              int c) {
+  const int t = threadIdx.x % G;
+  const long long r = (long long)blockIdx.x * (128 / G) + threadIdx.x / G;
+  const bool live = r < rows;
+  const T* row = x + r * c;
+  float v[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int i = t + s * G;
+    v[s] = live && i < c ? to_f(row[i]) : -INFINITY;
+  }
+  float m = v[0];
+#pragma unroll
+  for (int s = 1; s < S; ++s) m = fmaxf(m, v[s]);
+  m = group_max<G>(m);
+  float sum = 0.f;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    v[s] = expf(v[s] - m);
+    sum += v[s];
+  }
+  sum = group_sum<G>(sum);
+  if (!live) return;
+  T* out = y + r * c;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int i = t + s * G;
+    if (i < c) out[i] = from_f<T>(v[s] / sum);
+  }
+}
+
+// Variants 4-9: G threads a row (a warp, or the whole block of
+// kThreads), S 16-byte vectors of the row's aligned body a thread (vector
+// t + G * slot) and one scalar slot for the head and tail. kReexp: take
+// exp again for the write rather than keep S * v f32 values.
+template <typename T, int G, int S, int kThreads, bool kReexp>
+__global__ void __launch_bounds__(kThreads, 1)
+softmax_rows(const T* __restrict__ x, T* __restrict__ y, long long rows,
+             long long c) {
+  using V = Vec<T>;
+  constexpr int kVec = V::n;
+  constexpr bool kBlock = G > 32;
+  static_assert(!kBlock || G == kThreads, "a wide row takes its block");
+  __shared__ float sh_m[kBlock ? kThreads / 32 : 1];
+  __shared__ float sh_s[kBlock ? kThreads / 32 : 1];
+  const int t = threadIdx.x % G;
+  const long long r = (long long)blockIdx.x * (kThreads / G) + threadIdx.x / G;
+  if (r >= rows) return;   // whole warps leave together
+  const T* row = x + r * c;
+  T* out = y + r * c;
+  const long long head = head_len(row, c);
+  const long long nvec = (c - head) / kVec;
+  const long long tail = c - head - nvec * kVec;
+  const uint4* body = reinterpret_cast<const uint4*>(row + head);
+
+  // every load first: the body's vectors, then the head or tail element
+  uint4 raw[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const long long j = t + (long long)s * G;
+    raw[s] = j < nvec ? body[j]
+                      : make_uint4(V::kNegInf, V::kNegInf, V::kNegInf,
+                                   V::kNegInf);
+  }
+  long long ie = -1;
+  float xe = -INFINITY;
+  if (t < head + tail) {
+    ie = t < head ? t : head + nvec * kVec + (t - head);
+    xe = to_f(row[ie]);
+  }
+
+  float m = xe;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    float f[kVec];
+    V::load(raw[s], f);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) m = fmaxf(m, f[k]);
+  }
+  m = kBlock ? block_reduce<kThreads, true>(m, sh_m) : group_max<G>(m);
+
+  float e[kReexp ? 1 : S][kVec];
+  const float ee = expf(xe - m);
+  float sum = ee;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    float f[kVec];
+    V::load(raw[s], f);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const float q = expf(f[k] - m);
+      sum += q;
+      if constexpr (!kReexp) e[s][k] = q;
+    }
+  }
+  sum = kBlock ? block_reduce<kThreads, false>(sum, sh_s) : group_sum<G>(sum);
+
+  if (ie >= 0) out[ie] = from_f<T>(ee / sum);
+  const bool vec_out = (((uintptr_t)row ^ (uintptr_t)out) & 15u) == 0;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const long long j = t + (long long)s * G;
+    if (j >= nvec) continue;
+    float f[kVec];
+    if constexpr (kReexp) {
+      V::load(raw[s], f);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) f[k] = expf(f[k] - m) / sum;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) f[k] = e[s][k] / sum;
+    }
+    if (vec_out) {
+      reinterpret_cast<uint4*>(out + head)[j] = V::store(f);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kVec; ++k)
+        out[head + j * kVec + k] = from_f<T>(f[k]);
+    }
+  }
+}
+
+// Variant 0: one block a row, two passes.
 template <typename T>
 __global__ void __launch_bounds__(kWideThreads)
 softmax_wide(const T* __restrict__ x, T* __restrict__ y, long long c) {
@@ -268,17 +432,55 @@ softmax_wide(const T* __restrict__ x, T* __restrict__ y, long long c) {
 }
 
 template <typename T>
-int launch(const void* x, void* y, long long rows, long long c,
+int launch(const void* x, void* y, long long rows, long long c, int variant,
            cudaStream_t st) {
   const T* xp = static_cast<const T*>(x);
   T* yp = static_cast<T*>(y);
-  if (c <= kNarrowC) {
-    const long long blocks = (rows + kNarrowThreads / 32 - 1) /
-                             (kNarrowThreads / 32);
-    softmax_narrow<T><<<(unsigned)blocks, kNarrowThreads, 0, st>>>(
-        xp, yp, rows, c);
-  } else {
-    softmax_wide<T><<<(unsigned)rows, kWideThreads, 0, st>>>(xp, yp, c);
+  constexpr bool k16 = sizeof(T) == 2;
+  const long long cap = variant <= 3 ? c : c / Vec<T>::n;
+  if (variant < 0 || variant > 9 || (variant > 0 && cap > kCapacity[variant]))
+    return (int)cudaErrorInvalidValue;
+  auto blocks = [&](long long per_block) {
+    return (unsigned)((rows + per_block - 1) / per_block);
+  };
+  const int ci = (int)(c < 32 ? c : 32);
+  switch (variant) {
+    case 1:
+      softmax_small<T, 4, 2><<<blocks(32), 128, 0, st>>>(xp, yp, rows, ci);
+      break;
+    case 2:
+      softmax_small<T, 8, 2><<<blocks(16), 128, 0, st>>>(xp, yp, rows, ci);
+      break;
+    case 3:
+      softmax_small<T, 8, 4><<<blocks(16), 128, 0, st>>>(xp, yp, rows, ci);
+      break;
+    case 4:
+      softmax_rows<T, 32, 1, 64, false><<<blocks(2), 64, 0, st>>>(xp, yp,
+                                                                  rows, c);
+      break;
+    case 5:
+      softmax_rows<T, 32, 2, 64, false><<<blocks(2), 64, 0, st>>>(xp, yp,
+                                                                  rows, c);
+      break;
+    case 6:
+      softmax_rows<T, 32, 4, 64, false><<<blocks(2), 64, 0, st>>>(xp, yp,
+                                                                  rows, c);
+      break;
+    case 7:
+      softmax_rows<T, 32, 8, 64, false><<<blocks(2), 64, 0, st>>>(xp, yp,
+                                                                  rows, c);
+      break;
+    case 8:
+      softmax_rows<T, 256, 8, 256, k16><<<blocks(1), 256, 0, st>>>(xp, yp,
+                                                                   rows, c);
+      break;
+    case 9:
+      softmax_rows<T, 512, 8, 512, k16><<<blocks(1), 512, 0, st>>>(xp, yp,
+                                                                   rows, c);
+      break;
+    default:
+      softmax_wide<T><<<blocks(1), kWideThreads, 0, st>>>(xp, yp, c);
+      break;
   }
   return (int)cudaGetLastError();
 }
@@ -286,16 +488,17 @@ int launch(const void* x, void* y, long long rows, long long c,
 }  // namespace
 
 // x, y: contiguous [rows, c] device buffers of one dtype; dtype 0 f32,
-// 1 bf16, 2 f16. Returns the cudaError_t of the launch.
+// 1 bf16, 2 f16; variant 0-9 from the table above (one that holds c).
+// Returns the cudaError_t of the launch.
 extern "C" int mx_softmax(const void* x, void* y, long long rows, long long c,
-                          int dtype, void* stream) {
+                          int dtype, int variant, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rows < 1 || c < 1 || rows > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
-    case 0: return launch<float>(x, y, rows, c, st);
-    case 1: return launch<__nv_bfloat16>(x, y, rows, c, st);
-    case 2: return launch<__half>(x, y, rows, c, st);
+    case 0: return launch<float>(x, y, rows, c, variant, st);
+    case 1: return launch<__nv_bfloat16>(x, y, rows, c, variant, st);
+    case 2: return launch<__half>(x, y, rows, c, variant, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -10,23 +10,71 @@ entry point is ``tools/torch_probe_matmul_stats.py``. The kernel is
 
 - On CPU tensors :func:`matmul_stats` is :func:`matmul_stats_reference`.
 - On CUDA tensors it launches the kernel and nothing else: inputs the
-  kernel does not take (not both bf16, 2-D, contiguous and on one card;
-  K not a multiple of 16; N not a multiple of 8 in [8, 256]) raise, and
-  so do a failed build and a failed launch. Any M >= 1 works.
+  kernel does not take (not both bf16, 2-D, contiguous, 16-byte aligned
+  and on one card; K not a multiple of 16; N not a multiple of 8 in
+  [8, 256]) raise, and so do a failed build and a failed launch. Any
+  M >= 1 works.
 
 ``matmul_stats.launches`` counts kernel launches, bumped where the
 kernel is launched and nowhere else. One launch runs two CUDA kernels:
-the row tiles, then the fixed-order sum of their column partials.
+the persistent row-tile kernel, then the fixed-order sum of its blocks'
+column partials. :func:`plan` is the host's half of the kernel: the
+grid, whether w stays in shared memory and the ring's depth, from the
+shape and the SM count.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..base import MXNetError
 
-__all__ = ["matmul_stats", "matmul_stats_reference", "ROW_TILE"]
+__all__ = ["matmul_stats", "matmul_stats_reference", "plan", "ROW_TILE"]
 
-ROW_TILE = 64   # rows of one block's tile: the partials are [2, ceil(M/64), N]
+ROW_TILE = 64        # rows of a tile: the kernel's one consumer warpgroup
+SMEM_MAX = 232448    # a block's dynamic shared memory on the H100
+MAX_STAGES = 8
+H100_SMS = 132
+
+
+def _smem(np_, kp, resident, stages):
+    """Bytes of the kernel's shared-memory layout (``layout`` in
+    ``csrc/matmul_stats.cu``): the y staging tile, w when resident, the
+    ring, the warps' column sums, the barriers, 1024 of alignment
+    slack."""
+    stage = ROW_TILE * 128 + (0 if resident else 64 * np_ * 2)
+    return (ROW_TILE * np_ * 2 + (kp * np_ * 2 if resident else 0)
+            + stages * stage + 4 * 2 * np_ * 4 + 8 * (2 * stages + 1) + 1024)
+
+
+def plan(m, k, n, sms=H100_SMS, resident=None):
+    """The kernel's launch plan for x [m, k] and w [k, n] on a card with
+    ``sms`` SMs, a dict of
+
+    - ``np``: the wgmma width, n rounded up to 64, 128 or 256;
+    - ``tiles`` of ROW_TILE rows and ``grid`` = min(sms, tiles)
+      persistent blocks;
+    - ``resident``: w stays in shared memory for the whole walk when it
+      fits beside a ring of MAX_STAGES stages (so it never costs the ring
+      depth), else each stage streams its [64, n] chunk of w; the
+      argument forces one or the other;
+    - ``stages``: the deepest ring (up to MAX_STAGES) that fits; ``smem``:
+      the bytes."""
+    np_ = 64 if n <= 64 else 128 if n <= 128 else 256
+    kp = -(-k // 64) * 64
+    if resident is None:
+        resident = _smem(np_, kp, True, MAX_STAGES) <= SMEM_MAX
+    stages = MAX_STAGES
+    while stages > 2 and _smem(np_, kp, resident, stages) > SMEM_MAX:
+        stages -= 1
+    tiles = -(-m // ROW_TILE)
+    return {"np": np_, "tiles": tiles, "grid": min(sms, tiles),
+            "resident": resident, "stages": stages,
+            "smem": _smem(np_, kp, resident, stages)}
+
+
+_plan = functools.lru_cache(maxsize=256)(plan)
 
 
 def matmul_stats_reference(x, w):
@@ -44,7 +92,8 @@ def _check(x, w):
           and x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
           and x.dim() == 2 and w.dim() == 2
           and x.is_contiguous() and w.is_contiguous()
-          and x.shape[1] == w.shape[0])
+          and x.shape[1] == w.shape[0]
+          and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
     if ok:
         m, k = x.shape
         n = w.shape[1]
@@ -52,13 +101,28 @@ def _check(x, w):
               and 8 <= n <= 256 and n % 8 == 0)
     if not ok:
         raise MXNetError(
-            "matmul_stats kernel: needs contiguous bf16 x [M >= 1, K] and "
-            "w [K, N] on one CUDA device, K a multiple of 16, N a multiple "
-            "of 8 in [8, 256]; got x %s %s %s%s, w %s %s %s%s"
+            "matmul_stats kernel: needs contiguous, 16-byte aligned bf16 x "
+            "[M >= 1, K] and w [K, N] on one CUDA device, K a multiple of "
+            "16, N a multiple of 8 in [8, 256]; got x %s %s %s%s, w %s %s "
+            "%s%s"
             % (tuple(x.shape), x.dtype, x.device,
                "" if x.is_contiguous() else " (non-contiguous)",
                tuple(w.shape), w.dtype, w.device,
                "" if w.is_contiguous() else " (non-contiguous)"))
+
+
+_SMS = {}   # device index -> SM count
+
+
+def sm_count(device):
+    """The SM count of a CUDA device (one query a device)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    n = _SMS.get(idx)
+    if n is None:
+        n = _SMS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return n
 
 
 def matmul_stats(x, w):
@@ -67,25 +131,33 @@ def matmul_stats(x, w):
     if not (x.is_cuda or w.is_cuda):
         return matmul_stats_reference(x, w)
     _check(x, w)
+    return _launch(x, w, _plan(x.shape[0], x.shape[1], w.shape[1],
+                               sm_count(x.device)))
+
+
+def _launch(x, w, p):
+    """Run the kernel on checked inputs under the plan ``p``. s and s2 are
+    rows 0 of one [2, 1 + grid, N] f32 buffer whose rows 1 .. grid hold
+    the blocks' partials."""
     from . import _build
 
     lib = _build.library("matmul_stats")
     m, k = x.shape
     n = w.shape[1]
-    y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    s = torch.empty((1, n), dtype=torch.float32, device=x.device)
-    s2 = torch.empty((1, n), dtype=torch.float32, device=x.device)
-    partials = torch.empty((2, -(-m // ROW_TILE), n), dtype=torch.float32,
-                           device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.mx_matmul_stats(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                                  s.data_ptr(), s2.data_ptr(),
-                                  partials.data_ptr(), m, k, n, stream)
-        matmul_stats.launches += 1
+    y = x.new_empty((m, n))
+    stats = x.new_empty((2, 1 + p["grid"], n), dtype=torch.float32)
+    args = (x.data_ptr(), w.data_ptr(), y.data_ptr(), stats.data_ptr(), m,
+            k, n, p["grid"], int(p["resident"]), p["stages"])
+    dev = x.get_device()
+    if dev == torch.cuda.current_device():
+        err = lib.mx_matmul_stats(*args, _build.raw_stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = lib.mx_matmul_stats(*args, _build.raw_stream(dev))
+    matmul_stats.launches += 1
     if err != 0:
-        raise MXNetError("matmul_stats kernel launch failed: cudaError %d"
-                         % err)
+        raise MXNetError("matmul_stats kernel launch failed: error %d" % err)
+    s, s2 = stats[:, :1].unbind(0)
     return y, s, s2
 
 

@@ -13,17 +13,42 @@ forward. The kernel is ``csrc/softmax.cu``.
   fallback.
 
 ``fused_softmax.launches`` counts kernel launches, bumped where the
-kernel is launched and nowhere else.
+kernel is launched and nowhere else. :func:`variant` is the host's half
+of the kernel: which of its variants (the table in ``csrc/softmax.cu``)
+a row width takes.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..base import MXNetError
 
-__all__ = ["fused_softmax", "softmax_reference"]
+__all__ = ["fused_softmax", "softmax_reference", "variant"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# row capacity of the kernel's variants 1-3 (elements: 4, 8, 8 lanes a
+# row with 2, 2, 4 slots a lane) and 4-9 (16-byte vectors: a warp a row
+# with 1, 2, 4, 8 vectors a lane; a block of 256 or 512 threads a row
+# with 8)
+SCALAR_CAPACITY = (8, 16, 32)
+VECTOR_CAPACITY = (32, 64, 128, 256, 2048, 4096)
+
+
+@functools.lru_cache(maxsize=256)
+def variant(c, elem_size):
+    """The kernel variant for rows of ``c`` elements of ``elem_size``
+    bytes: the first that holds the row in registers, else 0 (two passes,
+    any width)."""
+    if c <= SCALAR_CAPACITY[-1]:
+        return 1 + next(i for i, cap in enumerate(SCALAR_CAPACITY)
+                        if c <= cap)
+    vectors = c // (16 // elem_size)
+    for i, cap in enumerate(VECTOR_CAPACITY):
+        if vectors <= cap:
+            return 4 + i
+    return 0
 
 
 def softmax_reference(x):
@@ -50,11 +75,16 @@ def fused_softmax(x):
 
     lib = _build.library("softmax")
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.mx_softmax(x.data_ptr(), y.data_ptr(), x.shape[0],
-                             x.shape[1], _DTYPE_CODE[x.dtype], stream)
-        fused_softmax.launches += 1
+    n, c = x.shape
+    dev = x.get_device()
+    args = (x.data_ptr(), y.data_ptr(), n, c, _DTYPE_CODE[x.dtype],
+            variant(c, x.element_size()))
+    if dev == torch.cuda.current_device():
+        err = lib.mx_softmax(*args, _build.raw_stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = lib.mx_softmax(*args, _build.raw_stream(dev))
+    fused_softmax.launches += 1
     if err != 0:
         raise MXNetError("softmax kernel launch failed: cudaError %d" % err)
     return y

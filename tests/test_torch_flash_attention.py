@@ -216,11 +216,11 @@ def test_tma_operands_copy_only_what_the_rule_refuses():
 
 def test_kernel_build_hash_covers_included_headers(tmp_path, monkeypatch):
     """A library is named by its source and the csrc headers it
-    includes, so an edit to the shared header rebuilds both flash
-    libraries and no other."""
+    includes, so an edit to the shared header rebuilds the libraries that
+    include it (both flash libraries and K6's) and no other."""
     from mxnet_tpu_torch.ops import _build
 
-    for name in ("flash_fwd", "flash_bwd"):
+    for name in ("flash_fwd", "flash_bwd", "matmul_stats"):
         assert [p.name for p in _build._sources(
             _build._CSRC / _build.SOURCES[name][0])] == [
                 _build.SOURCES[name][0], "flash_common.cuh"]
@@ -231,5 +231,5 @@ def test_kernel_build_hash_covers_included_headers(tmp_path, monkeypatch):
     header = tmp_path / "flash_common.cuh"
     header.write_bytes(header.read_bytes() + b"\n// edited\n")
     after = {n: _build._so_path(n)[1].name for n in _build.SOURCES}
-    assert {n for n in before if before[n] != after[n]} == {"flash_fwd",
-                                                           "flash_bwd"}
+    assert {n for n in before if before[n] != after[n]} == {
+        "flash_fwd", "flash_bwd", "matmul_stats"}

@@ -63,29 +63,65 @@ def test_kernel_matches_reference(card, m, k, n, mean):
     assert ((s2 - s2r).abs() <= 1e-5 * s2r).all()
 
 
-def test_sums_are_deterministic(card):
-    """No atomics: the same inputs give the same bits."""
-    x, w = _inputs(card, 100352, 512, 128, 0.5, seed=1)
+@pytest.mark.parametrize("m,k,n", [(100352, 512, 128), (25088, 1024, 256)])
+def test_sums_are_deterministic(card, m, k, n):
+    """No atomics: the same inputs give the same bits, with w resident (C)
+    and streamed (D)."""
+    x, w = _inputs(card, m, k, n, 0.5, seed=1)
     a = ms.matmul_stats(x, w)
     b = ms.matmul_stats(x, w)
     torch.cuda.synchronize()
     assert all(torch.equal(p, q) for p, q in zip(a, b))
 
 
-@pytest.mark.parametrize("m,k,n", [(1, 16, 8), (63, 48, 200), (65, 32, 72)])
-def test_small_and_odd_shapes(card, m, k, n):
-    x, w = _inputs(card, m, k, n, 0.5)
-    y, s, s2 = ms.matmul_stats(x, w)
+def _holds(x, w, got):
+    y, s, s2 = got
     yr, sr, s2r = ms.matmul_stats_reference(x, w)
     torch.cuda.synchronize()
-    assert torch.allclose(y.float(), yr.float(), rtol=2 ** -7, atol=1e-6)
     acc_abs = (x.float() @ w.float()).abs().sum(0, keepdim=True)
-    assert ((s - sr).abs() <= 1e-5 * acc_abs).all()
-    assert ((s2 - s2r).abs() <= 1e-5 * s2r).all()
+    return (torch.allclose(y.float(), yr.float(), rtol=2 ** -7, atol=1e-6)
+            and bool(((s - sr).abs() <= 1e-5 * acc_abs).all())
+            and bool(((s2 - s2r).abs() <= 1e-5 * s2r).all()))
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (1, 16, 8), (63, 48, 200), (65, 32, 72),
+    (1, 64, 256), (1000, 64, 256),          # fewer tiles than SMs
+    (8447, 64, 136),                        # M not a multiple of 64
+    (777, 16, 128), (999, 48, 64),          # K not a multiple of 64
+    (1000, 64, 8), (1000, 64, 72), (3000, 128, 200), (5000, 64, 256),
+])
+def test_small_and_odd_shapes(card, m, k, n):
+    x, w = _inputs(card, m, k, n, 0.5)
+    assert _holds(x, w, ms.matmul_stats(x, w))
+
+
+@pytest.mark.parametrize("k,resident", [(192, True), (208, False)])
+def test_either_side_of_the_resident_threshold(card, k, resident):
+    """At N = 256, w stays in shared memory up to K = 192 and is streamed
+    a chunk a stage from K = 208; both hold the limits."""
+    m, n = 20000, 256
+    assert ms.plan(m, k, n, ms.sm_count(card))["resident"] is resident
+    x, w = _inputs(card, m, k, n, 0.5, seed=2)
+    assert _holds(x, w, ms.matmul_stats(x, w))
+
+
+@pytest.mark.parametrize("resident", [True, False])
+def test_both_ways_of_w_agree(card, resident):
+    """The plan's other way for w gives the same y, s and s2 bits: only
+    where w is read from differs, not the products or their order."""
+    m, k, n = 4000, 128, 256
+    x, w = _inputs(card, m, k, n, 0.5, seed=3)
+    p = ms.plan(m, k, n, ms.sm_count(card), resident=resident)
+    q = ms.plan(m, k, n, ms.sm_count(card), resident=not resident)
+    a, b = ms._launch(x, w, p), ms._launch(x, w, q)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert _holds(x, w, a)
 
 
 @pytest.mark.parametrize("bad", ["f32", "noncontig", "k24", "n264", "n12",
-                                 "mismatch", "cpu_w"])
+                                 "mismatch", "cpu_w", "unaligned"])
 def test_kernel_refuses(card, bad):
     x, w = _inputs(card, 128, 64, 64)
     x, w = {"f32": lambda: (x.float(), w.float()),
@@ -95,7 +131,10 @@ def test_kernel_refuses(card, bad):
                                             dtype=torch.bfloat16)),
             "n12": lambda: (x, w[:, :12].contiguous()),
             "mismatch": lambda: (x, w[:32].contiguous()),
-            "cpu_w": lambda: (x, w.cpu())}[bad]()
+            "cpu_w": lambda: (x, w.cpu()),
+            "unaligned": lambda: (torch.zeros(129 * 64 + 1, device=card,
+                                              dtype=torch.bfloat16)[1:]
+                                  .view(129, 64), w)}[bad]()
     before = ms.matmul_stats.launches
     with pytest.raises(MXNetError):
         ms.matmul_stats(x, w)

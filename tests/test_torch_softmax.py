@@ -130,3 +130,43 @@ def test_softmax_output_forward_and_gradient(runs, case):
     key = "%s_data" % case
     assert np.abs(grad_j[key]).max() > 0
     np.testing.assert_allclose(grad_t[key], grad_j[key], rtol=0, atol=1e-6)
+
+
+def test_variant_is_the_first_that_holds_the_row():
+    """The kernel's variant for a row width: the first whose capacity
+    (``csrc/softmax.cu``'s table) holds the row, 0 past the last, the same
+    limits a row of 16-byte vectors counts for f32 and for bf16/f16."""
+    from mxnet_tpu_torch.ops import softmax as sm
+
+    for elem in (4, 2):
+        v = 16 // elem
+        limits = list(sm.SCALAR_CAPACITY) + [cap * v + v - 1
+                                             for cap in sm.VECTOR_CAPACITY]
+        for i, limit in enumerate(limits):
+            assert sm.variant(limit, elem) == i + 1
+            assert sm.variant(limit + 1, elem) == (
+                i + 2 if i + 1 < len(limits) else 0)
+        assert [sm.variant(c, elem) for c in (1, 2, 10, 31, 32, 33)] == \
+            [1, 1, 2, 3, 3, 4]
+    # the paths' shapes: LeNet [64, 10] f32, ResNet-50 [128, 1000] f32,
+    # the LM-sized [4096, 32000] bf16 check, the [8, 2097152] f32 check
+    assert (sm.variant(10, 4), sm.variant(1000, 4), sm.variant(32000, 2),
+            sm.variant(2097152, 4)) == (2, 7, 9, 0)
+
+
+def test_loaded_library_lookup_takes_no_lock(monkeypatch):
+    """Once a kernel library is loaded, a wrapper's lookup of it takes no
+    lock (it runs on every launch)."""
+    from mxnet_tpu_torch.ops import _build
+
+    class NoLock:
+        def __enter__(self):
+            raise AssertionError("the lookup took the build lock")
+
+        def __exit__(self, *exc):
+            return False
+
+    lib = object()
+    monkeypatch.setitem(_build._libs, "softmax", lib)
+    monkeypatch.setattr(_build, "_lock", NoLock())
+    assert _build.library("softmax") is lib

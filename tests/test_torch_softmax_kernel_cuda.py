@@ -50,6 +50,64 @@ def test_kernel_matches_reference(card, shape, dtype, scale):
                           atol=1e-3 if dtype == torch.float32 else 2e-2)
 
 
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _widths():
+    """(dtype, row width) on both sides of every variant boundary of the
+    kernel (``softmax.variant``): 1, 2, 10, 31-33 and each variant's
+    largest row and the next."""
+    out = []
+    for dtype in _DTYPES:
+        v = 16 // torch.tensor([], dtype=dtype).element_size()
+        limits = list(sm.SCALAR_CAPACITY) + [cap * v + v - 1
+                                             for cap in sm.VECTOR_CAPACITY]
+        out += [(dtype, c) for c in sorted(
+            {1, 2, 10, 31, 32, 33} | {c + d for c in limits for d in (0, 1)})]
+    return out
+
+
+def _close(y, want, dtype):
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    diff = (y.float() - want.float()).abs()
+    w = want.float()
+    return bool((diff <= tol * (w.pow(2).mean().sqrt() + w.abs())).all())
+
+
+@pytest.mark.parametrize("dtype,c", _widths())
+def test_variant_boundaries(card, dtype, c):
+    """37 rows (no multiple of the rows any variant's block takes) at each
+    width around a boundary, against the plain version."""
+    g = torch.Generator(device=card).manual_seed(c)
+    x = torch.randn(37, c, generator=g, device=card).to(dtype)
+    y = sm.fused_softmax(x)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and _close(y, sm.softmax_reference(x), dtype)
+
+
+@pytest.mark.parametrize("c", [10, 33, 1000, 20000, 40000])
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_inf_and_nan_rows(card, dtype, c):
+    """Rows with some -inf, all -inf, a NaN and a +inf give the plain
+    version's NaN pattern, and its values elsewhere."""
+    g = torch.Generator(device=card).manual_seed(1)
+    x = torch.randn(7, c, generator=g, device=card).to(dtype)
+    x[1, ::3] = float("-inf")
+    x[2] = float("-inf")
+    x[3, c // 2] = float("nan")
+    x[4, c - 1] = float("inf")
+    x[5, 0] = float("-inf")
+    y = sm.fused_softmax(x)
+    want = sm.softmax_reference(x)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want.float())
+    assert torch.equal(torch.isnan(y.float()), nan)
+    assert nan[2].all() and nan[3].all() and nan[4].all()
+    ok = ~nan.any(dim=1)
+    assert _close(y[ok], want[ok], dtype)
+    assert (y[1, ::3].float() == 0).all()
+
+
 def test_unaligned_view_rows(card):
     """A row-slice view starts off the 16-byte grid: the kernel reads it
     with a scalar head and writes an aligned output."""

@@ -19,10 +19,14 @@ both bf16) it
   ``xla_ref``), with the probe's tolerances;
 - holds K6 to its plain version (``matmul_stats_reference``) with
   ``chip_smoke.matmul_stats_check``'s limits;
+- holds K6 to itself: a second call gives the same bits;
 - times K6, its plain version, ``torch.matmul`` alone (the probe's
   "mm-only") and the sequence with CUDA events around 20 calls after 3
-  warm-up calls (``chip_smoke.cuda_ms``), beside the card's bound for
-  the shape (``chip_smoke.matmul_stats_bound_ms``);
+  warm-up calls (``chip_smoke.cuda_ms``), and K6 and ``torch.matmul``
+  also as device time from a CUDA graph of 20 calls
+  (``chip_smoke.graph_ms``: without the host's launch cost), beside the
+  card's bound for the shape (``chip_smoke.matmul_stats_bound_ms``) and
+  K6's share of it (bound over time, by events and by graph);
 - splits K6's time between its two CUDA kernels (the row tiles and the
   sum of their column partials) by ``torch.profiler``'s device time over
   5 calls.
@@ -33,10 +37,12 @@ to every call; CUDA events bracket the device work of a run of calls on
 the card's own stream, so no slope is needed here.
 
 Prints one JSON line a shape (kernel, plain, ``torch.matmul`` and
-sequence ms, the bound and what bounds it, the sequence/kernel ratio,
-device ms per call of each of K6's CUDA kernels, and the checks), then the card's name and power limit. ``--device cpu`` runs
-the checks at a small size with the plain version (times not measured,
-``null``); without CUDA and without ``--device cpu`` it exits 2.
+sequence ms, the graph times, the bound, what bounds it and the shares
+of it, the sequence/kernel ratio, device ms per call of each of K6's
+CUDA kernels, and the checks), then the card's name and power limit.
+``--device cpu`` runs the checks at a small size with the plain version
+(times not measured, ``null``); without CUDA and without ``--device
+cpu`` it exits 2.
 """
 from __future__ import annotations
 
@@ -133,28 +139,37 @@ def run(device="cuda", shapes=SHAPES):
     for m, k, n in shapes:
         x, w = probe_inputs(m, k, n, device)
         got = matmul_stats(x, w)
+        same_bits = all(torch.equal(a, b)
+                        for a, b in zip(got, matmul_stats(x, w)))
         checks = probe_checks(got, sequence(x, w))
         plain = cs.matmul_stats_check(got, matmul_stats_reference(x, w),
                                       x, w)
         bound, by = cs.matmul_stats_bound_ms(m, k, n)
         rec = {"probe": "matmul_stats", "device": device, "shape": [m, k, n],
-               "ms": None, "plain_ms": None, "matmul_ms": None,
+               "ms": None, "graph_ms": None, "plain_ms": None,
+               "matmul_ms": None, "matmul_graph_ms": None,
                "sequence_ms": None, "bound_ms": bound, "bound_by": by,
+               "bound_share": None, "graph_bound_share": None,
                "sequence_over_kernel": None, "kernel_device_ms": None,
-               "probe_checks": checks,
-               "plain_check": plain}
+               "probe_checks": checks, "plain_check": plain,
+               "same_bits": same_bits}
         if on_card:
             rec.update(
                 ms=cs.cuda_ms(lambda: matmul_stats(x, w)),
                 plain_ms=cs.cuda_ms(lambda: matmul_stats_reference(x, w)),
                 matmul_ms=cs.cuda_ms(lambda: torch.matmul(x, w)),
                 sequence_ms=cs.cuda_ms(lambda: sequence(x, w)))
+            rec.update(
+                graph_ms=cs.graph_ms(lambda: matmul_stats(x, w)),
+                matmul_graph_ms=cs.graph_ms(lambda: torch.matmul(x, w)))
             rec["sequence_over_kernel"] = rec["sequence_ms"] / rec["ms"]
+            rec["bound_share"] = bound / rec["ms"]
+            rec["graph_bound_share"] = bound / rec["graph_ms"]
             rec["kernel_device_ms"] = kernel_device_ms(
                 lambda: matmul_stats(x, w))
         records.append(rec)
         print(json.dumps(rec), flush=True)
-        if max(checks.values()) > 1.0 or not plain["ok"]:
+        if max(checks.values()) > 1.0 or not plain["ok"] or not same_bits:
             raise AssertionError("matmul_stats fails a check at %s: %r"
                                  % ((m, k, n), rec))
         del x, w, got
