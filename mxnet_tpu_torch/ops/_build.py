@@ -53,7 +53,7 @@ SOURCES = {
         "mx_softmax": ([_P, _P, _L, _L, _I, _I, _P], _I),
     }),
     "matmul_stats": ("matmul_stats.cu", {
-        "mx_matmul_stats": ([_P] * 4 + [_I] * 6 + [_P], _I),
+        "mx_matmul_stats": ([_P] * 4 + [_I] * 4 + [_P], _I),
     }),
 }
 

@@ -27,15 +27,12 @@
 //   deterministic without atomics. 64 rows never put more rows on the
 //   busiest block than 128 do (D: 3 tiles of 64 against 2 of 128).
 // - A producer warp, one thread of which keeps TMA loads in flight in a
-//   ring of `stages` (up to 8) stages: each holds a [64, 64] x chunk
-//   (128-byte swizzle, 2-d map over x, rows past M and columns past K
-//   zero-filled). Full mbarriers carry the bytes' arrival, empty ones the
-//   consumers' release (one arrival a warp).
-// - w on chip. Where w (K rounded up to 64, N up to the wgmma width)
-//   fits beside a full ring and the y staging tile, the producer loads
-//   it once a block into shared memory and it stays there for the whole
-//   walk (A, B, C); else each stage also carries the matching [64, N]
-//   chunk of w (D), which every tile reads again from L2.
+//   ring of stages (8 at N <= 128, 4 at N > 128: the deepest that fits
+//   beside the y staging tile): each holds a [64, 64] x chunk and the
+//   matching [64, N] chunk of w (128-byte swizzle, 2-d maps, rows past M
+//   and columns past K zero-filled). Every tile reads w again, from L2.
+//   Full mbarriers carry the bytes' arrival, empty ones the consumers'
+//   release (one arrival a warp).
 // - Products: one consumer warpgroup runs wgmma.mma_async m64nNPk16
 //   (NP = N rounded up to 64, 128 or 256; the extra columns are zero or
 //   never loaded, and never stored): A = the x chunk (K-major), B = w
@@ -57,7 +54,9 @@
 //   partials per column in a fixed order into row 0: s, and s2.
 // Measured and left out (PERF.md, section 6): 128-row tiles on two consumer
 // warpgroups, pairs of blocks in a cluster that multicast w's streamed
-// chunks (slower at every grid size), a second y staging buffer.
+// chunks (slower at every grid size), a second y staging buffer, and w
+// held in shared memory for a block's whole walk where it fits (no
+// faster than streaming it at A, B and C).
 // One call of mx_matmul_stats runs both kernels and counts as one launch
 // of K6.
 
@@ -69,33 +68,33 @@ using namespace flash;
 
 constexpr int kSmemMax = 232448;   // a block's dynamic shared memory
 constexpr int kBM = 64;            // rows of a tile
+constexpr int kMaxStages = 8;
 constexpr int kConsumers = 128;    // one consumer warpgroup
 constexpr int kThreads = kConsumers + 32;   // and a producer warp
 constexpr int kRedCols = 8;        // columns of one reduce block
 constexpr int kRedThreads = 1024;
 constexpr int kRedGroups = kRedThreads / kRedCols;
 
-// Byte offsets of a block's shared memory from its 1024-aligned base:
-// the y staging tile, w (resident), the ring, the warps' column sums,
-// the barriers; `total` includes the alignment slack. Every tile slab
-// starts 1024-aligned (128-byte swizzle). ops/matmul_stats.py `_smem`
-// sizes the same layout.
+// Byte offsets of the NP instance's shared memory from its 1024-aligned
+// base: the y staging tile, the ring (an x chunk, then w's chunk, a
+// stage), the warps' column sums, the barriers; `kTotal` includes the
+// alignment slack. Every tile slab starts 1024-aligned (128-byte
+// swizzle). The ring is the deepest, up to kMaxStages, that fits.
+template <int NP>
 struct Layout {
-  int ys, wres, ring, red, bars, stage_bytes, total;
+  static constexpr int kStageBytes = kBM * 128 + 64 * NP * 2;
+  static constexpr int kFixed = kBM * NP * 2 + 4 * 2 * NP * 4 + 1024;
+  static constexpr int kStages =
+      (kSmemMax - kFixed) / (kStageBytes + 16) < kMaxStages
+          ? (kSmemMax - kFixed) / (kStageBytes + 16)
+          : kMaxStages;
+  static constexpr int kYs = 0;
+  static constexpr int kRing = kYs + kBM * NP * 2;
+  static constexpr int kRed = kRing + kStages * kStageBytes;
+  static constexpr int kBars = kRed + 4 * 2 * NP * 4;
+  static constexpr int kTotal = kBars + 8 * 2 * kStages + 1024;
+  static_assert(kStages >= 2 && kTotal <= kSmemMax, "the ring must fit");
 };
-
-inline __host__ __device__ Layout layout(int np, int kp, int resident,
-                                         int stages) {
-  Layout L;
-  L.stage_bytes = kBM * 128 + (resident ? 0 : 64 * np * 2);
-  L.ys = 0;
-  L.wres = L.ys + kBM * np * 2;
-  L.ring = L.wres + (resident ? kp * np * 2 : 0);
-  L.red = L.ring + stages * L.stage_bytes;
-  L.bars = L.red + 4 * 2 * np * 4;
-  L.total = L.bars + 8 * (2 * stages + 1) + 1024;
-  return L;
-}
 
 __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
@@ -120,8 +119,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 matmul_stats_tile(const __grid_constant__ CUtensorMap tm_x,
                   const __grid_constant__ CUtensorMap tm_w,
                   const __grid_constant__ CUtensorMap tm_y,
-                  float* __restrict__ stats, int M, int K, int N,
-                  int resident, int stages) {
+                  float* __restrict__ stats, int M, int K, int N) {
+  using L = Layout<NP>;
+  constexpr int stages = L::kStages;
   constexpr int kV = NP / 2;   // accumulators a thread
   // (stat, column) slots of the block's partial a consumer thread owns
   constexpr int kSlots = (2 * NP + kConsumers - 1) / kConsumers;
@@ -129,14 +129,12 @@ matmul_stats_tile(const __grid_constant__ CUtensorMap tm_x,
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* gbase = smem_raw + (base - raw);
-  const int kp = (K + 63) / 64 * 64, nk = kp / 64;
-  const Layout L = layout(NP, kp, resident, stages);
-  const uint32_t ys = base + L.ys, wres = base + L.wres;
-  const uint32_t ring = base + L.ring, bars = base + L.bars;
-  float* red = reinterpret_cast<float*>(gbase + L.red);   // [4][2][NP]
+  const int nk = (K + 63) / 64;
+  const uint32_t ys = base + L::kYs, ring = base + L::kRing;
+  const uint32_t bars = base + L::kBars;
+  float* red = reinterpret_cast<float*>(gbase + L::kRed);   // [4][2][NP]
   auto full = [&](int s) { return bars + 8u * s; };
   auto empty = [&](int s) { return bars + 8u * (stages + s); };
-  const uint32_t w_full = bars + 8u * (2 * stages);
   const int tiles = (M + kBM - 1) / kBM;
   const int tid = threadIdx.x;
 
@@ -145,7 +143,6 @@ matmul_stats_tile(const __grid_constant__ CUtensorMap tm_x,
       mbar_init(full(s), 1);
       mbar_init(empty(s), 4);   // one arrival a consumer warp
     }
-    mbar_init(w_full, 1);
     mbar_init_fence();
   }
   __syncthreads();
@@ -156,28 +153,19 @@ matmul_stats_tile(const __grid_constant__ CUtensorMap tm_x,
       // w's slabs that hold a column below N; the others stay unloaded:
       // they only reach accumulator columns that are never stored
       const int wslabs = (N + 63) / 64;
-      if (resident) {
-        mbar_expect_tx(w_full, kp * wslabs * 128);
-        for (int kc = 0; kc < nk; ++kc)
-          for (int c = 0; c < wslabs; ++c)
-            tma_load_2d(wres + c * kp * 128 + kc * 64 * 128, &tm_w, w_full,
-                        c * 64, kc * 64);
-      }
-      const uint32_t stage_tx = kBM * 128 + (resident ? 0 : wslabs * 8192);
+      const uint32_t stage_tx = kBM * 128 + wslabs * 8192;
       int s = 0;
       uint32_t phase = 0;
       bool wrapped = false;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         for (int kc = 0; kc < nk; ++kc) {
           if (wrapped) mbar_wait(empty(s), phase ^ 1u);
-          const uint32_t st = ring + s * L.stage_bytes;
+          const uint32_t st = ring + s * L::kStageBytes;
           mbar_expect_tx(full(s), stage_tx);
           tma_load_2d(st, &tm_x, full(s), kc * 64, t * kBM);
-          if (!resident) {
-            for (int c = 0; c < wslabs; ++c)
-              tma_load_2d(st + kBM * 128 + c * 64 * 128, &tm_w, full(s),
-                          c * 64, kc * 64);
-          }
+          for (int c = 0; c < wslabs; ++c)
+            tma_load_2d(st + kBM * 128 + c * 64 * 128, &tm_w, full(s),
+                        c * 64, kc * 64);
           if (++s == stages) {
             s = 0;
             phase ^= 1u;
@@ -193,8 +181,6 @@ matmul_stats_tile(const __grid_constant__ CUtensorMap tm_x,
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tg = lane % 4;
   const int row0 = warp * 16 + g;   // and row0 + 8
-  // w's descriptor: resident slabs are kp rows, streamed ones 64
-  const uint32_t w_lbo = resident ? kp * 128 : 64 * 128;
   auto release = [&](int st) {
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(st));
@@ -208,19 +194,17 @@ matmul_stats_tile(const __grid_constant__ CUtensorMap tm_x,
 
   int s = 0;
   uint32_t phase = 0;
-  if (resident) mbar_wait(w_full, 0);
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     int prev = 0;
     fence_regs<kV>(acc);
     for (int kc = 0; kc < nk; ++kc) {
       mbar_wait(full(s), phase);
-      const uint32_t xs = ring + s * L.stage_bytes;
-      const uint32_t wb = resident ? wres + kc * 64 * 128 : xs + kBM * 128;
+      const uint32_t xs = ring + s * L::kStageBytes, wb = xs + kBM * 128;
       wgmma_fence();
 #pragma unroll
       for (int kd = 0; kd < 4; ++kd)
         wgmma_ss_tb<NP>(acc, smem_desc(xs + kd * 32, 16, 1024),
-                        smem_desc(wb + kd * 16 * 128, w_lbo, 1024),
+                        smem_desc(wb + kd * 16 * 128, 64 * 128, 1024),
                         kc > 0 || kd > 0);
       wgmma_commit();
       if (kc > 0) {
@@ -342,13 +326,12 @@ matmul_stats_reduce(float* __restrict__ stats, int nb, int N) {
 template <int NP>
 int launch_tiles(const CUtensorMap& tx, const CUtensorMap& tw,
                  const CUtensorMap& ty, float* stats, int M, int K, int N,
-                 int grid, int resident, int stages, int smem,
-                 cudaStream_t st) {
+                 int grid, cudaStream_t st) {
   constexpr auto kernel = matmul_stats_tile<NP>;
   cudaError_t e = allow_smem<kernel>(kSmemMax);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, kThreads, smem, st>>>(tx, tw, ty, stats, M, K, N, resident,
-                                       stages);
+  kernel<<<grid, kThreads, Layout<NP>::kTotal, st>>>(tx, tw, ty, stats, M,
+                                                     K, N);
   return (int)cudaGetLastError();
 }
 
@@ -386,38 +369,30 @@ int cached_map(int slot, CUtensorMap* map, const void* ptr, long long cols,
 
 // x [M, K], w [K, N], y [M, N]: contiguous bf16 device buffers, 16-byte
 // aligned; stats: a [2, 1 + grid, N] f32 buffer, rows 0 s and s2 on
-// return, rows 1 .. grid scratch. The plan (ops/matmul_stats.py `plan`):
-// grid blocks (1 .. ceil(M / 64)), w resident (1) or streamed (0), ring
-// stages >= 2. Returns the cudaError_t of the two launches (0 on
+// return, rows 1 .. grid scratch; grid blocks, 1 .. ceil(M / 64)
+// (ops/matmul_stats.py `plan`: min(SMs, tiles)). Returns the cudaError_t of the two launches (0 on
 // success), or flash::kErrNoEncoder / kErrEncode + the CUresult when a
 // tensor map cannot be made.
 extern "C" int mx_matmul_stats(const void* x, const void* w, void* y,
                                float* stats, int M, int K, int N, int grid,
-                               int resident, int stages, void* stream) {
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M < 1 || K < 16 || K % 16 != 0 || N < 8 || N % 8 != 0 || N > 256 ||
-      grid < 1 || grid > (M + kBM - 1) / kBM || stages < 2 ||
+      grid < 1 || grid > (M + kBM - 1) / kBM ||
       ((uintptr_t)x | (uintptr_t)w | (uintptr_t)y) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const int np = N <= 64 ? 64 : N <= 128 ? 128 : 256;
-  const int kp = (K + 63) / 64 * 64;
-  const Layout L = layout(np, kp, resident != 0, stages);
-  if (L.total > kSmemMax) return (int)cudaErrorInvalidValue;
   CUtensorMap tx, tw, ty;
   int r = cached_map(0, &tx, x, K, M, kBM);
   if (r == 0) r = cached_map(1, &tw, w, N, K, 64);
   if (r == 0) r = cached_map(2, &ty, y, N, M, kBM);
   if (r != 0) return r;
-  const int res = resident != 0;
   if (np == 64)
-    r = launch_tiles<64>(tx, tw, ty, stats, M, K, N, grid, res, stages,
-                         L.total, st);
+    r = launch_tiles<64>(tx, tw, ty, stats, M, K, N, grid, st);
   else if (np == 128)
-    r = launch_tiles<128>(tx, tw, ty, stats, M, K, N, grid, res, stages,
-                          L.total, st);
+    r = launch_tiles<128>(tx, tw, ty, stats, M, K, N, grid, st);
   else
-    r = launch_tiles<256>(tx, tw, ty, stats, M, K, N, grid, res, stages,
-                          L.total, st);
+    r = launch_tiles<256>(tx, tw, ty, stats, M, K, N, grid, st);
   if (r != 0) return r;
   matmul_stats_reduce<<<N / kRedCols, kRedThreads, 0, st>>>(stats, grid, N);
   return (int)cudaGetLastError();

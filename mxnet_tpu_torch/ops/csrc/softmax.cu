@@ -18,31 +18,28 @@
 // registers, shuffles within the row's threads, shared memory across
 // warps), the sum of exp(x - max) (kept in registers where they fit), the
 // write of exp(x - max) / sum from the registers. No per-element
-// rescaling. Variants by row width (the `variant` argument; ops/softmax.py
-// `variant` picks the first that holds the row), each spreading rows over
-// the SMs:
+// rescaling. One variant a tier of row width (the `variant` argument;
+// ops/softmax.py `variant` picks the first that holds the row, from its
+// capacity table), each spreading rows over the SMs:
 //   id  threads a row  slots a thread          row capacity (f32; bf16/f16)
-//   1   4 lanes        2 scalars               C <= 8
-//   2   8 lanes        2 scalars               C <= 16
-//   3   8 lanes        4 scalars               C <= 32
-//   4   a warp         1 16-byte vector        C/v <= 32   (128; 256)
-//   5   a warp         2 vectors               C/v <= 64   (256; 512)
-//   6   a warp         4 vectors               C/v <= 128  (512; 1024)
-//   7   a warp         8 vectors               C/v <= 256  (1024; 2048)
-//   8   256 threads    8 vectors               C/v <= 2048 (8192; 16384)
-//   9   512 threads    8 vectors               C/v <= 4096 (16384; 32768)
+//   1   8 lanes        4 scalars               C <= 32
+//   2   a warp         8 16-byte vectors       C/v <= 256  (1024; 2048)
+//   3   512 threads    8 vectors               C/v <= 4096 (16384; 32768)
 //   0   512 threads    two passes, online      any C
-// (v = elements a 16-byte vector: 4 f32, 8 bf16/f16.) Variants 1-3 hold
-// 128 threads a block (32, 16, 16 rows), 4-7 two warps (two rows), 8-9
-// one row a block. [128, 1000] f32 runs variant 7 on 64 blocks; [64, 10]
-// f32 variant 2 on 4 blocks (8 lanes a row ran faster than 4 on the
-// H100); [4096, 32000] bf16 variant 9, 4096 blocks of a row each. In 8-9
-// the 16-bit types keep the raw vectors and take exp again for the write
+// (v = elements a 16-byte vector: 4 f32, 8 bf16/f16.) Variant 1 holds 16
+// rows in a block of 128 threads, 2 two warps (two rows), 3 one row a
+// block. [64, 10] f32 runs variant 1 on 4 blocks (8 lanes a row ran
+// faster than 4 on the H100); [128, 1000] f32 variant 2 on 64 blocks;
+// [4096, 32000] bf16 variant 3, 4096 blocks of a row each. In 3 the
+// 16-bit types keep the raw vectors and take exp again for the write
 // rather than hold 8 f32 values a vector in registers. Variant 0 is the
 // former kernel: a thread walks its share of the row keeping a running
 // (max, sum), the pairs merge across the block, a second pass re-reads
 // the row and writes; only two floats a thread live across the passes,
-// so any C fits ([8, 2097152] f32).
+// so any C fits ([8, 2097152] f32). Narrower variants for the widths
+// between (4 lanes a row; a warp with 1-4 vectors a lane; 256 threads a
+// row) were built and left out: no path sends those widths, and no
+// reading on the H100 showed one beating the next wider variant.
 //
 // Vector variants read the 16-byte aligned body of each row as vectors;
 // the unaligned head and the tail (fewer than 2v elements in all) are one
@@ -63,12 +60,9 @@
 
 namespace {
 
-constexpr int kWideThreads = 512;   // variant 0
-
-// Row capacity of variants 1-9 (the table above): 1-3 in elements, 4-9
-// in 16-byte vectors; variant 0 takes any row.
-constexpr long long kCapacity[10] = {0, 8, 16, 32, 32, 64, 128, 256,
-                                     2048, 4096};
+constexpr int kWideThreads = 512;   // variants 0 and 3
+constexpr int kLanes = 8, kLaneSlots = 4;   // variant 1
+constexpr int kVecSlots = 8;                // variants 2 and 3
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -272,8 +266,8 @@ __device__ __forceinline__ float block_reduce(float v, float* sh) {
   return r;
 }
 
-// Variants 1-3: G lanes a row (4 or 8), S scalar slots a lane (element
-// lane + G * slot), 128 threads a block. Groups past the last row keep to
+// Variant 1: G lanes a row, S scalar slots a lane (element lane + G *
+// slot), 128 threads a block. Groups past the last row keep to
 // the shuffles and store nothing.
 template <typename T, int G, int S>
 __global__ void __launch_bounds__(128, 1)
@@ -309,7 +303,7 @@ softmax_small(const T* __restrict__ x, T* __restrict__ y, long long rows,
   }
 }
 
-// Variants 4-9: G threads a row (a warp, or the whole block of
+// Variants 2 and 3: G threads a row (a warp, or the whole block of
 // kThreads), S 16-byte vectors of the row's aligned body a thread (vector
 // t + G * slot) and one scalar slot for the head and tail. kReexp: take
 // exp again for the write rather than keep S * v f32 values.
@@ -437,50 +431,32 @@ int launch(const void* x, void* y, long long rows, long long c, int variant,
   const T* xp = static_cast<const T*>(x);
   T* yp = static_cast<T*>(y);
   constexpr bool k16 = sizeof(T) == 2;
-  const long long cap = variant <= 3 ? c : c / Vec<T>::n;
-  if (variant < 0 || variant > 9 || (variant > 0 && cap > kCapacity[variant]))
-    return (int)cudaErrorInvalidValue;
+  const long long vectors = c / Vec<T>::n;
   auto blocks = [&](long long per_block) {
     return (unsigned)((rows + per_block - 1) / per_block);
   };
-  const int ci = (int)(c < 32 ? c : 32);
   switch (variant) {
     case 1:
-      softmax_small<T, 4, 2><<<blocks(32), 128, 0, st>>>(xp, yp, rows, ci);
+      if (c > kLanes * kLaneSlots) return (int)cudaErrorInvalidValue;
+      softmax_small<T, kLanes, kLaneSlots><<<blocks(128 / kLanes), 128, 0,
+                                             st>>>(xp, yp, rows, (int)c);
       break;
     case 2:
-      softmax_small<T, 8, 2><<<blocks(16), 128, 0, st>>>(xp, yp, rows, ci);
+      if (vectors > 32 * kVecSlots) return (int)cudaErrorInvalidValue;
+      softmax_rows<T, 32, kVecSlots, 64, false><<<blocks(2), 64, 0, st>>>(
+          xp, yp, rows, c);
       break;
     case 3:
-      softmax_small<T, 8, 4><<<blocks(16), 128, 0, st>>>(xp, yp, rows, ci);
+      if (vectors > kWideThreads * kVecSlots)
+        return (int)cudaErrorInvalidValue;
+      softmax_rows<T, kWideThreads, kVecSlots, kWideThreads, k16>
+          <<<blocks(1), kWideThreads, 0, st>>>(xp, yp, rows, c);
       break;
-    case 4:
-      softmax_rows<T, 32, 1, 64, false><<<blocks(2), 64, 0, st>>>(xp, yp,
-                                                                  rows, c);
-      break;
-    case 5:
-      softmax_rows<T, 32, 2, 64, false><<<blocks(2), 64, 0, st>>>(xp, yp,
-                                                                  rows, c);
-      break;
-    case 6:
-      softmax_rows<T, 32, 4, 64, false><<<blocks(2), 64, 0, st>>>(xp, yp,
-                                                                  rows, c);
-      break;
-    case 7:
-      softmax_rows<T, 32, 8, 64, false><<<blocks(2), 64, 0, st>>>(xp, yp,
-                                                                  rows, c);
-      break;
-    case 8:
-      softmax_rows<T, 256, 8, 256, k16><<<blocks(1), 256, 0, st>>>(xp, yp,
-                                                                   rows, c);
-      break;
-    case 9:
-      softmax_rows<T, 512, 8, 512, k16><<<blocks(1), 512, 0, st>>>(xp, yp,
-                                                                   rows, c);
-      break;
-    default:
+    case 0:
       softmax_wide<T><<<blocks(1), kWideThreads, 0, st>>>(xp, yp, c);
       break;
+    default:
+      return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
@@ -488,7 +464,7 @@ int launch(const void* x, void* y, long long rows, long long c, int variant,
 }  // namespace
 
 // x, y: contiguous [rows, c] device buffers of one dtype; dtype 0 f32,
-// 1 bf16, 2 f16; variant 0-9 from the table above (one that holds c).
+// 1 bf16, 2 f16; variant 0-3 from the table above (one that holds c).
 // Returns the cudaError_t of the launch.
 extern "C" int mx_softmax(const void* x, void* y, long long rows, long long c,
                           int dtype, int variant, void* stream) {

@@ -19,8 +19,8 @@ entry point is ``tools/torch_probe_matmul_stats.py``. The kernel is
 kernel is launched and nowhere else. One launch runs two CUDA kernels:
 the persistent row-tile kernel, then the fixed-order sum of its blocks'
 column partials. :func:`plan` is the host's half of the kernel: the
-grid, whether w stays in shared memory and the ring's depth, from the
-shape and the SM count.
+persistent grid, from the shape and the SM count; the kernel picks its
+ring's depth itself.
 """
 from __future__ import annotations
 
@@ -33,45 +33,17 @@ from ..base import MXNetError
 __all__ = ["matmul_stats", "matmul_stats_reference", "plan", "ROW_TILE"]
 
 ROW_TILE = 64        # rows of a tile: the kernel's one consumer warpgroup
-SMEM_MAX = 232448    # a block's dynamic shared memory on the H100
-MAX_STAGES = 8
 H100_SMS = 132
 
 
-def _smem(np_, kp, resident, stages):
-    """Bytes of the kernel's shared-memory layout (``layout`` in
-    ``csrc/matmul_stats.cu``): the y staging tile, w when resident, the
-    ring, the warps' column sums, the barriers, 1024 of alignment
-    slack."""
-    stage = ROW_TILE * 128 + (0 if resident else 64 * np_ * 2)
-    return (ROW_TILE * np_ * 2 + (kp * np_ * 2 if resident else 0)
-            + stages * stage + 4 * 2 * np_ * 4 + 8 * (2 * stages + 1) + 1024)
-
-
-def plan(m, k, n, sms=H100_SMS, resident=None):
+def plan(m, k, n, sms=H100_SMS):
     """The kernel's launch plan for x [m, k] and w [k, n] on a card with
-    ``sms`` SMs, a dict of
-
-    - ``np``: the wgmma width, n rounded up to 64, 128 or 256;
-    - ``tiles`` of ROW_TILE rows and ``grid`` = min(sms, tiles)
-      persistent blocks;
-    - ``resident``: w stays in shared memory for the whole walk when it
-      fits beside a ring of MAX_STAGES stages (so it never costs the ring
-      depth), else each stage streams its [64, n] chunk of w; the
-      argument forces one or the other;
-    - ``stages``: the deepest ring (up to MAX_STAGES) that fits; ``smem``:
-      the bytes."""
+    ``sms`` SMs, a dict of ``np``, the wgmma width (n rounded up to 64,
+    128 or 256), ``tiles`` of ROW_TILE rows and ``grid`` = min(sms,
+    tiles) persistent blocks (the partials are [2, 1 + grid, n])."""
     np_ = 64 if n <= 64 else 128 if n <= 128 else 256
-    kp = -(-k // 64) * 64
-    if resident is None:
-        resident = _smem(np_, kp, True, MAX_STAGES) <= SMEM_MAX
-    stages = MAX_STAGES
-    while stages > 2 and _smem(np_, kp, resident, stages) > SMEM_MAX:
-        stages -= 1
     tiles = -(-m // ROW_TILE)
-    return {"np": np_, "tiles": tiles, "grid": min(sms, tiles),
-            "resident": resident, "stages": stages,
-            "smem": _smem(np_, kp, resident, stages)}
+    return {"np": np_, "tiles": tiles, "grid": min(sms, tiles)}
 
 
 _plan = functools.lru_cache(maxsize=256)(plan)
@@ -147,7 +119,7 @@ def _launch(x, w, p):
     y = x.new_empty((m, n))
     stats = x.new_empty((2, 1 + p["grid"], n), dtype=torch.float32)
     args = (x.data_ptr(), w.data_ptr(), y.data_ptr(), stats.data_ptr(), m,
-            k, n, p["grid"], int(p["resident"]), p["stages"])
+            k, n, p["grid"])
     dev = x.get_device()
     if dev == torch.cuda.current_device():
         err = lib.mx_matmul_stats(*args, _build.raw_stream(dev))

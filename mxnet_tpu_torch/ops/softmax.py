@@ -28,12 +28,12 @@ from ..base import MXNetError
 __all__ = ["fused_softmax", "softmax_reference", "variant"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# row capacity of the kernel's variants 1-3 (elements: 4, 8, 8 lanes a
-# row with 2, 2, 4 slots a lane) and 4-9 (16-byte vectors: a warp a row
-# with 1, 2, 4, 8 vectors a lane; a block of 256 or 512 threads a row
-# with 8)
-SCALAR_CAPACITY = (8, 16, 32)
-VECTOR_CAPACITY = (32, 64, 128, 256, 2048, 4096)
+# row capacity of the kernel's variant 1 (elements: 8 lanes a row, 4
+# slots a lane) and 2-3 (16-byte vectors: a warp a row, a block of 512
+# threads a row, 8 vectors a thread); the kernel's launch refuses a row
+# past its variant's capacity
+SCALAR_CAPACITY = (32,)
+VECTOR_CAPACITY = (256, 4096)
 
 
 @functools.lru_cache(maxsize=256)
@@ -47,7 +47,7 @@ def variant(c, elem_size):
     vectors = c // (16 // elem_size)
     for i, cap in enumerate(VECTOR_CAPACITY):
         if vectors <= cap:
-            return 4 + i
+            return 1 + len(SCALAR_CAPACITY) + i
     return 0
 
 

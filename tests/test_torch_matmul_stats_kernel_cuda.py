@@ -9,12 +9,15 @@ repository's ``tests/conftest.py`` pins JAX, so skip it there:
 
 Limits against the plain version (f32 matmul of the same bf16 values):
 y per element within 1e-2 of (rms + |plain|), both rounding the f32 acc
-to bf16 once; each column of s within 1e-5 of that column's sum of
-|acc| and s2 within 1e-5 relative, the sums differing only in order.
+to bf16 once; s and s2 per column within ``chip_smoke``'s
+``matmul_stats_limits``: 1e-5 of the column's sum over rows and k of
+|x_ik w_kj| (s), and of 2 |acc| times that (s2), the sums differing
+only in order.
 """
 import pytest
 import torch
 
+from chip_smoke import matmul_stats_limits
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import matmul_stats as ms
 
@@ -58,15 +61,14 @@ def test_kernel_matches_reference(card, m, k, n, mean):
     wf = yr.float()
     diff = (y.float() - wf).abs()
     assert (diff <= 1e-2 * (wf.pow(2).mean().sqrt() + wf.abs())).all()
-    acc_abs = (x.float() @ w.float()).abs().sum(0, keepdim=True)
-    assert ((s - sr).abs() <= 1e-5 * acc_abs).all()
-    assert ((s2 - s2r).abs() <= 1e-5 * s2r).all()
+    lim_s, lim_s2 = matmul_stats_limits(x, w)
+    assert ((s - sr).abs() <= lim_s).all()
+    assert ((s2 - s2r).abs() <= lim_s2).all()
 
 
 @pytest.mark.parametrize("m,k,n", [(100352, 512, 128), (25088, 1024, 256)])
 def test_sums_are_deterministic(card, m, k, n):
-    """No atomics: the same inputs give the same bits, with w resident (C)
-    and streamed (D)."""
+    """No atomics: the same inputs give the same bits, at C and D."""
     x, w = _inputs(card, m, k, n, 0.5, seed=1)
     a = ms.matmul_stats(x, w)
     b = ms.matmul_stats(x, w)
@@ -78,12 +80,13 @@ def _holds(x, w, got):
     y, s, s2 = got
     yr, sr, s2r = ms.matmul_stats_reference(x, w)
     torch.cuda.synchronize()
-    acc_abs = (x.float() @ w.float()).abs().sum(0, keepdim=True)
+    lim_s, lim_s2 = matmul_stats_limits(x, w)
     return (torch.allclose(y.float(), yr.float(), rtol=2 ** -7, atol=1e-6)
-            and bool(((s - sr).abs() <= 1e-5 * acc_abs).all())
-            and bool(((s2 - s2r).abs() <= 1e-5 * s2r).all()))
+            and bool(((s - sr).abs() <= lim_s).all())
+            and bool(((s2 - s2r).abs() <= lim_s2).all()))
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("m,k,n", [
     (1, 16, 8), (63, 48, 200), (65, 32, 72),
     (1, 64, 256), (1000, 64, 256),          # fewer tiles than SMs
@@ -91,33 +94,11 @@ def _holds(x, w, got):
     (777, 16, 128), (999, 48, 64),          # K not a multiple of 64
     (1000, 64, 8), (1000, 64, 72), (3000, 128, 200), (5000, 64, 256),
 ])
-def test_small_and_odd_shapes(card, m, k, n):
-    x, w = _inputs(card, m, k, n, 0.5)
+def test_small_and_odd_shapes(card, m, k, n, seed):
+    """Each shape on three seeds: one row's columns can cancel to near
+    zero, where the limit on s must still cover reordered sums."""
+    x, w = _inputs(card, m, k, n, 0.5, seed=seed)
     assert _holds(x, w, ms.matmul_stats(x, w))
-
-
-@pytest.mark.parametrize("k,resident", [(192, True), (208, False)])
-def test_either_side_of_the_resident_threshold(card, k, resident):
-    """At N = 256, w stays in shared memory up to K = 192 and is streamed
-    a chunk a stage from K = 208; both hold the limits."""
-    m, n = 20000, 256
-    assert ms.plan(m, k, n, ms.sm_count(card))["resident"] is resident
-    x, w = _inputs(card, m, k, n, 0.5, seed=2)
-    assert _holds(x, w, ms.matmul_stats(x, w))
-
-
-@pytest.mark.parametrize("resident", [True, False])
-def test_both_ways_of_w_agree(card, resident):
-    """The plan's other way for w gives the same y, s and s2 bits: only
-    where w is read from differs, not the products or their order."""
-    m, k, n = 4000, 128, 256
-    x, w = _inputs(card, m, k, n, 0.5, seed=3)
-    p = ms.plan(m, k, n, ms.sm_count(card), resident=resident)
-    q = ms.plan(m, k, n, ms.sm_count(card), resident=not resident)
-    a, b = ms._launch(x, w, p), ms._launch(x, w, q)
-    torch.cuda.synchronize()
-    assert all(torch.equal(u, v) for u, v in zip(a, b))
-    assert _holds(x, w, a)
 
 
 @pytest.mark.parametrize("bad", ["f32", "noncontig", "k24", "n264", "n12",

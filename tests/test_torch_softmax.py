@@ -147,11 +147,11 @@ def test_variant_is_the_first_that_holds_the_row():
             assert sm.variant(limit + 1, elem) == (
                 i + 2 if i + 1 < len(limits) else 0)
         assert [sm.variant(c, elem) for c in (1, 2, 10, 31, 32, 33)] == \
-            [1, 1, 2, 3, 3, 4]
+            [1, 1, 1, 1, 1, 2]
     # the paths' shapes: LeNet [64, 10] f32, ResNet-50 [128, 1000] f32,
     # the LM-sized [4096, 32000] bf16 check, the [8, 2097152] f32 check
     assert (sm.variant(10, 4), sm.variant(1000, 4), sm.variant(32000, 2),
-            sm.variant(2097152, 4)) == (2, 7, 9, 0)
+            sm.variant(2097152, 4)) == (1, 2, 3, 0)
 
 
 def test_loaded_library_lookup_takes_no_lock(monkeypatch):

@@ -85,7 +85,7 @@ def test_variant_boundaries(card, dtype, c):
     assert y.dtype == dtype and _close(y, sm.softmax_reference(x), dtype)
 
 
-@pytest.mark.parametrize("c", [10, 33, 1000, 20000, 40000])
+@pytest.mark.parametrize("c", [10, 33, 1000, 10000, 20000, 40000])
 @pytest.mark.parametrize("dtype", _DTYPES)
 def test_inf_and_nan_rows(card, dtype, c):
     """Rows with some -inf, all -inf, a NaN and a +inf give the plain
