@@ -31,23 +31,37 @@ Phases (any failure raises and the script exits non-zero):
    once per layer) and two short prompts through the paged path; the
    kernel counts are zeroed just before and read just after, and the
    outputs are held against the plain ``transformer.forward``;
-5. training: ``ShardedTrainer`` over ``loss_fn`` at bench_lm.py's
+5. sampled and speculative serving: the same flagship LM (its tail
+   layers' ``wo``/``w2`` scaled by 0.005) behind ``Engine(spec=True,
+   spec_k=4)`` with bench_serve.py's 1-layer draft: two 2048-token
+   prompts through the Ulysses prefill (one sampled at temperature 0.8,
+   top-p 0.95) and a 5-token (temperature 1.0, top-k 50) and a 37-token
+   (greedy) prompt through the paged path, 32 new tokens each; checks
+   that the card's threefry keys, bits and uniforms equal the host's
+   (64 triples at V = 32000), that every draw ran on the card, that the
+   greedy rows agree with ``forward``, that a fresh engine replays the
+   streams and other seeds change them, that 65,536 draws from one row
+   lie within total variation 0.03 of ``filter_dist``, that K2 launched
+   24 times and that drafts were accepted; prints tokens/s and TTFT
+   beside the same requests without speculation, the accept rate, the
+   sampler's and the draft turn's and verify's ms;
+6. training: ``ShardedTrainer`` over ``loss_fn`` at bench_lm.py's
    configuration (12 layers, d_model 1024, seq 1024, batch 16, Adam
    1e-4; 184,862,720 parameters), one warm-up and 4 timed steps on a
    fixed seeded batch; the counts are zeroed just before and read just
    after (12 launches each of K2, K3 and K4 per step), the step-0 loss
    is checked against ln(vocab) and the loss must fall;
-6. the row-softmax kernel K1 against its plain version at the Symbol
+7. the row-softmax kernel K1 against its plain version at the Symbol
    paths' shapes ([64, 10], [128, 1000] f32), at [128, 1000] scaled by
    50, [1000, 1001] f16, [4096, 32000] bf16, [8, 2097152] f32 (8 MB
    rows, past the TPU kernel's fallback) and [3, 1], each timed beside
    the plain version, ``torch.softmax`` and its bytes bound;
-7. the Symbol path, LeNet: the canonical ``FeedForward.fit`` of the
+8. the Symbol path, LeNet: the canonical ``FeedForward.fit`` of the
    verify recipe on ``gpu(0)`` (MNISTIter 1024 synthetic digits, batch
    64, 3 epochs, lr 0.1, momentum 0.9, Xavier), which must score > 0.9
    on the 512-digit validation set; K1's count is zeroed just before
    and read just after;
-8. the Symbol path, ResNet-50 at bench.py's width (batch 128,
+9. the Symbol path, ResNet-50 at bench.py's width (batch 128,
    3x224x224, 1000 classes, f32, conv7 stem): first one bound Executor
    step's gradients with SoftmaxOutput through K1 against the same step
    through the plain softmax, per tensor (relative L2 <= 1e-3); then
@@ -56,22 +70,22 @@ Phases (any failure raises and the script exits non-zero):
    of 4 seeded batches for 2 epochs, printing per-batch ms (synchronised,
    first batch excluded), img/s, peak memory and each batch's
    cross-entropy (finite, step 0 within 0.5 of ln 1000);
-9. the Module API: ``examples/module/mnist_mlp.py``'s three workflows
+10. the Module API: ``examples/module/mnist_mlp.py``'s three workflows
    (explicit Module, SequentialModule, a Python loss through
    ``backward(out_grads=...)``) at its defaults, each to validation
    accuracy > 0.9; LeNet's canonical recipe through ``Module.fit``
    (score > 0.9); ``BucketingModule`` at buckets 10 and 20 over one
    storage on the card; a ``Monitor`` over one LeNet batch, every tap
    finite; K1's count zeroed just before and read just after;
-10. ResNet-50 through ``Module.fit`` at phase 8's widths and batches, one
+11. ResNet-50 through ``Module.fit`` at phase 9's widths and batches, one
    epoch, its warm step and img/s printed beside FeedForward's;
-11. RTC (K5): the CUDA C bodies of ``RTC_BODIES`` compiled by NVRTC and
+12. RTC (K5): the CUDA C bodies of ``RTC_BODIES`` compiled by NVRTC and
    pushed through ``mx.rtc.Rtc`` on ``gpu(0)``, each held against its
    plain PyTorch twin; the real-size body (a*b + c over 2^26 elements,
    f32 and bf16) timed beside its twin, ``torch.addcmul`` and its bytes
    bound; the cold NVRTC compile and a cached push's host time; a body
    with a syntax error must raise;
-12. the matmul with column statistics (K6) against its plain version at
+13. the matmul with column statistics (K6) against its plain version at
    the probe's four shapes (ResNet-50's 1x1 convolutions at batch 128 as
    matmuls), a ragged M and a nonzero-mean x (the limit must reject a sum
    with one row tile dropped); then the probe's path,
@@ -79,9 +93,9 @@ Phases (any failure raises and the script exits non-zero):
    the unfused matmul-then-statistics sequence, K6, plain,
    ``torch.matmul`` and sequence times), K6's count zeroed just before
    and read just after;
-13. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
+14. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
    main paths, error, times and bound;
-14. the last line: ``{"ok": true, "device": {...}}``.
+15. the last line: ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matrix products and cuDNN convolutions in every phase
 (set once in ``main``), so f32 work runs in full f32.
@@ -769,6 +783,302 @@ def phase_serving(device="cuda", model_kw=FLAGSHIP, long_len=2048):
          "steps": stats["steps"], "flash_fwd_launches": launches,
          "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
                          if device == "cuda" else None)})
+    return launches
+
+
+# the sampled + speculative serving leg: bench_serve.py:264-290's draft
+# (the first DRAFT_LAYERS layers, shared embeddings; the target's tail
+# wo/w2 scaled by DRAFT_RESID, bench_serve.py:318-319) and its requests:
+# (prompt length or "long", sampling kwargs)
+DRAFT_LAYERS = 1
+DRAFT_RESID = 0.005
+SAMPLED_REQUESTS = [("long", dict(temperature=0.8, top_p=0.95, seed=1)),
+                    ("long", {}),
+                    (5, dict(temperature=1.0, top_k=50, seed=2)),
+                    (37, {})]
+SAMPLER_TV = 0.03   # total variation of 65,536 draws from filter_dist's
+
+
+def sampler_bits_check(device, V=32000, n=64):
+    """Threefry keys, bits and uniforms for ``n`` (seed, position, salt)
+    triples on ``device`` against the host's: equal bit for bit (the CPU
+    tests hold the host's equal to JAX's); Gumbels within 2 ulp of
+    max(|g|, 1)."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import threefry as tf
+
+    rng = np.random.RandomState(3)
+    seed = np.concatenate([[0, 2 ** 32 - 1], rng.randint(
+        0, 2 ** 32, n - 2, dtype=np.uint64)]).astype(np.uint32)
+    pos = rng.randint(0, 2 ** 31, n).astype(np.int64)
+    salt = rng.randint(0, 4, n)
+
+    def draws(dev):
+        k = tf.fold_in(tf.fold_in(tf.prng_key(seed, dev), pos), salt)
+        return [t.cpu() for t in (k, tf.random_bits(k, V),
+                                  tf.uniform(k, V), tf.gumbel(k, V))]
+
+    dk, dbits, du, dg = draws(device)
+    hk, hbits, hu, hg = draws("cpu")
+    if not (torch.equal(dk, hk) and torch.equal(dbits, hbits)
+            and torch.equal(du.view(torch.int32), hu.view(torch.int32))):
+        raise AssertionError("threefry keys, bits or uniforms on %s differ "
+                             "from the host's" % device)
+    spacing = np.spacing(np.maximum(hg.abs().numpy(), 1))
+    ulp = float(np.max(np.abs((dg - hg).double().numpy()) / spacing))
+    if not ulp <= 2.0:
+        raise AssertionError("Gumbels on %s differ from the host's by %g "
+                             "ulp > 2" % (device, ulp))
+    return {"triples": n, "V": V, "keys_bits_uniforms_equal": True,
+            "gumbel_max_ulp": ulp}
+
+
+def sampler_distribution(device, V=32000, rows=65536, chunk=4096):
+    """``sample_tokens`` over one fixed logits row, batched as ``rows``
+    rows with seeds 0..rows-1 at one position (temperature 0.8, top_k
+    50), in calls of ``chunk`` rows; the total variation between the
+    draws' frequencies and ``filter_dist``'s probabilities."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.serving import sampling as samp
+
+    g = torch.Generator(device=device).manual_seed(5)
+    row = torch.randn(1, V, generator=g, device=device) * 2
+    counts = torch.zeros(V, dtype=torch.int64, device=device)
+    with torch.no_grad():
+        for c0 in range(0, rows, chunk):
+            n = min(chunk, rows - c0)
+            tok, _ = samp.sample_tokens(
+                row.expand(n, V), np.full(n, 0.8, np.float32),
+                np.full(n, 50), np.ones(n, np.float32),
+                np.arange(c0, c0 + n, dtype=np.uint32), np.full(n, 7),
+                samp.SALT_TARGET)
+            counts += torch.bincount(tok.long(), minlength=V)
+        _, probs = samp.filter_dist(row, [0.8], [50], [1.0])
+    freq = counts.double() / rows
+    tv = 0.5 * float((freq - probs[0].double()).abs().sum())
+    if not tv <= SAMPLER_TV:
+        raise AssertionError("sampler total variation %g > %g"
+                             % (tv, SAMPLER_TV))
+    return {"rows": rows, "calls": -(-rows // chunk), "V": V, "tv": tv,
+            "support": int((counts > 0).sum())}
+
+
+def phase_serving_sampled(device="cuda", model_kw=FLAGSHIP, long_len=2048,
+                          new=32, card=None, dist_rows=65536,
+                          dist_chunk=4096, bits_v=32000):
+    """Sampled and speculative serving on the main path: the flagship LM
+    with bench_serve.py's 1-layer draft behind ``Engine(spec=True)``,
+    two ``long_len`` prompts through the Ulysses cp prefill (K2) and two
+    short ones, one of each pair sampled. ``device``/``model_kw`` and
+    the sizes let a CPU rehearsal run the same code small."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import threefry as tf
+    from mxnet_tpu_torch.models.transformer import (TransformerConfig,
+                                                    forward, init_params)
+    from mxnet_tpu_torch.ops.flash_attention import (attention_reference,
+                                                     flash_attention)
+    from mxnet_tpu_torch.parallel import create_mesh
+    from mxnet_tpu_torch.serving import Engine, ServingConfig
+    from mxnet_tpu_torch.serving import sampling as samp
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    bits = sampler_bits_check(device, V=bits_v)
+    log(dict(phase="serving_sampled_bits", **bits))
+
+    cfg = TransformerConfig(**model_kw)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    # bench_serve.make_draft: the tail layers' residual writes scaled,
+    # the draft the first layers with shared embeddings
+    for lp in params["layers"][DRAFT_LAYERS:]:
+        lp["wo"] = lp["wo"] * DRAFT_RESID
+        lp["w2"] = lp["w2"] * DRAFT_RESID
+    draft = {"embed": params["embed"], "pos_embed": params["pos_embed"],
+             "layers": params["layers"][:DRAFT_LAYERS],
+             "ln_f": params["ln_f"]}
+    dcfg = TransformerConfig(**dict(model_kw, num_layers=DRAFT_LAYERS))
+    mesh = create_mesh((1,), ("seq",), devices=[device])
+    rng = np.random.RandomState(1)
+    requests = [(rng.randint(0, cfg.vocab_size, (
+        long_len if n == "long" else n,)).astype(np.int32), kw)
+                for n, kw in SAMPLED_REQUESTS]
+
+    def engine(spec):
+        scfg = ServingConfig(spec=spec, spec_k=4, mesh=mesh,
+                             cp_kind="ulysses", cp_min_tokens=long_len,
+                             block_size=16, num_blocks=512, max_batch=8,
+                             prefill_chunk=64)
+        if not spec:
+            return Engine(params, cfg, scfg, device=device)
+        return Engine(params, cfg, scfg, draft_params=draft, draft_cfg=dcfg,
+                      device=device)
+
+    def serve(eng, reqs):
+        sync()
+        t0 = time.perf_counter()
+        hs = [eng.submit(p, max_new_tokens=new, **kw) for p, kw in reqs]
+        eng.run_until_idle()
+        outs = [h.result(timeout=60) for h in hs]
+        sync()
+        wall = time.perf_counter() - t0
+        ttfts, _ = eng.latency_samples()
+        toks = sum(len(s) for s in outs)
+        if [len(s) for s in outs] != [new] * len(reqs):
+            raise AssertionError("stream lengths %r" % [len(s) for s in outs])
+        return outs, {"tokens": toks, "wall_s": wall,
+                      "tokens_per_s": toks / wall, "ttft_s": ttfts,
+                      "steps": eng.stats()["steps"]}
+
+    # the main path: counts zeroed just before, read just after
+    eng = engine(True)
+    sync()
+    flash_attention.launches = 0
+    tf.threefry2x32.calls.clear()
+    outs, spec_run = serve(eng, requests)
+    launches = flash_attention.launches
+    draws = dict(tf.threefry2x32.calls)
+    stats = eng.stats()
+    expected = 2 * cfg.num_layers if on_card else 0
+    if launches != expected:
+        raise AssertionError("flash_fwd launched %d times on the sampled "
+                             "serving path, expected %d"
+                             % (launches, expected))
+    if set(draws) != {torch.device(device).type}:
+        raise AssertionError("threefry draws ran on %r, not %s"
+                             % (draws, device))
+    if stats["cp_prefills"] != 2:
+        raise AssertionError("cp prefills: %d" % stats["cp_prefills"])
+    if not (stats["spec_turns"] > 0 and stats["spec_tokens_accepted"] > 0):
+        raise AssertionError("no speculative acceptance: %r" % {
+            k: stats[k] for k in ("spec_turns", "spec_tokens_drafted",
+                                  "spec_tokens_accepted")})
+
+    def plain_attn(q, k, v):
+        return attention_reference(q, k, v, causal=True)[0]
+
+    checks = []
+    with torch.no_grad():
+        for i, ((p, kw), s) in enumerate(zip(requests, outs)):
+            if kw:
+                continue
+            # greedy rows: forward's argmax wherever its top-2 gap is
+            # wide (phase_serving's rule)
+            seq = np.concatenate([p, np.asarray(s[:-1], np.int32)])
+            ref = forward(params, seq[None], cfg, attn_fn=plain_attn)[0]
+            ref = ref[len(p) - 1:].float()
+            if not torch.isfinite(ref).all():
+                raise AssertionError("non-finite reference logits")
+            top2 = ref.topk(2, dim=-1).values
+            gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+            arg = ref.argmax(dim=-1).cpu().numpy()
+            wide = gap > 0.25
+            bad = int(np.sum(wide & (np.asarray(s) != arg)))
+            rec = {"prompt_len": int(len(p)),
+                   "tokens_checked": int(wide.sum()),
+                   "mismatches_at_wide_gap": bad,
+                   "agree_all": int(np.sum(np.asarray(s) == arg))}
+            log(dict(phase="serving_sampled_check", **rec))
+            if bad:
+                raise AssertionError("greedy stream %d disagrees with "
+                                     "forward at %d wide-gap positions"
+                                     % (i, bad))
+            checks.append(rec)
+
+    # a fresh engine replays the sampled streams; other seeds change one.
+    # Plain (spec off) engines on the same requests alternate with these
+    # two warm spec runs, so each spec run has a warm plain run before it
+    plain_outs, plain_a = serve(engine(False), requests)
+    replay, replay_run = serve(engine(True), requests)
+    if replay != outs:
+        raise AssertionError("a fresh spec engine did not replay the "
+                             "streams: %r" % [a == b for a, b in
+                                              zip(replay, outs)])
+    _, plain_b = serve(engine(False), requests)
+    reseeded = [(p, dict(kw, seed=kw["seed"] + 100) if kw else kw)
+                for p, kw in requests]
+    other, other_run = serve(engine(True), reseeded)
+    sampled_rows = [i for i, (_, kw) in enumerate(requests) if kw]
+    if all(other[i] == outs[i] for i in sampled_rows):
+        raise AssertionError("other seeds gave the same sampled streams")
+
+    dist = sampler_distribution(device, V=cfg.vocab_size, rows=dist_rows,
+                                chunk=dist_chunk)
+    log(dict(phase="serving_sampled_distribution", **dist))
+
+    timing = {}
+    if on_card:
+        g = torch.Generator(device=device).manual_seed(6)
+        logits = torch.randn(8, cfg.vocab_size, generator=g,
+                             device=device) * 2
+        pos = torch.arange(8, device=device) + 2048
+        seeds = np.arange(8, dtype=np.uint32)
+        for name, temp in (("sampled", 0.8), ("greedy", 0.0)):
+            timing["sampler_%s_ms" % name] = cuda_ms(
+                lambda: samp.sample_tokens(
+                    logits, np.full(8, temp, np.float32), np.full(8, 50),
+                    np.ones(8, np.float32), seeds, pos, samp.SALT_TARGET))
+        # one draft turn and one verify at B = 4 (inactive rows: their
+        # writes land in the scratch block), sampled and all-greedy
+        B, K = 4, eng.cfg.spec_k
+        bt = np.zeros((B, eng.model.max_blocks), np.int32)
+        act = np.zeros(B, bool)
+        start = np.full(B, long_len, np.int32)
+        ks = np.full(B, K, np.int32)
+        for name, temp in (("sampled", 0.8), ("greedy", 0.0)):
+            kw = dict(temperature=np.full(B, temp, np.float32),
+                      top_p=np.full(B, 0.95, np.float32),
+                      seed=np.arange(B, dtype=np.uint32))
+
+            def turn():
+                return eng.draft_model.draft_turn(
+                    eng.draft_params, eng.draft_pool.k, eng.draft_pool.v,
+                    np.zeros((B, 1), np.int32), start, np.ones(B, np.int32),
+                    bt, act, ks, K, **kw)
+
+            d, q = turn()
+            timing["draft_turn_%s_ms" % name] = cuda_ms(turn, iters=10)
+            timing["verify_%s_ms" % name] = cuda_ms(
+                lambda: eng.model.verify(
+                    eng.params, eng.pool.k, eng.pool.v,
+                    np.zeros((B, 1), np.int32), d, q, start, 1 + ks, bt,
+                    act, **kw), iters=10)
+    log({"phase": "serving_sampled", "card": card,
+         "requests": [{"prompt_len": int(len(p)), **kw}
+                      for p, kw in requests],
+         "max_new_tokens": new, "spec_k": eng.cfg.spec_k,
+         "draft_layers": DRAFT_LAYERS, "draft_resid": DRAFT_RESID,
+         "spec": spec_run, "spec_warm": [replay_run, other_run],
+         "plain_warm": [plain_a, plain_b],
+         # smoke-level only: 4 requests, 4 x new tokens a run
+         "spec_over_plain_warm_smoke": [
+             s["tokens_per_s"] / p["tokens_per_s"]
+             for s, p in ((replay_run, plain_a), (other_run, plain_b))],
+         "plain_equal_on_greedy_rows": [
+             plain_outs[i] == outs[i]
+             for i, (_, kw) in enumerate(requests) if not kw],
+         "spec_turns": stats["spec_turns"],
+         "spec_tokens_drafted": stats["spec_tokens_drafted"],
+         "spec_tokens_accepted": stats["spec_tokens_accepted"],
+         "accept_rate": stats["spec_accept_rate"],
+         # over every row of a turn, not per request
+         "accepted_per_engine_turn": (stats["spec_tokens_accepted"]
+                                      / stats["spec_turns"]),
+         "threefry_calls": draws, "flash_fwd_launches": launches,
+         "timing": timing, "peak_mem_gb": (
+             torch.cuda.max_memory_allocated() / 1e9 if on_card else None)})
     return launches
 
 
@@ -1764,12 +2074,14 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_setup()
+    card = phase_setup()
     fwd_checks = phase_kernels()
     bwd_checks = phase_bwd_kernels()
     phase_grad_check()
     torch.cuda.empty_cache()
     serving = phase_serving()
+    torch.cuda.empty_cache()
+    serving_sampled = phase_serving_sampled(card=card)
     torch.cuda.empty_cache()
     training = phase_training()
     torch.cuda.empty_cache()
@@ -1792,8 +2104,9 @@ def main():
         "name": "flash_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:93",
-        "launches": serving + training["flash_fwd"],
+        "launches": serving + serving_sampled + training["flash_fwd"],
         "launches_by_path": {"serving": serving,
+                             "serving_sampled": serving_sampled,
                              "training": training["flash_fwd"]},
         "max_abs_err": max(c["max_abs_err"] for c in fwd_checks),
         "shape": fwd_main["shape"], "layout": fwd_main["layout"],

@@ -3,10 +3,11 @@
 - :mod:`.kv_cache` — paged KV pool on the card + free-list allocator;
 - :mod:`.model` — bucketed ragged step over the transformer params, and
   the context-parallel long-prompt prefill :func:`cp_prefill_kv`;
-- :mod:`.sampling` — greedy sampling (sampled draws come later);
+- :mod:`.sampling` — greedy and sampled draws on JAX's threefry bits
+  (:mod:`mxnet_tpu_torch.threefry`);
 - :mod:`.scheduler` — continuous batching (host-only copy);
-- :mod:`.engine` — ``Engine.submit(prompt) -> stream of tokens`` and
-  the synchronous ``generate``.
+- :mod:`.engine` — ``Engine.submit(prompt) -> stream of tokens``, plain
+  or speculative (draft + verify), and the synchronous ``generate``.
 """
 from __future__ import annotations
 

@@ -16,9 +16,20 @@ Admission control: ``submit`` raises :class:`QueueFullError` past
 ``max_queue_depth`` and rejects outright a request whose worst-case
 footprint can never fit the pool or the model's position table.
 
-Not in this release (ROADMAP queue 1): sampled decoding (``temperature
-> 0`` raises), speculative decoding (``spec=True`` raises), telemetry,
-live weight sync, drain/resume and introspection.
+Sampling: ``temperature > 0`` samples on the device with top-k/top-p
+filtering, every draw keyed by (seed, token position, salt) with JAX's
+threefry bits (``sampling.py``), so a stream equals the JAX package's
+and replays identically after eviction.
+
+Speculative decoding (``ServingConfig.spec``, ``MXNET_SERVE_SPEC``): a
+draft transformer proposes up to ``spec_k`` tokens per scheduled decode
+turn, the target verifies them all in one ragged step with
+accept/reject and resampling on the device, and the bookkeeping rolls
+both block tables back to the first rejection. Off by default, and then
+no draft pool exists.
+
+Not in this release (ROADMAP queue 1): telemetry, live weight sync,
+drain/resume and introspection.
 """
 from __future__ import annotations
 
@@ -42,9 +53,6 @@ from .scheduler import CANCELLED, DECODE, FINISHED, PREFILL, Request, \
 __all__ = ["Engine", "ServingConfig", "StreamHandle", "QueueFullError"]
 
 _END = object()
-
-_SPEC_NOT_PORTED = ("speculative decoding is not ported yet: ROADMAP "
-                    "queue 1, the spec draft/verify")
 
 
 class QueueFullError(MXNetError):
@@ -72,8 +80,9 @@ class ServingConfig:
     policy: str = "continuous"
     eos_id: int = None
     max_seq_tokens: int = None   # per-request cap; default model max_seq_len
-    spec: bool = None            # MXNET_SERVE_SPEC (not ported: raises)
-    spec_k: int = None
+    # speculative decoding (off by default: no draft pool, no draft)
+    spec: bool = None            # MXNET_SERVE_SPEC
+    spec_k: int = None           # draft tokens per turn, MXNET_SERVE_SPEC_K
     events_max: int = None       # scheduler event-ring bound
     # context-parallel long-prompt prefill (model.cp_prefill_kv):
     mesh: object = None
@@ -177,6 +186,11 @@ class Engine:
         live elsewhere.
     model_cfg : TransformerConfig
     cfg : ServingConfig, optional
+    draft_params, draft_cfg : dict of tensors / TransformerConfig, optional
+        The draft model for speculative decoding (required when
+        ``cfg.spec``, refused otherwise): a smaller transformer whose
+        proposals the target verifies K+1 at a time; moved to
+        ``device`` like ``params``.
     device : torch.device, str or Context, optional
         Where the engine runs; default ``cuda:0`` (raises without CUDA).
     """
@@ -184,8 +198,6 @@ class Engine:
     def __init__(self, params, model_cfg, cfg=None, draft_params=None,
                  draft_cfg=None, device=None):
         self.cfg = cfg or ServingConfig()
-        if self.cfg.spec or draft_params is not None or draft_cfg is not None:
-            raise NotImplementedError(_SPEC_NOT_PORTED)
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
         self.model_cfg = model_cfg
@@ -212,6 +224,39 @@ class Engine:
                                 self.cfg.prefill_chunk})
         chunk_buckets = [c for c in chunk_buckets
                          if c <= self.cfg.prefill_chunk]
+        # speculative decoding: draft model + mirrored paged pool; the
+        # verify chunk is exactly spec_k + 1 wide, and the draft's chunk
+        # buckets gain 2 (the catch-up ingest after a full accept)
+        self.draft_params = None
+        self.draft_cfg = None
+        self.draft_model = None
+        self.draft_pool = None
+        spec_k = 0
+        if self.cfg.spec:
+            if draft_params is None or draft_cfg is None:
+                raise MXNetError(
+                    "ServingConfig.spec requires draft_params + "
+                    "draft_cfg (the draft transformer)")
+            if self.cfg.policy == "static":
+                raise MXNetError(
+                    "speculative decoding requires policy="
+                    "'continuous' (static is the fixed-shape baseline)")
+            if self.cfg.spec_k < 1:
+                raise MXNetError("spec_k must be >= 1, got %d"
+                                 % self.cfg.spec_k)
+            spec_k = self.cfg.spec_k
+            self.draft_params = _to_device(draft_params, self.device)
+            self.draft_cfg = draft_cfg
+            self.draft_pool = self.pool.mirror(
+                draft_cfg.num_layers, draft_cfg.num_heads,
+                draft_cfg.head_dim, dtype=draft_cfg.dtype)
+            self.draft_model = ServingModel(
+                draft_cfg, bs, w, batch_buckets=batch_buckets,
+                chunk_buckets=sorted(set(chunk_buckets) | {2}))
+        elif draft_params is not None or draft_cfg is not None:
+            raise MXNetError(
+                "draft model passed but ServingConfig.spec is off — "
+                "set spec=True (or MXNET_SERVE_SPEC=1)")
         self.model = ServingModel(model_cfg, bs, w,
                                   batch_buckets=batch_buckets,
                                   chunk_buckets=chunk_buckets)
@@ -219,7 +264,8 @@ class Engine:
             self.pool, max_batch=self.cfg.max_batch,
             prefill_chunk=self.cfg.prefill_chunk,
             token_budget=self.cfg.token_budget, policy=self.cfg.policy,
-            max_active=self.cfg.max_active, events_max=self.cfg.events_max)
+            max_active=self.cfg.max_active, draft_pool=self.draft_pool,
+            spec_k=spec_k, events_max=self.cfg.events_max)
         self._lock = threading.RLock()
         # serializes whole steps: model execution runs outside _lock
         # (submit must not block on a dispatch), so two concurrent
@@ -230,7 +276,9 @@ class Engine:
         self._last_counts = {}
         self._stats = {"admitted": 0, "completed": 0, "evicted": 0,
                        "rejected": 0, "cancelled": 0, "tokens_emitted": 0,
-                       "steps": 0, "streams_reaped": 0, "cp_prefills": 0}
+                       "steps": 0, "streams_reaped": 0, "cp_prefills": 0,
+                       "spec_turns": 0, "spec_tokens_drafted": 0,
+                       "spec_tokens_accepted": 0}
         self._ttfts = []
         self._token_lats = []
         self._rate_window = []  # (t, cumulative tokens) for tokens/s
@@ -244,9 +292,15 @@ class Engine:
                prefix_tokens=None):
         """Queue a generation request; returns a StreamHandle.
 
-        ``temperature`` 0 (the default) is exact greedy decode; a
-        positive temperature raises NotImplementedError in this
-        release. ``prefix_tokens`` are tokens this request already
+        ``temperature`` 0 (the default) is exact greedy decode;
+        positive temperatures sample on the device with top-k/top-p
+        filtering, every draw keyed by ``(seed, token position)``, so
+        the plain-decode stream replays identically across evictions
+        and re-chunking. Under speculation a shifted turn alignment may
+        change which salt stream a position draws from (accepted draft,
+        residual or bonus): the same distribution, byte-stable only at
+        temperature 0 or for a fixed schedule. ``prefix_tokens`` are
+        tokens this request already
         streamed elsewhere: they are folded into the recompute context
         and count against ``max_new_tokens`` without being re-emitted.
 
@@ -260,8 +314,6 @@ class Engine:
                 "invalid sampling params: temperature >= 0, top_k >= 0 "
                 "and 0 < top_p <= 1 required (got %r, %r, %r)"
                 % (temperature, top_k, top_p))
-        if temperature > 0:
-            raise NotImplementedError(_samp.SAMPLED_NOT_PORTED)
         req = Request(prompt, max_new_tokens,
                       eos_id=self.cfg.eos_id if eos_id is None else eos_id,
                       temperature=temperature, top_k=top_k, top_p=top_p,
@@ -334,6 +386,56 @@ class Engine:
             for r in self.sched.active)
         return float(min(30.0, max(0.05, remaining * active / rate)))
 
+    # -- speculative-decoding runtime toggle ---------------------------------
+    def set_spec(self, enabled):
+        """Flip speculation at runtime (takes effect at the next
+        scheduler plan). The draft pool stays resident and mirrored, so
+        re-enabling is instant. Raises when the engine was built
+        without a draft model."""
+        if self.draft_model is None:
+            raise MXNetError(
+                "speculation was not configured on this engine "
+                "(ServingConfig.spec + draft model)")
+        with self._lock:
+            self.sched.set_spec_k(self.cfg.spec_k if enabled else 0)
+
+    @property
+    def spec_enabled(self):
+        with self._lock:
+            return self.sched.spec_active()
+
+    def warmup_spec(self, batch_sizes=None):
+        """Run every speculative-path entry point once before traffic:
+        the draft model's step at each batch and chunk bucket, and the
+        draft turn (both steady-state ingest widths) and verify at each
+        batch bucket, so lazy CUDA and cuBLAS set-up lands here.
+        Inactive rows write only the scratch block, so warming against
+        the live pools is safe."""
+        if self.draft_model is None:
+            return
+        K = self.cfg.spec_k
+        for b in (batch_sizes or self.draft_model.batch_buckets):
+            for c in self.draft_model.chunk_buckets:
+                self.draft_model.step(
+                    self.draft_params, self.draft_pool.k, self.draft_pool.v,
+                    np.zeros((b, c), np.int32), np.zeros((b,), np.int32),
+                    np.ones((b,), np.int32),
+                    np.zeros((b, self.draft_model.max_blocks), np.int32),
+                    np.zeros((b,), bool))
+        for b in (batch_sizes or self.model.batch_buckets):
+            bt = np.zeros((b, self.model.max_blocks), np.int32)
+            ks = np.full((b,), K, np.int32)
+            act = np.zeros((b,), bool)
+            for cin in (1, 2):
+                d, q = self.draft_model.draft_turn(
+                    self.draft_params, self.draft_pool.k, self.draft_pool.v,
+                    np.zeros((b, cin), np.int32), np.zeros((b,), np.int32),
+                    np.full((b,), cin, np.int32), bt, act, ks, K)
+            self.model.verify(
+                self.params, self.pool.k, self.pool.v,
+                np.zeros((b, 1), np.int32), d, q, np.zeros((b,), np.int32),
+                1 + ks, bt, act)
+
     # -- synchronous batch API -----------------------------------------------
     def generate(self, prompts, max_new_tokens=16):
         """Submit all prompts, drive the loop to completion, return the
@@ -356,9 +458,10 @@ class Engine:
                 self._mirror_events()
                 decode = list(plan.decode)
                 prefill = list(plan.prefill)
+                spec_k = dict(plan.spec_k)
             worked = False
             if decode:
-                self._run_plain_decode(decode)
+                self._run_decode(decode, spec_k)
                 worked = True
             if prefill:
                 self._run_prefill(prefill)
@@ -423,24 +526,146 @@ class Engine:
             bt[i, :len(r.blocks)] = r.blocks
         return bt
 
+    def _draft_tables(self, reqs):
+        w = self.draft_model.max_blocks
+        bt = np.zeros((len(reqs), w), np.int32)
+        for i, r in enumerate(reqs):
+            bt[i, :len(r.draft_blocks)] = r.draft_blocks
+        return bt
+
+    @staticmethod
+    def _samp_arrays(reqs):
+        """Per-request sampler parameter vectors (host arrays)."""
+        return (np.asarray([r.temperature for r in reqs], np.float32),
+                np.asarray([r.top_k for r in reqs], np.int32),
+                np.asarray([r.top_p for r in reqs], np.float32),
+                np.asarray([r.seed for r in reqs], np.uint32))
+
+    @staticmethod
+    def _stream_slice(req, a, b):
+        """Tokens at global positions [a, b) of a request's emitted
+        stream (prompt then generated: eviction's recompute fold moves
+        tokens between context and generated but never their global
+        positions)."""
+        lp = len(req.prompt)
+        return [int(req.prompt[p]) if p < lp else int(req.generated[p - lp])
+                for p in range(a, b)]
+
+    def _run_decode(self, reqs, spec_k=None):
+        """Dispatch one decode batch: rows the plan gave a draft budget
+        run the draft + verify turn, the rest (speculation off, or a
+        request's final token) the plain sampled step."""
+        spec_rows = [r for r in reqs if spec_k and spec_k.get(r.rid, 0) > 0]
+        if spec_rows:
+            self._run_spec_turn(spec_rows, [spec_k[r.rid] for r in spec_rows])
+        plain = [r for r in reqs if r not in spec_rows]
+        if plain:
+            self._run_plain_decode(plain)
+
     def _run_plain_decode(self, reqs):
         B = len(reqs)
         tokens = np.asarray([[r.generated[-1]] for r in reqs], np.int32)
         start = np.asarray(
             [len(r.prompt) + len(r.generated) - 1 for r in reqs], np.int32)
+        temp, tk, tp, sd = self._samp_arrays(reqs)
         # static policy = fixed-shape serving: decode dispatches at the
         # full batch width even as the batch drains
         min_b = self.cfg.max_batch if self.cfg.policy == "static" else None
         nxt = self.model.step(
             self.params, self.pool.k, self.pool.v, tokens, start,
             np.ones((B,), np.int32), self._tables(reqs),
-            np.ones((B,), bool), min_batch_bucket=min_b)
+            np.ones((B,), bool), min_batch_bucket=min_b,
+            temperature=temp, top_k=tk, top_p=tp, seed=sd)
         now = time.monotonic()
         with self._lock:
             for r, t in zip(reqs, nxt):
                 if r.state != DECODE:   # cancelled while stepping
                     continue
                 self._emit(r, int(t), now)
+
+    def _draft_ingest(self, toks, lo, dtable):
+        """Write the draft pool's K/V for ``toks`` at stream positions
+        from ``lo`` on (one request, its draft table ``dtable``) through
+        the draft's paged step, ``prefill_chunk`` tokens at a time."""
+        toks = np.asarray(toks, np.int32)
+        for c0 in range(0, len(toks), self.cfg.prefill_chunk):
+            c = toks[c0:c0 + self.cfg.prefill_chunk]
+            self.draft_model.step(
+                self.draft_params, self.draft_pool.k, self.draft_pool.v,
+                c[None], np.asarray([lo + c0], np.int32),
+                np.asarray([len(c)], np.int32), dtable, np.ones((1,), bool))
+
+    def _run_spec_turn(self, reqs, ks):
+        """One speculative decode turn: the draft model proposes up to
+        ``ks[i]`` tokens a request (chained on the device), the target
+        verifies every position in one ragged step with accept/reject
+        and resampling, and the host folds the accepted prefix plus one
+        corrected or bonus token into each stream. The turn's only
+        device->host pulls are ints: the accepted counts, the final
+        tokens and the draft tokens."""
+        B = len(reqs)
+        # a fixed chain length: ks masks each row's unused tail
+        K = self.cfg.spec_k
+        P = np.asarray([len(r.prompt) + len(r.generated) for r in reqs],
+                       np.int32)              # next-token position per row
+        temp, tk, tp, sd = self._samp_arrays(reqs)
+        dtables = self._draft_tables(reqs)
+        # draft catch-up beyond the steady-state ingest (a request that
+        # ran plain decode while speculation was off can lag arbitrarily)
+        for i, r in enumerate(reqs):
+            while P[i] - 1 - r.draft_pos > 1:
+                cl = min(self.cfg.prefill_chunk, int(P[i]) - 1 - r.draft_pos)
+                self._draft_ingest(
+                    self._stream_slice(r, r.draft_pos, r.draft_pos + cl),
+                    r.draft_pos, dtables[i:i + 1])
+                r.draft_pos += cl
+        # draft phase: ingest the 1-2 missing stream tokens + K chained
+        # proposals
+        dstart = np.asarray([r.draft_pos for r in reqs], np.int32)
+        lens = P - dstart
+        ing = np.zeros((B, int(lens.max())), np.int32)
+        for i, r in enumerate(reqs):
+            ing[i, :lens[i]] = self._stream_slice(r, r.draft_pos, int(P[i]))
+        karr = np.asarray(ks, np.int32)
+        dmat, qmat = self.draft_model.draft_turn(
+            self.draft_params, self.draft_pool.k, self.draft_pool.v, ing,
+            dstart, lens, dtables, np.ones((B,), bool), karr, K,
+            temperature=temp, top_k=tk, top_p=tp, seed=sd)
+        # verify: one ragged target step over [prev, d_0..d_k]
+        prev = np.asarray([[r.generated[-1]] for r in reqs], np.int32)
+        n_dev, fin_dev = self.model.verify(
+            self.params, self.pool.k, self.pool.v, prev, dmat, qmat, P - 1,
+            1 + karr, self._tables(reqs), np.ones((B,), bool),
+            temperature=temp, top_k=tk, top_p=tp, seed=sd)
+        n = n_dev.cpu().numpy()
+        fin = fin_dev.cpu().numpy()
+        drafts = dmat.cpu().numpy()
+        now = time.monotonic()
+
+        drafted = accepted = 0
+        with self._lock:
+            for i, r in enumerate(reqs):
+                if r.state != DECODE:         # cancelled while stepping
+                    continue
+                k_i = int(ks[i])
+                j = min(int(n[i]), k_i)
+                # draft KV is valid through the accepted, fed prefix
+                # (the last proposal is never fed back): positions
+                # < P + min(j, k_i - 1)
+                r.draft_pos = int(P[i]) + min(j, k_i - 1)
+                r.spec_drafted += k_i
+                r.spec_accepted += j
+                drafted += k_i
+                accepted += j
+                for t in list(drafts[i, :j]) + [int(fin[i])]:
+                    self._emit(r, int(t), now)
+                    if r.state != DECODE:     # eos / max_new hit
+                        break
+                if r.state == DECODE:
+                    self.sched.trim_blocks(r)
+            self._stats["spec_turns"] += 1
+            self._stats["spec_tokens_drafted"] += drafted
+            self._stats["spec_tokens_accepted"] += accepted
 
     def _run_prefill(self, chunks):
         # context-parallel long prompts take their own path, off the
@@ -465,15 +690,27 @@ class Engine:
             tokens[i, :clen] = req.context[cs:cs + clen]
             start[i] = cs
             chunk_len[i] = clen
+        temp, tk, tp, sd = self._samp_arrays(reqs)
         nxt = self.model.step(
             self.params, self.pool.k, self.pool.v, tokens, start,
-            chunk_len, self._tables(reqs), np.ones((B,), bool))
+            chunk_len, self._tables(reqs), np.ones((B,), bool),
+            temperature=temp, top_k=tk, top_p=tp, seed=sd)
+        if self.draft_model is not None:
+            # mirror the chunk into the draft pool (same tokens and
+            # positions, the draft's own tables) so draft KV stays
+            # position-consistent with the target from admission on; the
+            # mirror runs while speculation is toggled off too
+            self.draft_model.step(
+                self.draft_params, self.draft_pool.k, self.draft_pool.v,
+                tokens, start, chunk_len, self._draft_tables(reqs),
+                np.ones((B,), bool))
         now = time.monotonic()
         with self._lock:
             for i, (req, cs, clen) in enumerate(batched):
                 if req.state != PREFILL:   # cancelled while stepping
                     continue
                 self.sched.note_prefilled(req, clen)
+                req.draft_pos = cs + clen
                 if req.state == DECODE:
                     # the final prefill chunk's logits give the first
                     # new token
@@ -504,20 +741,31 @@ class Engine:
         v = v.reshape(cfg.num_layers, nb, bs, cfg.num_heads, cfg.head_dim)
         blocks = torch.as_tensor(np.asarray(req.blocks[:nb], np.int64),
                                  device=self.device)
-        # the pool write and the logits run outside _lock (every
-        # pool-writing path serializes on _step_lock)
+        # the pool write, the logits and the draw run outside _lock
+        # (every pool-writing path serializes on _step_lock)
         with torch.no_grad():
             self.pool.k[:, blocks] = k.to(self.pool.k.dtype)
             self.pool.v[:, blocks] = v.to(self.pool.v.dtype)
             logits = x_last @ self._unembed
-        first = _samp.host_sample(logits, req.temperature, req.top_k,
-                                  req.top_p, req.seed, T)
+            # the first token draws from the (seed, position) stream the
+            # paged path's sampler uses, on the device
+            first, _ = _samp.sample_tokens(
+                logits[None], *self._samp_arrays([req]),
+                np.asarray([T]), _samp.SALT_TARGET)
+        if self.draft_model is not None:
+            # the draft pool still needs this context: the draft ingests
+            # it through its own paged prefill (it is small: chunked
+            # single-row steps, not a cp pass)
+            self._draft_ingest(req.context[:T], 0,
+                               self._draft_tables([req]))
+        first = int(first[0])
         now = time.monotonic()
         with self._lock:
             self._stats["cp_prefills"] += 1
             if req.state != PREFILL:
                 return
             self.sched.note_prefilled(req, T - req.prefilled)
+            req.draft_pos = T
             self._emit(req, first, now)
 
     # -- per-token bookkeeping (under self._lock) ----------------------------
@@ -590,7 +838,12 @@ class Engine:
 
         with self._lock:
             out = dict(self._stats)
+            drafted = self._stats["spec_tokens_drafted"]
             out.update({
+                "spec_enabled": self.sched.spec_active(),
+                "spec_accept_rate": (
+                    self._stats["spec_tokens_accepted"] / float(drafted)
+                    if drafted else None),
                 "kv_pool_utilization": self.pool.utilization(),
                 "kv_pool_hwm_blocks": self.pool.high_water_mark(),
                 "queue_depth": len(self.sched.queue),

@@ -13,7 +13,9 @@ hands out blocks 1..num_blocks-1.
 
 The pool tensors are updated IN PLACE by the step (the JAX package's
 arrays are functional and the engine swaps in the returned ones); that
-saves a second copy of the pool on the card.
+saves a second copy of the pool on the card, and is why the port's pool
+has no ``swap``. Speculative decoding keeps the draft model's K/V in a
+:meth:`PagedKVPool.mirror` of the target's pool.
 
 Backpressure: ``alloc`` returns None when the free list can't cover a
 request; the scheduler treats None as the OOM signal.
@@ -105,3 +107,13 @@ class PagedKVPool:
             if b in self._free:
                 raise ValueError("double free of block %d" % b)
         self._free.extend(int(b) for b in blocks)
+
+    def mirror(self, num_layers, num_heads, head_dim, dtype="float32"):
+        """A second pool with the same block geometry (num_blocks,
+        block_size) on the same device but its own K/V shape: the draft
+        model's pool in speculative decoding. Equal block counts keep
+        the target and draft block tables in lockstep, so every paired
+        alloc/free succeeds or fails together."""
+        return PagedKVPool(num_layers, num_heads, head_dim,
+                           self.num_blocks, self.block_size, dtype=dtype,
+                           device=self.device)

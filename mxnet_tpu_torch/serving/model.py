@@ -16,21 +16,36 @@ shapes. PyTorch runs eagerly, so a bucket costs no compile here. Padded
 lanes redirect their K/V writes to the pool's scratch block 0 and are
 masked out of attention reads.
 
+Three entry points share the transformer body, as the JAX package's
+three program kinds do:
+
+- :meth:`ServingModel.step`: prefill/decode with the sampler
+  (:mod:`.sampling`) on the device; the one device->host pull is the
+  ``[B]`` token vector;
+- :meth:`ServingModel.draft_turn`: the draft model ingests the 1-2
+  stream tokens its pool lacks and chains ``K`` proposals, sampled
+  token and filtered distribution ``q`` each, all kept on the device;
+- :meth:`ServingModel.verify`: the speculative verify, target logits at
+  all ``K+1`` chunk positions, accept/reject against the proposals and
+  the residual or bonus draw. A ``chunk_len == 1`` row is plain sampled
+  decode.
+
 Numerical contract: a token decoded through the paged path produces the
-logits ``transformer.forward`` would at that position, and greedy decode
-is exact argmax, so greedy streams match the JAX package token for
-token.
+logits ``transformer.forward`` would at that position, greedy decode is
+exact argmax, and every sampled draw takes JAX's threefry bits keyed by
+(seed, position, salt), so greedy streams, spec or not, and sampled
+streams match the JAX package token for token.
 
 Long-context prefill on a mesh reuses the context-parallel attention of
 ``parallel/ring_attention.py`` / ``parallel/ulysses.py``: see
-:func:`cp_prefill_kv`. Speculative ``draft_turn``/``verify`` come with
-the spec slice (ROADMAP queue 1).
+:func:`cp_prefill_kv`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import threefry as _tf
 from ..models.transformer import TransformerConfig, _gelu, _layer_norm
 from . import sampling as _samp
 
@@ -158,25 +173,39 @@ class ServingModel:
         x_last = x[torch.arange(x.shape[0], device=x.device), last]
         return (x_last @ params["embed"].T).float()
 
+    def _sample_step(self, params, kpool, vpool, tokens, start, chunk_len,
+                     block_tables, active, samp, salt, keys=None):
+        """Body + last-position logits + sampler for one bucketed batch
+        (device tensors in, device tensors out): the sampled token for
+        global position ``start + chunk_len`` of every row, and the
+        distribution it was drawn from. ``keys``: the rows' draw keys,
+        when the caller derived them ahead."""
+        x = self._body(params, kpool, vpool, tokens, start, chunk_len,
+                       block_tables, active)
+        logits = self._last_logits(params, x, chunk_len)
+        return _samp.sample_tokens(logits, *samp, start + chunk_len, salt,
+                                   keys)
+
     # -- host-facing API -----------------------------------------------------
-    def step(self, params, kpool, vpool, tokens, start, chunk_len,
-             block_tables, active, min_batch_bucket=None):
-        """Run one bucketed step over host-side (numpy) batch inputs.
+    @staticmethod
+    def _sampling_arrays(B, B_real, temperature, top_k, top_p, seed):
+        """Per-request sampling params padded to the batch bucket as
+        host arrays (padded rows greedy with seed 0: their draws are
+        never read)."""
+        def pad(vals, dtype, default):
+            a = np.full((B,), default, dtype)
+            if vals is not None:
+                a[:B_real] = np.asarray(vals, dtype)
+            return a
 
-        ``tokens`` is [B, C_real<=bucket] padded per row by the caller
-        via ``chunk_len``; batch and chunk pad to their buckets and the
-        result is sliced back. ``min_batch_bucket`` forces at least that
-        batch bucket (the static-batching baseline). Decoding is greedy
-        (the sampled path is not ported yet).
+        return (pad(temperature, np.float32, 0.0),
+                pad(top_k, np.int32, 0),
+                pad(top_p, np.float32, 1.0),
+                pad(seed, np.uint32, 0))
 
-        Returns next_token [B_real] int32 numpy; the chunk's K/V are
-        written into ``kpool``/``vpool`` in place.
-        """
-        B_real, C_real = tokens.shape
-        B = bucket_for(max(B_real, min_batch_bucket or 1),
-                       self.batch_buckets)
-        C = 1 if C_real == 1 else bucket_for(C_real, self.chunk_buckets)
-
+    def _batch(self, B, dev, start, chunk_len, block_tables, active):
+        """Host batch inputs padded to bucket ``B`` as int64/bool
+        tensors on ``dev``: (start, chunk_len, block_tables, active)."""
         def padb(a):
             a = np.asarray(a)
             if a.shape[0] == B:
@@ -184,26 +213,223 @@ class ServingModel:
             pad = np.zeros((B - a.shape[0],) + a.shape[1:], a.dtype)
             return np.concatenate([a, pad], axis=0)
 
-        tok = np.zeros((B, C), np.int64)
-        tok[:B_real, :C_real] = tokens
         bt = np.zeros((B, self.max_blocks), np.int64)
-        bt[:B_real] = block_tables
+        bt[:len(block_tables)] = block_tables
         act = np.zeros((B,), bool)
-        act[:B_real] = active
+        act[:len(active)] = active
+        return (_tensor(padb(start), dev), _tensor(padb(chunk_len), dev),
+                _tensor(bt, dev), _tensor(act, dev, torch.bool))
+
+    def _tokens(self, tokens, B, C, dev):
+        tok = np.zeros((B, C), np.int64)
+        tok[:tokens.shape[0], :tokens.shape[1]] = tokens
+        return _tensor(tok, dev)
+
+    def step(self, params, kpool, vpool, tokens, start, chunk_len,
+             block_tables, active, min_batch_bucket=None, temperature=None,
+             top_k=None, top_p=None, seed=None):
+        """Run one bucketed step over host-side (numpy) batch inputs.
+
+        ``tokens`` is [B, C_real<=bucket] padded per row by the caller
+        via ``chunk_len``; batch and chunk pad to their buckets and the
+        result is sliced back. ``min_batch_bucket`` forces at least that
+        batch bucket (the static-batching baseline). Sampling params
+        default to greedy (temperature 0).
+
+        Returns next_token [B_real] int32 numpy; the chunk's K/V are
+        written into ``kpool``/``vpool`` in place.
+        """
+        tokens = np.asarray(tokens)
+        B_real, C_real = tokens.shape
+        B = bucket_for(max(B_real, min_batch_bucket or 1),
+                       self.batch_buckets)
+        C = 1 if C_real == 1 else bucket_for(C_real, self.chunk_buckets)
         dev = kpool.device
-
-        def t(a, dtype=torch.int64):
-            return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
-
-        clen = t(padb(chunk_len))
+        samp = self._sampling_arrays(B, B_real, temperature, top_k, top_p,
+                                     seed)
         with torch.no_grad():
-            x = self._body(params, kpool, vpool, t(tok), t(padb(start)), clen,
-                           t(bt), t(act, torch.bool))
-            logits = self._last_logits(params, x, clen)
-            nxt, _ = _samp.sample_tokens(logits, np.zeros((B,), np.float32),
-                                         0, 1.0, 0, None, _samp.SALT_TARGET)
+            nxt, _ = self._sample_step(
+                params, kpool, vpool, self._tokens(tokens, B, C, dev),
+                *self._batch(B, dev, start, chunk_len, block_tables, active),
+                samp, _samp.SALT_TARGET)
         # the step's one device->host pull: the token vector
         return nxt.cpu().numpy()[:B_real]
+
+    def draft_turn(self, params, kpool, vpool, tokens, start, chunk_len,
+                   block_tables, active, ks, K, temperature=None,
+                   top_k=None, top_p=None, seed=None):
+        """The whole draft phase: ingest the catch-up chunk (``tokens``
+        [B_real, Cin], ``chunk_len`` real tokens a row: the 1-2 stream
+        tokens the draft pool lacks) and chain ``K`` proposals, each
+        feeding the previous sample back in. The K-1 follow-ups are a
+        loop over the single-token body; no proposal visits the host.
+        ``ks`` [B_real] is the per-row draft budget: rows past theirs go
+        inactive (their writes land in scratch, their proposals are
+        masked later by the verify's chunk_len). A sampled turn derives
+        the K proposals' keys in one :func:`~.sampling.fold_keys` call.
+
+        Returns (draft [B_real, K] int32, qdists [B_real, K, V] f32),
+        both on the pools' device.
+        """
+        tokens = np.asarray(tokens)
+        B_real, C_real = tokens.shape
+        B = bucket_for(B_real, self.batch_buckets)
+        C = 1 if C_real == 1 else bucket_for(C_real, self.chunk_buckets)
+        dev = kpool.device
+        samp = self._sampling_arrays(B, B_real, temperature, top_k, top_p,
+                                     seed)
+        start, clen, bt, act = self._batch(B, dev, start, chunk_len,
+                                           block_tables, active)
+        ks = np.concatenate([np.asarray(ks, np.int64),
+                             np.zeros((B - B_real,), np.int64)])
+        ks = _tensor(ks, dev)
+        K = int(K)
+        with torch.no_grad():
+            p0 = start + clen        # global position of proposal d_0
+            keys = [None] * K
+            if (samp[0] > 0).any():
+                pos = p0[:, None] + torch.arange(K, device=dev)[None, :]
+                keys = _samp.fold_keys(np.repeat(samp[3], K), pos.reshape(-1),
+                                       _samp.SALT_DRAFT).reshape(B, K, 2)
+                keys = keys.unbind(1)
+            tok, q = self._sample_step(
+                params, kpool, vpool, self._tokens(tokens, B, C, dev), start,
+                clen, bt, act, samp, _samp.SALT_DRAFT, keys[0])
+            toks, qs = [tok], [q]
+            ones = torch.ones_like(start)
+            for j in range(1, K):
+                tok, q = self._sample_step(
+                    params, kpool, vpool, tok[:, None].long(), p0 + j - 1,
+                    ones, bt, act & (ks > j), samp, _samp.SALT_DRAFT, keys[j])
+                toks.append(tok)
+                qs.append(q)
+        return (torch.stack(toks, dim=1)[:B_real],
+                torch.stack(qs, dim=1)[:B_real])
+
+    def verify(self, params, kpool, vpool, prev_tokens, draft_tokens,
+               qdists, start, chunk_len, block_tables, active,
+               temperature=None, top_k=None, top_p=None, seed=None):
+        """The speculative verify over a [B, K+1] chunk.
+
+        ``prev_tokens`` [B_real, 1] (host) is each row's last emitted
+        token, at global position ``start``; ``draft_tokens`` [B_real,
+        K] and ``qdists`` [B_real, K, V] come from :meth:`draft_turn` on
+        the device. A row proposes ``k_i = chunk_len - 1`` drafts
+        (``k_i == 0`` is plain sampled decode). Returns (n_accept
+        [B_real], tok [B_real]) on the device: the leading drafts
+        accepted, and the one non-draft token to emit after them (the
+        rejection resample, or the bonus sample on full acceptance).
+        Logits never leave the device.
+        """
+        B_real, K = draft_tokens.shape
+        B = bucket_for(B_real, self.batch_buckets)
+        dev = kpool.device
+        V = self.cfg.vocab_size
+        # padded rows: chunk_len 0 would make k_i negative; clamp to 1
+        chunk_len = np.maximum(np.asarray(chunk_len), 1)
+        temp, tk, tp, sd = self._sampling_arrays(
+            B, B_real, temperature, top_k, top_p, seed)
+        start, clen, bt, act = self._batch(
+            B, dev, start, np.concatenate(
+                [chunk_len, np.ones((B - B_real,), chunk_len.dtype)]),
+            block_tables, active)
+        pad = B - B_real
+        d = torch.cat([draft_tokens.long(),
+                       draft_tokens.new_zeros((pad, K)).long()])
+        q = torch.cat([qdists, qdists.new_ones((pad, K, V))])
+        prev = self._tokens(np.asarray(prev_tokens), B, 1, dev)
+        with torch.no_grad():
+            n, tok = self._verify(params, kpool, vpool,
+                                  torch.cat([prev, d], dim=1), d, q, start,
+                                  clen, bt, act, (temp, tk, tp, sd))
+        return n[:B_real], tok[:B_real]
+
+    def _verify(self, params, kpool, vpool, tokens, d, qdists, start,
+                chunk_len, block_tables, active, samp):
+        """Accept/reject, bonus and residual draws of :meth:`verify` on
+        padded device inputs. A batch with no sampled row takes only
+        the greedy comparisons: no threefry draw, no filtering. A
+        sampled batch derives all of its keys in one
+        :func:`~.sampling.fold_keys` call (the K accept positions, the
+        bonus position and the K + 1 candidate residual positions a
+        row) and draws the bonus and residual Gumbels in one pass."""
+        temp, tk, tp, seed = samp
+        x = self._body(params, kpool, vpool, tokens, start, chunk_len,
+                       block_tables, active)
+        B, C = tokens.shape
+        K = C - 1
+        V = self.cfg.vocab_size
+        dev = x.device
+        logits = (x @ params["embed"].T).float()                # [B, C, V]
+        argm = torch.argmax(logits, dim=-1)                     # [B, C]
+        k_i = chunk_len - 1                                     # [B]
+        any_sampled = bool((temp > 0).any())
+        is_sampled = torch.as_tensor(temp > 0, device=dev)
+        d = torch.clamp(d, 0, V - 1)
+        arK = torch.arange(K, device=dev)
+
+        # -- accept/reject the K draft positions -----------------------------
+        accept = d == argm[:, :K]
+        if any_sampled:
+            masked, pdist = _samp.filter_dist(
+                logits, temp[:, None], tk[:, None], tp[:, None])
+            p_d = torch.gather(pdist[:, :K], -1, d[..., None])[..., 0]
+            q_d = torch.gather(qdists, -1, d[..., None])[..., 0]
+            nxt = start[:, None] + 1 + torch.arange(C, device=dev)[None, :]
+            pos = torch.cat([nxt[:, :K], (start + chunk_len)[:, None], nxt],
+                            dim=1)                               # [B, 2K+2]
+            salt = torch.as_tensor(
+                [_samp.SALT_ACCEPT] * K + [_samp.SALT_TARGET]
+                + [_samp.SALT_RESIDUAL] * C, device=dev).expand(B, -1)
+            keys = _samp.fold_keys(np.repeat(seed, 2 * C), pos.reshape(-1),
+                                   salt.reshape(-1)).reshape(B, 2 * C, 2)
+            u = _tf.uniform(keys[:, :K], 1)[..., 0]              # [B, K]
+            ratio = torch.clamp(p_d / torch.clamp(q_d, min=1e-20), max=1.0)
+            accept = torch.where(is_sampled[:, None], u < ratio, accept)
+        accept = accept & (arK[None, :] < k_i[:, None])
+        stop = (~accept).to(torch.int32)
+        n = torch.where(stop.any(dim=1), torch.argmax(stop, dim=1),
+                        torch.full_like(k_i, K))
+
+        # -- the one non-draft token ------------------------------------------
+        # full acceptance: the bonus draw at start + chunk_len under the
+        # TARGET salt, exactly the draw plain decode would make there
+        ri = torch.arange(B, device=dev)
+        nc = torch.clamp(n, 0, C - 1)
+        bonus = argm[ri, k_i]
+        resample = argm[ri, nc]
+        if any_sampled:
+            # the bonus key, and the residual key at start + 1 + n
+            g = _tf.gumbel(torch.stack([keys[:, K], keys[ri, C + nc]], 1), V)
+            bonus = torch.where(is_sampled, torch.argmax(
+                masked[ri, k_i] + g[:, 0], dim=-1), bonus)
+            # rejection at draft index n: resample from max(p - q, 0)
+            p_n = pdist[ri, nc]
+            q_n = qdists[ri, torch.clamp(n, 0, K - 1)]
+            r = torch.clamp(p_n - q_n, min=0.0)
+            rs = r.sum(dim=-1, keepdim=True)
+            r = torch.where(rs > 1e-12, r / torch.clamp(rs, min=1e-12), p_n)
+            r_logits = torch.where(r > 0, torch.log(torch.clamp(r, min=1e-30)),
+                                   torch.full_like(r, -1e30))
+            resample = torch.where(is_sampled, torch.argmax(
+                r_logits + g[:, 1], dim=-1), resample)
+        tok = torch.where(n >= k_i, bonus, resample)
+        return n.to(torch.int32), tok.to(torch.int32)
+
+    def warmup(self, params, pool, batch_sizes=None):
+        """Run the decode step once at each batch bucket (inactive rows,
+        which write only the scratch block), so lazy CUDA and cuBLAS
+        set-up lands before traffic. Prefill buckets warm on first
+        use."""
+        for B in (batch_sizes or self.batch_buckets):
+            self.step(params, pool.k, pool.v, np.zeros((B, 1), np.int64),
+                      np.zeros((B,), np.int64), np.ones((B,), np.int64),
+                      np.zeros((B, self.max_blocks), np.int64),
+                      np.zeros((B,), bool))
+
+
+def _tensor(a, dev, dtype=torch.int64):
+    return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
 
 
 def cp_prefill_kv(params, cfg, tokens, mesh, kind="ring", chunk=None,

@@ -110,15 +110,6 @@ def _engine(model, **kw):
     return Engine(tp, tcfg, ServingConfig(**kw), device="cpu")
 
 
-def test_sampled_and_spec_raise(model):
-    eng = _engine(model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit(np.arange(5), temperature=0.7)
-    _, _, tcfg, tp = model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(tp, tcfg, ServingConfig(spec=True), device="cpu")
-
-
 def test_engine_without_device_raises_on_cpu_only_machine(model):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
