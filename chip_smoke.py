@@ -54,8 +54,9 @@ Phases (any failure raises and the script exits non-zero):
 7. the row-softmax kernel K1 against its plain version at the Symbol
    paths' shapes ([64, 10], [128, 1000] f32), at [128, 1000] scaled by
    50, [1000, 1001] f16, [4096, 32000] bf16, [8, 2097152] f32 (8 MB
-   rows, past the TPU kernel's fallback) and [3, 1], each timed beside
-   the plain version, ``torch.softmax`` and its bytes bound;
+   rows, past the TPU kernel's fallback), [3, 1] and the LSTM's [1920,
+   200] f32, each timed beside the plain version, ``torch.softmax`` and
+   its bytes bound;
 8. the Symbol path, LeNet: the canonical ``FeedForward.fit`` of the
    verify recipe on ``gpu(0)`` (MNISTIter 1024 synthetic digits, batch
    64, 3 epochs, lr 0.1, momentum 0.9, Xavier), which must score > 0.9
@@ -79,13 +80,25 @@ Phases (any failure raises and the script exits non-zero):
    finite; K1's count zeroed just before and read just after;
 11. ResNet-50 through ``Module.fit`` at phase 9's widths and batches, one
    epoch, its warm step and img/s printed beside FeedForward's;
-12. RTC (K5): the CUDA C bodies of ``RTC_BODIES`` compiled by NVRTC and
+12. the LSTM language model over bucketing (baseline config #3):
+   examples/rnn_torch/lstm_bucketing.py's recipe at its defaults (2
+   layers of 200, embed 200, batch 32, buckets 10-60, 5 epochs of the
+   synthetic corpus: 300 batches) through ``FeedForward(symbol=sym_gen)
+   .fit``; epoch 5's train perplexity below epoch 1's and below half the
+   corpus's unigram perplexity; K1 launched once a batch (its count
+   zeroed just before and read just after); every bucket on one
+   parameter and gradient storage on the card; an executor at dropout
+   0.5 whose masks on the card equal the host's for the same keys;
+   prints ms a batch by bucket, non-pad tokens/s, peak memory, the busy
+   share of the last epoch and the ms of a forward+backward at dropout
+   0.5 against 0;
+13. RTC (K5): the CUDA C bodies of ``RTC_BODIES`` compiled by NVRTC and
    pushed through ``mx.rtc.Rtc`` on ``gpu(0)``, each held against its
    plain PyTorch twin; the real-size body (a*b + c over 2^26 elements,
    f32 and bf16) timed beside its twin, ``torch.addcmul`` and its bytes
    bound; the cold NVRTC compile and a cached push's host time; a body
    with a syntax error must raise;
-13. the matmul with column statistics (K6) against its plain version at
+14. the matmul with column statistics (K6) against its plain version at
    the probe's four shapes (ResNet-50's 1x1 convolutions at batch 128 as
    matmuls), a ragged M and a nonzero-mean x (the limit must reject a sum
    with one row tile dropped); then the probe's path,
@@ -93,9 +106,9 @@ Phases (any failure raises and the script exits non-zero):
    the unfused matmul-then-statistics sequence, K6, plain,
    ``torch.matmul`` and sequence times), K6's count zeroed just before
    and read just after;
-14. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
+15. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
    main paths, error, times and bound;
-15. the last line: ``{"ok": true, "device": {...}}``.
+16. the last line: ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matrix products and cuDNN convolutions in every phase
 (set once in ``main``), so f32 work runs in full f32.
@@ -1087,7 +1100,8 @@ SOFTMAX_CASES = [((64, 10), "float32", 1.0), ((128, 1000), "float32", 1.0),
                  ((128, 1000), "float32", 50.0),
                  ((1000, 1001), "float16", 1.0),
                  ((4096, 32000), "bfloat16", 1.0),
-                 ((8, 2097152), "float32", 1.0), ((3, 1), "float32", 1.0)]
+                 ((8, 2097152), "float32", 1.0), ((3, 1), "float32", 1.0),
+                 ((1920, 200), "float32", 1.0)]   # the LSTM's T = 60 bucket
 SOFTMAX_OPS = 5   # f32 operations an element: max, subtract, exp, sum, divide
 
 
@@ -2040,6 +2054,342 @@ def phase_resnet_module_fit(device="cuda", batch=128, image=224,
     return launches
 
 
+# the LSTM language model over bucketing (baseline config #3):
+# examples/rnn_torch/lstm_bucketing.py's recipe at its defaults
+LSTM_EXAMPLE = os.path.join("examples", "rnn_torch", "lstm_bucketing.py")
+
+
+def _lstm_example():
+    """examples/rnn_torch/lstm_bucketing.py as a module (its directory
+    goes on the path for its ``bucket_io``)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        LSTM_EXAMPLE)
+    spec = importlib.util.spec_from_file_location("lstm_bucketing", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def unigram_perplexity(sentences):
+    """exp of the mean negative log unigram probability of every next
+    token (each sentence's tokens after its first): the perplexity of a
+    model that learns the token counts and nothing of the order."""
+    import numpy as np
+
+    counts = np.bincount(np.concatenate([s[1:] for s in sentences]))
+    counts = counts[counts > 0].astype(np.float64)
+    total = counts.sum()
+    return float(np.exp(-(counts * np.log(counts / total)).sum() / total))
+
+
+def device_busy(prof):
+    """(summed ms, busy ms) of the card's activity that ``prof`` traced:
+    every kernel, copy and set's duration summed, and the union of their
+    intervals. Reads the profiler's raw events, which an epoch of the
+    unrolled LSTM's thousands of launches a batch makes cheap enough."""
+    import torch
+
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    summed = sum(b - a for a, b in spans)
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a >= end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return summed / 1e6, busy / 1e6, len(spans)
+
+
+def lstm_dropout_check(device, args, vocab):
+    """One executor of ``lstm_unroll(dropout=0.5)`` at bucket 10 and the
+    example's width on the device, under ``random.seed(7)``:
+    every Dropout node's mask (its output's nonzeros, read as one Group
+    with the loss) must equal ``bernoulli(fold_in(key, serial), 0.5)``
+    drawn on the host from the same chain key, bit for bit, and keep
+    within 4 sigma of half; then the ms of one forward+backward of the
+    loss at dropout 0.5 against dropout 0, the price of the eager int64
+    threefry draws."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import threefry
+    from mxnet_tpu_torch.models.lstm import lstm_unroll
+
+    seq_len, seed = 10, 7
+    ctx = _ctx(device)
+    L, H, E, B = (args.num_lstm_layer, args.num_hidden, args.num_embed,
+                  args.batch_size)
+    shapes = {"data": (B, seq_len), "softmax_label": (B, seq_len)}
+    shapes.update({"l%d_init_%s" % (i, s): (B, H) for i in range(L)
+                   for s in "ch"})
+
+    def symbol(p):
+        return lstm_unroll(L, seq_len, vocab, num_hidden=H, num_embed=E,
+                           num_label=vocab, dropout=p, ignore_label=0)
+
+    loss = symbol(0.5)
+    internals = loss.get_internals()
+    names = [n for n in internals.list_outputs() if n.startswith("dropout")]
+    group = mx.sym.Group([loss] + [internals[n] for n in names])
+    arg_shapes, _, _ = group.infer_shape(**shapes)
+    rng = np.random.RandomState(seed)
+    values = {n: (rng.randint(1, vocab, s) if n in ("data", "softmax_label")
+                  else rng.randn(*s) * 0.1).astype(np.float32)
+              for n, s in zip(group.list_arguments(), arg_shapes)}
+    exe = group.simple_bind(ctx, grad_req="null", **shapes)
+    for n, v in values.items():
+        exe.arg_dict[n][:] = v
+    mx.random.seed(seed)
+    key = mx.random.next_key()
+    mx.random.seed(seed)
+    calls = dict(threefry.threefry2x32.calls)
+    exe.forward(is_train=True)
+    card = [o.asnumpy() != 0 for o in exe.outputs[1:]]
+    serials = exe._rng_serials
+    host = [threefry.bernoulli(threefry.fold_in(key, s), 0.5,
+                               o.shape).numpy()
+            for s, o in zip(serials, exe.outputs[1:])]
+    dev_type = "cuda" if device == "cuda" else "cpu"
+    mask_calls = (threefry.threefry2x32.calls.get(dev_type, 0)
+                  - calls.get(dev_type, 0))
+    same = (len(card) == len(host) == len(names) == seq_len + 1
+            and all(np.array_equal(a, b) for a, b in zip(card, host)))
+    kept = [float(m.mean()) for m in card]
+    sigma = [float(np.sqrt(0.25 / m.size)) for m in card]
+
+    def step_ms(p):
+        sym = symbol(p)
+        req = {n: ("null" if n in shapes else "write")
+               for n in sym.list_arguments()}
+        ex = sym.simple_bind(ctx, grad_req=req, **shapes)
+        for n in sym.list_arguments():
+            ex.arg_dict[n][:] = values[n]
+
+        def step():
+            ex.forward(is_train=True)
+            ex.backward()
+
+        if device == "cuda":
+            return cuda_ms(step, iters=10, warmup=2)
+        step()
+        t0 = time.perf_counter()
+        step()
+        return 1e3 * (time.perf_counter() - t0)
+
+    rec = {"seq_len": seq_len, "seed": seed, "dropout_nodes": len(card),
+           "serials": serials, "masks_equal_host": bool(same),
+           "threefry_calls_on_device": mask_calls,
+           "kept_share": kept, "kept_sigma": sigma,
+           "fwd_bwd_ms_dropout_0.5": step_ms(0.5),
+           "fwd_bwd_ms_dropout_0": step_ms(0.0)}
+    del exe
+    if not same:
+        raise AssertionError("the card's dropout masks differ from the "
+                             "host's for the same keys: %r" % rec)
+    if any(abs(k - 0.5) > 4 * s for k, s in zip(kept, sigma)):
+        raise AssertionError("a dropout mask keeps %r, beyond 4 sigma of "
+                             "0.5" % kept)
+    if device == "cuda" and mask_calls == 0:
+        raise AssertionError("no threefry draw ran on the card")
+    return rec
+
+
+def lstm_batch_parts(em, data, args, device):
+    """Where one training batch of the longest bucket spends its time,
+    after the fit, through the fit's executor manager: the ms of loading
+    the batch, the forward, the backward, the optimizer's updates (a
+    fresh SGD of the recipe's settings) and the metric, each part
+    synchronised, the mean of 5 batches after a warm one."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.model import _update_params
+
+    data.reset()
+    batch = next(b for b in data if b.bucket_key == max(args.buckets))
+    updater = mx.optimizer.get_updater(mx.optimizer.create(
+        "sgd", rescale_grad=1.0 / args.batch_size, learning_rate=args.lr,
+        momentum=0.9, wd=0.00001))
+    metric = mx.metric.Perplexity(ignore_label=0)
+    steps = (("load", lambda: em.load_data_batch(batch)),
+             ("forward", lambda: em.forward(is_train=True)),
+             ("backward", em.backward),
+             ("update", lambda: _update_params(
+                 em.param_arrays, em.grad_arrays, updater, 1)),
+             ("metric", lambda: em.update_metric(metric, batch.label)))
+    reps = 5
+    ms = {name: 0.0 for name, _ in steps}
+    for rep in range(reps + 1):
+        for name, fn in steps:
+            t = time.perf_counter()
+            fn()
+            _sync(device)
+            if rep:
+                ms[name] += 1e3 * (time.perf_counter() - t) / reps
+    return {"bucket": batch.bucket_key, "ms": ms, "total_ms": sum(ms.values())}
+
+
+def phase_lstm_bucketing(device="cuda", argv=()):
+    """The LSTM language model over bucketing (baseline config #3):
+    examples/rnn_torch/lstm_bucketing.py's recipe at its defaults (2
+    layers, 200 hidden, 200 embed, batch 32, buckets 10-60, SGD lr 0.1,
+    momentum 0.9, wd 1e-5, Xavier("in", 2.34), 5 epochs, the synthetic
+    Markov corpus of seed 0) through ``FeedForward(symbol=sym_gen).fit``
+    with ``Perplexity(ignore_label=0)`` on the device, ``np.random`` and
+    ``mx.random`` seeded first. Checks: epoch 5's train perplexity (the metric at the
+    epoch's end) below epoch 1's and below half the corpus's unigram
+    perplexity; K1 (SoftmaxOutput's forward) launched once a batch,
+    its count zeroed just before ``fit`` and read just after; every
+    bucket's executor on one parameter and gradient storage, every array
+    on the device; the Dropout check of :func:`lstm_dropout_check`.
+    Prints ms a batch by bucket (synchronised, each bucket's first batch
+    excluded, the profiled last epoch too), non-pad tokens/s, peak memory,
+    the device's busy share over the last epoch (``torch.profiler``, the
+    card's activity over the mean wall of the unprofiled epochs after the
+    first) and :func:`lstm_batch_parts`. Returns its record (K1's
+    launches in ``softmax_launches``)."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import softmax as sm
+
+    ex = _lstm_example()
+    args = ex.parse_args(list(argv))
+    ctx = _ctx(device)
+    np.random.seed(0)    # the iterator's batch order
+    mx.random.seed(0)    # the initial weights, whatever ran before
+    with ctx:   # the iterator makes its batches on the current context
+        data, sym_gen, model = ex.build(args, ctx=ctx)
+        import bucket_io
+
+        floor = unigram_perplexity(bucket_io.synthetic_corpus())
+        per_epoch = len(data.batches)
+        epochs = args.num_epochs
+        nonpad = sum(int((lab != 0).sum()) for _, _, lab in data.batches)
+        stamps, ppl, seen = [], {}, {}
+        prof = None
+        if device == "cuda" and epochs > 1:
+            from torch.profiler import ProfilerActivity, profile
+
+            prof = profile(activities=[ProfilerActivity.CUDA])
+
+        def on_batch(param):
+            _sync(device)
+            stamps.append((param.epoch, param.nbatch,
+                           param.locals["data_batch"].bucket_key,
+                           time.perf_counter()))
+            ppl[param.epoch] = param.eval_metric.get()[1]
+            seen["em"] = param.locals["executor_manager"]
+            if prof is not None and param.nbatch == per_epoch:
+                if param.epoch == epochs - 2:
+                    prof.start()
+                elif param.epoch == epochs - 1:
+                    prof.stop()
+
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _sync(device)
+        sm.fused_softmax.launches = 0
+        t0 = time.perf_counter()
+        model.fit(X=data, eval_metric=mx.metric.Perplexity(ignore_label=0),
+                  batch_end_callback=on_batch, kvstore=args.kv_store)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        launches = sm.fused_softmax.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" \
+        else None
+
+    prev = [t0] + [s[3] for s in stamps[:-1]]
+    batches = [(e, k, t - p) for (e, _, k, t), p in zip(stamps, prev)]
+    first = {}
+    for i, (e, k, _) in enumerate(batches):
+        first.setdefault(k, i)
+    profiled = epochs - 1 if prof is not None else None
+    by_bucket = {}
+    for i, (e, k, s) in enumerate(batches):
+        if i != first[k] and e != profiled:
+            by_bucket.setdefault(k, []).append(1e3 * s)
+    epoch_s = [sum(s for e, _, s in batches if e == ep)
+               for ep in range(epochs)]
+    plain = [epoch_s[ep] for ep in range(1, epochs) if ep != profiled]
+    plain_epoch_s = sum(plain) / len(plain) if plain else epoch_s[0]
+    busy = None
+    if prof is not None:
+        summed_ms, busy_ms, events = device_busy(prof)
+        busy = {"epoch": profiled, "device_events": events,
+                "device_ms": summed_ms, "device_busy_ms": busy_ms,
+                "profiled_epoch_s": epoch_s[profiled],
+                "unprofiled_epoch_s": plain_epoch_s,
+                "busy_share": busy_ms / 1e3 / plain_epoch_s,
+                "busy_share_of_profiled_wall":
+                    busy_ms / 1e3 / epoch_s[profiled]}
+
+    em = seen["em"]
+    default = em.execgrp.train_execs[0]
+    dev_type = "cuda" if device == "cuda" else "cpu"
+    shared = True
+    on_device = True
+    for key, grp in em.execgrp_bucket.items():
+        exe = grp.train_execs[0]
+        for n in em.param_names:
+            shared &= (exe.arg_dict[n]._data.data_ptr()
+                       == default.arg_dict[n]._data.data_ptr()
+                       and exe.grad_dict[n]._data.data_ptr()
+                       == default.grad_dict[n]._data.data_ptr())
+        arrays = exe.arg_arrays + [g for g in exe.grad_arrays if g is not None]
+        on_device &= all(a._data.device.type == dev_type for a in arrays)
+    ppl_list = [float(ppl[e]) for e in range(epochs)]
+    rec = {"phase": "lstm_bucketing", "example": LSTM_EXAMPLE,
+           "layers": args.num_lstm_layer, "hidden": args.num_hidden,
+           "embed": args.num_embed, "batch": args.batch_size,
+           "buckets": args.buckets, "vocab": data.vocab_size,
+           "epochs": epochs, "batches": len(batches),
+           "batches_per_bucket": {k: sum(1 for _, kk, _ in batches if kk == k)
+                                  // epochs for k in sorted(first)},
+           "params": int(sum(v.size for v in model.arg_params.values())),
+           "train_perplexity": ppl_list, "unigram_perplexity": floor,
+           "perplexity_limit": floor / 2, "wall_s": wall,
+           "epoch_s": epoch_s,
+           "ms_per_batch_by_bucket": {k: sum(v) / len(v)
+                                      for k, v in sorted(by_bucket.items())},
+           "ms_per_batch_by_bucket_range": {
+               k: [min(v), max(v)] for k, v in sorted(by_bucket.items())},
+           "nonpad_tokens_per_epoch": nonpad,
+           "nonpad_tokens_per_s": nonpad / plain_epoch_s,
+           "peak_mem_gb": peak, "busy": busy,
+           "softmax_launches": launches,
+           "buckets_share_storage": bool(shared),
+           "arrays_on_device": bool(on_device),
+           "bucket_executors": sorted(em.execgrp_bucket)}
+    with ctx:
+        rec["batch_parts"] = lstm_batch_parts(em, data, args, device)
+    del em, seen, model
+    rec["dropout"] = lstm_dropout_check(device, args, data.vocab_size)
+    log(rec)
+    if not all(np.isfinite(ppl_list)):
+        raise AssertionError("non-finite perplexity: %r" % ppl_list)
+    if not (ppl_list[-1] < ppl_list[0] and ppl_list[-1] < floor / 2):
+        raise AssertionError(
+            "the last epoch's perplexity %g is not below the first's %g "
+            "and half the unigram perplexity %g"
+            % (ppl_list[-1], ppl_list[0], floor / 2))
+    expected = per_epoch * epochs if device == "cuda" else 0
+    if launches != expected:
+        raise AssertionError("the LSTM fit launched K1 %d times, expected "
+                             "%d" % (launches, expected))
+    if not (shared and on_device
+            and rec["bucket_executors"] == sorted(args.buckets)):
+        raise AssertionError("buckets not on one storage on the device: "
+                             "%r" % rec)
+    return rec
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2095,6 +2445,8 @@ def main():
     module = phase_module()
     resnet_module = phase_resnet_module_fit(feedforward=resnet_ff)
     torch.cuda.empty_cache()
+    lstm = phase_lstm_bucketing()["softmax_launches"]
+    torch.cuda.empty_cache()
     rtc = phase_rtc()
     torch.cuda.empty_cache()
     mm_stats = phase_matmul_stats()
@@ -2141,14 +2493,16 @@ def main():
             "bound_by": bwd_main[n]["bound_by"],
             "library_ms": bwd_main["sdpa_bwd_ms"]})
     sm_main = softmax_checks[1]   # [128, 1000] f32, ResNet-50's shape
+    sm_lstm = softmax_checks[-1]  # [1920, 200] f32, the LSTM's T = 60
     kernels.append({
         "name": "softmax", "route": "cuda",
         "source": "mxnet_tpu_torch/ops/csrc/softmax.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:517",
-        "launches": lenet + resnet + module + resnet_module,
+        "launches": lenet + resnet + module + resnet_module + lstm,
         "launches_by_path": {"lenet_fit": lenet, "resnet50_fit": resnet,
                              "module": module,
-                             "resnet50_module_fit": resnet_module},
+                             "resnet50_module_fit": resnet_module,
+                             "lstm_bucketing": lstm},
         "max_abs_err": max(c["max_abs_err"] for c in softmax_checks),
         "max_err_to_limit": max(c["closeness"]["elem"]
                                 for c in softmax_checks),
@@ -2158,7 +2512,10 @@ def main():
         "plain_ms": sm_main["plain_ms"], "bound_ms": sm_main["bound_ms"],
         "bound_by": sm_main["bound_by"],
         "library_ms": sm_main["library_ms"],
-        "library_graph_ms": sm_main["library_graph_ms"]})
+        "library_graph_ms": sm_main["library_graph_ms"],
+        "lstm_shape": {k: sm_lstm[k] for k in (
+            "shape", "variant", "ms", "graph_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_graph_ms")}})
     f32, bf16 = (rtc["timing"]["mul_add_" + t]
                  for t in ("float32", "bfloat16"))
     kernels.append({

@@ -35,6 +35,20 @@ order on ``torch.Tensor``s, and gradients come from ``torch.autograd``:
   in node order, as ``cb("%s_%s" % (node, output), NDArray)``: the walk
   is node by node already, so the taps are inline (the JAX package
   replays the graph eagerly for them).
+- Random ops (``need_rng``: Dropout, RNN) get the JAX package's keys
+  (``mxnet_tpu/executor.py:633-636``, ``:856``): each
+  ``forward(is_train=True)`` takes one key from ``random.next_key()``
+  and a node's key is ``fold_in(key, serial)``, ``serial`` being its
+  index in the topological order, which is the JAX executor's
+  ``_nodes`` order; inference takes none. A tapped forward takes one
+  more key first, as the JAX package's monitor replay does
+  (``:789``), so the chains stay in step. ``backward`` runs on the
+  forward's autograd graph, so its masks are the forward's, and takes
+  no key; only where it must run the forward again (an argument was
+  written since) does it take one, as the JAX package's does. With
+  explicit ``out_grads`` the JAX package's ``backward`` always runs the
+  forward again under a fresh key (``:971``): its gradients then come
+  from other masks than its outputs, and the two chains part.
 
 Not in this slice: the hybrid host-op engine, mirror/remat, group2ctx
 model parallelism (raises), profiling and the compile verifier.
@@ -43,6 +57,8 @@ from __future__ import annotations
 
 import torch
 
+from . import random as _random
+from . import threefry
 from .base import MXNetError, torch_dtype
 from .context import Context
 from .ndarray import NDArray, _as_tensor, ones, zeros
@@ -147,6 +163,8 @@ class Executor:
             for nd, _ in symbol._outputs]
         self._grad_idx = [i for i, r in enumerate(self._reqs) if r != "null"]
         self._release = self._plan_release()
+        self._rng_serials = [s for s, n in enumerate(self._nodes)
+                             if not n.is_variable and n.op.need_rng]
 
         self._outputs_nd = None
         self._graph = None       # (versions, output tensors, leaves)
@@ -168,12 +186,22 @@ class Executor:
         return release
 
     # -- the graph walk --------------------------------------------------------
-    def _run(self, arg_vals, aux_vals, is_train, tap=False):
-        """Walk the graph; with ``tap`` every op output goes to the
-        monitor callback as it is made."""
+    def _node_keys(self, key):
+        """serial -> ``fold_in(key, serial)`` on the executor's device for
+        every random node, derived together on the host."""
+        if key is None or not self._rng_serials:
+            return {}
+        keys = threefry.fold_in(key, torch.tensor(self._rng_serials))
+        return dict(zip(self._rng_serials,
+                        _random.keys_to(keys, self._device).unbind(0)))
+
+    def _run(self, arg_vals, aux_vals, is_train, tap=False, key=None):
+        """Walk the graph; random nodes draw under ``key``; with ``tap``
+        every op output goes to the monitor callback as it is made."""
         env = {}
         new_aux = list(aux_vals)
         monitor = self._monitor_callback if tap else None
+        node_keys = self._node_keys(key)
         for serial, n in enumerate(self._nodes):
             if n.is_variable:
                 env[(id(n), 0)] = arg_vals[self._var_argidx[id(n)]]
@@ -181,7 +209,8 @@ class Executor:
             ins = [env[(id(s), i)] for s, i in n.inputs]
             sl = self._node_aux.get(id(n))
             aux_in = new_aux[sl[0]:sl[1]] if sl else []
-            outs, n_aux = n.op.apply(n.params, ins, aux_in, is_train, None)
+            outs, n_aux = n.op.apply(n.params, ins, aux_in, is_train,
+                                     node_keys.get(serial))
             onames = n.op.list_outputs(n.params) if monitor else ()
             for i, o in enumerate(outs):
                 env[(id(n), i)] = o
@@ -195,9 +224,10 @@ class Executor:
         outputs = [env[(id(self._nodes[i]), j)] for i, j in self._heads]
         return outputs, new_aux
 
-    def _forward_graph(self, write_aux, tap=False):
+    def _forward_graph(self, write_aux, key, tap=False):
         """Forward with autograd recording over the differentiated
-        arguments; keeps (versions, outputs, leaves) for backward."""
+        arguments, random nodes under ``key``; keeps (versions, outputs,
+        leaves) for backward."""
         vals = [a._data for a in self.arg_arrays]
         leaves = []
         for i in self._grad_idx:
@@ -206,7 +236,7 @@ class Executor:
             vals[i] = leaf
             leaves.append(leaf)
         with torch.enable_grad():
-            outs, new_aux = self._run(vals, self._aux_vals(), True, tap)
+            outs, new_aux = self._run(vals, self._aux_vals(), True, tap, key)
         self._write_outputs(outs)
         if write_aux:
             self._write_aux(new_aux)
@@ -285,13 +315,16 @@ class Executor:
                     arg_dict[k][:] = v
         self._graph = None
         self._grad_cache = None
+        if self._monitor_callback is not None:
+            _random.next_key()   # the JAX package's monitor replay's key
+        key = _random.next_key() if is_train else None
         if is_train and self._grad_idx:
-            self._forward_graph(write_aux=True, tap=True)
+            self._forward_graph(write_aux=True, key=key, tap=True)
         else:
             with torch.no_grad():
                 outs, new_aux = self._run(
                     [a._data for a in self.arg_arrays], self._aux_vals(),
-                    is_train, tap=True)
+                    is_train, tap=True, key=key)
             self._write_outputs(outs)
             if is_train:
                 self._write_aux(new_aux)
@@ -327,7 +360,7 @@ class Executor:
                   else _as_tensor(g, self._device, o._data.dtype)
                   for g, o in zip(out_grads, self._outputs_nd)]
         if self._graph is None or self._graph[0] != self._versions():
-            self._forward_graph(write_aux=False)
+            self._forward_graph(write_aux=False, key=_random.next_key())
         _, outs, leaves = self._graph
         self._graph = None
         pairs = [(o, g) for o, g in zip(outs, hg)

@@ -2,10 +2,14 @@
 (counterpart of ``mxnet_tpu/executor_manager.py``).
 
 The JAX package's group and manager, copied: each device of ``ctx``
-binds one executor over its slice of the batch (``FeedForward`` in this
-slice passes one device), with ``grad_req`` write for parameters and
-null for data and labels. Bucketing (``sym_gen``) and monitors are not
-carried over.
+binds one executor over its slice of the batch (``FeedForward`` passes
+one device), with ``grad_req`` write for parameters and null for data
+and labels. Bucketing follows ``mxnet_tpu/executor_manager.py:141-203``:
+with a ``sym_gen`` the manager starts from the default bucket's group,
+and a batch of a new ``bucket_key`` binds ``sym_gen(key)`` with
+``simple_bind(shared_exec=...)`` over the default group's executors, so
+every bucket holds the same parameter and gradient arrays; a monitor
+under bucketing raises, as there.
 """
 from __future__ import annotations
 
@@ -63,7 +67,8 @@ class DataParallelExecutorGroup:
     """One executor per device over sliced batches
     (ref: executor_manager.py:185 and module/executor_group.py:68)."""
 
-    def __init__(self, sym, arg_names, param_names, ctx, slices, train_data):
+    def __init__(self, sym, arg_names, param_names, ctx, slices, train_data,
+                 shared_group=None):
         _check_arguments(sym)
         self.arg_names = arg_names
         self.param_names = param_names
@@ -87,7 +92,9 @@ class DataParallelExecutorGroup:
             grad_req = {
                 name: ("write" if name in param_names else "null") for name in arg_names
             }
-            exec_ = sym.simple_bind(ctxi, grad_req=grad_req, **shapes)
+            shared = shared_group.train_execs[i] if shared_group else None
+            exec_ = sym.simple_bind(ctxi, grad_req=grad_req,
+                                    shared_exec=shared, **shapes)
             self.train_execs.append(exec_)
 
         self.data_arrays = [
@@ -128,11 +135,11 @@ class DataParallelExecutorGroup:
 
 
 class DataParallelExecutorManager:
-    """One executor group over the batch (ref: executor_manager.py:279),
-    without bucketing."""
+    """One executor group over the batch, or one a bucket over shared
+    storage (ref: executor_manager.py:279)."""
 
     def __init__(self, symbol, ctx, train_data, param_names, arg_names,
-                 aux_names, work_load_list=None, logger=None):
+                 aux_names, work_load_list=None, logger=None, sym_gen=None):
         if logger is None:
             logger = logging
         num_device = len(ctx)
@@ -149,7 +156,16 @@ class DataParallelExecutorManager:
             symbol, self.arg_names, self.param_names, self.ctx, self.slices, train_data
         )
         self.symbol = symbol
-        self.curr_execgrp = self.execgrp
+        self.sym_gen = sym_gen
+        self.curr_execgrp = None
+        if self.sym_gen is not None:
+            self.execgrp_bucket = {train_data.default_bucket_key: self.execgrp}
+
+    def install_monitor(self, monitor):
+        if self.sym_gen is not None:
+            raise ValueError("Monitoring is not implemented with bucketing")
+        for train_exec in self.execgrp.train_execs:
+            monitor.install(train_exec)
 
     def set_params(self, arg_params, aux_params):
         for texec in self.execgrp.train_execs:
@@ -176,6 +192,18 @@ class DataParallelExecutorManager:
         return self.execgrp.aux_arrays
 
     def load_data_batch(self, data_batch):
+        if self.sym_gen is not None:
+            key = data_batch.bucket_key
+            if key not in self.execgrp_bucket:
+                symbol = self.sym_gen(key)
+                execgrp = DataParallelExecutorGroup(
+                    symbol, self.arg_names, self.param_names, self.ctx,
+                    self.slices, data_batch, shared_group=self.execgrp,
+                )
+                self.execgrp_bucket[key] = execgrp
+            self.curr_execgrp = self.execgrp_bucket[key]
+        else:
+            self.curr_execgrp = self.execgrp
         self.curr_execgrp.load_data_batch(data_batch)
 
     def forward(self, is_train=False):

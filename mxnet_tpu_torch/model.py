@@ -11,9 +11,16 @@ backward, one optimizer update per parameter in parameter order, then
 the metric. The optimizer is created with ``rescale_grad=1/batch_size``.
 ``ctx=None`` means ``gpu(0)``.
 
+``symbol`` may be a bucketing symbol generator (``sym_gen(bucket_key)
+-> Symbol``, ``mxnet_tpu/model.py:898-910``): ``fit`` builds the default
+bucket's symbol first (``data.default_bucket_key``), initialises the
+parameters from it, and the executor manager binds each other bucket
+over the same storage when its first batch comes; ``predict`` and
+``score`` then run the default bucket's symbol, as the JAX package's do.
+
 A kvstore other than a local one and more than one device raise. Not
 in this slice: the scanned fit (``parallel/fit_trainer.py``), the
-guardian, telemetry, bucketing, monitors and ``resume``.
+guardian, telemetry, monitors and ``resume``.
 """
 from __future__ import annotations
 
@@ -80,12 +87,12 @@ def _train_multi_device(symbol, ctx, arg_names, param_names, aux_names,
                         epoch_size, optimizer, train_data, eval_data=None,
                         eval_metric=None, epoch_end_callback=None,
                         batch_end_callback=None, logger=None,
-                        eval_batch_end_callback=None):
+                        eval_batch_end_callback=None, sym_gen=None):
     """The per-batch training loop on one device."""
     if logger is None:
         logger = logging
     executor_manager = DataParallelExecutorManager(
-        symbol=symbol, ctx=ctx, train_data=train_data,
+        symbol=symbol, sym_gen=sym_gen, ctx=ctx, train_data=train_data,
         param_names=param_names, arg_names=arg_names, aux_names=aux_names,
         logger=logger)
     executor_manager.set_params(arg_params, aux_params)
@@ -226,15 +233,21 @@ class FeedForward:
                  optimizer="sgd", initializer=Uniform(0.01),
                  numpy_batch_size=128, arg_params=None, aux_params=None,
                  allow_extra_params=False, begin_epoch=0, **kwargs):
-        if not isinstance(symbol, Symbol):
-            raise MXNetError("FeedForward takes a Symbol (bucketing "
-                             "symbol generators are not ported)")
-        self.symbol = symbol
+        if isinstance(symbol, Symbol):
+            self.symbol = symbol
+            self.sym_gen = None
+        elif callable(symbol):
+            self.symbol = None
+            self.sym_gen = symbol
+        else:
+            raise MXNetError("FeedForward takes a Symbol or a bucketing "
+                             "symbol generator, got %r" % (symbol,))
         self.arg_params = arg_params
         self.aux_params = aux_params
         self.allow_extra_params = allow_extra_params
         self.argument_checked = False
-        self._check_arguments()
+        if self.sym_gen is None:
+            self._check_arguments()
         if ctx is None:
             ctx = [current_context()]
         elif isinstance(ctx, Context):
@@ -255,6 +268,7 @@ class FeedForward:
     def _check_arguments(self):
         if self.argument_checked:
             return
+        assert self.symbol is not None
         self.argument_checked = True
         _check_arguments(self.symbol)
         if self.allow_extra_params:
@@ -423,6 +437,9 @@ class FeedForward:
         if isinstance(eval_data, (tuple, list)) and len(eval_data) == 2:
             eval_data = self._init_iter(eval_data[0], eval_data[1],
                                         is_train=True)
+        if self.sym_gen:
+            self.symbol = self.sym_gen(data.default_bucket_key)
+            self._check_arguments()
         self.kwargs["sym"] = self.symbol
 
         arg_names, param_names, aux_names = self._init_params(
@@ -446,7 +463,8 @@ class FeedForward:
             train_data=data, eval_data=eval_data, eval_metric=eval_metric,
             epoch_end_callback=epoch_end_callback,
             batch_end_callback=batch_end_callback, logger=logger,
-            eval_batch_end_callback=eval_batch_end_callback)
+            eval_batch_end_callback=eval_batch_end_callback,
+            sym_gen=self.sym_gen)
 
     def save(self, prefix, epoch=None):
         if epoch is None:

@@ -12,7 +12,8 @@ Kernels, each beside its plain PyTorch version:
   ``tools/torch_probe_matmul_stats.py``.
 
 The operator registry of the Symbol path: importing this package
-registers the ops of :mod:`.tensor`, :mod:`.nn` and :mod:`.loss`;
+registers the ops of :mod:`.tensor`, :mod:`.nn`, :mod:`.loss` and
+:mod:`.sequence`;
 :func:`install` then exposes each as an imperative NDArray function and
 a Symbol constructor, as ``mxnet_tpu/ops/__init__.py:27-60`` does.
 """
@@ -27,6 +28,7 @@ from .registry import REGISTRY, Field, OpDef, get, list_ops, register
 from . import tensor  # noqa: F401
 from . import nn  # noqa: F401
 from . import loss  # noqa: F401
+from . import sequence  # noqa: F401
 
 __all__ = ["REGISTRY", "Field", "OpDef", "get", "list_ops", "register",
            "install"]
@@ -34,6 +36,7 @@ __all__ = ["REGISTRY", "Field", "OpDef", "get", "list_ops", "register",
 
 def _make_imperative(op):
     def fn(*args, **kwargs):
+        from .. import random as _random
         from ..context import current_context
         from ..ndarray import NDArray, _as_tensor
 
@@ -55,6 +58,10 @@ def _make_imperative(op):
         params = op.parse_params(kwargs)
         ctx = ctx or current_context()
         dev = ctx.torch_device
+        if op.need_rng:
+            # an inference call: a random op draws nothing, but takes its
+            # key from the chain as the JAX package's imperative call does
+            _random.next_key()
         with torch.no_grad():
             outs, _ = op.apply(params, [_as_tensor(a, dev) for a in inputs],
                                aux=[], is_train=False, rng=None)

@@ -1,11 +1,18 @@
-"""Neural-network layer ops: the subset LeNet, ResNet and the bucketing
-graphs of the Module tests run.
+"""Neural-network layer ops: the subset LeNet, ResNet, the bucketing
+graphs of the Module tests and the recurrent model zoo run.
 
 Counterpart of ``mxnet_tpu/ops/nn.py``: ``Activation`` (:57),
 ``FullyConnected`` (:148), ``Convolution`` (:230), ``Pooling`` (:403),
-``BatchNorm`` (:555), ``Embedding`` (:684) and ``Flatten`` (:773), with the same parameter
-fields, defaults, inputs, aux states and shape inference (copied), so
-graphs serialise to the same JSON. The forwards are torch: the
+``BatchNorm`` (:555), ``Dropout`` (:664), ``Embedding`` (:684),
+``Reshape`` (:713), ``Flatten`` (:773), ``Concat`` (:786),
+``SliceChannel`` (:836) and ``SwapAxis`` (:905), with the same parameter
+fields, defaults, inputs, outputs, aux states and shape inference
+(copied; ``Reshape``'s target shape too), so graphs serialise to the
+same JSON. ``Reshape``, ``SliceChannel`` and ``SwapAxis`` may return
+views: the executor's graph is functional and autograd handles them.
+``Dropout`` draws its mask with the JAX op's bits: ``bernoulli(key, 1 -
+p, x.shape)`` of :mod:`..threefry` under the node's key, and ``x / (1 -
+p)`` where it keeps. The forwards are torch: the
 convolution is ``F.conv*d`` and the FC product ``torch.matmul``, as the
 JAX package leaves them to XLA outside any Pallas kernel. Gradients come
 from autograd, and BatchNorm's training-mode normalisation is a
@@ -37,6 +44,7 @@ import numpy as _np
 import torch
 import torch.nn.functional as F
 
+from .. import threefry
 from ..base import MXNetError
 from .registry import Field, OpDef, register
 
@@ -424,5 +432,182 @@ register(
             [(s[0][0], int(_np.prod(s[0][1:])))],
             [],
         ),
+    )
+)
+
+
+# -- Dropout -------------------------------------------------------------------
+def _dropout_fwd(params, inputs, aux, is_train, rng):
+    x = inputs[0]
+    p = params["p"]
+    if not is_train or p <= 0.0:
+        return [x], []
+    keep = 1.0 - p
+    mask = threefry.bernoulli(rng, keep, x.shape)
+    # a true division by a device tensor: torch turns the division of a
+    # CUDA tensor by a Python number into a product with its reciprocal,
+    # whose bits differ from the JAX op's x / keep
+    keep_t = torch.tensor(keep, dtype=x.dtype, device=x.device)
+    return [torch.where(mask, x / keep_t, torch.zeros_like(x))], []
+
+
+register(
+    OpDef(
+        "Dropout",
+        _dropout_fwd,
+        params={"p": Field("float", default=0.5)},
+        need_rng=True,
+    )
+)
+
+
+# -- Reshape -------------------------------------------------------------------
+def _target_shape(params, in_shape):
+    shape = params.get("shape") or ()
+    if not shape and params.get("target_shape"):
+        # legacy target_shape: (0, d1, d2, ...) with 0 = batch passthrough
+        tgt = list(params["target_shape"])
+        if tgt and tgt[0] == 0:
+            tgt[0] = in_shape[0]
+        return tuple(tgt)
+    src = list(in_shape)
+    if params.get("reverse"):
+        src = src[::-1]
+        shape = tuple(reversed(shape))
+    out = []
+    src_i = 0
+    neg = -1
+    for s in shape:
+        if s == 0:  # copy corresponding input dim
+            out.append(src[src_i])
+            src_i += 1
+        elif s == -1:
+            neg = len(out)
+            out.append(-1)
+            src_i += 1
+        else:
+            out.append(s)
+            src_i += 1
+    total = int(_np.prod(in_shape))
+    if neg >= 0:
+        known = int(_np.prod([d for d in out if d != -1])) or 1
+        out[neg] = total // known
+    if params.get("reverse"):
+        out = out[::-1]
+    return tuple(out)
+
+
+def _reshape_fwd(params, inputs, aux, is_train, rng):
+    return [inputs[0].reshape(_target_shape(params, inputs[0].shape))], []
+
+
+register(
+    OpDef(
+        "Reshape",
+        _reshape_fwd,
+        params={
+            "shape": Field("shape", default=()),
+            "target_shape": Field("shape", default=()),
+            "keep_highest": Field("bool", default=False),
+            "reverse": Field("bool", default=False),
+        },
+        infer_shape=lambda p, s: ([s[0]], [_target_shape(p, s[0])], []),
+    )
+)
+
+
+# -- Concat --------------------------------------------------------------------
+def _concat_fwd(params, inputs, aux, is_train, rng):
+    return [torch.cat(list(inputs), dim=params["dim"])], []
+
+
+def _concat_shape(params, in_shapes):
+    known = [s for s in in_shapes if s is not None]
+    if not known:
+        raise MXNetError("Concat: no input shape known")
+    dim = params["dim"]
+    out = list(known[0])
+    out[dim] = sum(s[dim] for s in known)
+    if len(known) != len(in_shapes):
+        raise MXNetError("Concat: all input shapes must be known")
+    return list(in_shapes), [tuple(out)], []
+
+
+register(
+    OpDef(
+        "Concat",
+        _concat_fwd,
+        params={
+            "num_args": Field("int", required=True),
+            "dim": Field("int", default=1),
+        },
+        key_var_num_args="num_args",
+        infer_shape=_concat_shape,
+    )
+)
+
+
+# -- SliceChannel --------------------------------------------------------------
+def _slice_channel_fwd(params, inputs, aux, is_train, rng):
+    x = inputs[0]
+    n = params["num_outputs"]
+    axis = params["axis"]
+    if x.shape[axis] % n:
+        raise MXNetError("SliceChannel: axis %d size %d not divisible by %d"
+                         % (axis, x.shape[axis], n))
+    outs = torch.split(x, x.shape[axis] // n, dim=axis)
+    if params["squeeze_axis"]:
+        outs = [o.squeeze(axis) for o in outs]
+    return list(outs), []
+
+
+def _slice_channel_shape(params, in_shapes):
+    if in_shapes[0] is None:
+        raise MXNetError("SliceChannel: data shape unknown")
+    n, axis = params["num_outputs"], params["axis"]
+    s = list(in_shapes[0])
+    if s[axis] % n != 0:
+        raise MXNetError("SliceChannel: axis %d size %d not divisible by %d" % (axis, s[axis], n))
+    s[axis] //= n
+    if params["squeeze_axis"] and s[axis] == 1:
+        s = s[:axis] + s[axis + 1:]
+    return [in_shapes[0]], [tuple(s)] * n, []
+
+
+register(
+    OpDef(
+        "SliceChannel",
+        _slice_channel_fwd,
+        params={
+            "num_outputs": Field("int", required=True),
+            "axis": Field("int", default=1),
+            "squeeze_axis": Field("bool", default=False),
+        },
+        outputs=lambda p: ["output%d" % i for i in range(p.get("num_outputs") or 1)],
+        infer_shape=_slice_channel_shape,
+    )
+)
+
+
+# -- SwapAxis ------------------------------------------------------------------
+def _swapaxis_fwd(params, inputs, aux, is_train, rng):
+    return [torch.swapaxes(inputs[0], params["dim1"], params["dim2"])], []
+
+
+def _swapaxis_shape(params, in_shapes):
+    if in_shapes[0] is None:
+        raise MXNetError("SwapAxis: data shape unknown")
+    s = list(in_shapes[0])
+    d1, d2 = params["dim1"], params["dim2"]
+    s[d1], s[d2] = s[d2], s[d1]
+    return [in_shapes[0]], [tuple(s)], []
+
+
+register(
+    OpDef(
+        "SwapAxis",
+        _swapaxis_fwd,
+        params={"dim1": Field("int", default=0), "dim2": Field("int", default=0)},
+        infer_shape=_swapaxis_shape,
     )
 )

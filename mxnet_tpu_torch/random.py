@@ -1,21 +1,38 @@
-"""Random sampling on NDArray: the subset the initializers need.
+"""Random sampling on NDArray and the key chain of the graph's random ops.
 
-Counterpart of ``mxnet_tpu/random.py``: ``seed``, ``uniform`` and
-``normal``. The JAX package splits one threefry key chain; here each
-device has one ``torch.Generator``, and ``seed`` reseeds them all. The
-two packages draw different numbers from the same seed, so parity tests
-carry parameters across instead (``model.params_from_numpy``).
+Counterpart of ``mxnet_tpu/random.py``: ``seed``, ``uniform``,
+``normal`` and ``next_key``. Two kinds of draw live here:
+
+- **The key chain follows the JAX package's bit for bit.**
+  ``next_key()`` splits one threefry key (``mxnet_tpu/random.py:21-50``):
+  the chain starts at ``PRNGKey(seed)`` (seed 0 until :func:`seed` is
+  called), and every call replaces it with ``split(key)[0]`` and returns
+  ``split(key)[1]``. The executor takes one key a training forward and
+  folds each random node's serial into it, so ``Dropout`` masks and the
+  fused ``RNN`` op's inter-layer masks equal the JAX package's under the
+  same seed. The chain is kept on the host on purpose: its keys are
+  ``[2]`` int64 tensors (:mod:`.threefry`), and a split or a fold-in is
+  a few scalar ops that the host does without a launch. A key reaches
+  its device through :func:`keys_to`, one copy from pinned memory that
+  does not wait for the card's stream.
+- **Values of ``uniform`` and ``normal`` do not.** They come from one
+  ``torch.Generator`` a device, which ``seed`` reseeds, so the two
+  packages' initial weights differ under one seed and parity tests carry
+  parameters across (``model.params_from_numpy``). Each call still takes
+  one key from the chain, as the JAX package's draw does, so the chain
+  stays in step across an initialisation.
 """
 from __future__ import annotations
 
 import torch
 
+from . import threefry
 from .context import current_context
 from .ndarray import NDArray
 
-__all__ = ["seed", "uniform", "normal"]
+__all__ = ["seed", "uniform", "normal", "next_key", "keys_to"]
 
-_state = {"seed": 0, "generators": {}}
+_state = {"seed": 0, "generators": {}, "key": None}
 
 
 def _generator(device):
@@ -27,10 +44,30 @@ def _generator(device):
     return gens[key]
 
 
+def next_key():
+    """Split the chain's key and return the fresh subkey (a ``[2]``
+    int64 host tensor)."""
+    if _state["key"] is None:
+        _state["key"] = threefry.prng_key(_state["seed"], device="cpu")
+    _state["key"], sub = threefry.split(_state["key"])
+    return sub
+
+
+def keys_to(keys, device):
+    """Host keys on ``device``; to a card, through pinned memory and
+    without synchronising its stream."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return keys.to(device)
+    return keys.pin_memory().to(device, non_blocking=True)
+
+
 def seed(seed_state):
-    """Seed every device's generator."""
+    """Seed every device's generator and restart the key chain at
+    ``PRNGKey(seed_state)``."""
     _state["seed"] = int(seed_state)
     _state["generators"].clear()
+    _state["key"] = threefry.prng_key(int(seed_state), device="cpu")
 
 
 def _draw(fill, shape, ctx, out):
@@ -42,6 +79,7 @@ def _draw(fill, shape, ctx, out):
     if isinstance(shape, int):
         shape = (shape,)
     dev = ctx.torch_device
+    next_key()
     data = fill(torch.empty(tuple(shape), dtype=torch.float32, device=dev),
                 _generator(dev))
     if out is not None:

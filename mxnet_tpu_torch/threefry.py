@@ -17,6 +17,10 @@ that sampler uses, read from JAX 0.9.0 (``jax/_src/prng.py`` and
 - :func:`fold_in` is ``threefry_fold_in`` (prng.py:1163-1169):
   ``threefry_2x32(key, threefry_seed(uint32(data)))``, which hashes the
   counter pair ``(0, data)``;
+- :func:`split` is ``_threefry_split_foldlike`` (prng.py:1155-1160,
+  the partitionable split): key ``i`` of ``num`` is threefry of the
+  counter pair ``(0, i)``, so ``split(key)[1]`` equals
+  ``fold_in(key, 1)``;
 - :func:`random_bits` is ``_threefry_random_bits_partitionable``
   (prng.py:1184-1201) at 32 bits. ``jax_threefry_partitionable`` is
   True in JAX 0.9.0 (config.py:1302), and the JAX package runs under
@@ -29,6 +33,9 @@ that sampler uses, read from JAX 0.9.0 (``jax/_src/prng.py`` and
   0x3F800000``), minus 1, times ``maxval - minval``, plus ``minval``,
   then the max with ``minval``. A scalar draw (shape ``()``) is element
   0 of a vector draw;
+- :func:`bernoulli` is ``bernoulli`` in mode "low" (random.py:1028-1089)
+  with a float32 ``p``: ``uniform(key, shape) < float32(p)``, the
+  uniform of an n-d shape drawn over its row-major linear index;
 - :func:`gumbel` is ``_gumbel`` in mode "low" (random.py:1723-1740;
   ``jax_high_dynamic_range_gumbel`` defaults to False):
   ``-log(-log(uniform(key, minval=tiny, maxval=1)))``.
@@ -55,8 +62,8 @@ import torch
 
 from .context import resolve_device
 
-__all__ = ["threefry2x32", "prng_key", "fold_in", "random_bits", "uniform",
-           "gumbel"]
+__all__ = ["threefry2x32", "prng_key", "fold_in", "split", "random_bits",
+           "uniform", "bernoulli", "gumbel"]
 
 M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -118,6 +125,14 @@ def fold_in(key, data):
     return torch.stack(torch.broadcast_tensors(y1, y2), dim=-1)
 
 
+def split(key, num=2):
+    """``jax.random.split(key, num)`` of one ``[2]`` key: ``[num, 2]``
+    int64 keys on the key's device."""
+    i = torch.arange(num, dtype=torch.int64, device=key.device)
+    y1, y2 = threefry2x32(key, torch.zeros_like(i), i)
+    return torch.stack([y1, y2], dim=-1)
+
+
 def random_bits(key, n):
     """``jax.random.bits(key, (n,), uint32)`` for each key: ``[..., n]``
     int64 words in [0, 2^32)."""
@@ -135,6 +150,14 @@ def uniform(key, n, minval=0.0, maxval=1.0):
     scale = torch.tensor(np.float32(maxval) - np.float32(minval),
                          device=key.device)
     return torch.maximum(lo, (f - 1.0) * scale + lo)
+
+
+def bernoulli(key, p, shape):
+    """``jax.random.bernoulli(key, p, shape)`` (mode "low", a float
+    ``p``) of one ``[2]`` key: a bool tensor of ``shape``."""
+    shape = tuple(int(d) for d in shape)
+    u = uniform(key, int(np.prod(shape, dtype=np.int64)))
+    return u.reshape(shape) < torch.tensor(np.float32(p), device=key.device)
 
 
 def gumbel(key, n):

@@ -2,8 +2,9 @@
 
 - a fresh interpreter that imports the package and every submodule has
   neither ``jax`` nor ``mxnet_tpu`` in ``sys.modules``;
-- no source of the port, nor ``chip_smoke.py``, the profile tools or
-  the card's test files, imports either;
+- no source of the port, nor ``chip_smoke.py``, the profile tools, the
+  card's test files or the port's examples (``examples/rnn_torch``),
+  imports either;
 - on the CPU path (serving, LM training, a LeNet ``FeedForward`` fit
   and predict, a LeNet ``Module`` fit and predict, a callable ``Rtc``
   push, ``matmul_stats`` on CPU tensors) neither the kernel build
@@ -75,6 +76,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                'mxnet_tpu_torch.')]
 assert 'mxnet_tpu_torch.serving.engine' in names, names
 for must in ('model', 'rtc', 'ops._nvrtc', 'ops.matmul_stats', 'monitor',
+             'ops.sequence', 'models.lstm', 'models.gru', 'models.rnn',
              'module', 'module.module', 'module.base_module', 'module.python_module',
              'module.sequential_module', 'module.bucketing_module'):
     assert 'mxnet_tpu_torch.' + must in names, (must, names)
@@ -125,7 +127,10 @@ def _imports(path):
         ROOT / "tests" / "test_torch_flash_bwd_kernel_cuda.py",
         ROOT / "tests" / "test_torch_softmax_kernel_cuda.py",
         ROOT / "tests" / "test_torch_rtc_kernel_cuda.py",
-        ROOT / "tests" / "test_torch_matmul_stats_kernel_cuda.py"],
+        ROOT / "tests" / "test_torch_matmul_stats_kernel_cuda.py",
+        ROOT / "tests" / "test_torch_sampling_cuda.py",
+        ROOT / "tests" / "test_torch_rnn_cuda.py"]
+    + sorted((ROOT / "examples" / "rnn_torch").glob("*.py")),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_the_jax_package(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]

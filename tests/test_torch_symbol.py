@@ -6,8 +6,8 @@
 - ``infer_shape`` and the ``list_*`` results are equal;
 - the port's ``load_json`` of the JAX package's JSON gives the same JSON;
 - every op the port registers has the JAX op's name, parameter fields
-  (type, default, required, enum), inputs, outputs and aux states, so
-  graphs of those ops serialise alike;
+  (type, default, required, enum), inputs, outputs, aux states and
+  ``need_rng``, so graphs of those ops serialise alike and draw alike;
 - the pure copies (``attribute.py``, ``name.py``, ``metric.py``,
   ``lr_scheduler.py``, ``models/lenet.py``) equal their originals.
 """
@@ -95,6 +95,7 @@ def test_registered_op_matches_jax(name):
     assert ot.list_outputs(params) == oj.list_outputs(params)
     assert ot.list_auxiliary_states(params) == oj.list_auxiliary_states(params)
     assert ot.head_no_grad(params) == oj.head_no_grad(params)
+    assert ot.need_rng == oj.need_rng
 
 
 @pytest.mark.parametrize("path", ["attribute.py", "name.py", "metric.py",
