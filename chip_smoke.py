@@ -54,9 +54,9 @@ Phases (any failure raises and the script exits non-zero):
 7. the row-softmax kernel K1 against its plain version at the Symbol
    paths' shapes ([64, 10], [128, 1000] f32), at [128, 1000] scaled by
    50, [1000, 1001] f16, [4096, 32000] bf16, [8, 2097152] f32 (8 MB
-   rows, past the TPU kernel's fallback), [3, 1] and the LSTM's [1920,
-   200] f32, each timed beside the plain version, ``torch.softmax`` and
-   its bytes bound;
+   rows, past the TPU kernel's fallback), [3, 1], the LSTM's [1920,
+   200] f32 and bench.py's [128, 1000] bf16, each timed beside the plain
+   version, ``torch.softmax`` and its bytes bound;
 8. the Symbol path, LeNet: the canonical ``FeedForward.fit`` of the
    verify recipe on ``gpu(0)`` (MNISTIter 1024 synthetic digits, batch
    64, 3 epochs, lr 0.1, momentum 0.9, Xavier), which must score > 0.9
@@ -68,9 +68,10 @@ Phases (any failure raises and the script exits non-zero):
    through the plain softmax, per tensor (relative L2 <= 1e-3); then
    ``FeedForward.fit`` with SGD lr 0.05, momentum 0.9 (the default
    initializer, Uniform(0.01)) on an NDArrayIter
-   of 4 seeded batches for 2 epochs, printing per-batch ms (synchronised,
-   first batch excluded), img/s, peak memory and each batch's
-   cross-entropy (finite, step 0 within 0.5 of ln 1000);
+   of 4 seeded batches for 2 epochs, on the per-batch loop
+   (``MXNET_SCAN_TRAIN=0``: the callback reads its executor), printing
+   per-batch ms (synchronised, first batch excluded), img/s, peak memory
+   and each batch's cross-entropy (finite, step 0 within 0.5 of ln 1000);
 10. the Module API: ``examples/module/mnist_mlp.py``'s three workflows
    (explicit Module, SequentialModule, a Python loss through
    ``backward(out_grads=...)``) at its defaults, each to validation
@@ -79,8 +80,26 @@ Phases (any failure raises and the script exits non-zero):
    storage on the card; a ``Monitor`` over one LeNet batch, every tap
    finite; K1's count zeroed just before and read just after;
 11. ResNet-50 through ``Module.fit`` at phase 9's widths and batches, one
-   epoch, its warm step and img/s printed beside FeedForward's;
-12. the LSTM language model over bucketing (baseline config #3):
+   epoch (the per-batch loop too), its warm step and img/s printed
+   beside FeedForward's;
+12. bench.py's ResNet-50 leg (``phase_resnet_bench``): the s2d stem
+   through ``make_symbol_train_step`` with bf16 products, SGD 0.05 /
+   0.9, batch 128, bench.py's 16 seeded batches on the card; one warm
+   ``step.loop`` of 16 and three timed windows of two loops (ms a step,
+   img/s median/min/max, peak memory, conv/FC TFLOP/s), then conv7 in
+   bf16 and s2d in f32 (one warm and one timed loop each); checks the
+   bf16 and the f32 step 0 from the same state (``BENCH_BF16_LIMITS``),
+   the f32 conv7 step against an Executor step plus ``torch.optim.SGD``
+   (relative L2 1e-4 a tensor), finite heads and parameters, and K1
+   once a step (its count zeroed just before, read just after);
+13. the scanned fit (``phase_resnet_scanned_fit``):
+   ``FeedForward(get_resnet(1000, 50), compute_dtype="bfloat16").fit``
+   at phase 9's batches and epochs and ``Module.fit`` with
+   ``MXNET_COMPUTE_DTYPE=bfloat16`` for one epoch, ``MXNET_SCAN_TRAIN``
+   at its default; each must build its scanned trainer; cross-entropy
+   finite, step 0 within 0.5 of ln 1000; K1 once a step; ms a step and
+   img/s beside phase 9's;
+14. the LSTM language model over bucketing (baseline config #3):
    examples/rnn_torch/lstm_bucketing.py's recipe at its defaults (2
    layers of 200, embed 200, batch 32, buckets 10-60, 5 epochs of the
    synthetic corpus: 300 batches) through ``FeedForward(symbol=sym_gen)
@@ -92,13 +111,13 @@ Phases (any failure raises and the script exits non-zero):
    prints ms a batch by bucket, non-pad tokens/s, peak memory, the busy
    share of the last epoch and the ms of a forward+backward at dropout
    0.5 against 0;
-13. RTC (K5): the CUDA C bodies of ``RTC_BODIES`` compiled by NVRTC and
+15. RTC (K5): the CUDA C bodies of ``RTC_BODIES`` compiled by NVRTC and
    pushed through ``mx.rtc.Rtc`` on ``gpu(0)``, each held against its
    plain PyTorch twin; the real-size body (a*b + c over 2^26 elements,
    f32 and bf16) timed beside its twin, ``torch.addcmul`` and its bytes
    bound; the cold NVRTC compile and a cached push's host time; a body
    with a syntax error must raise;
-14. the matmul with column statistics (K6) against its plain version at
+16. the matmul with column statistics (K6) against its plain version at
    the probe's four shapes (ResNet-50's 1x1 convolutions at batch 128 as
    matmuls), a ragged M and a nonzero-mean x (the limit must reject a sum
    with one row tile dropped); then the probe's path,
@@ -106,9 +125,9 @@ Phases (any failure raises and the script exits non-zero):
    the unfused matmul-then-statistics sequence, K6, plain,
    ``torch.matmul`` and sequence times), K6's count zeroed just before
    and read just after;
-15. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
+17. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
    main paths, error, times and bound;
-16. the last line: ``{"ok": true, "device": {...}}``.
+18. the last line: ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matrix products and cuDNN convolutions in every phase
 (set once in ``main``), so f32 work runs in full f32.
@@ -124,6 +143,7 @@ import re
 import subprocess
 import sys
 import time
+from unittest import mock
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16 = 989e12
@@ -1101,7 +1121,8 @@ SOFTMAX_CASES = [((64, 10), "float32", 1.0), ((128, 1000), "float32", 1.0),
                  ((1000, 1001), "float16", 1.0),
                  ((4096, 32000), "bfloat16", 1.0),
                  ((8, 2097152), "float32", 1.0), ((3, 1), "float32", 1.0),
-                 ((1920, 200), "float32", 1.0)]   # the LSTM's T = 60 bucket
+                 ((1920, 200), "float32", 1.0),   # the LSTM's T = 60 bucket
+                 ((128, 1000), "bfloat16", 1.0)]  # bench.py's bf16 step
 SOFTMAX_OPS = 5   # f32 operations an element: max, subtract, exp, sum, divide
 
 
@@ -1531,7 +1552,9 @@ def phase_resnet_fit(device="cuda", batch=128, image=224, classes=1000,
     _sync(device)
     sm.fused_softmax.launches = 0
     t0 = time.perf_counter()
-    model.fit(X=it, batch_end_callback=on_batch)
+    # the per-batch loop (MXNET_SCAN_TRAIN=0): on_batch reads its executor
+    with mock.patch.dict(os.environ, MXNET_SCAN_TRAIN="0"):
+        model.fit(X=it, batch_end_callback=on_batch)
     _sync(device)
     launches = sm.fused_softmax.launches
     steps = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
@@ -2023,8 +2046,10 @@ def phase_resnet_module_fit(device="cuda", batch=128, image=224,
     _sync(device)
     sm.fused_softmax.launches = 0
     t0 = time.perf_counter()
-    mod.fit(it, num_epoch=epochs, batch_end_callback=on_batch,
-            optimizer_params={"learning_rate": 0.05, "momentum": 0.9})
+    # the per-batch loop (MXNET_SCAN_TRAIN=0): on_batch reads its executor
+    with mock.patch.dict(os.environ, MXNET_SCAN_TRAIN="0"):
+        mod.fit(it, num_epoch=epochs, batch_end_callback=on_batch,
+                optimizer_params={"learning_rate": 0.05, "momentum": 0.9})
     _sync(device)
     launches = sm.fused_softmax.launches
     steps = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
@@ -2052,6 +2077,424 @@ def phase_resnet_module_fit(device="cuda", batch=128, image=224,
         raise AssertionError("the ResNet-50 Module fit launched K1 %d times, "
                              "expected %d" % (launches, expected))
     return launches
+
+
+# phase_resnet_bench's bf16 against f32 limits on the first step, from the
+# same state: ResNet-50 v1 at its He initialisation is chaotic in its
+# backward: the deep layers' bf16 and f32 updates are nearly uncorrelated
+# (relative L2 1.31-1.35 overall at batch 4-16, image 64-224, on the CPU;
+# PERF.md §6), so only the head's updates, the cross-entropy and the
+# update's size are held. This phase on the CPU at batch 8, image 224,
+# scan_k 1 (batch 4, image 64): per-sample |dCE| mean 0.143 (0.406), max
+# 0.316 (1.090) nats; fc1_weight 0.107 (0.353), fc1_bias 0.0091 (0.042);
+# norm ratio 0.993 (0.973); the limits hold from batch 8, image 128 up
+BENCH_BF16_LIMITS = {"ce_mean": 0.5, "ce_max": 1.5, "fc1_weight": 0.35,
+                     "fc1_bias": 0.05, "norm_ratio": (0.8, 1.25)}
+
+
+def _bench_batches(steps, batch, image, classes, dtype, device):
+    """bench.py:127-133's seeded batches, moved to the device once."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(steps, batch, 3, image, image)
+                         .astype(np.float32)).to(dtype)
+    y = torch.from_numpy(rng.randint(0, classes, (steps, batch))
+                         .astype(np.float32))
+    return {"data": x.to(device), "softmax_label": y.to(device)}
+
+
+def _ce(prob, label):
+    """Per-sample cross-entropy of SoftmaxOutput's probabilities."""
+    import torch
+
+    p = prob.float().gather(-1, label.long().unsqueeze(-1)).squeeze(-1)
+    return -torch.log(p.clamp_min(1e-30))
+
+
+def _finite(tensors):
+    import torch
+
+    return bool(torch.stack([torch.isfinite(t).all() for t in tensors])
+                .all())
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm()
+                 / b.float().norm().clamp_min(1e-30))
+
+
+def _bench_loops(step, state, batches, key, loops, device, no_sync=False):
+    """Run ``loops`` calls of ``step.loop`` back to back, fenced by a
+    4-byte copy to the host at the end; returns (state, seconds, every
+    head output of every step finite). ``no_sync`` (on a card): the
+    loops run under ``torch.cuda.set_sync_debug_mode("error")``, so a
+    host synchronisation inside them raises."""
+    import torch
+
+    guard = no_sync and device == "cuda"
+    t0 = time.perf_counter()
+    outs = []
+    if guard:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(loops):
+            state, o = step.loop(state, batches, key)
+            outs.append(o[0])
+    finally:
+        if guard:
+            torch.cuda.set_sync_debug_mode("default")
+    last = outs[-1].reshape(-1)
+    last[:4 // last.element_size()].cpu()     # the fence: 4 bytes
+    dt = time.perf_counter() - t0
+    return state, dt, _finite(outs)
+
+
+def phase_resnet_bench(device="cuda", batch=128, image=224, classes=1000,
+                       scan_k=16, windows=3, loops_per_window=2):
+    """bench.py's ResNet-50 leg (bench.py:110-125) through the port:
+    ``get_resnet(1000, 50, stem="s2d")``, ``make_symbol_train_step`` with
+    its default SGD 0.05 / 0.9 and ``compute_dtype="bfloat16"``, batch
+    128, 16 seeded batches (bf16 images, f32 labels) on the card, one warm
+    ``loop`` of 16 then ``windows`` timed windows of ``loops_per_window``
+    loops, each fenced by a 4-byte copy; then conv7 in bf16 and s2d in
+    f32, one warm and one timed loop each. Checks: the bf16 and f32 s2d
+    steps from the same state at step 0 (``BENCH_BF16_LIMITS``); no host
+    synchronisation inside the warm bf16 loop (the sync debug mode set
+    to raise); the f32
+    conv7 step against one bound Executor forward/backward plus
+    ``torch.optim.SGD`` from the same parameters (relative L2 1e-4 a
+    tensor); every head finite at every step and every parameter after
+    every loop (a non-finite value does not leave SGD's momentum); K1
+    launched once a step (its count zeroed just before the phase and read
+    just after). Returns the record (``softmax_launches``)."""
+    import statistics
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import threefry
+    from mxnet_tpu_torch.ops import softmax as sm
+    from mxnet_tpu_torch.parallel import make_symbol_train_step
+
+    ctx = _ctx(device)
+    dev = ctx.torch_device
+    shapes = {"data": (batch, 3, image, image), "softmax_label": (batch,)}
+    key = threefry.prng_key(0, device="cpu")
+    on_card = device == "cuda"
+    syms = {stem: mx.models.get_resnet(classes, 50, stem=stem, image=image)
+            for stem in ("s2d", "conv7")}
+    flops = {stem: symbol_products(s, **shapes)[1]
+             for stem, s in syms.items()}
+    rec = {"phase": "resnet_bench", "batch": batch, "image": image,
+           "classes": classes, "scan_k": scan_k,
+           "optimizer": "torch.optim.SGD lr 0.05 momentum 0.9",
+           "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                    "cudnn": torch.backends.cudnn.allow_tf32},
+           "cudnn_benchmark": torch.backends.cudnn.benchmark}
+    steps = 0
+    _sync(device)
+    sm.fused_softmax.launches = 0
+
+    # -- step 0 of s2d in bf16 and in f32, from the same state
+    b16 = _bench_batches(scan_k, batch, image, classes, torch.bfloat16, dev)
+    step16, st16 = make_symbol_train_step(syms["s2d"], shapes, ctx=ctx,
+                                          compute_dtype="bfloat16")
+    step32, st32 = make_symbol_train_step(syms["s2d"], shapes, ctx=ctx)
+    p0 = {n: p.clone() for n, p in st16["params"].items()}
+    same_start = all(torch.equal(p0[n], p) for n, p in st32["params"].items())
+    first = {k: v[0] for k, v in b16.items()}
+    st16, o16 = step16(st16, first, key)
+    st32, o32 = step32(st32, dict(first, data=first["data"].float()), key)
+    steps += 2
+    ce16, ce32 = _ce(o16[0], first["softmax_label"]), _ce(
+        o32[0], first["softmax_label"])
+    d16 = {n: st16["params"][n] - p0[n] for n in p0}
+    d32 = {n: st32["params"][n] - p0[n] for n in p0}
+    g16 = torch.cat([d16[n].reshape(-1) for n in p0])
+    g32 = torch.cat([d32[n].reshape(-1) for n in p0])
+    by_stage = {}
+    for stage in ("conv0", "stage1", "stage2", "stage3", "stage4", "fc1"):
+        names = [n for n in p0 if n.startswith(stage)]
+        by_stage[stage] = _rel(torch.cat([d16[n].reshape(-1) for n in names]),
+                               torch.cat([d32[n].reshape(-1) for n in names]))
+    dce = (ce16 - ce32).abs()
+    step0 = {"same_start": same_start,
+             "head_dtypes": [str(o16[0].dtype), str(o32[0].dtype)],
+             "ce_f32_mean": float(ce32.mean()),
+             "ce_bf16_mean": float(ce16.mean()),
+             "ce_mean": float(dce.mean()), "ce_max": float(dce.max()),
+             "fc1_weight": _rel(d16["fc1_weight"], d32["fc1_weight"]),
+             "fc1_bias": _rel(d16["fc1_bias"], d32["fc1_bias"]),
+             "norm_ratio": float(g16.norm() / g32.norm()),
+             "cosine": float(torch.nn.functional.cosine_similarity(
+                 g16.float(), g32.float(), dim=0)),
+             "update_rel_l2": _rel(g16, g32),
+             "update_rel_l2_by_stage": by_stage,
+             "finite": _finite(list(o16) + list(o32) + list(d16.values())
+                               + list(d32.values())),
+             "limits": BENCH_BF16_LIMITS}
+    rec["bf16_vs_f32_step0"] = step0
+    del p0, d16, d32, g16, g32
+
+    # -- bench.py's leg: s2d, bf16, 16-step loops
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    st16, _, fin_warm = _bench_loops(step16, st16, b16, key, 1, device,
+                                     no_sync=True)
+    steps += scan_k
+    win = []
+    fin = fin_warm
+    for _ in range(windows):
+        st16, dt, ok = _bench_loops(step16, st16, b16, key,
+                                    loops_per_window, device)
+        win.append(dt / (loops_per_window * scan_k))
+        fin &= ok
+        steps += loops_per_window * scan_k
+    fin &= _finite(st16["params"].values())
+    img = [batch / s for s in win]
+    rec["s2d_bf16"] = {
+        "step_ms": [1e3 * s for s in win],
+        "img_per_s_median": statistics.median(img),
+        "img_per_s_min": min(img), "img_per_s_max": max(img),
+        "conv_fc_tflop_per_step": flops["s2d"] / 1e12,
+        "conv_fc_tflop_s": flops["s2d"] / statistics.median(win) / 1e12,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if on_card else None),
+        "finite": fin}
+    del step16, st16, o16
+
+    # -- s2d in f32 (carrying on from step 0), one warm and one timed loop
+    b32 = {k: (v.float() if k == "data" else v) for k, v in b16.items()}
+    del b16
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    st32, _, ok1 = _bench_loops(step32, st32, b32, key, 1, device)
+    st32, dt, ok2 = _bench_loops(step32, st32, b32, key, 1, device)
+    steps += 2 * scan_k
+    rec["s2d_f32"] = {
+        "step_ms": 1e3 * dt / scan_k, "img_per_s": batch * scan_k / dt,
+        "conv_fc_tflop_s": flops["s2d"] * scan_k / dt / 1e12,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if on_card else None),
+        "finite": ok1 and ok2 and _finite(st32["params"].values())}
+    del step32, st32, o32
+
+    # -- conv7 in bf16, one warm and one timed loop
+    b16 = {k: (v.to(torch.bfloat16) if k == "data" else v)
+           for k, v in b32.items()}
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    step7, st7 = make_symbol_train_step(syms["conv7"], shapes, ctx=ctx,
+                                        compute_dtype="bfloat16")
+    st7, _, ok1 = _bench_loops(step7, st7, b16, key, 1, device)
+    st7, dt, ok2 = _bench_loops(step7, st7, b16, key, 1, device)
+    steps += 2 * scan_k
+    rec["conv7_bf16"] = {
+        "step_ms": 1e3 * dt / scan_k, "img_per_s": batch * scan_k / dt,
+        "conv_fc_tflop_s": flops["conv7"] * scan_k / dt / 1e12,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if on_card else None),
+        "finite": ok1 and ok2 and _finite(st7["params"].values())}
+    del step7, st7, b16
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- the f32 conv7 step against Executor forward/backward + SGD
+    step7, st7 = make_symbol_train_step(syms["conv7"], shapes, ctx=ctx)
+    p0 = {n: p.clone() for n, p in st7["params"].items()}
+    aux0 = [a.clone() for a in st7["aux"]]
+    first = {k: v[0] for k, v in b32.items()}
+    st7, _ = step7(st7, first, key)
+    steps += 1
+    fused = {n: p.clone() for n, p in st7["params"].items()}
+    del step7, st7, b32
+    sym = syms["conv7"]
+    req = {n: ("null" if n in shapes else "write")
+           for n in sym.list_arguments()}
+    exe = sym.simple_bind(ctx, grad_req=req, **shapes)
+    for n, p in p0.items():
+        exe.arg_dict[n][:] = p
+    for a, v in zip(exe.aux_arrays, aux0):
+        a[:] = v
+    exe.arg_dict["data"][:] = first["data"]
+    exe.arg_dict["softmax_label"][:] = first["softmax_label"]
+    exe.forward(is_train=True)
+    exe.backward()
+    steps += 1
+    ws = [p0[n] for n in p0]
+    opt = torch.optim.SGD(ws, lr=0.05, momentum=0.9)
+    for n, w in zip(p0, ws):
+        w.grad = exe.grad_dict[n]._data
+    opt.step()
+    rel = {n: _rel(fused[n], p0[n]) for n in p0}
+    worst = max(rel, key=rel.get)
+    rec["conv7_f32_vs_executor"] = {"tensors": len(rel),
+                                    "max_rel_l2": rel[worst], "worst": worst,
+                                    "tol_rel_l2": 1e-4}
+    del exe, fused, p0, opt, ws
+    _sync(device)
+    launches = sm.fused_softmax.launches
+    rec["steps"] = steps
+    rec["softmax_launches"] = launches
+    log(rec)
+
+    lim = BENCH_BF16_LIMITS
+    if not (same_start and step0["finite"]
+            and step0["head_dtypes"] == ["torch.bfloat16", "torch.float32"]):
+        raise AssertionError("step 0: %r" % step0)
+    lo, hi = lim["norm_ratio"]
+    if not (step0["ce_mean"] <= lim["ce_mean"]
+            and step0["ce_max"] <= lim["ce_max"]
+            and step0["fc1_weight"] <= lim["fc1_weight"]
+            and step0["fc1_bias"] <= lim["fc1_bias"]
+            and lo <= step0["norm_ratio"] <= hi
+            and step0["update_rel_l2"] > 0):
+        raise AssertionError("the bf16 step 0 is off the f32 one: %r"
+                             % step0)
+    for leg in ("s2d_bf16", "s2d_f32", "conv7_bf16"):
+        if not rec[leg]["finite"]:
+            raise AssertionError("non-finite head or parameter in %s: %r"
+                                 % (leg, rec[leg]))
+    if not rel[worst] <= 1e-4:
+        raise AssertionError("the f32 fused step disagrees with the "
+                             "Executor step: %r"
+                             % rec["conv7_f32_vs_executor"])
+    expected = steps if on_card else 0
+    if launches != expected:
+        raise AssertionError("the bench phase launched K1 %d times, "
+                             "expected %d (one a step)" % (launches,
+                                                           expected))
+    return rec
+
+
+def phase_resnet_scanned_fit(device="cuda", batch=128, image=224,
+                             classes=1000, n_batches=4, epochs=2,
+                             feedforward=None):
+    """The scanned fit on the card: ``FeedForward(get_resnet(1000, 50),
+    compute_dtype="bfloat16").fit`` at phase_resnet_fit's batches and
+    epochs (one tail chunk of 4 an epoch at the default K = 8), then
+    ``Module.fit`` with ``MXNET_COMPUTE_DTYPE=bfloat16`` for one epoch,
+    both with ``MXNET_SCAN_TRAIN`` unset (its default, on). Asserts that
+    each built its scanned trainer; checks the cross-entropy (finite,
+    step 0 within 0.5 of ln(classes)) and K1's launches (once a step);
+    prints ms a step and img/s (the second epoch, FeedForward) beside
+    ``feedforward``, phase_resnet_fit's f32 per-batch record. Returns
+    the record (``softmax_launches``)."""
+    import math
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import softmax as sm
+    from mxnet_tpu_torch.parallel import fit_trainer
+
+    x, y = _resnet_inputs(batch, image, classes, n_batches, seed=0)
+    built = []
+    real = fit_trainer.make_fit_trainer
+
+    def spy(*a, **kw):
+        built.append(real(*a, **kw))
+        return built[-1]
+
+    fit_trainer.make_fit_trainer = spy
+    rec = {"phase": "resnet_scanned_fit", "batch": batch, "image": image,
+           "classes": classes, "batches": n_batches,
+           "optimizer": "sgd lr 0.05 momentum 0.9",
+           "compute_dtype": "bfloat16"}
+    try:
+        with mock.patch.dict(os.environ):
+            for k in ("MXNET_SCAN_TRAIN", "MXNET_TRAIN_SCAN_K",
+                      "MXNET_COMPUTE_DTYPE"):
+                os.environ.pop(k, None)   # the defaults: scanned, K = 8
+            it = mx.io.NDArrayIter(x, y, batch_size=batch)
+            mx.random.seed(0)
+            model = mx.FeedForward(mx.models.get_resnet(classes, 50),
+                                   ctx=_ctx(device), num_epoch=epochs,
+                                   learning_rate=0.05, momentum=0.9,
+                                   compute_dtype="bfloat16")
+            ce, stamps = [], []
+
+            def on_batch(param):
+                ce.append(float(param.eval_metric.get()[1]))
+
+            def on_epoch(*_):
+                _sync(device)
+                stamps.append(time.perf_counter())
+
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            _sync(device)
+            sm.fused_softmax.launches = 0
+            t0 = time.perf_counter()
+            model.fit(X=it, eval_metric="ce", batch_end_callback=on_batch,
+                      epoch_end_callback=on_epoch)
+            _sync(device)
+            ff_launches = sm.fused_softmax.launches
+            epoch_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+            warm = epoch_s[-1] / n_batches
+            rec["feedforward"] = {
+                "trainer_built": len(built) == 1, "epoch_s": epoch_s,
+                "step_ms_last_epoch": 1e3 * warm,
+                "img_per_s_last_epoch": batch / warm,
+                "cross_entropy": ce, "softmax_launches": ff_launches,
+                "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                if device == "cuda" else None)}
+            del model
+            if device == "cuda":
+                torch.cuda.empty_cache()
+
+            with mock.patch.dict(os.environ,
+                                 MXNET_COMPUTE_DTYPE="bfloat16"):
+                it = mx.io.NDArrayIter(x, y, batch_size=batch)
+                mx.random.seed(0)
+                mod = mx.module.Module(mx.models.get_resnet(classes, 50),
+                                       context=_ctx(device))
+                mce = []
+                _sync(device)
+                sm.fused_softmax.launches = 0
+                t0 = time.perf_counter()
+                mod.fit(it, num_epoch=1, eval_metric="ce",
+                        batch_end_callback=lambda p: mce.append(
+                            float(p.eval_metric.get()[1])),
+                        optimizer_params={"learning_rate": 0.05,
+                                          "momentum": 0.9})
+                _sync(device)
+                wall = time.perf_counter() - t0
+                mod_launches = sm.fused_softmax.launches
+            rec["module"] = {"trainer_built": len(built) == 2,
+                             "epoch_s": wall, "cross_entropy": mce,
+                             "softmax_launches": mod_launches}
+            del mod
+    finally:
+        fit_trainer.make_fit_trainer = real
+    ff = feedforward or {}
+    rec["f32_per_batch_mean_step_ms_after_first"] = ff.get(
+        "mean_step_ms_after_first")
+    rec["f32_per_batch_img_per_s"] = ff.get("img_per_s")
+    rec["softmax_launches"] = ff_launches + mod_launches
+    log(rec)
+    for leg, runs in (("feedforward", epochs), ("module", 1)):
+        r = rec[leg]
+        if not r["trainer_built"]:
+            raise AssertionError("%s.fit did not build its scanned trainer"
+                                 % leg)
+        if not all(math.isfinite(v) for v in r["cross_entropy"]):
+            raise AssertionError("non-finite cross-entropy: %r" % r)
+        if abs(r["cross_entropy"][0] - math.log(classes)) > 0.5:
+            raise AssertionError("%s step-0 cross-entropy %g is not within "
+                                 "0.5 of ln(%d)"
+                                 % (leg, r["cross_entropy"][0], classes))
+        expected = n_batches * runs if device == "cuda" else 0
+        if r["softmax_launches"] != expected:
+            raise AssertionError("the %s scanned fit launched K1 %d times, "
+                                 "expected %d" % (leg, r["softmax_launches"],
+                                                  expected))
+    return rec
 
 
 # the LSTM language model over bucketing (baseline config #3):
@@ -2445,6 +2888,11 @@ def main():
     module = phase_module()
     resnet_module = phase_resnet_module_fit(feedforward=resnet_ff)
     torch.cuda.empty_cache()
+    resnet_bench = phase_resnet_bench()["softmax_launches"]
+    torch.cuda.empty_cache()
+    resnet_scanned = phase_resnet_scanned_fit(
+        feedforward=resnet_ff)["softmax_launches"]
+    torch.cuda.empty_cache()
     lstm = phase_lstm_bucketing()["softmax_launches"]
     torch.cuda.empty_cache()
     rtc = phase_rtc()
@@ -2492,17 +2940,26 @@ def main():
             "bound_ms": bwd_main[n]["bound_ms"],
             "bound_by": bwd_main[n]["bound_by"],
             "library_ms": bwd_main["sdpa_bwd_ms"]})
-    sm_main = softmax_checks[1]   # [128, 1000] f32, ResNet-50's shape
-    sm_lstm = softmax_checks[-1]  # [1920, 200] f32, the LSTM's T = 60
+    def sm_case(shape, dtype):
+        return next(c for c in softmax_checks
+                    if c["shape"] == list(shape) and c["dtype"] == dtype
+                    and c["scale"] == 1.0)
+
+    sm_main = sm_case((128, 1000), "float32")    # ResNet-50's f32 fits
+    sm_lstm = sm_case((1920, 200), "float32")    # the LSTM's T = 60
+    sm_bench = sm_case((128, 1000), "bfloat16")  # bench.py's bf16 step
     kernels.append({
         "name": "softmax", "route": "cuda",
         "source": "mxnet_tpu_torch/ops/csrc/softmax.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:517",
-        "launches": lenet + resnet + module + resnet_module + lstm,
+        "launches": (lenet + resnet + module + resnet_module + lstm
+                     + resnet_bench + resnet_scanned),
         "launches_by_path": {"lenet_fit": lenet, "resnet50_fit": resnet,
                              "module": module,
                              "resnet50_module_fit": resnet_module,
-                             "lstm_bucketing": lstm},
+                             "lstm_bucketing": lstm,
+                             "resnet50_bench": resnet_bench,
+                             "resnet50_scanned_fit": resnet_scanned},
         "max_abs_err": max(c["max_abs_err"] for c in softmax_checks),
         "max_err_to_limit": max(c["closeness"]["elem"]
                                 for c in softmax_checks),
@@ -2515,7 +2972,10 @@ def main():
         "library_graph_ms": sm_main["library_graph_ms"],
         "lstm_shape": {k: sm_lstm[k] for k in (
             "shape", "variant", "ms", "graph_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "library_graph_ms")}})
+            "bound_by", "library_ms", "library_graph_ms")},
+        "bench_shape": {k: sm_bench[k] for k in (
+            "shape", "dtype", "variant", "ms", "graph_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library_graph_ms")}})
     f32, bf16 = (rtc["timing"]["mul_add_" + t]
                  for t in ("float32", "bfloat16"))
     kernels.append({

@@ -29,6 +29,12 @@ on one card:
 - the Module API: ``module.Module``, ``SequentialModule``,
   ``PythonLossModule`` and ``BucketingModule`` over the same executor
   (bucketing's shared storage, ``Executor.reshape``, ``Monitor`` taps);
+- the fused Symbol train step of ``bench.py``'s ResNet-50 leg:
+  ``parallel.make_symbol_train_step`` (``models.get_resnet(stem="s2d")``,
+  bf16 products over f32 master weights, ``step.loop`` over K batches),
+  and the scanned fit it shares with ``FeedForward.fit`` and
+  ``Module.fit`` on one device (``parallel/fit_trainer.py``,
+  ``compute_dtype``);
 - runtime-compiled kernels: ``rtc.Rtc`` wraps a user's CUDA C kernel
   body, compiles it with NVRTC for ``sm_90a`` and launches it on
   NDArrays on the card.

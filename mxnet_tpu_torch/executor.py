@@ -243,6 +243,16 @@ class Executor:
         self._graph = (self._versions(), outs, leaves)
 
     # -- helpers ---------------------------------------------------------------
+    def _release_device_arrays(self):
+        """Drop this executor's argument, gradient and aux arrays and keep
+        ``_run`` usable as a function of its arguments: the trainers that
+        borrow ``_run`` (``parallel/symbol_trainer.py``,
+        ``parallel/fit_trainer.py``) keep their own parameters, so the
+        bound method must not pin a second set on the device. The
+        executor cannot forward or backward afterwards."""
+        self.arg_arrays = self.grad_arrays = self.aux_arrays = None
+        self._outputs_nd = None
+
     def _aux_vals(self):
         return [a._data for a in self.aux_arrays]
 

@@ -4,12 +4,34 @@ Counterpart of ``mxnet_tpu/model.py``: ``FeedForward`` with ``fit``,
 ``predict``, ``score``, ``save`` and ``load``, and
 ``save_checkpoint``/``load_checkpoint`` (``prefix-symbol.json`` and
 ``prefix-%04d.params`` with ``arg:``/``aux:`` name prefixes, the JAX
-package's files byte for byte). ``fit`` runs the per-batch loop of the
-JAX package's ``_train_multi_device`` (``model.py:491-566``) on one
-device with no kvstore: load the batch, forward with ``is_train``,
-backward, one optimizer update per parameter in parameter order, then
-the metric. The optimizer is created with ``rescale_grad=1/batch_size``.
-``ctx=None`` means ``gpu(0)``.
+package's files byte for byte). The optimizer is created with
+``rescale_grad=1/batch_size``. ``ctx=None`` means ``gpu(0)``.
+
+``fit`` takes one of the JAX package's two loops
+(``_train_multi_device``, ``model.py:370-437``):
+
+- **the scanned fit**, the default on one device (``MXNET_SCAN_TRAIN``
+  unset or on, K = ``MXNET_TRAIN_SCAN_K``, 8): K batches at a time go
+  to ``parallel/fit_trainer.py``, whose K steps run with no host
+  synchronisation; the chunk's outputs are read after the next chunk
+  is queued (``_scan_drain``: Accuracy's argmax is taken on the card
+  before the copy), and the metric and the per-batch callbacks then
+  run for each of its batches, numbered from 1 as the per-batch loop
+  numbers them; an epoch's tail is a smaller chunk. The parameters are
+  written back at each epoch's end. This is the one path that honours
+  ``FeedForward(compute_dtype=...)`` (default ``MXNET_COMPUTE_DTYPE``):
+  f32 master weights, bf16 products. It needs a scannable optimizer
+  (``fit_trainer.supports_optimizer``) and no ``sym_gen``. A graph the
+  trainer refuses (an ``MXNetError`` at construction: a non-loss head)
+  falls back to the per-batch loop with a log line, as in the JAX
+  package; any other error raised while the trainer is built
+  propagates, where the JAX package falls back on every exception,
+  since on the card that would hide a failed device or kernel behind
+  the per-batch loop;
+- **the per-batch loop** (``model.py:491-566``): load the batch, forward
+  with ``is_train``, backward, one optimizer update per parameter in
+  parameter order, then the metric. A ``compute_dtype`` is then
+  ignored with a warning, as in the JAX package.
 
 ``symbol`` may be a bucketing symbol generator (``sym_gen(bucket_key)
 -> Symbol``, ``mxnet_tpu/model.py:898-910``): ``fit`` builds the default
@@ -19,8 +41,7 @@ over the same storage when its first batch comes; ``predict`` and
 ``score`` then run the default bucket's symbol, as the JAX package's do.
 
 A kvstore other than a local one and more than one device raise. Not
-in this slice: the scanned fit (``parallel/fit_trainer.py``), the
-guardian, telemetry, monitors and ``resume``.
+in this slice: the guardian, telemetry, mxprof, monitors and ``resume``.
 """
 from __future__ import annotations
 
@@ -31,9 +52,10 @@ import time
 from collections import namedtuple
 
 import numpy as _np
+import torch
 
 from .base import MXNetError
-from .context import Context, current_context
+from .context import Context, cpu, current_context
 from .ndarray import NDArray, array, load as nd_load, save as nd_save, zeros
 from . import io
 from . import metric as metric_mod
@@ -63,6 +85,10 @@ def _desc_name(d):
     return d.name if isinstance(d, io.DataDesc) else d[0]
 
 
+def _desc_shape(d):
+    return tuple(d.shape if isinstance(d, io.DataDesc) else d[1])
+
+
 def _update_params(param_arrays, grad_arrays, updater, num_device):
     for index, pair in enumerate(zip(param_arrays, grad_arrays)):
         arg_list, grad_list = pair
@@ -82,15 +108,214 @@ def _multiple_callbacks(callbacks, *args, **kwargs):
         callbacks(*args, **kwargs)
 
 
+# -- the scanned fit (parallel/fit_trainer.py) ---------------------------------
+def _scan_k():
+    """Steps fused per chunk in the scanned fit; 0 disables it."""
+    if os.environ.get("MXNET_SCAN_TRAIN", "1") in ("0", "false", "off"):
+        return 0
+    return int(os.environ.get("MXNET_TRAIN_SCAN_K", "8"))
+
+
+def _buffer_batch(data_batch, input_names):
+    """Snapshot one DataBatch for deferred staging (shared by the two
+    scanned loops): ``stage_chunk`` reads these values up to K batches
+    after the iterator has moved on, and a torch tensor is mutable, so
+    each is copied (NDArrays unwrapped to their tensors first)."""
+    arrs = [(a._data if isinstance(a, NDArray) else a)
+            for a in list(data_batch.data) + list(data_batch.label)]
+    arrs = [a.clone() if isinstance(a, torch.Tensor) else _np.array(a)
+            for a in arrs]
+    return dict(zip(input_names, arrs))
+
+
+def _scan_epoch(trainer, batches, epoch, K, drain):
+    """Queue an epoch's batches K at a time (the tail a smaller chunk),
+    each chunk drained after the next is queued (shared by the two
+    scanned loops)."""
+    pending, buf, nbatch = None, [], 0
+
+    def flush():
+        nonlocal pending, buf
+        queued = (trainer.run_chunk(trainer.stage_chunk(buf)), buf, epoch,
+                  nbatch - len(buf))
+        drain(pending)
+        pending, buf = queued, []
+
+    for data_batch in batches:
+        buf.append(_buffer_batch(data_batch, trainer.input_names))
+        nbatch += 1
+        if len(buf) == K:
+            flush()
+    if buf:
+        flush()
+    drain(pending)
+
+
+def _host(t):
+    """A device output as a host numpy array (bf16 as f32, which numpy
+    lacks)."""
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def _scan_drain(pending, eval_metric, label_names, batch_end_callback,
+                nbatch_base):
+    """The metric and the per-batch callbacks of a queued chunk; the
+    copy of its outputs to the host is the chunk's one synchronisation.
+    ``nbatch_base``: FeedForward numbers batches from 1, Module from 0.
+    Accuracy needs only each sample's argmax, so a single [K, N, C] head
+    is reduced to [K, N] class ids on the card first."""
+    if pending is None:
+        return
+    outs, bufs, epoch, nbatch0 = pending
+    if (type(eval_metric) is metric_mod.Accuracy and len(outs) == 1
+            and outs[0].dim() == 3):
+        host_outs = [outs[0].argmax(dim=-1).cpu().numpy()]
+    else:
+        host_outs = [_host(o) for o in outs]
+    for k, b in enumerate(bufs):
+        labels = [NDArray(b[n], cpu()) for n in label_names]
+        preds = [NDArray(h[k], cpu()) for h in host_outs]
+        eval_metric.update(labels, preds)
+        if batch_end_callback is not None:
+            _multiple_callbacks(batch_end_callback, BatchEndParam(
+                epoch=epoch, nbatch=nbatch0 + k + nbatch_base,
+                eval_metric=eval_metric, locals=locals()))
+
+
+def _train_scanned(trainer, symbol, ctx0, param_names, aux_names, arg_params,
+                   aux_params, begin_epoch, end_epoch, epoch_size, optimizer,
+                   train_data, eval_data, eval_metric, epoch_end_callback,
+                   batch_end_callback, logger, eval_batch_end_callback, K):
+    """The scanned single-device loop: the per-batch loop's metrics,
+    callbacks (after their chunk) and epoch checkpoints, with the steps
+    run K at a time by ``trainer``."""
+    label_names = [_desc_name(d) for d in train_data.provide_label]
+    eval_exe = None
+
+    def _drain(pending):
+        _scan_drain(pending, eval_metric, label_names, batch_end_callback,
+                    nbatch_base=1)
+
+    def _epoch_batches(epoch):
+        """The per-batch loop's epoch: ``epoch_size`` batches, resetting
+        the iterator at its end as often as that takes."""
+        nbatch = 0
+        while True:
+            do_reset = True
+            for data_batch in train_data:
+                nbatch += 1
+                yield data_batch
+                if epoch_size is not None and nbatch >= epoch_size:
+                    do_reset = False
+                    break
+            if do_reset:
+                logger.info("Epoch[%d] Resetting Data Iterator", epoch)
+                train_data.reset()
+            if epoch_size is None or nbatch >= epoch_size:
+                break
+
+    train_data.reset()
+    for epoch in range(begin_epoch, end_epoch):
+        tic = time.time()
+        eval_metric.reset()
+        _scan_epoch(trainer, _epoch_batches(epoch), epoch, K, _drain)
+        logger.info("Epoch[%d] Time cost=%.3f", epoch, time.time() - tic)
+        trainer.write_back(arg_params, aux_params, aux_names)
+        _multiple_callbacks(epoch_end_callback, epoch, symbol, arg_params,
+                            aux_params)
+        if eval_data:
+            if eval_exe is None:
+                eval_shapes = {
+                    _desc_name(d): _desc_shape(d)
+                    for d in list(eval_data.provide_data)
+                    + list(eval_data.provide_label)}
+                eval_exe = symbol.simple_bind(ctx0, grad_req="null",
+                                              **eval_shapes)
+            eval_exe.copy_params_from(arg_params, aux_params)
+            eval_metric.reset()
+            eval_data.reset()
+            eval_label_names = [_desc_name(d)
+                                for d in eval_data.provide_label]
+            eval_data_names = [_desc_name(d) for d in eval_data.provide_data]
+            for i, eval_batch in enumerate(eval_data):
+                for n, a in zip(eval_data_names, eval_batch.data):
+                    a.copyto(eval_exe.arg_dict[n])
+                for n, a in zip(eval_label_names, eval_batch.label):
+                    if n in eval_exe.arg_dict:
+                        a.copyto(eval_exe.arg_dict[n])
+                eval_exe.forward(is_train=False)
+                eval_metric.update(eval_batch.label, eval_exe.outputs)
+                if eval_batch_end_callback is not None:
+                    _multiple_callbacks(eval_batch_end_callback, BatchEndParam(
+                        epoch=epoch, nbatch=i, eval_metric=eval_metric,
+                        locals=locals()))
+            for name, value in eval_metric.get_name_value():
+                logger.info("Epoch[%d] Validation-%s=%f", epoch, name, value)
+            eval_data.reset()
+
+
 def _train_multi_device(symbol, ctx, arg_names, param_names, aux_names,
                         arg_params, aux_params, begin_epoch, end_epoch,
                         epoch_size, optimizer, train_data, eval_data=None,
                         eval_metric=None, epoch_end_callback=None,
                         batch_end_callback=None, logger=None,
-                        eval_batch_end_callback=None, sym_gen=None):
-    """The per-batch training loop on one device."""
+                        eval_batch_end_callback=None, sym_gen=None,
+                        compute_dtype=None):
+    """The scanned fit where it applies, else the per-batch loop, on one
+    device."""
     if logger is None:
         logger = logging
+    K = _scan_k()
+    scan_attempted = False
+    if K > 1 and len(ctx) == 1 and sym_gen is None:
+        from .parallel.fit_trainer import make_fit_trainer, supports_optimizer
+
+        if supports_optimizer(optimizer):
+            input_shapes = {
+                _desc_name(d): _desc_shape(d)
+                for d in (list(train_data.provide_data)
+                          + list(train_data.provide_label))}
+            # only an ineligible graph falls back: any other error while
+            # the trainer is built on the card propagates
+            try:
+                trainer = make_fit_trainer(
+                    symbol, ctx[0], input_shapes, optimizer, arg_params,
+                    aux_params, param_names, compute_dtype=compute_dtype)
+            except MXNetError as e:
+                logger.debug("scanned fit unavailable (%s); using the "
+                             "per-batch loop", e)
+                trainer = None
+            if trainer is not None:
+                return _train_scanned(
+                    trainer, symbol, ctx[0], param_names, aux_names,
+                    arg_params, aux_params, begin_epoch, end_epoch,
+                    epoch_size, optimizer, train_data, eval_data,
+                    eval_metric, epoch_end_callback, batch_end_callback,
+                    logger, eval_batch_end_callback, K)
+            scan_attempted = True
+    if compute_dtype is not None:
+        # mixed precision rides the scanned trainer; the per-batch loop
+        # trains in the arrays' dtype (f32)
+        logger.warning(
+            "compute_dtype=%s requested but the scanned fit fast path is "
+            "unavailable (%s); training proceeds in the parameter dtype",
+            compute_dtype,
+            "construction failed" if scan_attempted else "eligibility")
+    _train_per_batch(symbol, ctx, arg_names, param_names, aux_names,
+                     arg_params, aux_params, begin_epoch, end_epoch,
+                     epoch_size, optimizer, train_data, eval_data,
+                     eval_metric, epoch_end_callback, batch_end_callback,
+                     logger, eval_batch_end_callback, sym_gen)
+
+
+def _train_per_batch(symbol, ctx, arg_names, param_names, aux_names,
+                     arg_params, aux_params, begin_epoch, end_epoch,
+                     epoch_size, optimizer, train_data, eval_data,
+                     eval_metric, epoch_end_callback, batch_end_callback,
+                     logger, eval_batch_end_callback, sym_gen):
+    """The per-batch training loop on one device."""
     executor_manager = DataParallelExecutorManager(
         symbol=symbol, sym_gen=sym_gen, ctx=ctx, train_data=train_data,
         param_names=param_names, arg_names=arg_names, aux_names=aux_names,
@@ -232,7 +457,8 @@ class FeedForward:
     def __init__(self, symbol, ctx=None, num_epoch=None, epoch_size=None,
                  optimizer="sgd", initializer=Uniform(0.01),
                  numpy_batch_size=128, arg_params=None, aux_params=None,
-                 allow_extra_params=False, begin_epoch=0, **kwargs):
+                 allow_extra_params=False, begin_epoch=0, compute_dtype=None,
+                 **kwargs):
         if isinstance(symbol, Symbol):
             self.symbol = symbol
             self.sym_gen = None
@@ -264,6 +490,12 @@ class FeedForward:
         self.numpy_batch_size = numpy_batch_size
         self._pred_exec = None
         self.begin_epoch = begin_epoch
+        # mixed precision through the scanned fit (f32 master weights,
+        # ``compute_dtype`` products; parallel/fit_trainer.py); None is
+        # f32, or MXNET_COMPUTE_DTYPE=bfloat16 process-wide
+        self.compute_dtype = (
+            compute_dtype if compute_dtype is not None
+            else os.environ.get("MXNET_COMPUTE_DTYPE") or None)
 
     def _check_arguments(self):
         if self.argument_checked:
@@ -464,7 +696,7 @@ class FeedForward:
             epoch_end_callback=epoch_end_callback,
             batch_end_callback=batch_end_callback, logger=logger,
             eval_batch_end_callback=eval_batch_end_callback,
-            sym_gen=self.sym_gen)
+            sym_gen=self.sym_gen, compute_dtype=self.compute_dtype)
 
     def save(self, prefix, epoch=None):
         if epoch is None:

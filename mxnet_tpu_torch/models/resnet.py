@@ -1,13 +1,11 @@
-"""ResNet (v1): the JAX package's ``models/resnet.py``, copied.
-
-``get_resnet`` builds the same graph (and so the same JSON) as the JAX
-package with the 7x7 ``conv7`` stem; the ``s2d`` stem needs Pad,
-Reshape and transpose, which are not ported yet, and raises.
+"""ResNet (v1) — baseline config 2, the bench.py flagship
+(ref: example/image-classification/symbol_resnet.py; arch per He et al.).
+Built bf16-friendly: BN statistics in f32; conv accumulation follows the
+backend default (f32 on TPU MXU).
 """
 from __future__ import annotations
 
 from .. import symbol as sym
-from ..base import MXNetError
 
 
 def _conv_bn(data, num_filter, kernel, stride, pad, name, act=True):
@@ -36,18 +34,58 @@ def _bottleneck(data, num_filter, stride, dim_match, name):
     return sym.Activation(data=fused, act_type="relu", name=name + "_relu")
 
 
+def _s2d_stem(data, name="conv0", image=224):
+    """Space-to-depth stem: the 7x7/s2/p3 stem conv re-expressed as a
+    dense 4x4/s1 conv over a 2x2-packed input. The 7x7 conv on C=3 wastes
+    MXU lanes (3/128 input channels) and halves systolic utilization with
+    its stride; packing 2x2 spatial blocks into channels yields an
+    equivalent conv with C=12, stride 1 (the MLPerf-TPU ResNet trick).
+    Exact arithmetic equivalence to the 7x7 form holds under the weight
+    fold in ``fold_stem_weights`` (tested in test_models.py).
+
+    Pipeline: Pad(3) -> [N,3,230,230] -> s2d pack -> [N,12,115,115]
+    -> Convolution(4x4, stride 1, valid) -> [N,64,112,112].
+    """
+    if image % 2 != 0:
+        raise ValueError("s2d stem requires an even image size, got %d" % image)
+    h = (image + 6) // 2  # padded size / 2
+    x = sym.Pad(data=data, mode="constant",
+                pad_width=(0, 0, 0, 0, 3, 3, 3, 3), name=name + "_pad")
+    # [N,3,2h,2h] -> [N,3,h,2,h,2] -> [N,3,2,2,h,h] -> [N,12,h,h]
+    x = sym.Reshape(data=x, shape=(0, 0, h, 2, h, 2),
+                    name=name + "_s2d_split")
+    x = sym.transpose(data=x, axes=(0, 1, 3, 5, 2, 4), name=name + "_s2d_t")
+    x = sym.Reshape(data=x, shape=(0, 12, h, h), name=name + "_s2d_merge")
+    return sym.Convolution(
+        data=x, num_filter=64, kernel=(4, 4), stride=(1, 1), pad=(0, 0),
+        no_bias=True, name=name + "_conv")
+
+
+def fold_stem_weights(w7):
+    """Fold a [64,3,7,7] stem-conv weight into the [64,12,4,4] weight of
+    the s2d stem (see _s2d_stem): W4[co,(ci,p,q),da,db] = W7[co,ci,2da+p,2db+q]
+    with taps beyond 6 zero. Accepts/returns numpy arrays."""
+    import numpy as np
+
+    co = w7.shape[0]
+    w8 = np.zeros((co, 3, 8, 8), w7.dtype)
+    w8[:, :, :7, :7] = w7
+    # [co,ci,da,p,db,q] <- w8[co,ci,2da+p,2db+q]
+    w6 = w8.reshape(co, 3, 4, 2, 4, 2)
+    # target channel order (ci,p,q) must match the s2d pack's
+    # [N, ci, p, q, u, v] -> [N, ci*4+2p+q, u, v] merge
+    return np.ascontiguousarray(
+        w6.transpose(0, 1, 3, 5, 2, 4).reshape(co, 12, 4, 4))
+
+
 def get_resnet(num_classes=1000, num_layers=50, stem="conv7", image=224):
     """ResNet-50/101/152 v1 for 224x224 input.
 
-    stem: "conv7" = the reference's 7x7/s2 stem; "s2d" (the JAX package's
-    space-to-depth stem) raises until its ops are ported. ``image`` is
-    accepted for the JAX package's signature.
+    stem: "conv7" = the reference's 7x7/s2 stem; "s2d" = the arithmetically
+    equivalent space-to-depth stem (TPU fast path, see _s2d_stem).
     """
     if stem not in ("conv7", "s2d"):
         raise ValueError("unknown stem %r (choose 'conv7' or 's2d')" % (stem,))
-    if stem == "s2d":
-        raise MXNetError("stem='s2d' needs Pad, Reshape and transpose, which "
-                         "mxnet_tpu_torch does not port yet; use 'conv7'")
     if num_layers == 50:
         units = [3, 4, 6, 3]
     elif num_layers == 101:
@@ -59,7 +97,13 @@ def get_resnet(num_classes=1000, num_layers=50, stem="conv7", image=224):
     filters = [256, 512, 1024, 2048]
 
     data = sym.Variable("data")
-    body = _conv_bn(data, 64, (7, 7), (2, 2), (3, 3), "conv0")
+    if stem == "s2d":
+        conv = _s2d_stem(data, "conv0", image=image)
+        bn = sym.BatchNorm(data=conv, fix_gamma=False, eps=2e-5, momentum=0.9,
+                           name="conv0_bn")
+        body = sym.Activation(data=bn, act_type="relu", name="conv0_relu")
+    else:
+        body = _conv_bn(data, 64, (7, 7), (2, 2), (3, 3), "conv0")
     body = sym.Pooling(
         data=body, kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type="max",
         name="pool0",

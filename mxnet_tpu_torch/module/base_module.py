@@ -1,11 +1,12 @@
 """BaseModule: the abstract intermediate-level training API
 (ref: python/mxnet/module/base_module.py:1-900, BaseModule.fit at :275).
 
-The port's copy of ``mxnet_tpu/module/base_module.py``. ``fit`` always
-runs the per-batch loop (forward_backward, update, update_metric, the
-callbacks): the JAX package's scanned fit (``parallel/fit_trainer.py``)
-is not ported. Also left out: the telemetry spans, and the training
-guardian; ``MXNET_GUARDIAN=1`` raises rather than train unguarded.
+The port's copy of ``mxnet_tpu/module/base_module.py``. ``fit`` first
+offers the epochs to ``_try_scanned_fit`` (``Module``'s scanned path,
+``parallel/fit_trainer.py``; other module kinds decline), else runs the
+per-batch loop (forward_backward, update, update_metric, the
+callbacks). Left out: the telemetry spans, and the training guardian;
+``MXNET_GUARDIAN=1`` raises rather than train unguarded.
 """
 from __future__ import annotations
 
@@ -207,6 +208,11 @@ class BaseModule:
             return output_list2
         return output_list
 
+    def _try_scanned_fit(self, *args, **kwargs):
+        """Overridden by Module; other module kinds use the per-batch
+        loop unconditionally."""
+        return False
+
     def fit(self, train_data, eval_data=None, eval_metric="acc",
             epoch_end_callback=None, batch_end_callback=None, kvstore="local",
             optimizer="sgd", optimizer_params=(("learning_rate", 0.01),),
@@ -240,6 +246,14 @@ class BaseModule:
             validation_metric = eval_metric
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
+
+        # the scanned path (parallel/fit_trainer.py): plain one-device
+        # Module only; False falls through to the per-batch loop
+        if self._try_scanned_fit(
+                train_data, eval_data, eval_metric, validation_metric,
+                epoch_end_callback, batch_end_callback, eval_end_callback,
+                eval_batch_end_callback, begin_epoch, num_epoch, monitor):
+            return
 
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()

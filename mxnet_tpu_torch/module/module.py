@@ -11,8 +11,14 @@ package, each in so many words:
 - ``kvstore``: ``None`` or a local kind (``"local"``, ``"device"``)
   means no kvstore on one device, as ``mxnet_tpu/model.py:41-61`` has
   it; a ``dist`` kind or a KVStore object raises;
-- ``fit`` always runs the per-batch loop (``BaseModule.fit``): the
-  scanned fit is not ported;
+- ``fit`` takes the JAX package's scanned path
+  (``_try_scanned_fit``, ``parallel/fit_trainer.py``) where it applies:
+  ``MXNET_SCAN_TRAIN`` on (the default), a scannable optimizer,
+  ``grad_req="write"``, no monitor, labels; ``MXNET_COMPUTE_DTYPE``
+  sets its precision; batches are numbered from 0. An ineligible graph
+  (an ``MXNetError`` from the trainer's construction) falls back to the
+  per-batch loop with a log line; any other error propagates, where the
+  JAX package falls back on every exception;
 - ``save_optimizer_states`` pickles the port's optimizer object (as the
   JAX package pickles its own), so a ``.states`` file round-trips
   within the port only; like the JAX package's, it holds no momentum
@@ -148,7 +154,14 @@ class Module(BaseModule):
         ]
 
     def get_params(self):
-        """ref: module.py:175."""
+        """ref: module.py:175. While a scanned fit runs, the freshest
+        parameters are the trainer's: they are written back first, so a
+        mid-epoch callback never reads the epoch's first weights."""
+        live = getattr(self, "_scan_live", None)
+        if live is not None:
+            trainer, ap, xp = live
+            trainer.write_back(ap, xp, self._aux_names)
+            return (ap, xp)
         assert self.binded or self._arg_params is not None
         if self.binded and self._params_dirty:
             self._sync_params_from_devices()
@@ -394,3 +407,79 @@ class Module(BaseModule):
         assert self.binded
         for exec_ in self._execs:
             mon.install(exec_)
+
+    # -- scanned fast path (parallel/fit_trainer.py) ---------------------------
+    def _try_scanned_fit(self, train_data, eval_data, eval_metric,
+                         validation_metric, epoch_end_callback,
+                         batch_end_callback, eval_end_callback,
+                         eval_batch_end_callback, begin_epoch, num_epoch,
+                         monitor):
+        """Run fit() as K-step chunks when eligible (the path FeedForward
+        takes, ``model._train_scanned``): one device, no kvstore, a
+        scannable optimizer, ``grad_req="write"``, no monitor. Per-batch
+        metrics and callbacks (numbered from 0), per-epoch Train-*
+        logging, epoch_end callbacks with written-back parameters, eval
+        through score(). Returns False to fall back."""
+        import os as _os
+        import time as _time
+
+        from ..model import (_desc_name, _desc_shape, _multiple_callbacks,
+                             _scan_drain, _scan_epoch, _scan_k)
+        from ..parallel.fit_trainer import make_fit_trainer, supports_optimizer
+
+        K = _scan_k()
+        if (K <= 1 or len(self._context) != 1 or monitor is not None
+                or self._kvstore is not None or self._update_on_kvstore
+                or not train_data.provide_label
+                or getattr(self, "_grad_req", "write") != "write"
+                or not supports_optimizer(self._optimizer)):
+            return False
+        input_shapes = {
+            _desc_name(d): _desc_shape(d)
+            for d in (list(train_data.provide_data)
+                      + list(train_data.provide_label))
+        }
+        arg_params, aux_params = self.get_params()
+        try:
+            trainer = make_fit_trainer(
+                self._symbol, self._context[0], input_shapes,
+                self._optimizer, arg_params, aux_params, self._param_names,
+                compute_dtype=_os.environ.get("MXNET_COMPUTE_DTYPE") or None)
+        except MXNetError as e:
+            self.logger.debug("scanned fit unavailable (%s); per-batch "
+                              "loop", e)
+            return False
+        label_names = [_desc_name(d) for d in train_data.provide_label]
+
+        def _drain(pending):
+            _scan_drain(pending, eval_metric, label_names,
+                        batch_end_callback, nbatch_base=0)
+
+        self._scan_live = (trainer, arg_params, aux_params)
+        try:
+            for epoch in range(begin_epoch, num_epoch):
+                tic = _time.time()
+                eval_metric.reset()
+                _scan_epoch(trainer, train_data, epoch, K, _drain)
+                for name, val in eval_metric.get_name_value():
+                    self.logger.info("Epoch[%d] Train-%s=%f", epoch, name,
+                                     val)
+                self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                                 _time.time() - tic)
+                trainer.write_back(arg_params, aux_params, self._aux_names)
+                self.set_params(arg_params, aux_params)
+                if epoch_end_callback is not None:
+                    _multiple_callbacks(epoch_end_callback, epoch,
+                                        self.symbol, arg_params, aux_params)
+                if eval_data:
+                    res = self.score(eval_data, validation_metric,
+                                     score_end_callback=eval_end_callback,
+                                     batch_end_callback=eval_batch_end_callback,
+                                     epoch=epoch)
+                    for name, val in res:
+                        self.logger.info("Epoch[%d] Validation-%s=%f",
+                                         epoch, name, val)
+                train_data.reset()
+        finally:
+            self._scan_live = None
+        return True

@@ -5,7 +5,8 @@ Counterpart of ``mxnet_tpu/ops/nn.py``: ``Activation`` (:57),
 ``FullyConnected`` (:148), ``Convolution`` (:230), ``Pooling`` (:403),
 ``BatchNorm`` (:555), ``Dropout`` (:664), ``Embedding`` (:684),
 ``Reshape`` (:713), ``Flatten`` (:773), ``Concat`` (:786),
-``SliceChannel`` (:836) and ``SwapAxis`` (:905), with the same parameter
+``SliceChannel`` (:836), ``SwapAxis`` (:905) and ``Pad`` (:946), with
+the same parameter
 fields, defaults, inputs, outputs, aux states and shape inference
 (copied; ``Reshape``'s target shape too), so graphs serialise to the
 same JSON. ``Reshape``, ``SliceChannel`` and ``SwapAxis`` may return
@@ -26,6 +27,12 @@ Semantics kept from the JAX package where torch's own ops differ:
   high side so every window is whole, with -inf for ``max`` and 0
   otherwise, rather than torch's ``ceil_mode``, which shrinks the
   divisor of overhanging windows.
+- ``Pad``: ``pad_width`` lists (before, after) pairs from the first
+  axis to the last, as ``jnp.pad`` takes them; ``F.pad`` takes them
+  from the last axis back, and pads only trailing axes of 3-5-D inputs
+  in its ``replicate``/``reflect`` modes, so ``edge`` and ``reflect``
+  (numpy's: the end element is not repeated) gather each padded axis
+  by index instead.
 - ``BatchNorm``: statistics in f32 with the biased variance
   ``max(E[x^2] - E[x]^2, 0)``; moving stats update as
   ``moving * momentum + stat * (1 - momentum)`` (torch's running stats
@@ -609,5 +616,59 @@ register(
         _swapaxis_fwd,
         params={"dim1": Field("int", default=0), "dim2": Field("int", default=0)},
         infer_shape=_swapaxis_shape,
+    )
+)
+
+
+# -- Pad -----------------------------------------------------------------------
+def _pad_index(n, lo, hi, mode, device):
+    """Source indices of one padded axis of length ``n``: numpy's
+    ``edge`` (clamped) or ``reflect`` (mirrored about the end elements,
+    which are not repeated; pads longer than the axis fold again)."""
+    i = torch.arange(-lo, n + hi, device=device)
+    if mode == "edge" or n == 1:
+        return i.clamp(0, n - 1)
+    period = 2 * (n - 1)
+    i = i.abs() % period
+    return torch.where(i >= n, period - i, i)
+
+
+def _pad_fwd(params, inputs, aux, is_train, rng):
+    x = inputs[0]
+    pw = params["pad_width"]
+    pads = [(pw[2 * i], pw[2 * i + 1]) for i in range(x.dim())]
+    if params["mode"] == "constant":
+        return [F.pad(x, _pad_arg([lo for lo, _ in pads],
+                                  [hi for _, hi in pads]),
+                      value=params["constant_value"])], []
+    # F.pad's edge/reflect modes cover trailing axes of 3-5-D inputs
+    # only: gather each padded axis instead, as jnp.pad pads any axis
+    for axis, (lo, hi) in enumerate(pads):
+        if lo or hi:
+            idx = _pad_index(x.shape[axis], lo, hi, params["mode"], x.device)
+            x = torch.index_select(x, axis, idx)
+    return [x], []
+
+
+def _pad_shape(params, in_shapes):
+    if in_shapes[0] is None:
+        raise MXNetError("Pad: data shape unknown")
+    pw = params["pad_width"]
+    s = tuple(
+        d + pw[2 * i] + pw[2 * i + 1] for i, d in enumerate(in_shapes[0])
+    )
+    return [in_shapes[0]], [s], []
+
+
+register(
+    OpDef(
+        "Pad",
+        _pad_fwd,
+        params={
+            "mode": Field("str", required=True, enum=["constant", "edge", "reflect"]),
+            "pad_width": Field("shape", required=True),
+            "constant_value": Field("float", default=0.0),
+        },
+        infer_shape=_pad_shape,
     )
 )

@@ -1,10 +1,11 @@
 """Elementwise binary and array-scalar ops (the subset that Symbol and
-NDArray arithmetic emit) and the ``sum`` reduction.
+NDArray arithmetic emit), the ``sum`` reduction and ``transpose``.
 
 Counterpart of ``mxnet_tpu/ops/tensor.py:41-60`` and ``:75-133``, with
 the same names, aliases and parameters (``scalar``, a float; ``sum``'s
 ``axis`` and ``keepdims``, alias ``sum_axis``; a full reduction gives
-shape (1,)), computed with torch. The JAX package's unary, other
+shape (1,)), and ``transpose`` (``:349``; ``axes=()`` reverses the
+axes, and the result is a view), computed with torch. The JAX package's unary, other
 reductions, broadcast and matrix ops are a later slice.
 """
 from __future__ import annotations
@@ -88,5 +89,30 @@ REGISTRY["sum_axis"] = register(
             "keepdims": Field("bool", default=False),
         },
         infer_shape=_reduce_shape,
+    )
+)
+
+
+# -- transpose -----------------------------------------------------------------
+def _transpose_fwd(params, inputs, aux, is_train, rng):
+    x = inputs[0]
+    axes = params.get("axes") or tuple(reversed(range(x.dim())))
+    return [x.permute(axes)], []
+
+
+def _transpose_shape(params, in_shapes):
+    if in_shapes[0] is None:
+        raise MXNetError("transpose: input shape unknown")
+    s = in_shapes[0]
+    axes = params.get("axes") or tuple(reversed(range(len(s))))
+    return [s], [tuple(s[a] for a in axes)], []
+
+
+register(
+    OpDef(
+        "transpose",
+        _transpose_fwd,
+        params={"axes": Field("shape", default=())},
+        infer_shape=_transpose_shape,
     )
 )

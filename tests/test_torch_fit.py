@@ -5,9 +5,10 @@
   step's output and every final parameter agree within 1e-4 relative
   L2, ||got - want|| / ||want|| (f32 on both sides, differing in
   summation order, which the steps compound to ~2e-5 in fc1_weight;
-  per element the near-zero weights would have no relative scale; the
-  JAX side runs its per-batch loop, ``MXNET_SCAN_TRAIN=0``, the loop
-  the port carries);
+  per element the near-zero weights would have no relative scale; both
+  sides run their per-batch loops, ``MXNET_SCAN_TRAIN=0``, whose
+  executors the callback reads; ``tests/test_torch_fit_scan.py`` holds
+  the scanned fit);
 - the canonical LeNet fit of the verify recipe scores > 0.9 in the port;
 - a checkpoint either package saved loads in the other and predicts the
   same classes, probabilities within 1e-5, and the two packages write the
@@ -86,13 +87,13 @@ def fits():
     try:
         jax_model, jax_outs = _fit(
             mj, {k: mj.nd.array(v, ctx=mj.cpu()) for k, v in params.items()})
+        args, _ = mt.model.params_from_numpy(params, ctx=mt.cpu())
+        torch_model, torch_outs = _fit(mt, args)
     finally:
         if old is None:
             del os.environ["MXNET_SCAN_TRAIN"]
         else:
             os.environ["MXNET_SCAN_TRAIN"] = old
-    args, _ = mt.model.params_from_numpy(params, ctx=mt.cpu())
-    torch_model, torch_outs = _fit(mt, args)
     return jax_model, jax_outs, torch_model, torch_outs
 
 

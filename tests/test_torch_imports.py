@@ -6,12 +6,13 @@
   card's test files or the port's examples (``examples/rnn_torch``),
   imports either;
 - on the CPU path (serving, LM training, a LeNet ``FeedForward`` fit
-  and predict, a LeNet ``Module`` fit and predict, a callable ``Rtc``
+  and predict, a LeNet ``Module`` fit and predict (both on the scanned
+  path), a bf16 ``make_symbol_train_step`` loop, a callable ``Rtc``
   push, ``matmul_stats`` on CPU tensors) neither the kernel build
   module ``ops._build`` nor the NVRTC binding ``ops._nvrtc`` is
   imported; the walk over every submodule
-  reaches ``rtc``, ``ops._nvrtc``, ``ops.matmul_stats``, ``monitor`` and
-  ``module/``;
+  reaches ``rtc``, ``ops._nvrtc``, ``ops.matmul_stats``, ``monitor``,
+  ``module/`` and the two Symbol trainers of ``parallel/``;
 - every card test file (``tests/test_torch_*_cuda.py``) carries the
   ``cuda`` marker;
 - the host-only scheduler copy matches its original below the imports.
@@ -62,6 +63,15 @@ assert model.predict(it).shape == (16, 10)
 mod = mx.module.Module(mx.models.get_lenet(), context=mx.cpu())
 mod.fit(it, num_epoch=1)
 assert mod.predict(it).shape == (16, 10)
+from mxnet_tpu_torch.parallel import make_symbol_train_step
+from mxnet_tpu_torch import threefry
+step, st = make_symbol_train_step(
+    mx.models.get_lenet(), {'data': (8, 1, 28, 28), 'softmax_label': (8,)},
+    ctx=mx.cpu(), compute_dtype='bfloat16')
+st, outs = step.loop(st, {'data': np.zeros((2, 8, 1, 28, 28), 'f'),
+                          'softmax_label': np.zeros((2, 8), 'f')},
+                     threefry.prng_key(0, device='cpu'))
+assert outs[0].shape == (2, 8, 10)
 x = mx.nd.array(np.arange(4.0), ctx=mx.cpu())
 k = mx.rtc.Rtc('sq', [('x', x)], [('y', x)], lambda a, b: b.mul_(a))
 k.push([x], [x])
@@ -78,7 +88,8 @@ assert 'mxnet_tpu_torch.serving.engine' in names, names
 for must in ('model', 'rtc', 'ops._nvrtc', 'ops.matmul_stats', 'monitor',
              'ops.sequence', 'models.lstm', 'models.gru', 'models.rnn',
              'module', 'module.module', 'module.base_module', 'module.python_module',
-             'module.sequential_module', 'module.bucketing_module'):
+             'module.sequential_module', 'module.bucketing_module',
+             'parallel.symbol_trainer', 'parallel.fit_trainer'):
     assert 'mxnet_tpu_torch.' + must in names, (must, names)
 for n in names:
     importlib.import_module(n)
@@ -129,7 +140,8 @@ def _imports(path):
         ROOT / "tests" / "test_torch_rtc_kernel_cuda.py",
         ROOT / "tests" / "test_torch_matmul_stats_kernel_cuda.py",
         ROOT / "tests" / "test_torch_sampling_cuda.py",
-        ROOT / "tests" / "test_torch_rnn_cuda.py"]
+        ROOT / "tests" / "test_torch_rnn_cuda.py",
+        ROOT / "tests" / "test_torch_symbol_trainer_cuda.py"]
     + sorted((ROOT / "examples" / "rnn_torch").glob("*.py")),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_the_jax_package(path):

@@ -5,7 +5,9 @@
   ``ml_dtypes``, the port's from the tensor's int16 view), and each
   package loads the other's file;
 - arithmetic and in-place writes (``[:]``, a basic-index view, ``+=``)
-  match numpy and land in the same storage;
+  match numpy and land in the same storage; a write through
+  ``reshape`` lands in its parent (the port's reshape is a view, as the
+  reference documents; the JAX package's copies);
 - comparisons, truth values, integer arrays under scalar arithmetic and
   the default integer type match the JAX package's (value and dtype),
   and ``nd.save`` of an integer list writes the JAX package's bytes.
@@ -116,6 +118,25 @@ def test_inplace_writes_share_storage():
     c = a.copy()
     c[:] = 0.0
     assert a.asnumpy()[0, 0] == 2.0
+
+
+def test_reshape_is_a_view_of_the_same_storage():
+    """The port's ``NDArray.reshape`` shares memory with its parent, as
+    the reference documents (``python/mxnet/ndarray.py:427``); the JAX
+    package's copies (ROADMAP Queue 3's divergences)."""
+    a = mt.nd.array(np.arange(12, dtype=np.float32).reshape(3, 4),
+                    ctx=mt.cpu())
+    r = a.reshape((2, 6))
+    r[:] = np.full((2, 6), 5.0, np.float32)
+    np.testing.assert_array_equal(a.asnumpy(), np.full((3, 4), 5.0))
+    r[1, 5] = -1.0
+    assert a.asnumpy()[2, 3] == -1.0
+    a[0] = 9.0
+    np.testing.assert_array_equal(r.asnumpy()[0, :4], np.full(4, 9.0))
+    assert r.version == a.version
+    flat = a.reshape((-1,))
+    flat += 1
+    assert a.asnumpy()[2, 3] == 0.0
 
 
 def _both(fn):

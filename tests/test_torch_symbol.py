@@ -1,6 +1,7 @@
 """The port's Symbol against the JAX package's, on the CPU.
 
-- ``tojson()`` is byte-equal for LeNet, ResNet-50 and ResNet-small, each
+- ``tojson()`` is byte-equal for LeNet, ResNet-50 (the conv7 and the s2d
+  stems) and ResNet-small, each
   built inside a fresh ``NameManager`` in both packages (ResNet's unnamed
   ``Flatten`` and ``+`` take their names from a per-process counter);
 - ``infer_shape`` and the ``list_*`` results are equal;
@@ -9,7 +10,8 @@
   (type, default, required, enum), inputs, outputs, aux states and
   ``need_rng``, so graphs of those ops serialise alike and draw alike;
 - the pure copies (``attribute.py``, ``name.py``, ``metric.py``,
-  ``lr_scheduler.py``, ``models/lenet.py``) equal their originals.
+  ``lr_scheduler.py``, ``models/lenet.py``, ``models/resnet.py``) equal
+  their originals.
 """
 from pathlib import Path
 
@@ -26,6 +28,9 @@ MODELS = {
     "lenet": (lambda pkg: pkg.models.get_lenet(), {"data": (8, 1, 28, 28)}),
     "resnet50": (lambda pkg: pkg.models.get_resnet(1000, 50),
                  {"data": (2, 3, 224, 224)}),
+    "resnet50_s2d": (lambda pkg: pkg.models.get_resnet(1000, 50,
+                                                       stem="s2d"),
+                     {"data": (2, 3, 224, 224)}),
     "resnet_small": (lambda pkg: pkg.models.get_resnet_small(),
                      {"data": (4, 3, 28, 28)}),
 }
@@ -99,12 +104,8 @@ def test_registered_op_matches_jax(name):
 
 
 @pytest.mark.parametrize("path", ["attribute.py", "name.py", "metric.py",
-                                  "lr_scheduler.py", "models/lenet.py"])
+                                  "lr_scheduler.py", "models/lenet.py",
+                                  "models/resnet.py"])
 def test_host_copy_matches_original(path):
     assert (ROOT / "mxnet_tpu_torch" / path).read_text() == \
         (ROOT / "mxnet_tpu" / path).read_text()
-
-
-def test_s2d_stem_raises():
-    with pytest.raises(mt.MXNetError):
-        mt.models.get_resnet(stem="s2d")
