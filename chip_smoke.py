@@ -111,13 +111,27 @@ Phases (any failure raises and the script exits non-zero):
    prints ms a batch by bucket, non-pad tokens/s, peak memory, the busy
    share of the last epoch and the ms of a forward+backward at dropout
    0.5 against 0;
-15. RTC (K5): the CUDA C bodies of ``RTC_BODIES`` compiled by NVRTC and
+15. SSD (baseline config #5, ``phase_ssd``):
+   examples/ssd_torch/train_net.py's ``main`` at its defaults (512
+   synthetic 3x64x64 images, 3 classes, batch 32, 25 epochs, SGD 0.1 /
+   0.9, wd 5e-4, Xavier) through ``Module.fit`` on the scanned fit, then
+   its detection module over 128 held-out images: held-out mAP@0.5 >
+   0.25, the anchor classifier's foreground accuracy > 0.2 on a training
+   batch after the fit, the scanned trainer built, the CrossEntropy
+   falling from the first epoch to the last, every output finite, K1
+   launched 0 times; prints ms a step, img/s, peak memory, the detection
+   forward's ms and device launches and the mAP; then every op of the
+   slice (the MultiBox ops on crafted ties and an image without ground
+   truth, ROIPooling, SpatialTransformer, Correlation, WarpCTC,
+   SVMOutput, the regression outputs, MakeLoss, smooth_l1) on the card
+   against the same op on the host;
+16. RTC (K5): the CUDA C bodies of ``RTC_BODIES`` compiled by NVRTC and
    pushed through ``mx.rtc.Rtc`` on ``gpu(0)``, each held against its
    plain PyTorch twin; the real-size body (a*b + c over 2^26 elements,
    f32 and bf16) timed beside its twin, ``torch.addcmul`` and its bytes
    bound; the cold NVRTC compile and a cached push's host time; a body
    with a syntax error must raise;
-16. the matmul with column statistics (K6) against its plain version at
+17. the matmul with column statistics (K6) against its plain version at
    the probe's four shapes (ResNet-50's 1x1 convolutions at batch 128 as
    matmuls), a ragged M and a nonzero-mean x (the limit must reject a sum
    with one row tile dropped); then the probe's path,
@@ -125,9 +139,9 @@ Phases (any failure raises and the script exits non-zero):
    the unfused matmul-then-statistics sequence, K6, plain,
    ``torch.matmul`` and sequence times), K6's count zeroed just before
    and read just after;
-17. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
+18. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
    main paths, error, times and bound;
-18. the last line: ``{"ok": true, "device": {...}}``.
+19. the last line: ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matrix products and cuDNN convolutions in every phase
 (set once in ``main``), so f32 work runs in full f32.
@@ -2833,6 +2847,395 @@ def phase_lstm_bucketing(device="cuda", argv=()):
     return rec
 
 
+# SSD (baseline config #5): examples/ssd_torch/train_net.py at its defaults
+SSD_EXAMPLE = os.path.join("examples", "ssd_torch", "train_net.py")
+SSD_RTOL, SSD_ATOL = 1e-4, 1e-5   # the op checks, card against host (f32)
+SSD_FG_ACC = 0.2   # tests/train/test_baselines.py:166-204's tripwire
+SSD_MAP = 0.25     # the example's own gate (train_net.py:130)
+
+
+def _ssd_example():
+    """examples/ssd_torch/train_net.py as a module; its directory goes on
+    the path for its ``symbol_ssd`` and ``evaluate``."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        SSD_EXAMPLE)
+    if os.path.dirname(path) not in sys.path:
+        sys.path.insert(0, os.path.dirname(path))
+    spec = importlib.util.spec_from_file_location("ssd_train_net", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _ssd_anchors(hw=(4, 4), sizes=(0.3, 0.5), ratios=(1, 2, 0.5)):
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.ops import registry
+
+    op = registry.get("MultiBoxPrior")
+    p = op.parse_params({"sizes": sizes, "ratios": ratios, "clip": True})
+    out, _ = op.apply(p, [torch.zeros((1, 1) + tuple(hw))])
+    return out[0].numpy().astype(np.float32)
+
+
+def _ssd_boxes(rng, n):
+    import numpy as np
+
+    w, h = rng.uniform(0.1, 0.6, n), rng.uniform(0.1, 0.6, n)
+    x1, y1 = rng.uniform(0, 1 - w), rng.uniform(0, 1 - h)
+    return np.stack([x1, y1, x1 + w, y1 + h], axis=1).astype(np.float32)
+
+
+def ssd_op_case(name):
+    """One op check of this slice: ``(op, params, inputs, diff, exact)``:
+    seeded numpy inputs, the indices of the inputs to differentiate and,
+    for each output, the columns of its last axis that must be exactly
+    equal (``"all"``, a slice, or None for close only)."""
+    import numpy as np
+
+    rng = np.random.RandomState(sum(map(ord, name)))
+    f32 = np.float32
+    if name.startswith("MultiBoxTarget"):
+        # duplicate anchors and duplicate ground truth: exact IoU ties in
+        # the flattened argmax; tied mining scores (all-zero logits)
+        anchors = _ssd_anchors(sizes=(0.4, 0.4), ratios=(1, 2))
+        A = anchors.shape[1]
+        B, L, C = 4, 3, 4
+        lab = -np.ones((B, L, 5), f32)
+        for b, k in enumerate([2, 3, 1, 0]):   # image 3: no ground truth
+            lab[b, :k, 0] = rng.randint(0, C - 1, k)
+            lab[b, :k, 1:] = _ssd_boxes(rng, k)
+        lab[1, 1] = lab[1, 0]
+        lab[0, 0, 1:] = anchors[0, 5]
+        lab[2, 0, 1:] = anchors[0, 20]
+        cls = rng.randn(B, C, A).astype(f32)
+        if name == "MultiBoxTarget_mining_ties":
+            cls[:] = 0.0
+            cls[:, :, ::5] = 1.0
+        params = {"overlap_threshold": 0.5, "negative_mining_ratio": 3,
+                  "negative_mining_thresh": 0.5, "ignore_label": -1}
+        return ("MultiBoxTarget", params, [anchors, lab, cls], [],
+                [None, "all", "all"])
+    if name.startswith("MultiBoxDetection"):
+        anchors = _ssd_anchors(sizes=(0.3, 0.6))
+        A = anchors.shape[1]
+        logits = rng.randn(3, 4, A).astype(f32) * 2
+        logits[:, :, ::3] = 0.0                  # score ties
+        e = np.exp(logits - logits.max(axis=1, keepdims=True))
+        prob = (e / e.sum(axis=1, keepdims=True)).astype(f32)
+        loc = (rng.randn(3, A * 4) * 0.5).astype(f32)
+        params = {"nms_threshold": 0.45, "threshold": 0.2,
+                  "force_suppress": name.endswith("force")}
+        return ("MultiBoxDetection", params, [prob, loc, anchors], [0, 1],
+                [slice(0, 2)])
+    if name == "ROIPooling":
+        data = np.maximum(rng.randn(2, 3, 16, 16), 0).astype(f32)
+        rois = np.array([[0, 0, 0, 15, 15], [1, 2.5, 3.5, 9.5, 7.5],
+                         [1, 10, 4, 11, 5], [0, -4, -4, 3, 3],
+                         [-1, 6, 6, 30, 30]], f32)
+        return ("ROIPooling", {"pooled_size": (3, 2), "spatial_scale": 0.5},
+                [data, rois], [0], [None])
+    if name == "SpatialTransformer":
+        data = rng.randn(3, 2, 9, 11).astype(f32)
+        loc = (np.array([1, 0, 0, 0, 1, 0], f32)
+               + rng.randn(3, 6) * 0.3).astype(f32)
+        return ("SpatialTransformer", {"target_shape": (7, 6)}, [data, loc],
+                [0, 1], [None])
+    if name == "Correlation":
+        a, b = rng.randn(2, 2, 3, 8, 9).astype(f32)
+        return ("Correlation", {"kernel_size": 3, "max_displacement": 2,
+                                "stride2": 2, "pad_size": 2}, [a, b], [0, 1],
+                [None])
+    if name == "WarpCTC":
+        T, A = 9, 6
+        lab = np.array([[1, 1, 2, 0], [3, 0, 3, 4], [0, 0, 0, 0]], f32)
+        data = (rng.randn(T * 3, A) * 1.5).astype(f32)
+        return ("WarpCTC", {"input_length": T, "label_length": 4},
+                [data, lab.reshape(-1)], [0], [None])
+    if name.startswith("SVMOutput"):
+        return ("SVMOutput", {"use_linear": name.endswith("l1"),
+                              "margin": 0.5},
+                [rng.randn(6, 5).astype(f32),
+                 np.array([0, 4, 2, 2, 1, 3], f32)], [0], [None])
+    if name.endswith("RegressionOutput"):
+        return (name, {"grad_scale": 0.5}, [rng.randn(5, 3).astype(f32),
+                                            rng.randn(5, 3).astype(f32)],
+                [0], [None])
+    if name == "MakeLoss":
+        x = np.abs(rng.randn(4, 6)).astype(f32)
+        x[:, ::2] = 0.0
+        return ("MakeLoss", {"normalization": "valid", "grad_scale": 0.7},
+                [x], [0], [None])
+    if name == "smooth_l1":
+        return ("smooth_l1", {"scalar": 1.0},
+                [(rng.randn(4, 7) * 1.5).astype(f32)], [0], [None])
+    raise KeyError(name)
+
+
+SSD_OP_CASES = ("MultiBoxTarget_ties", "MultiBoxTarget_mining_ties",
+                "MultiBoxDetection", "MultiBoxDetection_force",
+                "ROIPooling", "SpatialTransformer", "Correlation", "WarpCTC",
+                "SVMOutput_l2", "SVMOutput_l1", "LinearRegressionOutput",
+                "LogisticRegressionOutput", "MAERegressionOutput",
+                "MakeLoss", "smooth_l1")
+
+
+def _ssd_op_run(op, params, inputs, diff, device):
+    import numpy as np
+    import torch
+
+    xs = [torch.tensor(x, device=device, requires_grad=True)
+          for x in inputs]
+    outs, _ = op.apply(params, xs, [], True, None)
+    grads = []
+    if diff:
+        rng = np.random.RandomState(7)
+        cots = [torch.tensor(rng.randn(*o.shape).astype(np.float32),
+                             device=device) for o in outs]
+        grads = torch.autograd.grad(outs, [xs[k] for k in diff], cots,
+                                    allow_unused=True)
+        grads = [torch.zeros_like(xs[k]) if g is None else g
+                 for k, g in zip(diff, grads)]
+    return ([o.detach().cpu().numpy() for o in outs],
+            [g.cpu().numpy() for g in grads],
+            [o.requires_grad for o in outs])
+
+
+def ssd_op_check(name, device="cuda"):
+    """The op of case ``name`` on ``device`` against the same op on the
+    host, on the same inputs: forward and the gradients of one seeded
+    cotangent within rtol 1e-4 and atol 1e-5, the case's exact columns
+    (``cls_target``, ``loc_mask``, detection ids, scores and row order)
+    bit-equal. Raises AssertionError; returns the errors."""
+    import numpy as np
+
+    from mxnet_tpu_torch.ops import registry
+
+    opname, params, inputs, diff, exact = ssd_op_case(name)
+    op = registry.get(opname)
+    p = op.parse_params(dict(params))
+    outs_d, grads_d, req = _ssd_op_run(op, p, inputs, diff, device)
+    outs_h, grads_h, _ = _ssd_op_run(op, p, inputs, diff, "cpu")
+    rec = {"op": opname, "case": name, "max_abs_err": 0.0, "exact": []}
+    for k, (a, b) in enumerate(zip(outs_d, outs_h)):
+        ex = exact[k] if k < len(exact) else None
+        if ex is not None:
+            sl = (Ellipsis, ex) if isinstance(ex, slice) else Ellipsis
+            if not np.array_equal(a[sl], b[sl]):
+                raise AssertionError("%s: output %d differs on the card "
+                                     "from the host" % (name, k))
+            rec["exact"].append(k)
+    for a, b in zip(outs_d + grads_d, outs_h + grads_h):
+        if a.shape != b.shape or not np.all(np.isfinite(a)):
+            raise AssertionError("%s: shape or finiteness" % name)
+        err = float(np.abs(a - b).max()) if a.size else 0.0
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if not np.allclose(a, b, rtol=SSD_RTOL, atol=SSD_ATOL):
+            raise AssertionError("%s: card and host differ by %g"
+                                 % (name, err))
+    if opname == "MultiBoxTarget" and any(req):
+        raise AssertionError("MultiBoxTarget's outputs carry a gradient")
+    if opname == "MultiBoxTarget":
+        cls_t = outs_h[2]
+        rec["targets"] = {"positive": int((cls_t > 0).sum()),
+                          "negative": int((cls_t == 0).sum()),
+                          "ignored": int((cls_t < 0).sum())}
+    return rec
+
+
+def phase_ssd(device="cuda", argv=()):
+    """SSD (baseline config #5): examples/ssd_torch/train_net.py's ``main``
+    at its defaults (512 synthetic 3x64x64 images, 3 classes, batch 32,
+    25 epochs, SGD 0.1, momentum 0.9, wd 5e-4, Xavier) through
+    ``Module.fit`` with ``MXNET_SCAN_TRAIN`` at its default (the scanned
+    fit, K = 8), then its detection module over 128 held-out images.
+    Checks: the example's own gate (held-out mAP@0.5 > 0.25, asserted in
+    ``main`` and here); after the fit, the foreground accuracy of the
+    anchor classifier on one training batch > 0.2 (the tripwire of
+    tests/train/test_baselines.py:166-204); that the fit built its
+    scanned trainer; that ``MultiBoxMetric``'s CrossEntropy fell from the
+    first epoch to the last; every output finite; K1 launched 0 times
+    (its count zeroed just before ``main``, read just after). Then every
+    op of :data:`SSD_OP_CASES` on the device against the host
+    (:func:`ssd_op_check`). Prints ms a step (median and range over the
+    epochs after the first, each epoch's wall over its batches), img/s,
+    peak memory, the detection forward's ms (median of 5, synchronised)
+    and its device launches (``torch.profiler``), the mAP. Returns the
+    record (K1's launches in ``softmax_launches``)."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import softmax as sm
+    from mxnet_tpu_torch.parallel import fit_trainer
+
+    ex = _ssd_example()
+    argv = list(argv) + (["--ctx", "cpu"] if device == "cpu" else [])
+    seen = {"built": 0, "ce": [], "smoothl1": [], "stamps": []}
+    real_make = fit_trainer.make_fit_trainer
+    real_fit = mx.module.Module.fit
+    real_eval = ex.evaluate_detections
+
+    def make(*a, **kw):
+        seen["built"] += 1
+        return real_make(*a, **kw)
+
+    prof = None
+    if device == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def fit(self, train_data, **kw):
+        seen["module"], seen["train"] = self, train_data
+        metric = kw["eval_metric"]
+        epochs = kw["num_epoch"]
+
+        def on_epoch(epoch, *_):
+            _sync(device)
+            seen["stamps"].append(time.perf_counter())
+            (ce, sl1) = metric.get()[1]
+            seen["ce"].append(float(ce))
+            seen["smoothl1"].append(float(sl1))
+            if prof is not None and epochs > 2:   # the last epoch
+                if epoch == epochs - 2:
+                    prof.start()
+                elif epoch == epochs - 1:
+                    prof.stop()
+
+        kw["epoch_end_callback"] = on_epoch
+        _sync(device)
+        seen["t0"] = time.perf_counter()
+        return real_fit(self, train_data, **kw)
+
+    def evaluate(det, X, Y, batch_size, num_classes, **kw):
+        seen["det"], seen["held_out"] = det, (X, Y)
+        seen["map"] = real_eval(det, X, Y, batch_size, num_classes, **kw)
+        return seen["map"]
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with mock.patch.dict(os.environ), \
+            mock.patch.object(sys, "argv", ["train_net.py"] + argv), \
+            mock.patch.object(fit_trainer, "make_fit_trainer", make), \
+            mock.patch.object(mx.module.Module, "fit", fit), \
+            mock.patch.object(ex, "evaluate_detections", evaluate):
+        for k in ("MXNET_SCAN_TRAIN", "MXNET_TRAIN_SCAN_K",
+                  "MXNET_COMPUTE_DTYPE", "MXNET_EXAMPLE_SMOKE"):
+            os.environ.pop(k, None)   # the defaults: scanned, K = 8
+        args = ex.parse_args()
+        _sync(device)
+        sm.fused_softmax.launches = 0
+        t0 = time.perf_counter()
+        ex.main()
+        _sync(device)
+        wall = time.perf_counter() - t0
+        launches = sm.fused_softmax.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" \
+        else None
+
+    per_epoch = -(-args.num_examples // args.batch_size)
+    epoch_s = [b - a for a, b in zip([seen["t0"]] + seen["stamps"][:-1],
+                                     seen["stamps"])]
+    plain = epoch_s[1:-1] if prof is not None else epoch_s[1:]
+    steps_ms = sorted(1e3 * s / per_epoch for s in plain or epoch_s)
+    step_ms = steps_ms[len(steps_ms) // 2]
+    busy = None
+    if prof is not None:
+        summed_ms, busy_ms, events = device_busy(prof)
+        plain_s = sum(plain) / len(plain)
+        busy = {"epoch": args.num_epochs - 1, "device_events": events,
+                "device_ms": summed_ms, "device_busy_ms": busy_ms,
+                "profiled_epoch_s": epoch_s[-1],
+                "unprofiled_epoch_s": plain_s,
+                "busy_share": busy_ms / 1e3 / plain_s,
+                "device_events_per_step": events / per_epoch}
+
+    # the tripwire: one training batch through the trained module
+    mod, train = seen["module"], seen["train"]
+    with _ctx(device):
+        train.reset()
+        batch = next(iter(train))
+        mod.forward(batch, is_train=False)
+        cls_prob, loc_loss, cls_label = [o.asnumpy()
+                                         for o in mod.get_outputs()]
+    pred = cls_prob.argmax(axis=1)
+    fg = cls_label > 0
+    fg_acc = float((pred[fg] == cls_label[fg]).mean()) if fg.any() else 0.0
+
+    # the detection forward: ms and device launches
+    det = seen["det"]
+    Xe = seen["held_out"][0]
+    with _ctx(device):
+        xb = mx.io.DataBatch(data=[mx.nd.array(Xe[:args.batch_size])],
+                             label=None)
+        det.forward(xb, is_train=False)
+        _sync(device)
+        det_ms = []
+        for _ in range(5):
+            t = time.perf_counter()
+            det.forward(xb, is_train=False)
+            out = det.get_outputs()[0]
+            _sync(device)
+            det_ms.append(1e3 * (time.perf_counter() - t))
+        det_events = None
+        if device == "cuda":
+            with profile(activities=[ProfilerActivity.CUDA]) as det_prof:
+                det.forward(xb, is_train=False)
+                _sync(device)
+            det_events = device_busy(det_prof)[2]
+        det_out = out.asnumpy()
+    det_ms.sort()
+
+    ops = [ssd_op_check(name, device) for name in SSD_OP_CASES]
+    rec = {"phase": "ssd", "example": SSD_EXAMPLE,
+           "examples": args.num_examples, "image": args.image,
+           "classes": args.num_classes, "batch": args.batch_size,
+           "epochs": args.num_epochs, "batches_per_epoch": per_epoch,
+           "lr": args.lr, "scanned_trainer_built": seen["built"],
+           "anchors": int(cls_prob.shape[2]),
+           "params": int(sum(v.size for v in mod.get_params()[0].values())),
+           "wall_s": wall, "epoch_s": epoch_s,
+           "step_ms_median": step_ms,
+           "step_ms_range": [steps_ms[0], steps_ms[-1]],
+           "img_per_s": args.batch_size / step_ms * 1e3,
+           "peak_mem_gb": peak, "busy": busy,
+           "cross_entropy_by_epoch": seen["ce"],
+           "smoothl1_by_epoch": seen["smoothl1"],
+           "fg_accuracy": fg_acc, "fg_anchors": int(fg.sum()),
+           "map": seen["map"],
+           "detection_forward_ms_median": det_ms[len(det_ms) // 2],
+           "detection_forward_ms_range": [det_ms[0], det_ms[-1]],
+           "detection_forward_device_launches": det_events,
+           "detections_kept_first_image": int((det_out[0, :, 0] >= 0).sum()),
+           "softmax_launches": launches, "op_checks": ops}
+    log(rec)
+    finite = all(np.all(np.isfinite(a)) for a in
+                 (cls_prob, loc_loss, cls_label, det_out,
+                  np.array(seen["ce"] + seen["smoothl1"])))
+    if not finite:
+        raise AssertionError("SSD: a non-finite output")
+    if seen["built"] != 1:
+        raise AssertionError("SSD's Module.fit built its scanned trainer "
+                             "%d times, expected once" % seen["built"])
+    if not seen["map"] > SSD_MAP:
+        raise AssertionError("SSD: held-out mAP %g <= %g"
+                             % (seen["map"], SSD_MAP))
+    if not fg_acc > SSD_FG_ACC:
+        raise AssertionError("SSD: foreground accuracy %g <= %g"
+                             % (fg_acc, SSD_FG_ACC))
+    if not (len(seen["ce"]) > 1 and seen["ce"][-1] < seen["ce"][0]):
+        raise AssertionError("SSD: CrossEntropy did not fall: %r"
+                             % seen["ce"])
+    if launches != 0:
+        raise AssertionError("SSD launched K1 %d times, expected 0"
+                             % launches)
+    return rec
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2895,6 +3298,8 @@ def main():
     torch.cuda.empty_cache()
     lstm = phase_lstm_bucketing()["softmax_launches"]
     torch.cuda.empty_cache()
+    ssd = phase_ssd()["softmax_launches"]
+    torch.cuda.empty_cache()
     rtc = phase_rtc()
     torch.cuda.empty_cache()
     mm_stats = phase_matmul_stats()
@@ -2953,13 +3358,14 @@ def main():
         "source": "mxnet_tpu_torch/ops/csrc/softmax.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:517",
         "launches": (lenet + resnet + module + resnet_module + lstm
-                     + resnet_bench + resnet_scanned),
+                     + resnet_bench + resnet_scanned + ssd),
         "launches_by_path": {"lenet_fit": lenet, "resnet50_fit": resnet,
                              "module": module,
                              "resnet50_module_fit": resnet_module,
                              "lstm_bucketing": lstm,
                              "resnet50_bench": resnet_bench,
-                             "resnet50_scanned_fit": resnet_scanned},
+                             "resnet50_scanned_fit": resnet_scanned,
+                             "ssd": ssd},
         "max_abs_err": max(c["max_abs_err"] for c in softmax_checks),
         "max_err_to_limit": max(c["closeness"]["elem"]
                                 for c in softmax_checks),

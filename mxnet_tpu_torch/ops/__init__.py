@@ -12,8 +12,8 @@ Kernels, each beside its plain PyTorch version:
   ``tools/torch_probe_matmul_stats.py``.
 
 The operator registry of the Symbol path: importing this package
-registers the ops of :mod:`.tensor`, :mod:`.nn`, :mod:`.loss` and
-:mod:`.sequence`;
+registers the ops of :mod:`.tensor`, :mod:`.nn`, :mod:`.loss`,
+:mod:`.sequence` and :mod:`.vision`;
 :func:`install` then exposes each as an imperative NDArray function and
 a Symbol constructor, as ``mxnet_tpu/ops/__init__.py:27-60`` does.
 """
@@ -29,6 +29,7 @@ from . import tensor  # noqa: F401
 from . import nn  # noqa: F401
 from . import loss  # noqa: F401
 from . import sequence  # noqa: F401
+from . import vision  # noqa: F401
 
 __all__ = ["REGISTRY", "Field", "OpDef", "get", "list_ops", "register",
            "install"]

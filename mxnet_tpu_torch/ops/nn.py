@@ -5,7 +5,9 @@ Counterpart of ``mxnet_tpu/ops/nn.py``: ``Activation`` (:57),
 ``FullyConnected`` (:148), ``Convolution`` (:230), ``Pooling`` (:403),
 ``BatchNorm`` (:555), ``Dropout`` (:664), ``Embedding`` (:684),
 ``Reshape`` (:713), ``Flatten`` (:773), ``Concat`` (:786),
-``SliceChannel`` (:836), ``SwapAxis`` (:905) and ``Pad`` (:946), with
+``SliceChannel`` (:836), ``SwapAxis`` (:905), ``SoftmaxActivation``
+(:929; ``instance`` over each sample flattened, ``channel`` over axis 1)
+and ``Pad`` (:946), with
 the same parameter
 fields, defaults, inputs, outputs, aux states and shape inference
 (copied; ``Reshape``'s target shape too), so graphs serialise to the
@@ -616,6 +618,24 @@ register(
         _swapaxis_fwd,
         params={"dim1": Field("int", default=0), "dim2": Field("int", default=0)},
         infer_shape=_swapaxis_shape,
+    )
+)
+
+
+# -- SoftmaxActivation ---------------------------------------------------------
+def _softmax_act_fwd(params, inputs, aux, is_train, rng):
+    x = inputs[0]
+    if params["mode"] == "channel":
+        return [torch.softmax(x, dim=1)], []
+    n = x.shape[0]
+    return [torch.softmax(x.reshape(n, -1), dim=-1).reshape(x.shape)], []
+
+
+register(
+    OpDef(
+        "SoftmaxActivation",
+        _softmax_act_fwd,
+        params={"mode": Field("str", default="instance", enum=["instance", "channel"])},
     )
 )
 

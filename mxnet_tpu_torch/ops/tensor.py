@@ -1,12 +1,15 @@
 """Elementwise binary and array-scalar ops (the subset that Symbol and
-NDArray arithmetic emit), the ``sum`` reduction and ``transpose``.
+NDArray arithmetic emit), the ``sum`` reduction, ``transpose`` and
+``smooth_l1``.
 
 Counterpart of ``mxnet_tpu/ops/tensor.py:41-60`` and ``:75-133``, with
 the same names, aliases and parameters (``scalar``, a float; ``sum``'s
 ``axis`` and ``keepdims``, alias ``sum_axis``; a full reduction gives
-shape (1,)), and ``transpose`` (``:349``; ``axes=()`` reverses the
-axes, and the result is a view), computed with torch. The JAX package's unary, other
-reductions, broadcast and matrix ops are a later slice.
+shape (1,)), ``transpose`` (``:349``; ``axes=()`` reverses the axes,
+and the result is a view) and ``smooth_l1`` (``:472``, SSD's
+localisation loss; ``scalar`` is sigma), computed with torch. The JAX
+package's unary, other reductions, broadcast and matrix ops are a later
+slice.
 """
 from __future__ import annotations
 
@@ -114,5 +117,25 @@ register(
         _transpose_fwd,
         params={"axes": Field("shape", default=())},
         infer_shape=_transpose_shape,
+    )
+)
+
+
+# -- smooth_l1 -----------------------------------------------------------------
+def _smooth_l1_fwd(params, inputs, aux, is_train, rng):
+    sigma = params["scalar"]
+    s2 = sigma * sigma
+    x = inputs[0]
+    out = torch.where(
+        torch.abs(x) < 1.0 / s2, 0.5 * s2 * torch.square(x),
+        torch.abs(x) - 0.5 / s2)
+    return [out], []
+
+
+register(
+    OpDef(
+        "smooth_l1",
+        _smooth_l1_fwd,
+        params={"scalar": Field("float", default=1.0)},
     )
 )

@@ -3,12 +3,14 @@
 - a fresh interpreter that imports the package and every submodule has
   neither ``jax`` nor ``mxnet_tpu`` in ``sys.modules``;
 - no source of the port, nor ``chip_smoke.py``, the profile tools, the
-  card's test files or the port's examples (``examples/rnn_torch``),
-  imports either;
+  card's test files or the port's examples (``examples/rnn_torch``,
+  ``examples/ssd_torch``), imports either;
 - on the CPU path (serving, LM training, a LeNet ``FeedForward`` fit
   and predict, a LeNet ``Module`` fit and predict (both on the scanned
   path), a bf16 ``make_symbol_train_step`` loop, a callable ``Rtc``
-  push, ``matmul_stats`` on CPU tensors) neither the kernel build
+  push, ``matmul_stats`` on CPU tensors, ``examples/ssd_torch``'s
+  training graph through ``Module.fit`` and its detection graph) neither
+  the kernel build
   module ``ops._build`` nor the NVRTC binding ``ops._nvrtc`` is
   imported; the walk over every submodule
   reaches ``rtc``, ``ops._nvrtc``, ``ops.matmul_stats``, ``monitor``,
@@ -79,6 +81,20 @@ from mxnet_tpu_torch.ops.matmul_stats import matmul_stats
 y, s, s2 = matmul_stats(torch.ones(3, 16, dtype=torch.bfloat16),
                         torch.ones(16, 8, dtype=torch.bfloat16))
 assert float(s2.sum()) == 8 * 3 * 256.0 and matmul_stats.launches == 0
+sys.path.insert(0, 'examples/ssd_torch')
+import train_net as ssd
+X, Y = ssd.synthetic_detection_set(4, 32, 3)
+with mx.cpu():
+    it = mx.io.NDArrayIter(X, Y, batch_size=4, label_name='label')
+    mod = mx.module.Module(ssd.get_symbol_train(3), data_names=('data',),
+                           label_names=('label',), context=mx.cpu())
+    mod.fit(it, eval_metric=ssd.MultiBoxMetric(), num_epoch=1,
+            initializer=mx.initializer.Xavier())
+    det = mx.module.Module(ssd.get_symbol(3), data_names=('data',),
+                           label_names=None, context=mx.cpu())
+    det.bind(data_shapes=[('data', (4, 3, 32, 32))], for_training=False)
+    det.set_params(*mod.get_params())
+    assert ssd.evaluate_detections(det, X, Y, 4, 3) >= 0.0
 print('cpu_path', 'mxnet_tpu_torch.ops._build' in sys.modules,
       'mxnet_tpu_torch.ops._nvrtc' in sys.modules, forbidden())
 import mxnet_tpu_torch as pkg
@@ -86,7 +102,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                'mxnet_tpu_torch.')]
 assert 'mxnet_tpu_torch.serving.engine' in names, names
 for must in ('model', 'rtc', 'ops._nvrtc', 'ops.matmul_stats', 'monitor',
-             'ops.sequence', 'models.lstm', 'models.gru', 'models.rnn',
+             'ops.sequence', 'ops.vision', 'models.lstm', 'models.gru', 'models.rnn',
              'module', 'module.module', 'module.base_module', 'module.python_module',
              'module.sequential_module', 'module.bucketing_module',
              'parallel.symbol_trainer', 'parallel.fit_trainer'):
@@ -141,8 +157,10 @@ def _imports(path):
         ROOT / "tests" / "test_torch_matmul_stats_kernel_cuda.py",
         ROOT / "tests" / "test_torch_sampling_cuda.py",
         ROOT / "tests" / "test_torch_rnn_cuda.py",
-        ROOT / "tests" / "test_torch_symbol_trainer_cuda.py"]
-    + sorted((ROOT / "examples" / "rnn_torch").glob("*.py")),
+        ROOT / "tests" / "test_torch_symbol_trainer_cuda.py",
+        ROOT / "tests" / "test_torch_vision_cuda.py"]
+    + sorted((ROOT / "examples" / "rnn_torch").glob("*.py"))
+    + sorted((ROOT / "examples" / "ssd_torch").glob("*.py")),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_the_jax_package(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
