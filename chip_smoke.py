@@ -55,7 +55,8 @@ Phases (any failure raises and the script exits non-zero):
    paths' shapes ([64, 10], [128, 1000] f32), at [128, 1000] scaled by
    50, [1000, 1001] f16, [4096, 32000] bf16, [8, 2097152] f32 (8 MB
    rows, past the TPU kernel's fallback), [3, 1], the LSTM's [1920,
-   200] f32 and bench.py's [128, 1000] bf16, each timed beside the plain
+   200] f32, bench.py's [128, 1000] bf16, Inception-BN's [256, 1000]
+   f32 and train_cifar10's [128, 10] f32, each timed beside the plain
    version, ``torch.softmax`` and its bytes bound;
 8. the Symbol path, LeNet: the canonical ``FeedForward.fit`` of the
    verify recipe on ``gpu(0)`` (MNISTIter 1024 synthetic digits, batch
@@ -125,13 +126,30 @@ Phases (any failure raises and the script exits non-zero):
    truth, ROIPooling, SpatialTransformer, Correlation, WarpCTC,
    SVMOutput, the regression outputs, MakeLoss, smooth_l1) on the card
    against the same op on the host;
-16. RTC (K5): the CUDA C bodies of ``RTC_BODIES`` compiled by NVRTC and
+16. Inception-BN at examples/image-classification_torch/
+   train_imagenet.py's defaults (``phase_inception_bn``: ``--network
+   inception-bn --synthetic``, 2048 seeded 3x224x224 images, 1000
+   classes, batch 256, SGD 0.1 / 0.9, wd 1e-5, Xavier(in, 2.34)) through
+   the example's ``train_model.fit`` and the scanned ``FeedForward.fit``
+   for 4 epochs (32 steps; the last profiled): every step's
+   cross-entropy finite, the parameters changed, K1 once a step; prints
+   ms a step, img/s, peak memory, the busy share and device ms a step by
+   layer kind; then the first step at batch 8 on the card against the
+   host (``phase_inception_bn_grad_check``); ``train_cifar10.py``'s
+   defaults for 3 epochs (``phase_cifar10``: validation accuracy > 0.95,
+   K1 once a training and a validation batch); every zoo net the slice
+   adds (AlexNet, VGG-16 with and without BatchNorm, GoogLeNet,
+   Inception-v3, U-Net, the MLP) one step at batch 2 on the card
+   against the host, and every op of the slice (``ZOO_OP_CASES``,
+   ``rrelu``'s draws bit-equal) on the card against the host
+   (``phase_zoo``);
+17. RTC (K5): the CUDA C bodies of ``RTC_BODIES`` compiled by NVRTC and
    pushed through ``mx.rtc.Rtc`` on ``gpu(0)``, each held against its
    plain PyTorch twin; the real-size body (a*b + c over 2^26 elements,
    f32 and bf16) timed beside its twin, ``torch.addcmul`` and its bytes
    bound; the cold NVRTC compile and a cached push's host time; a body
    with a syntax error must raise;
-17. the matmul with column statistics (K6) against its plain version at
+18. the matmul with column statistics (K6) against its plain version at
    the probe's four shapes (ResNet-50's 1x1 convolutions at batch 128 as
    matmuls), a ragged M and a nonzero-mean x (the limit must reject a sum
    with one row tile dropped); then the probe's path,
@@ -139,9 +157,9 @@ Phases (any failure raises and the script exits non-zero):
    the unfused matmul-then-statistics sequence, K6, plain,
    ``torch.matmul`` and sequence times), K6's count zeroed just before
    and read just after;
-18. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
+19. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
    main paths, error, times and bound;
-19. the last line: ``{"ok": true, "device": {...}}``.
+20. the last line: ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matrix products and cuDNN convolutions in every phase
 (set once in ``main``), so f32 work runs in full f32.
@@ -1136,7 +1154,9 @@ SOFTMAX_CASES = [((64, 10), "float32", 1.0), ((128, 1000), "float32", 1.0),
                  ((4096, 32000), "bfloat16", 1.0),
                  ((8, 2097152), "float32", 1.0), ((3, 1), "float32", 1.0),
                  ((1920, 200), "float32", 1.0),   # the LSTM's T = 60 bucket
-                 ((128, 1000), "bfloat16", 1.0)]  # bench.py's bf16 step
+                 ((128, 1000), "bfloat16", 1.0),  # bench.py's bf16 step
+                 ((256, 1000), "float32", 1.0),   # Inception-BN's fit
+                 ((128, 10), "float32", 1.0)]     # train_cifar10's fit
 SOFTMAX_OPS = 5   # f32 operations an element: max, subtract, exp, sum, divide
 
 
@@ -2983,20 +3003,27 @@ SSD_OP_CASES = ("MultiBoxTarget_ties", "MultiBoxTarget_mining_ties",
                 "MakeLoss", "smooth_l1")
 
 
-def _ssd_op_run(op, params, inputs, diff, device):
+def _op_run(op, params, inputs, diff, device, key=None):
     import numpy as np
     import torch
 
     xs = [torch.tensor(x, device=device, requires_grad=True)
           for x in inputs]
-    outs, _ = op.apply(params, xs, [], True, None)
+    if key is not None:
+        key = key.to(device)
+    outs, _ = op.apply(params, xs, [], True, key)
     grads = []
     if diff:
         rng = np.random.RandomState(7)
         cots = [torch.tensor(rng.randn(*o.shape).astype(np.float32),
-                             device=device) for o in outs]
-        grads = torch.autograd.grad(outs, [xs[k] for k in diff], cots,
-                                    allow_unused=True)
+                             device=device).to(o.dtype) for o in outs]
+        live = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
+        grads = [None] * len(diff)
+        if live:   # an output without a gradient: BlockGrad, argmax
+            grads = torch.autograd.grad([o for o, _ in live],
+                                        [xs[k] for k in diff],
+                                        [c for _, c in live],
+                                        allow_unused=True)
         grads = [torch.zeros_like(xs[k]) if g is None else g
                  for k, g in zip(diff, grads)]
     return ([o.detach().cpu().numpy() for o in outs],
@@ -3017,8 +3044,8 @@ def ssd_op_check(name, device="cuda"):
     opname, params, inputs, diff, exact = ssd_op_case(name)
     op = registry.get(opname)
     p = op.parse_params(dict(params))
-    outs_d, grads_d, req = _ssd_op_run(op, p, inputs, diff, device)
-    outs_h, grads_h, _ = _ssd_op_run(op, p, inputs, diff, "cpu")
+    outs_d, grads_d, req = _op_run(op, p, inputs, diff, device)
+    outs_h, grads_h, _ = _op_run(op, p, inputs, diff, "cpu")
     rec = {"op": opname, "case": name, "max_abs_err": 0.0, "exact": []}
     for k, (a, b) in enumerate(zip(outs_d, outs_h)):
         ex = exact[k] if k < len(exact) else None
@@ -3236,6 +3263,690 @@ def phase_ssd(device="cuda", argv=()):
     return rec
 
 
+# -- Inception-BN, the rest of ops/nn.py and ops/tensor.py, the model zoo,
+# examples/image-classification_torch ---------------------------------------
+IC_DIR = os.path.join("examples", "image-classification_torch")
+NET_TOL = 1e-3       # a whole net on the card against the host (f32)
+CIFAR_VAL_ACC = 0.95  # train_cifar10's synthetic set, after 3 epochs
+
+
+def _ic_example(script):
+    """(train_model, ``script``) of examples/image-classification_torch,
+    each loaded by path under a name of its own; the script's ``import
+    train_model`` gets this directory's."""
+    import importlib.util
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), IC_DIR)
+
+    def load(fname, name):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(d, fname))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    tm = load("train_model.py", "ic_train_model")
+    saved = sys.modules.get("train_model")
+    sys.modules["train_model"] = tm
+    try:
+        ex = load(script, "ic_" + script[:-3])
+    finally:
+        if saved is None:
+            sys.modules.pop("train_model", None)
+        else:
+            sys.modules["train_model"] = saved
+    return tm, ex
+
+
+def _rand(*shape, seed=0, scale=1.0, shift=0.0):
+    import numpy as np
+
+    return (np.random.RandomState(seed).randn(*shape) * scale
+            + shift).astype(np.float32)
+
+
+def _labels(n, high, seed=0):
+    import numpy as np
+
+    return np.random.RandomState(seed).randint(0, high, n).astype(np.float32)
+
+
+def zoo_op_cases():
+    """Every op of the slice on seeded inputs: name -> (op, params,
+    inputs, differentiated inputs, key seed or None, outputs that must be
+    bit-equal)."""
+    import numpy as np
+
+    x = _rand(2, 6, 5, 4, scale=2.0)
+    pos = np.abs(_rand(3, 4, seed=1)) + 0.5
+    r = _rand(3, 4, 5, seed=3)
+    a, b = _rand(3, 1, 4, seed=1), _rand(1, 5, 4, seed=2)
+    cases = {
+        "LeakyReLU_leaky": ("LeakyReLU", {}, [x], (0,), None, ()),
+        "LeakyReLU_elu": ("LeakyReLU", {"act_type": "elu"}, [x], (0,), None,
+                          ()),
+        "LeakyReLU_prelu": ("LeakyReLU", {"act_type": "prelu"},
+                            [x, np.abs(_rand(6, seed=1))], (0, 1), None, ()),
+        "LeakyReLU_rrelu_train": ("LeakyReLU", {"act_type": "rrelu"}, [x],
+                                  (0,), 5, (0,)),
+        "Deconvolution": ("Deconvolution", {
+            "kernel": (4, 4), "stride": (2, 2), "pad": (1, 1), "adj": (1, 1),
+            "num_filter": 3}, [x, _rand(6, 3, 4, 4, seed=1),
+                               _rand(3, seed=2)], (0, 1, 2), None, ()),
+        "Deconvolution_target_group": ("Deconvolution", {
+            "kernel": (3, 3), "target_shape": (6, 5), "num_filter": 4,
+            "num_group": 2, "no_bias": True},
+            [x, _rand(6, 2, 3, 3, seed=1)], (0, 1), None, ()),
+        "Deconvolution_3d": ("Deconvolution", {
+            "kernel": (2, 2, 2), "stride": (2, 2, 2), "num_filter": 2},
+            [_rand(1, 3, 3, 4, 2), _rand(3, 2, 2, 2, 2, seed=1),
+             _rand(2, seed=2)], (0, 1, 2), None, ()),
+        "InstanceNorm": ("InstanceNorm", {}, [x, _rand(6, seed=1),
+                                              _rand(6, seed=2)],
+                         (0, 1, 2), None, ()),
+        "LRN": ("LRN", {"nsize": 5}, [x], (0,), None, ()),
+        "ElementWiseSum": ("ElementWiseSum", {"num_args": 3},
+                           [x, _rand(*x.shape, seed=1),
+                            _rand(*x.shape, seed=2)], (0, 1, 2), None, ()),
+        "Cast": ("Cast", {"dtype": "float16"}, [x], (0,), None, ()),
+        "BlockGrad": ("BlockGrad", {}, [x], (0,), None, ()),
+        "UpSampling_nearest_concat": ("UpSampling", {
+            "scale": 2, "sample_type": "nearest", "num_args": 2},
+            [x, _rand(*x.shape, seed=1)], (0, 1), None, ()),
+        "UpSampling_nearest_sum": ("UpSampling", {
+            "scale": 3, "sample_type": "nearest", "num_args": 2,
+            "multi_input_mode": "sum"}, [x, _rand(*x.shape, seed=1)],
+            (0, 1), None, ()),
+        "UpSampling_bilinear": ("UpSampling", {
+            "scale": 2, "sample_type": "bilinear"},
+            [x, _rand(6, 1, 4, 4, seed=1)], (0, 1), None, ()),
+        "Crop_h_w": ("Crop", {"num_args": 1, "h_w": (3, 2),
+                              "offset": (1, 1)}, [x], (0,), None, ()),
+        "Crop_like_center": ("Crop", {"num_args": 2, "center_crop": True},
+                             [x, _rand(2, 1, 3, 3)], (0,), None, ()),
+        "IdentityAttachKLSparseReg": ("IdentityAttachKLSparseReg", {
+            "penalty": 0.5}, [_rand(8, 5)], (0,), None, ()),
+    }
+    for mode in ("instance", "channel", "spatial"):
+        cases["L2Normalization_" + mode] = ("L2Normalization",
+                                            {"mode": mode}, [x], (0,),
+                                            None, ())
+    for name in ("abs", "ceil", "cos", "exp", "floor", "round", "sign",
+                 "sin", "square", "negative", "_neg", "tanh_op"):
+        cases[name] = (name, {}, [_rand(3, 4, scale=3.0)], (0,), None, ())
+    for name in ("log", "rsqrt", "sqrt"):
+        cases[name] = (name, {}, [pos], (0,), None, ())
+    for name in ("plus", "minus", "mul", "maximum", "minimum", "equal",
+                 "greater", "lesser"):
+        cases["broadcast_" + name] = ("broadcast_" + name, {}, [a, b], (0, 1),
+                                      None, ())
+    cases["broadcast_div"] = ("broadcast_div", {}, [a, np.abs(b) + 0.5],
+                              (0, 1), None, ())
+    cases["broadcast_power"] = ("broadcast_power", {}, [np.abs(a) + 0.5, b],
+                                (0, 1), None, ())
+    for name in ("max", "max_axis", "min", "min_axis", "mean"):
+        cases[name] = (name, {"axis": (1,)}, [r], (0,), None, ())
+    cases["norm"] = ("norm", {}, [r], (0,), None, ())
+    for name in ("argmax", "argmin"):
+        cases[name] = (name, {"axis": 2}, [r], (), None, (0,))
+    cases["argmax_channel"] = ("argmax_channel", {}, [r], (), None, (0,))
+    cases["clip"] = ("clip", {"a_min": -0.5, "a_max": 0.7}, [r], (0,), None,
+                     ())
+    cases["broadcast_axis"] = ("broadcast_axis", {"axis": (1,),
+                                                  "size": (5,)}, [a], (0,),
+                               None, ())
+    cases["broadcast_to"] = ("broadcast_to", {"shape": (0, 5, 4)}, [a], (0,),
+                             None, ())
+    cases["dot"] = ("dot", {"transpose_a": True},
+                    [_rand(5, 4), _rand(5, 3, seed=1)], (0, 1), None, ())
+    cases["batch_dot"] = ("batch_dot", {"transpose_b": True},
+                          [_rand(2, 4, 5), _rand(2, 3, 5, seed=1)], (0, 1),
+                          None, ())
+    cases["expand_dims"] = ("expand_dims", {"axis": -1}, [r], (0,), None, ())
+    cases["flip"] = ("flip", {"axis": 1}, [r], (0,), None, ())
+    cases["slice_axis"] = ("slice_axis", {"axis": 2, "begin": 1, "end": -1},
+                           [r], (0,), None, ())
+    cases["crop_nd"] = ("crop_nd", {"begin": (0, 1, 2), "end": (2, 3, 5)},
+                        [r], (0,), None, ())
+    cases["softmax_cross_entropy"] = ("softmax_cross_entropy", {},
+                                      [_rand(6, 5, scale=2.0),
+                                       _labels(6, 5)], (0,), None, ())
+    cases["element_mask"] = ("element_mask", {}, [r, _labels(3, 2)], (0,),
+                             None, ())
+    cases["choose_element_0index"] = ("choose_element_0index", {},
+                                      [_rand(4, 5), _labels(4, 5)], (0,),
+                                      None, ())
+    cases["fill_element_0index"] = ("fill_element_0index", {},
+                                    [_rand(4, 5), _labels(4, 5, seed=1),
+                                     _rand(4, seed=2)], (0, 2), None, ())
+    return cases
+
+
+ZOO_OP_CASES = tuple(sorted(zoo_op_cases()))
+
+
+def zoo_op_check(name, device="cuda"):
+    """The op of case ``name`` on ``device`` against the same op on the
+    host, on the same inputs (a random op under the same key): forward
+    and the gradients of one seeded cotangent within rtol 1e-4 and atol
+    1e-5 (SSD_RTOL, SSD_ATOL), the case's exact outputs (``rrelu``'s
+    training draws, the argument ops) bit-equal. Raises AssertionError;
+    returns the errors."""
+    import numpy as np
+
+    from mxnet_tpu_torch import threefry
+    from mxnet_tpu_torch.ops import registry
+
+    opname, params, inputs, diff, seed, exact = zoo_op_cases()[name]
+    op = registry.get(opname)
+    p = op.parse_params(dict(params))
+    key = None if seed is None else threefry.prng_key(seed, device="cpu")
+    outs_d, grads_d, _ = _op_run(op, p, inputs, diff, device, key)
+    outs_h, grads_h, _ = _op_run(op, p, inputs, diff, "cpu", key)
+    rec = {"op": opname, "case": name, "max_abs_err": 0.0,
+           "exact": list(exact)}
+    for k in exact:
+        if not np.array_equal(outs_d[k], outs_h[k]):
+            raise AssertionError("%s: output %d differs on the card from "
+                                 "the host" % (name, k))
+    for a, b in zip(outs_d + grads_d, outs_h + grads_h):
+        if a.shape != b.shape or a.dtype != b.dtype \
+                or not np.all(np.isfinite(a)):
+            raise AssertionError("%s: shape, dtype or finiteness" % name)
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        err = float(np.abs(a - b).max()) if a.size else 0.0
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if not np.allclose(a, b, rtol=SSD_RTOL, atol=SSD_ATOL):
+            raise AssertionError("%s: card and host differ by %g"
+                                 % (name, err))
+    return rec
+
+
+def zoo_params(sym, shapes, seed):
+    """Seeded numpy parameters of a Symbol graph: He-scaled weights,
+    gammas near 1, small biases and betas, data in [0, 1), labels of the
+    head's classes; the aux states at their initial values."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    arg_shapes, out_shapes, aux_shapes = sym.infer_shape(**shapes)
+    args = {}
+    for name, s in zip(sym.list_arguments(), arg_shapes):
+        if name == "data":
+            args[name] = rng.rand(*s).astype(np.float32)
+        elif name.endswith("label"):
+            args[name] = rng.randint(0, out_shapes[0][1], s).astype(
+                np.float32)
+        elif name.endswith("weight"):
+            fan_in = int(np.prod(s[1:])) if len(s) > 1 else s[0]
+            args[name] = (rng.randn(*s) * np.sqrt(2.0 / fan_in)).astype(
+                np.float32)
+        elif name.endswith("gamma"):
+            args[name] = (1 + 0.1 * rng.randn(*s)).astype(np.float32)
+        else:
+            args[name] = (0.1 * rng.randn(*s)).astype(np.float32)
+    aux = {n: (np.zeros(s) if n.endswith("mean") else np.ones(s)).astype(
+        np.float32) for n, s in zip(sym.list_auxiliary_states(), aux_shapes)}
+    return args, aux
+
+
+def net_step(sym, shapes, args, aux, device, seed=0):
+    """One bound executor's training forward and backward on ``device``
+    from numpy parameters, random nodes under ``random.seed(seed)``:
+    (outputs, gradients, aux states) as numpy."""
+    import mxnet_tpu_torch as mx
+
+    exe = sym.simple_bind(_ctx(device), grad_req="write", **shapes)
+    for n, v in args.items():
+        exe.arg_dict[n][:] = v
+    for n, v in aux.items():
+        exe.aux_dict[n][:] = v
+    mx.random.seed(seed)
+    exe.forward(is_train=True)
+    exe.backward()
+    grads = {n: g.asnumpy() for n, g in exe.grad_dict.items()
+             if g is not None and n != "data" and not n.endswith("label")}
+    return ([o.asnumpy() for o in exe.outputs], grads,
+            {n: a.asnumpy() for n, a in exe.aux_dict.items()})
+
+
+def _grad_rel(got, want, scale):
+    """Relative L2 error of each gradient whose rms is above 1e-3 of
+    ``scale`` (a bias before a BatchNorm has a zero gradient, up to
+    rounding)."""
+    import numpy as np
+
+    return {n: float(np.linalg.norm(got[n] - want[n])
+                     / np.linalg.norm(want[n]))
+            for n in want if np.sqrt(np.mean(np.square(want[n])))
+            > 1e-3 * scale}
+
+
+def net_closeness(got, want, nudged):
+    """A net's step on the card (``got``) against the host (``want``):
+    the outputs' :func:`closeness` at NET_TOL, and the worst relative L2
+    error over the gradients that do not vanish, held to the larger of
+    NET_TOL and twice the worst gap between ``got`` and ``nudged``, the
+    same step on the card from parameters nudged by 1e-6 relative. A
+    deep net's gradient is that sensitive to f32 rounding: a max-pool
+    window whose two largest entries lie within rounding of each other
+    sends its gradient to either, and BatchNorm's one-pass variance
+    cancels, so the card's and the host's sums, each right to f32, part
+    by as much as such a nudge makes them part (VGG-16's first
+    convolution 2e-3, Inception-BN's betas 3e-2, on the H100)."""
+    import numpy as np
+    import torch
+
+    outs = [closeness(torch.from_numpy(a), torch.from_numpy(b), NET_TOL)
+            for a, b in zip(got[0], want[0])]
+    g, w = got[1], want[1]
+    scale = float(np.sqrt(np.mean(np.concatenate(
+        [np.square(v).ravel() for v in w.values()])))) if w else 0.0
+    rel = _grad_rel(g, w, scale)
+    chaos = _grad_rel(nudged[1], g, scale)
+    worst = max(rel, key=rel.get) if rel else None
+    limit = max(NET_TOL, 2 * max(chaos.values(), default=0.0))
+    finite = all(np.all(np.isfinite(v)) for v in
+                 list(got[0]) + list(g.values()) + list(got[2].values()))
+    return {"outputs_elem": max(c["elem"] for c in outs),
+            "outputs_rel_l2": max(c["rel_l2"] for c in outs),
+            "grads_checked": len(rel), "grads_vanishing": len(w) - len(rel),
+            "max_grad_rel_l2": rel[worst] if rel else 0.0,
+            "worst_grad": worst,
+            "nudged_max_grad_rel_l2": max(chaos.values(), default=0.0),
+            "grad_limit": limit, "finite": finite,
+            "ok": finite and all(within(c, NET_TOL) for c in outs)
+            and (not rel or rel[worst] <= limit)}
+
+
+def nudge(args, skip=("data",)):
+    """``args`` with every parameter times (1 + 1e-6 N(0, 1)), seeded;
+    the data and labels as they are."""
+    import numpy as np
+
+    rng = np.random.RandomState(99)
+    return {k: v if k in skip or k.endswith("label") else
+            (v * (1 + 1e-6 * rng.randn(*v.shape))).astype(v.dtype)
+            for k, v in args.items()}
+
+
+ZOO_NETS = {   # name -> (build, input shape at batch 2)
+    "alexnet": (lambda mx: mx.models.get_alexnet(), (2, 3, 224, 224)),
+    "vgg16": (lambda mx: mx.models.get_vgg(), (2, 3, 224, 224)),
+    "vgg16_bn": (lambda mx: mx.models.get_vgg(batch_norm=True),
+                 (2, 3, 224, 224)),
+    "googlenet": (lambda mx: mx.models.get_googlenet(), (2, 3, 224, 224)),
+    "inception_v3": (lambda mx: mx.models.get_inception_v3(),
+                     (2, 3, 299, 299)),
+    "unet": (lambda mx: mx.models.get_unet(), (2, 3, 64, 64)),
+    "mlp": (lambda mx: mx.models.get_mlp(), (2, 784)),
+}
+
+
+def zoo_net_check(name, device="cuda"):
+    """The zoo net ``name`` of :data:`ZOO_NETS`, one training forward and
+    backward at batch 2 and its own input size on ``device`` against the
+    port on the host, from the same seeded parameters and Dropout keys,
+    beside the same step on ``device`` from nudged parameters
+    (:func:`net_closeness`). Raises AssertionError; returns the
+    record."""
+    import mxnet_tpu_torch as mx
+
+    build, dshape = ZOO_NETS[name]
+    with mx.NameManager():
+        sym = build(mx)
+    label = [n for n in sym.list_arguments() if n.endswith("label")][0]
+    _, out_shapes, _ = sym.infer_shape(data=dshape)
+    shapes = {"data": dshape, label: out_shapes[0][:1] + out_shapes[0][2:]}
+    args, aux = zoo_params(sym, shapes, seed=7)
+    t0 = time.perf_counter()
+    got = net_step(sym, shapes, args, aux, device)
+    _sync(device)
+    card_s = time.perf_counter() - t0
+    want = net_step(sym, shapes, args, aux, "cpu")
+    nudged = net_step(sym, shapes, nudge(args), aux, device)
+    rec = dict(net_closeness(got, want, nudged), net=name,
+               input=list(dshape),
+               params=int(sum(v.size for k, v in args.items()
+                              if k != "data" and k != label)),
+               device_step_s=card_s)
+    if not rec["ok"]:
+        raise AssertionError("%s on the card differs from the host: %r"
+                             % (name, rec))
+    return rec
+
+
+def phase_zoo(device="cuda", nets=None):
+    """Every zoo net that the slice adds on the card against the host
+    (:func:`zoo_net_check`), then every op of the slice
+    (:func:`zoo_op_check`)."""
+    recs = [zoo_net_check(name, device) for name in nets or ZOO_NETS]
+    ops = [zoo_op_check(name, device) for name in ZOO_OP_CASES]
+    out = {"phase": "zoo", "nets": recs, "op_cases": len(ops),
+           "op_max_abs_err": max(o["max_abs_err"] for o in ops),
+           "ops": sorted({o["op"] for o in ops})}
+    log(out)
+    return out
+
+
+def phase_inception_bn_grad_check(device="cuda", batch=8, image=224):
+    """The first step of Inception-BN at batch ``batch`` on the card
+    against the port's host run of the same step from the same seeded
+    parameters, beside the card's step from nudged parameters
+    (:func:`net_closeness`: outputs at NET_TOL, the gradients that do
+    not vanish within the larger of NET_TOL and twice the nudge's gap;
+    f32, cuDNN's algorithms and the host's sum in other orders)."""
+    import mxnet_tpu_torch as mx
+
+    with mx.NameManager():
+        sym = mx.models.get_inception_bn(num_classes=1000)
+    shapes = {"data": (batch, 3, image, image), "softmax_label": (batch,)}
+    args, aux = zoo_params(sym, shapes, seed=11)
+    got = net_step(sym, shapes, args, aux, device)
+    want = net_step(sym, shapes, args, aux, "cpu")
+    nudged = net_step(sym, shapes, nudge(args), aux, device)
+    rec = dict(net_closeness(got, want, nudged),
+               phase="inception_bn_grad_check",
+               batch=batch, image=image, tol=NET_TOL,
+               aux_max_abs_err=max(float(abs(got[2][n] - want[2][n]).max())
+                                   for n in want[2]))
+    log(rec)
+    if not rec["ok"]:
+        raise AssertionError("Inception-BN's step on the card differs from "
+                             "the host's: %r" % rec)
+    return rec
+
+
+KIND_FWD = {"Convolution": "convolution", "BatchNorm": "batchnorm",
+            "Activation": "activation", "Pooling": "pooling",
+            "Concat": "concat", "FullyConnected": "fully_connected",
+            "SoftmaxOutput": "softmax_output", "Flatten": "other"}
+KIND_BWD = (("Convolution", "convolution"), ("BNTrainNorm", "batchnorm"),
+            ("Relu", "activation"), ("Pool", "pooling"), ("Cat", "concat"),
+            ("Split", "concat"), ("Slice", "concat"),
+            ("SoftmaxOutput", "softmax_output"), ("Mm", "fully_connected"),
+            ("Addmm", "fully_connected"))
+
+
+def kernel_kind(event, kernel):
+    """The layer kind and direction that a profiled CUDA kernel belongs
+    to: K1 by name, host-to-device copies by name, else the nearest
+    ``mx::<op>`` range (forward) or autograd node (backward) above the
+    op that launched it, else ``other``."""
+    if "softmax_narrow" in kernel or "softmax_wide" in kernel:
+        return "softmax_kernel_K1"
+    if "HtoD" in kernel:
+        return "input_copy_h2d"
+    e = event
+    while e is not None:
+        name = e.name
+        if name.startswith("mx::"):
+            return KIND_FWD.get(name[4:], "other") + "_fwd"
+        if name.startswith("autograd::engine::evaluate_function: "):
+            fn = name.split(": ", 1)[1]
+            for tag, kind in KIND_BWD:
+                if tag in fn:
+                    return kind + "_bwd"
+            return "other_bwd"
+        if name.startswith("Optimizer.") or "sgd" in name.lower() \
+                or name.startswith("aten::_foreach"):
+            return "sgd_update"
+        e = e.cpu_parent
+    return "other"
+
+
+def device_time_by_kind(prof, steps):
+    """Device ms a step by :func:`kernel_kind`, from a profile with CPU
+    and CUDA activities and ``mx::<op>`` ranges."""
+    by = {}
+    for e in prof.events():
+        for k in getattr(e, "kernels", ()):
+            kind = kernel_kind(e, k.name)
+            by[kind] = by.get(kind, 0.0) + k.duration / 1e3 / steps
+    return dict(sorted(by.items(), key=lambda kv: -kv[1]))
+
+
+def phase_inception_bn(device="cuda", argv=(), synthetic=None):
+    """Inception-BN at examples/image-classification_torch/
+    train_imagenet.py's defaults (``--network inception-bn
+    --synthetic``: the example's 2048 seeded 3x224x224 images, 1000
+    classes, batch 256, SGD lr 0.1, momentum 0.9, wd 1e-5, Xavier(in,
+    2.34), lr x0.1 every 30 epochs) through its ``train_model.fit`` and
+    the scanned ``FeedForward.fit``, for 4 epochs (32 steps): the first
+    epoch warms, epochs 2 and 3 are timed, the last is profiled
+    (``torch.profiler``, op forwards labelled ``mx::<op>``). The
+    metric is the example's accuracy with a cross-entropy beside it, so
+    each step's probabilities reach the host and its loss is read there.
+    Checks: every step's cross-entropy finite, the parameters changed
+    from the first epoch's end to the last's and finite, the scanned
+    trainer built once, K1 launched once a step (its count zeroed just
+    before, read just after). ``synthetic`` replaces the example's data
+    (a CPU rehearsal at a small size). Returns the record (K1's launches
+    in ``softmax_launches``)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import registry
+    from mxnet_tpu_torch.ops import softmax as sm
+    from mxnet_tpu_torch.parallel import fit_trainer
+
+    tm, ex = _ic_example("train_imagenet.py")
+    argv = (["--network", "inception-bn", "--synthetic", "--num-epochs",
+             "4"] + list(argv) + (["--ctx", "cpu"] if device == "cpu"
+                                  else []))
+    seen = {"built": 0, "ce": [], "stamps": [], "params": []}
+    real_make = fit_trainer.make_fit_trainer
+    real_fit = mx.FeedForward.fit
+    real_apply = registry.OpDef.apply
+    prof = None
+    if device == "cuda":
+        from torch.profiler import (ProfilerActivity, profile,
+                                    record_function)
+
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+
+        def labelled_apply(self, *a, **k):
+            with record_function("mx::" + self.name):
+                return real_apply(self, *a, **k)
+
+    def make(*a, **kw):
+        seen["built"] += 1
+        return real_make(*a, **kw)
+
+    def on_batch(param):
+        loc = param.locals
+        prob = loc["host_outs"][0][loc["k"]]
+        lab = loc["b"]["softmax_label"]
+        lab = lab.cpu().numpy() if hasattr(lab, "cpu") else np.asarray(lab)
+        p = prob[np.arange(len(lab)), lab.astype(np.int64)]
+        seen["ce"].append(float(-np.log(np.maximum(p, 1e-30)).mean()))
+
+    def fit(self, X, **kw):
+        epochs = self.num_epoch
+
+        def on_epoch(epoch, symbol, arg, aux):
+            _sync(device)
+            seen["stamps"].append(time.perf_counter())
+            seen["params"].append({k: v.asnumpy() for k, v in arg.items()})
+            if len(seen["params"]) > 2:
+                seen["params"].pop(1)
+            if prof is not None and epoch == epochs - 2:
+                registry.OpDef.apply = labelled_apply
+                prof.start()
+            elif prof is not None and epoch == epochs - 1:
+                prof.stop()
+                registry.OpDef.apply = real_apply
+
+        kw["epoch_end_callback"] = on_epoch
+        kw["eval_metric"] = mx.metric.create(["acc", "ce"])
+        _sync(device)
+        seen["t0"] = time.perf_counter()
+        return real_fit(self, X, **kw)
+
+    patches = [mock.patch.object(sys, "argv", ["train_imagenet.py"] + argv),
+               mock.patch.object(fit_trainer, "make_fit_trainer", make),
+               mock.patch.object(mx.FeedForward, "fit", fit),
+               mock.patch.dict(os.environ)]
+    if synthetic is not None:
+        patches.append(mock.patch.object(ex, "_synthetic", synthetic))
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        for pt in patches:
+            pt.start()
+        for k in ("MXNET_SCAN_TRAIN", "MXNET_TRAIN_SCAN_K",
+                  "MXNET_COMPUTE_DTYPE"):
+            os.environ.pop(k, None)   # the defaults: scanned, K = 8
+        args = ex.parse_args()
+        net = mx.models.get_inception_bn(num_classes=args.num_classes)
+        t0 = time.perf_counter()
+        sm.fused_softmax.launches = 0
+        model = tm.fit(args, net, ex.get_iterator, batch_end_callback=on_batch)
+        _sync(device)
+        launches = sm.fused_softmax.launches
+        wall = time.perf_counter() - t0
+    finally:
+        registry.OpDef.apply = real_apply
+        for pt in reversed(patches):
+            pt.stop()
+    peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" \
+        else None
+    steps_per_epoch = args.num_examples // args.batch_size
+    epoch_s = [b - a for a, b in zip([seen["t0"]] + seen["stamps"][:-1],
+                                     seen["stamps"])]
+    timed = epoch_s[1:-1] if prof is not None else epoch_s[1:]
+    timed = timed or epoch_s
+    step_ms = 1e3 * sum(timed) / len(timed) / steps_per_epoch
+    rec = {"phase": "inception_bn", "example": IC_DIR + "/train_imagenet.py",
+           "network": args.network, "batch": args.batch_size,
+           "images": args.num_examples, "classes": args.num_classes,
+           "epochs": args.num_epochs, "steps_per_epoch": steps_per_epoch,
+           "lr": args.lr, "kv_store": args.kv_store,
+           "scanned_trainer_built": seen["built"], "wall_s": wall,
+           "epoch_s": epoch_s, "step_ms": step_ms,
+           "img_per_s": args.batch_size / step_ms * 1e3,
+           "params": int(sum(v.size for v in model.arg_params.values())),
+           "peak_mem_gb": peak, "cross_entropy": seen["ce"],
+           "softmax_launches": launches}
+    if device == "cuda":
+        _, train_flops = symbol_products(
+            net, data=(args.batch_size, 3, 224, 224),
+            softmax_label=(args.batch_size,))
+        summed_ms, busy_ms, events = device_busy(prof)
+        plain_s = sum(timed) / len(timed)
+        rec.update({
+            "conv_fc_tflop_per_step": train_flops / 1e12,
+            "conv_fc_tflop_s": train_flops / (step_ms * 1e-3) / 1e12,
+            "busy": {"epoch": args.num_epochs - 1, "device_events": events,
+                     "device_ms": summed_ms, "device_busy_ms": busy_ms,
+                     "profiled_epoch_s": epoch_s[-1],
+                     "unprofiled_epoch_s": plain_s,
+                     "busy_share": busy_ms / 1e3 / plain_s,
+                     "device_events_per_step": events / steps_per_epoch},
+            "device_ms_per_step_by_kind": device_time_by_kind(
+                prof, steps_per_epoch)})
+    log(rec)
+    first, last = seen["params"][0], seen["params"][-1]
+    if not (len(seen["ce"]) == args.num_epochs * steps_per_epoch
+            and all(math.isfinite(v) for v in seen["ce"])):
+        raise AssertionError("Inception-BN: a step's cross-entropy is not "
+                             "finite, or missing: %r" % seen["ce"])
+    if not all(np.all(np.isfinite(v)) for v in last.values()):
+        raise AssertionError("Inception-BN: non-finite parameters")
+    if all(np.array_equal(first[k], last[k]) for k in first):
+        raise AssertionError("Inception-BN: the parameters did not change")
+    if seen["built"] != 1:
+        raise AssertionError("Inception-BN's fit built its scanned trainer "
+                             "%d times, expected once" % seen["built"])
+    expected = args.num_epochs * steps_per_epoch if device == "cuda" else 0
+    if launches != expected:
+        raise AssertionError("Inception-BN launched K1 %d times, expected %d"
+                             % (launches, expected))
+    return rec
+
+
+def phase_cifar10(device="cuda", argv=()):
+    """examples/image-classification_torch/train_cifar10.py at its
+    defaults (``--synthetic``: Inception-BN-28-small, the example's 4096
+    training and 1024 validation 3x28x28 images with class rows, batch
+    128, SGD lr 0.05, momentum 0.9, wd 1e-5, Xavier(in, 2.34)) for 3
+    epochs through the scanned ``FeedForward.fit``: validation accuracy
+    after the last epoch > CIFAR_VAL_ACC (the port's two host runs:
+    0.887 and 0.603 after the first epoch, 1.0 after the second and the
+    third), K1 launched once a training and a validation batch.
+    Prints each epoch's validation accuracy, ms a step and img/s."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import softmax as sm
+
+    tm, ex = _ic_example("train_cifar10.py")
+    argv = (["--synthetic", "--num-epochs", "3"] + list(argv)
+            + (["--ctx", "cpu"] if device == "cpu" else []))
+    seen = {"val": {}, "stamps": []}
+    real_fit = mx.FeedForward.fit
+
+    def fit(self, X, **kw):
+        def on_eval(param):
+            seen["val"][param.epoch] = param.eval_metric.get()[1]
+
+        def on_epoch(epoch, *_):
+            _sync(device)
+            seen["stamps"].append(time.perf_counter())
+
+        kw["eval_batch_end_callback"] = on_eval
+        kw["epoch_end_callback"] = on_epoch
+        _sync(device)
+        seen["t0"] = time.perf_counter()
+        return real_fit(self, X, **kw)
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(sys, "argv", ["train_cifar10.py"] + argv), \
+            mock.patch.object(mx.FeedForward, "fit", fit), \
+            mock.patch.dict(os.environ):
+        for k in ("MXNET_SCAN_TRAIN", "MXNET_TRAIN_SCAN_K",
+                  "MXNET_COMPUTE_DTYPE"):
+            os.environ.pop(k, None)
+        args = ex.parse_args()
+        net = mx.models.get_inception_bn_small(num_classes=10)
+        sm.fused_softmax.launches = 0
+        tm.fit(args, net, ex.get_iterator)
+        _sync(device)
+        launches = sm.fused_softmax.launches
+    steps = args.num_examples // args.batch_size
+    epoch_s = [b - a for a, b in zip([seen["t0"]] + seen["stamps"][:-1],
+                                     seen["stamps"])]
+    timed = epoch_s[1:] or epoch_s
+    step_ms = 1e3 * sum(timed) / len(timed) / steps
+    val = [seen["val"][e] for e in sorted(seen["val"])]
+    val_batches = 1024 // args.batch_size
+    rec = {"phase": "cifar10", "example": IC_DIR + "/train_cifar10.py",
+           "network": args.network, "batch": args.batch_size,
+           "epochs": args.num_epochs, "steps_per_epoch": steps,
+           "val_accuracy": val, "epoch_s": epoch_s,
+           "step_ms_with_epoch_end": step_ms,
+           "img_per_s": args.batch_size / step_ms * 1e3,
+           "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                           if device == "cuda" else None),
+           "softmax_launches": launches}
+    log(rec)
+    if not (val and val[-1] > CIFAR_VAL_ACC):
+        raise AssertionError("train_cifar10: validation accuracy %r, not "
+                             "> %g after %d epochs"
+                             % (val, CIFAR_VAL_ACC, args.num_epochs))
+    expected = (args.num_epochs * (steps + val_batches)
+                if device == "cuda" else 0)
+    if launches != expected:
+        raise AssertionError("train_cifar10 launched K1 %d times, expected "
+                             "%d" % (launches, expected))
+    return rec
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3300,6 +4011,14 @@ def main():
     torch.cuda.empty_cache()
     ssd = phase_ssd()["softmax_launches"]
     torch.cuda.empty_cache()
+    inception_bn = phase_inception_bn()["softmax_launches"]
+    torch.cuda.empty_cache()
+    phase_inception_bn_grad_check()
+    torch.cuda.empty_cache()
+    cifar10 = phase_cifar10()["softmax_launches"]
+    torch.cuda.empty_cache()
+    phase_zoo()
+    torch.cuda.empty_cache()
     rtc = phase_rtc()
     torch.cuda.empty_cache()
     mm_stats = phase_matmul_stats()
@@ -3353,19 +4072,22 @@ def main():
     sm_main = sm_case((128, 1000), "float32")    # ResNet-50's f32 fits
     sm_lstm = sm_case((1920, 200), "float32")    # the LSTM's T = 60
     sm_bench = sm_case((128, 1000), "bfloat16")  # bench.py's bf16 step
+    sm_incbn = sm_case((256, 1000), "float32")   # Inception-BN's fit
     kernels.append({
         "name": "softmax", "route": "cuda",
         "source": "mxnet_tpu_torch/ops/csrc/softmax.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:517",
         "launches": (lenet + resnet + module + resnet_module + lstm
-                     + resnet_bench + resnet_scanned + ssd),
+                     + resnet_bench + resnet_scanned + ssd + inception_bn
+                     + cifar10),
         "launches_by_path": {"lenet_fit": lenet, "resnet50_fit": resnet,
                              "module": module,
                              "resnet50_module_fit": resnet_module,
                              "lstm_bucketing": lstm,
                              "resnet50_bench": resnet_bench,
                              "resnet50_scanned_fit": resnet_scanned,
-                             "ssd": ssd},
+                             "ssd": ssd, "inception_bn": inception_bn,
+                             "cifar10": cifar10},
         "max_abs_err": max(c["max_abs_err"] for c in softmax_checks),
         "max_err_to_limit": max(c["closeness"]["elem"]
                                 for c in softmax_checks),
@@ -3380,6 +4102,9 @@ def main():
             "shape", "variant", "ms", "graph_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_graph_ms")},
         "bench_shape": {k: sm_bench[k] for k in (
+            "shape", "dtype", "variant", "ms", "graph_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library_graph_ms")},
+        "inception_bn_shape": {k: sm_incbn[k] for k in (
             "shape", "dtype", "variant", "ms", "graph_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "library_graph_ms")}})
     f32, bf16 = (rtc["timing"]["mul_add_" + t]

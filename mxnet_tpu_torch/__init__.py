@@ -60,9 +60,12 @@ from . import ops
 
 ops.install(ndarray_module=ndarray, symbol_module=symbol)
 
-from .ndarray import NDArray  # noqa: E402
+from .ndarray import (NDArray, load, save, load_frombuffer, zeros,  # noqa: E402
+                      ones, array, empty, full, arange, concatenate,
+                      waitall)
 from .executor import Executor  # noqa: E402
 from . import initializer  # noqa: E402
+from .initializer import init  # noqa: E402
 from . import optimizer  # noqa: E402
 from . import lr_scheduler  # noqa: E402
 from . import metric  # noqa: E402
@@ -80,6 +83,9 @@ from . import serving  # noqa: E402
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_devices", "nd", "ndarray", "random", "sym", "symbol",
+           "array", "zeros", "ones", "empty", "full", "arange",
+           "concatenate", "load", "save", "load_frombuffer", "waitall",
+           "init",
            "Symbol", "Variable", "Group", "AttrScope", "NameManager",
            "Prefix", "NDArray", "Executor", "initializer", "optimizer",
            "lr_scheduler", "metric", "callback", "io", "model",

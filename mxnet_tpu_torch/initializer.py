@@ -14,7 +14,7 @@ import numpy as _np
 
 from . import random as _random
 
-__all__ = ["Initializer", "Uniform", "Normal", "Xavier"]
+__all__ = ["Initializer", "Uniform", "Normal", "Xavier", "init"]
 
 
 class Initializer:
@@ -128,3 +128,11 @@ class Xavier(Initializer):
             _random.normal(0, scale, out=arr)
         else:
             raise ValueError("Unknown random type")
+
+
+class init:
+    """The ``mx.init.*`` alias namespace of the initializers."""
+    Initializer = Initializer
+    Uniform = Uniform
+    Normal = Normal
+    Xavier = Xavier

@@ -21,6 +21,12 @@ int32 arrays stay int32 under ``+ - * **``; comparisons give float32
 ``ops.install`` attaches to this module as imperative functions stay
 the Symbol path's.
 
+The module functions ``add``, ``subtract``, ``multiply``, ``divide``
+(``true_divide``), ``power``, ``maximum``, ``minimum`` and ``negative``
+take an NDArray or a scalar on either side, as the JAX package's
+(``mxnet_tpu/ndarray.py:679-770``); ``onehot_encode`` writes into its
+``out``; ``waitall`` synchronises the cards.
+
 ``save``/``load``/``load_frombuffer`` read and write the JAX package's
 binary format byte for byte (``mxnet_tpu/ndarray.py`` ``_write_tensor``
 and ``save``), on local paths; bfloat16 (dtype code 7) is written from
@@ -41,7 +47,9 @@ from .base import (MXNetError, _DTYPE_MX_TO_NP, _DTYPE_MX_TO_TORCH,
 from .context import Context, cpu, current_context, gpu
 
 __all__ = ["NDArray", "zeros", "ones", "full", "empty", "array", "arange",
-           "concatenate", "load", "save", "load_frombuffer"]
+           "concatenate", "load", "save", "load_frombuffer", "waitall",
+           "onehot_encode", "add", "subtract", "multiply", "divide",
+           "true_divide", "negative", "power", "maximum", "minimum"]
 
 
 def _ctx_of(tensor):
@@ -108,6 +116,8 @@ class NDArray:
         if self._data.is_cuda:
             torch.cuda.synchronize(self._data.device)
 
+    wait_to_write = wait_to_read
+
     # -- basic properties ----------------------------------------------------
     @property
     def shape(self):
@@ -133,6 +143,13 @@ class NDArray:
         ``torch.bfloat16``."""
         return np_dtype(self._data.dtype)
 
+    @property
+    def T(self):
+        """A copy with every axis reversed."""
+        t = self._data.permute(*reversed(range(self._data.dim())))
+        return NDArray(t.clone(memory_format=torch.contiguous_format),
+                       self._ctx)
+
     # -- conversion ----------------------------------------------------------
     def asnumpy(self):
         """Blocking copy to a host numpy array (bfloat16 comes back as
@@ -143,6 +160,13 @@ class NDArray:
         if t.is_cuda:
             return t.cpu().numpy()
         return t.numpy().copy()
+
+    def asscalar(self):
+        """The one element of a (1,)- or ()-shaped array, as a numpy
+        scalar."""
+        if self.shape != (1,) and self.shape != ():
+            raise MXNetError("The current array is not a scalar")
+        return self.asnumpy().reshape(-1)[0]
 
     def astype(self, dtype):
         return NDArray(self._data.to(torch_dtype(dtype), copy=True),
@@ -178,6 +202,21 @@ class NDArray:
         -1 wildcard)."""
         return NDArray(self._data.reshape(tuple(new_shape)), self._ctx,
                        writable=self.writable)
+
+    def broadcast_to(self, shape):
+        """A new array of ``shape``: size-1 axes grow, the rank stays."""
+        shape = tuple(shape)
+        cur = self.shape
+        if len(cur) != len(shape):
+            raise MXNetError(
+                "Broadcasting the array to shape %s needs the same ndim as %s"
+                % (shape, cur))
+        for c, s in zip(cur, shape):
+            if c != s and c != 1:
+                raise MXNetError(
+                    "cannot broadcast %s to %s: only size-1 axes may grow"
+                    % (cur, shape))
+        return NDArray(self._data.expand(shape).contiguous(), self._ctx)
 
     # -- indexing ------------------------------------------------------------
     def __getitem__(self, key):
@@ -391,6 +430,25 @@ def concatenate(arrays, axis=0, always_copy=True):
                               for a in arrays], dim=axis), ctx)
 
 
+def onehot_encode(indices, out):
+    """Write the one-hot rows of ``indices`` into ``out`` (its width is
+    the depth) and return ``out``."""
+    depth = out.shape[1]
+    idx = indices._data.to(torch.int32)
+    oh = idx[:, None] == torch.arange(depth, dtype=torch.int32,
+                                      device=idx.device)[None, :]
+    out._set_data(oh.to(out._data.dtype))
+    return out
+
+
+def waitall():
+    """Block until the work queued on every initialised card has
+    finished."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+
 # -- serialization -----------------------------------------------------------
 # file  := MAGIC(u64) RESERVED(u64) count(u64) names(u64) [len(u64) name]
 #          [tensor]
@@ -482,3 +540,72 @@ def load_frombuffer(buf, ctx=None):
     if names:
         return dict(zip(names, arrays))
     return arrays
+
+
+# -- module-level arithmetic: NDArray or scalar on either side -----------------
+def maximum(lhs, rhs):
+    """Elementwise max of arrays or scalars, through ``_maximum`` and
+    ``_maximum_scalar`` (attached to this module by ``ops.install``)."""
+    if isinstance(lhs, numeric_types) and isinstance(rhs, numeric_types):
+        # not max(): the 'max' reduction op is attached to this module
+        return lhs if lhs > rhs else rhs
+    if isinstance(rhs, numeric_types):
+        return _maximum_scalar(lhs, scalar=float(rhs))  # noqa: F821
+    if isinstance(lhs, numeric_types):
+        return _maximum_scalar(rhs, scalar=float(lhs))  # noqa: F821
+    return _maximum(lhs, rhs)  # noqa: F821
+
+
+def minimum(lhs, rhs):
+    """Elementwise min of arrays or scalars."""
+    if isinstance(lhs, numeric_types) and isinstance(rhs, numeric_types):
+        return lhs if lhs < rhs else rhs   # see maximum(): 'min' is an op
+    if isinstance(rhs, numeric_types):
+        return _minimum_scalar(lhs, scalar=float(rhs))  # noqa: F821
+    if isinstance(lhs, numeric_types):
+        return _minimum_scalar(rhs, scalar=float(lhs))  # noqa: F821
+    return _minimum(lhs, rhs)  # noqa: F821
+
+
+def add(lhs, rhs):
+    if isinstance(lhs, numeric_types) and isinstance(rhs, numeric_types):
+        return lhs + rhs
+    return (lhs + rhs) if isinstance(lhs, NDArray) else (rhs + lhs)
+
+
+def subtract(lhs, rhs):
+    if isinstance(lhs, numeric_types) and isinstance(rhs, numeric_types):
+        return lhs - rhs
+    if isinstance(lhs, NDArray):
+        return lhs - rhs
+    return rhs.__rsub__(lhs)
+
+
+def multiply(lhs, rhs):
+    if isinstance(lhs, numeric_types) and isinstance(rhs, numeric_types):
+        return lhs * rhs
+    return (lhs * rhs) if isinstance(lhs, NDArray) else (rhs * lhs)
+
+
+def divide(lhs, rhs):
+    if isinstance(lhs, numeric_types) and isinstance(rhs, numeric_types):
+        return lhs / rhs
+    if isinstance(lhs, NDArray):
+        return lhs / rhs
+    return rhs.__rtruediv__(lhs)
+
+
+true_divide = divide
+
+
+def negative(arr):
+    """``-arr``, in the array's dtype."""
+    return -arr
+
+
+def power(base, exp):
+    if isinstance(base, numeric_types) and isinstance(exp, numeric_types):
+        return base ** exp
+    if isinstance(base, NDArray):
+        return base ** exp
+    return exp.__rpow__(base)

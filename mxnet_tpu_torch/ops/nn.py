@@ -1,26 +1,31 @@
-"""Neural-network layer ops: the subset LeNet, ResNet, the bucketing
-graphs of the Module tests and the recurrent model zoo run.
+"""Neural-network layer ops: the whole of the JAX package's
+``mxnet_tpu/ops/nn.py``.
 
 Counterpart of ``mxnet_tpu/ops/nn.py``: ``Activation`` (:57),
-``FullyConnected`` (:148), ``Convolution`` (:230), ``Pooling`` (:403),
-``BatchNorm`` (:555), ``Dropout`` (:664), ``Embedding`` (:684),
-``Reshape`` (:713), ``Flatten`` (:773), ``Concat`` (:786),
-``SliceChannel`` (:836), ``SwapAxis`` (:905), ``SoftmaxActivation``
-(:929; ``instance`` over each sample flattened, ``channel`` over axis 1)
-and ``Pad`` (:946), with
-the same parameter
+``LeakyReLU`` (:106), ``FullyConnected`` (:148), ``Convolution``
+(:230), ``Deconvolution`` (:327), ``Pooling`` (:403), ``BatchNorm``
+(:555), ``InstanceNorm`` (:585), ``L2Normalization`` (:615), ``LRN``
+(:650), ``Dropout`` (:675), ``Embedding`` (:699), ``Reshape`` (:753),
+``Flatten`` (:773), ``Concat`` (:803), ``ElementWiseSum`` (:825),
+``SliceChannel`` (:859), ``Cast`` (:884), ``BlockGrad`` (:901),
+``SwapAxis`` (:919), ``SoftmaxActivation`` (:938; ``instance`` over
+each sample flattened, ``channel`` over axis 1), ``Pad`` (:968),
+``UpSampling`` (:1029), ``Crop`` (:1079) and
+``IdentityAttachKLSparseReg`` (:1119), with the same parameter
 fields, defaults, inputs, outputs, aux states and shape inference
 (copied; ``Reshape``'s target shape too), so graphs serialise to the
 same JSON. ``Reshape``, ``SliceChannel`` and ``SwapAxis`` may return
 views: the executor's graph is functional and autograd handles them.
 ``Dropout`` draws its mask with the JAX op's bits: ``bernoulli(key, 1 -
 p, x.shape)`` of :mod:`..threefry` under the node's key, and ``x / (1 -
-p)`` where it keeps. The forwards are torch: the
-convolution is ``F.conv*d`` and the FC product ``torch.matmul``, as the
-JAX package leaves them to XLA outside any Pallas kernel. Gradients come
-from autograd, and BatchNorm's training-mode normalisation is a
-``torch.autograd.Function`` carrying the JAX package's custom backward
-formula.
+p)`` where it keeps; ``LeakyReLU``'s ``rrelu`` draws its training
+slopes as ``uniform(key, x.shape, lower_bound, upper_bound)`` the same
+way. The forwards are torch: the convolution is ``F.conv*d``, the
+deconvolution ``F.conv_transpose*d`` and the FC product
+``torch.matmul``, as the JAX package leaves them to XLA outside any
+Pallas kernel. Gradients come from autograd; BatchNorm's training-mode
+normalisation and the KL regulariser are ``torch.autograd.Function``s
+carrying the JAX package's custom backward formulas.
 
 Semantics kept from the JAX package where torch's own ops differ:
 
@@ -40,10 +45,28 @@ Semantics kept from the JAX package where torch's own ops differ:
   ``moving * momentum + stat * (1 - momentum)`` (torch's running stats
   use the unbiased variance and the opposite momentum);
   ``fix_gamma`` uses ones for gamma and gives it no gradient.
+- ``LRN``: the window sum over ``nsize`` channels, zero-padded by
+  ``nsize // 2`` on both sides, scaled by ``alpha / nsize``:
+  ``x / (knorm + alpha / nsize * sum) ** beta`` (``F.local_response_norm``
+  averages over the window in the same way, but pads unevenly for an
+  even ``nsize``; the JAX op's form is kept as it is).
+- ``Deconvolution``: with ``target_shape`` the pad is
+  ``(excess + 1) // 2`` and the adj ``excess % 2``, on the high side
+  only, which torch's ``output_padding`` is; where that adj is not below
+  the stride (torch refuses it) the output is the unpadded transposed
+  convolution cropped by the pad and extended by zeros. ``dilate`` is a
+  field only, as in the JAX op.
+- ``UpSampling``: ``nearest`` repeats every input by the same
+  ``scale``; ``bilinear`` resizes by ``scale`` with half-pixel centres
+  and clamped edges, as ``jax.image.resize(..., "bilinear")`` does, and
+  ignores its ``weight`` argument (whose gradient is zero), as the JAX
+  op does where the reference runs a deconvolution with it.
+- ``IdentityAttachKLSparseReg``: the KL penalty's gradient is added in
+  the backward from the batch's mean activation; ``momentum`` is a field
+  only, as in the JAX op.
 
 Not carried over: the env knobs ``MXNET_BN_STATS_SAMPLE`` and
-``MXNET_BN_AUTODIFF``, and the JAX package's other layers (a later
-slice).
+``MXNET_BN_AUTODIFF``.
 """
 from __future__ import annotations
 
@@ -54,7 +77,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import threefry
-from ..base import MXNetError
+from ..base import MXNetError, torch_dtype
 from .registry import Field, OpDef, register
 
 
@@ -690,5 +713,451 @@ register(
             "constant_value": Field("float", default=0.0),
         },
         infer_shape=_pad_shape,
+    )
+)
+
+
+# -- LeakyReLU -----------------------------------------------------------------
+def _leaky_relu_fwd(params, inputs, aux, is_train, rng):
+    x = inputs[0]
+    at = params["act_type"]
+    slope = params["slope"]
+    if at == "leaky":
+        out = torch.where(x > 0, x, slope * x)
+    elif at == "elu":
+        out = torch.where(x > 0, x, slope * (torch.exp(x) - 1.0))
+    elif at == "prelu":
+        gamma = inputs[1].reshape((1, -1) + (1,) * (x.dim() - 2))
+        out = torch.where(x > 0, x, gamma * x)
+    elif at == "rrelu":
+        lo, hi = params["lower_bound"], params["upper_bound"]
+        if is_train and rng is not None:
+            s = threefry.uniform(rng, x.numel(), lo, hi).reshape(
+                x.shape).to(x.dtype)
+        else:
+            s = torch.tensor((lo + hi) / 2.0, dtype=x.dtype, device=x.device)
+        out = torch.where(x > 0, x, s * x)
+    else:
+        raise MXNetError("unknown LeakyReLU act_type %s" % at)
+    return [out], []
+
+
+def _leaky_relu_args(params):
+    return ["data", "gamma"] if params.get("act_type") == "prelu" else ["data"]
+
+
+def _leaky_relu_shape(params, in_shapes):
+    if in_shapes[0] is None:
+        raise MXNetError("LeakyReLU: data shape unknown")
+    s = in_shapes[0]
+    if params.get("act_type") == "prelu":
+        return [s, (s[1],)], [s], []
+    return [s], [s], []
+
+
+# need_rng for every act_type, as in the JAX op: each LeakyReLU node
+# takes its key, so the keys of the random nodes after it stay aligned
+register(
+    OpDef(
+        "LeakyReLU",
+        _leaky_relu_fwd,
+        params={
+            "act_type": Field("str", default="leaky", enum=["leaky", "elu", "prelu", "rrelu"]),
+            "slope": Field("float", default=0.25),
+            "lower_bound": Field("float", default=0.125),
+            "upper_bound": Field("float", default=0.334),
+        },
+        arguments=_leaky_relu_args,
+        infer_shape=_leaky_relu_shape,
+        need_rng=True,
+    )
+)
+
+
+# -- Deconvolution -------------------------------------------------------------
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def _deconv_pad_adj(params, in_sp):
+    """Effective (pad, adj) per spatial dim. With target_shape set, pad
+    and adj are deduced so the output hits the target exactly and the
+    explicit pad/adj params are ignored."""
+    nsp = len(in_sp)
+    k = _pair(params["kernel"], nsp)
+    stride = _pair(params["stride"] or (1,) * nsp, nsp)
+    target = params.get("target_shape") or ()
+    if any(target):
+        target = _pair(target, nsp)
+        pad, adj = [], []
+        for i in range(nsp):
+            total = stride[i] * (in_sp[i] - 1) + k[i]
+            if total < target[i]:
+                raise MXNetError(
+                    "Deconvolution: target_shape %s too big (max %d on "
+                    "axis %d)" % (target, total, i))
+            excess = total - target[i]
+            adj.append(excess % 2)
+            pad.append((excess + 1) // 2)
+        return tuple(pad), tuple(adj)
+    pad = _pair(params["pad"] or (0,) * nsp, nsp)
+    adj = _pair(params.get("adj") or (0,) * nsp, nsp)
+    for i in range(nsp):
+        if adj[i] >= max(stride[i], 1) and adj[i] != 0:
+            raise MXNetError("Deconvolution: adj must be < stride")
+    return pad, adj
+
+
+def _deconv_fwd(params, inputs, aux, is_train, rng):
+    data, weight = inputs[0], inputs[1]
+    if weight.dtype != data.dtype:
+        weight = weight.to(data.dtype)
+    nsp = data.dim() - 2
+    stride = _pair(params["stride"] or (1,) * nsp, nsp)
+    pad, adj = _deconv_pad_adj(params, data.shape[2:])
+    bias = None if params["no_bias"] else inputs[2].to(data.dtype)
+    conv_t = _CONV_T[nsp]
+    if all(a < s or a == 0 for a, s in zip(adj, stride)):
+        out = conv_t(data, weight, bias, stride=stride, padding=pad,
+                     output_padding=adj, groups=params["num_group"])
+        return [out], []
+    # an adj torch refuses (not below the stride, from target_shape):
+    # the unpadded output cropped by pad, extended by zeros to its size
+    out = conv_t(data, weight, None, stride=stride,
+                 groups=params["num_group"])
+    k = _pair(params["kernel"], nsp)
+    for i in range(nsp):
+        size = stride[i] * (data.shape[2 + i] - 1) + k[i] - 2 * pad[i] + adj[i]
+        out = out.narrow(2 + i, pad[i], min(size, out.shape[2 + i] - pad[i]))
+        short = size - out.shape[2 + i]
+        if short:
+            zshape = list(out.shape)
+            zshape[2 + i] = short
+            out = torch.cat([out, out.new_zeros(zshape)], dim=2 + i)
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nsp)
+    return [out], []
+
+
+def _deconv_shape(params, in_shapes):
+    if in_shapes[0] is None:
+        raise MXNetError("Deconvolution: data shape unknown")
+    dshape = in_shapes[0]
+    nsp = len(dshape) - 2
+    k = _pair(params["kernel"], nsp)
+    stride = _pair(params["stride"] or (1,) * nsp, nsp)
+    pad, adj = _deconv_pad_adj(params, dshape[2:])
+    nf, ng = params["num_filter"], params["num_group"]
+    wshape = (dshape[1], nf // ng) + k
+    out_sp = tuple(
+        stride[i] * (dshape[2 + i] - 1) + k[i] - 2 * pad[i] + adj[i]
+        for i in range(nsp)
+    )
+    oshape = (dshape[0], nf) + out_sp
+    ins = [dshape, wshape] + ([] if params["no_bias"] else [(nf,)])
+    return ins, [oshape], []
+
+
+_DECONV_PARAMS = dict(_CONV_PARAMS)
+_DECONV_PARAMS.update({
+    "adj": Field("shape", default=None),
+    "target_shape": Field("shape", default=None),
+})
+
+register(
+    OpDef(
+        "Deconvolution",
+        _deconv_fwd,
+        params=_DECONV_PARAMS,
+        arguments=_fc_args,
+        infer_shape=_deconv_shape,
+    )
+)
+
+
+# -- InstanceNorm --------------------------------------------------------------
+def _in_fwd(params, inputs, aux, is_train, rng):
+    data, gamma, beta = inputs
+    eps = params["eps"]
+    axes = tuple(range(2, data.dim()))
+    mean = data.mean(dim=axes, keepdim=True)
+    var = torch.square(data - mean).mean(dim=axes, keepdim=True)
+    bshape = (1, -1) + (1,) * (data.dim() - 2)
+    out = (data - mean) / torch.sqrt(var + eps)
+    return [out * gamma.reshape(bshape) + beta.reshape(bshape)], []
+
+
+register(
+    OpDef(
+        "InstanceNorm",
+        _in_fwd,
+        params={"eps": Field("float", default=1e-3)},
+        arguments=("data", "gamma", "beta"),
+        infer_shape=lambda p, s: (
+            [s[0], (s[0][1],), (s[0][1],)],
+            [s[0]],
+            [],
+        ),
+    )
+)
+
+
+# -- L2Normalization -----------------------------------------------------------
+def _l2norm_fwd(params, inputs, aux, is_train, rng):
+    x = inputs[0]
+    mode = params["mode"]
+    if mode == "instance":
+        axes = tuple(range(1, x.dim()))
+    elif mode == "channel":
+        axes = (1,)
+    else:  # spatial
+        axes = tuple(range(2, x.dim()))
+    norm = torch.sqrt(torch.square(x).sum(dim=axes, keepdim=True)
+                      + params["eps"])
+    return [x / norm], []
+
+
+register(
+    OpDef(
+        "L2Normalization",
+        _l2norm_fwd,
+        params={
+            "eps": Field("float", default=1e-10),
+            "mode": Field("str", default="instance", enum=["instance", "channel", "spatial"]),
+        },
+    )
+)
+
+
+# -- LRN -----------------------------------------------------------------------
+def _lrn_fwd(params, inputs, aux, is_train, rng):
+    x = inputs[0]
+    alpha, beta, knorm, nsize = (params["alpha"], params["beta"],
+                                 params["knorm"], params["nsize"])
+    sq = torch.square(x)
+    half = nsize // 2
+    zshape = list(sq.shape)
+    zshape[1] = half
+    sq = torch.cat([sq.new_zeros(zshape), sq, sq.new_zeros(zshape)], dim=1)
+    c_out = sq.shape[1] - nsize + 1
+    ssum = sq.narrow(1, 0, c_out)
+    for k in range(1, nsize):
+        ssum = ssum + sq.narrow(1, k, c_out)
+    return [x / torch.pow(knorm + alpha / nsize * ssum, beta)], []
+
+
+register(
+    OpDef(
+        "LRN",
+        _lrn_fwd,
+        params={
+            "alpha": Field("float", default=1e-4),
+            "beta": Field("float", default=0.75),
+            "knorm": Field("float", default=2.0),
+            "nsize": Field("int", required=True),
+        },
+    )
+)
+
+
+# -- ElementWiseSum ------------------------------------------------------------
+def _ewsum_fwd(params, inputs, aux, is_train, rng):
+    out = inputs[0]
+    for x in inputs[1:]:
+        out = out + x
+    return [out], []
+
+
+register(
+    OpDef(
+        "ElementWiseSum",
+        _ewsum_fwd,
+        params={"num_args": Field("int", required=True)},
+        key_var_num_args="num_args",
+    )
+)
+
+
+# -- Cast ----------------------------------------------------------------------
+def _cast_fwd(params, inputs, aux, is_train, rng):
+    return [inputs[0].to(torch_dtype(params["dtype"]))], []
+
+
+def _cast_type(params, in_types):
+    t = _np.dtype(params["dtype"])
+    return [in_types[0] or _np.dtype("float32")], [t], []
+
+
+register(
+    OpDef(
+        "Cast",
+        _cast_fwd,
+        params={"dtype": Field("str", required=True)},
+        infer_type=_cast_type,
+    )
+)
+
+
+# -- BlockGrad -----------------------------------------------------------------
+def _blockgrad_fwd(params, inputs, aux, is_train, rng):
+    return [inputs[0].detach()], []
+
+
+# no_head_grad: a BlockGrad head never propagates a cotangent, so
+# backward() must not demand an out_grad for it
+register(OpDef("BlockGrad", _blockgrad_fwd, no_head_grad=True))
+
+
+# -- UpSampling ----------------------------------------------------------------
+def _upsampling_fwd(params, inputs, aux, is_train, rng):
+    scale = params["scale"]
+    if params["sample_type"] == "bilinear":
+        # half-pixel centres, edges clamped: jax.image.resize's bilinear
+        # for an integer upscale; the weight argument is not read
+        return [F.interpolate(inputs[0], scale_factor=scale,
+                              mode="bilinear", align_corners=False)], []
+    outs = [x.repeat_interleave(scale, dim=2).repeat_interleave(scale, dim=3)
+            for x in inputs]
+    if len(outs) == 1:
+        return [outs[0]], []
+    if params["multi_input_mode"] == "sum":
+        out = outs[0]
+        for o in outs[1:]:
+            out = out + o
+        return [out], []
+    return [torch.cat(outs, dim=1)], []
+
+
+def _upsampling_shape(params, in_shapes):
+    if in_shapes[0] is None:
+        raise MXNetError("UpSampling: data shape unknown")
+    scale = params["scale"]
+    s0 = in_shapes[0]
+    oh, ow = s0[2] * scale, s0[3] * scale
+    if params["sample_type"] == "bilinear":
+        k = 2 * scale - scale % 2
+        ws = (s0[1], 1, k, k)
+        return [s0, ws], [(s0[0], s0[1], oh, ow)], []
+    c = sum((s[1] if s else s0[1]) for s in in_shapes)
+    if params["multi_input_mode"] == "sum":
+        c = s0[1]
+    return list(in_shapes), [(s0[0], c, oh, ow)], []
+
+
+def _upsampling_args(params):
+    if params.get("sample_type") == "bilinear":
+        return ["data", "weight"]
+    n = params.get("num_args") or 1
+    return ["arg%d" % i for i in range(n)] if n > 1 else ["data"]
+
+
+register(
+    OpDef(
+        "UpSampling",
+        _upsampling_fwd,
+        params={
+            "scale": Field("int", required=True),
+            "num_filter": Field("int", default=0),
+            "sample_type": Field("str", required=True, enum=["nearest", "bilinear"]),
+            "multi_input_mode": Field("str", default="concat", enum=["concat", "sum"]),
+            "num_args": Field("int", default=1),
+            "workspace": Field("int", default=512),
+        },
+        arguments=_upsampling_args,
+        infer_shape=_upsampling_shape,
+    )
+)
+
+
+# -- Crop ----------------------------------------------------------------------
+def _crop_fwd(params, inputs, aux, is_train, rng):
+    x = inputs[0]
+    if params["num_args"] == 2:
+        th, tw = inputs[1].shape[2], inputs[1].shape[3]
+    else:
+        th, tw = params["h_w"]
+    if params["center_crop"]:
+        y0 = (x.shape[2] - th) // 2
+        x0 = (x.shape[3] - tw) // 2
+    else:
+        y0, x0 = params["offset"]
+    return [x[:, :, y0:y0 + th, x0:x0 + tw]], []
+
+
+def _crop_shape(params, in_shapes):
+    if in_shapes[0] is None:
+        raise MXNetError("Crop: data shape unknown")
+    s0 = in_shapes[0]
+    if params["num_args"] == 2:
+        if in_shapes[1] is None:
+            raise MXNetError("Crop: crop_like shape unknown")
+        th, tw = in_shapes[1][2], in_shapes[1][3]
+    else:
+        th, tw = params["h_w"]
+    return list(in_shapes), [(s0[0], s0[1], th, tw)], []
+
+
+def _crop_args(params):
+    return ["data", "crop_like"] if params.get("num_args") == 2 else ["data"]
+
+
+register(
+    OpDef(
+        "Crop",
+        _crop_fwd,
+        params={
+            "num_args": Field("int", required=True),
+            "offset": Field("shape", default=(0, 0)),
+            "h_w": Field("shape", default=(0, 0)),
+            "center_crop": Field("bool", default=False),
+        },
+        arguments=_crop_args,
+        infer_shape=_crop_shape,
+    )
+)
+
+
+# -- IdentityAttachKLSparseReg -------------------------------------------------
+class _KLSparseReg(torch.autograd.Function):
+    """The identity forward; the backward adds the KL sparseness
+    penalty's gradient, from the mean sigmoid activation of each unit
+    over the batch (the JAX op's ``bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, target, penalty):
+        ctx.save_for_backward(x)
+        ctx.target, ctx.penalty = target, penalty
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        t, penalty = ctx.target, ctx.penalty
+        sig = torch.sigmoid(x)
+        rho_hat = sig.mean(dim=0)
+        # true divisions by the tensors: a Python number over a tensor
+        # is a reciprocal and a product in torch
+        grad_kl = penalty * (torch.full_like(rho_hat, -t) / (rho_hat + 1e-8)
+                             + torch.full_like(rho_hat, 1 - t)
+                             / (1 - rho_hat + 1e-8))
+        return g + grad_kl[None] * sig * (1 - sig), None, None
+
+
+def _kl_sparse_fwd(params, inputs, aux, is_train, rng):
+    # momentum is a field only: the JAX op applies the penalty of this
+    # batch, not a moving average
+    return [_KLSparseReg.apply(inputs[0], params["sparseness_target"],
+                               params["penalty"])], []
+
+
+register(
+    OpDef(
+        "IdentityAttachKLSparseReg",
+        _kl_sparse_fwd,
+        params={
+            "sparseness_target": Field("float", default=0.1),
+            "penalty": Field("float", default=0.001),
+            "momentum": Field("float", default=0.9),
+        },
     )
 )

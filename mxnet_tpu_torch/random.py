@@ -1,7 +1,7 @@
 """Random sampling on NDArray and the key chain of the graph's random ops.
 
 Counterpart of ``mxnet_tpu/random.py``: ``seed``, ``uniform``,
-``normal`` and ``next_key``. Two kinds of draw live here:
+``normal``, ``randint`` and ``next_key``. Two kinds of draw live here:
 
 - **The key chain follows the JAX package's bit for bit.**
   ``next_key()`` splits one threefry key (``mxnet_tpu/random.py:21-50``):
@@ -15,7 +15,7 @@ Counterpart of ``mxnet_tpu/random.py``: ``seed``, ``uniform``,
   a few scalar ops that the host does without a launch. A key reaches
   its device through :func:`keys_to`, one copy from pinned memory that
   does not wait for the card's stream.
-- **Values of ``uniform`` and ``normal`` do not.** They come from one
+- **Values of ``uniform``, ``normal`` and ``randint`` do not.** They come from one
   ``torch.Generator`` a device, which ``seed`` reseeds, so the two
   packages' initial weights differ under one seed and parity tests carry
   parameters across (``model.params_from_numpy``). Each call still takes
@@ -30,7 +30,7 @@ from . import threefry
 from .context import current_context
 from .ndarray import NDArray
 
-__all__ = ["seed", "uniform", "normal", "next_key", "keys_to"]
+__all__ = ["seed", "uniform", "normal", "randint", "next_key", "keys_to"]
 
 _state = {"seed": 0, "generators": {}, "key": None}
 
@@ -98,3 +98,17 @@ def normal(loc=0.0, scale=1.0, shape=None, ctx=None, out=None):
     """Samples of N(loc, scale^2) in float32."""
     return _draw(lambda t, g: t.normal_(loc, scale, generator=g), shape,
                  ctx, out)
+
+
+def randint(low, high, shape=None, ctx=None):
+    """Integers of [low, high) in int32."""
+    ctx = ctx or current_context()
+    if shape is None:
+        shape = (1,)
+    if isinstance(shape, int):
+        shape = (shape,)
+    dev = ctx.torch_device
+    next_key()
+    data = torch.randint(low, high, tuple(shape), generator=_generator(dev),
+                         dtype=torch.int32, device=dev)
+    return NDArray(data, ctx)

@@ -600,7 +600,8 @@ def maximum(lhs, rhs):
         return _create("_maximum_scalar", [lhs], scalar=float(rhs))
     if isinstance(rhs, Symbol):
         return _create("_maximum_scalar", [rhs], scalar=float(lhs))
-    return max(lhs, rhs)
+    # not max(): ops.install attaches the 'max' reduction to this module
+    return lhs if lhs > rhs else rhs
 
 
 def minimum(lhs, rhs):
@@ -610,4 +611,4 @@ def minimum(lhs, rhs):
         return _create("_minimum_scalar", [lhs], scalar=float(rhs))
     if isinstance(rhs, Symbol):
         return _create("_minimum_scalar", [rhs], scalar=float(lhs))
-    return min(lhs, rhs)
+    return lhs if lhs < rhs else rhs   # see maximum(): 'min' is an op here

@@ -4,12 +4,15 @@
   neither ``jax`` nor ``mxnet_tpu`` in ``sys.modules``;
 - no source of the port, nor ``chip_smoke.py``, the profile tools, the
   card's test files or the port's examples (``examples/rnn_torch``,
-  ``examples/ssd_torch``), imports either;
+  ``examples/ssd_torch``, ``examples/image-classification_torch``),
+  imports either;
 - on the CPU path (serving, LM training, a LeNet ``FeedForward`` fit
   and predict, a LeNet ``Module`` fit and predict (both on the scanned
   path), a bf16 ``make_symbol_train_step`` loop, a callable ``Rtc``
   push, ``matmul_stats`` on CPU tensors, ``examples/ssd_torch``'s
-  training graph through ``Module.fit`` and its detection graph) neither
+  training graph through ``Module.fit`` and its detection graph,
+  ``examples/image-classification_torch``'s MLP through its
+  ``train_model.fit``) neither
   the kernel build
   module ``ops._build`` nor the NVRTC binding ``ops._nvrtc`` is
   imported; the walk over every submodule
@@ -95,6 +98,13 @@ with mx.cpu():
     det.bind(data_shapes=[('data', (4, 3, 32, 32))], for_training=False)
     det.set_params(*mod.get_params())
     assert ssd.evaluate_detections(det, X, Y, 4, 3) >= 0.0
+sys.path.insert(0, 'examples/image-classification_torch')
+import train_mnist, train_imagenet, train_cifar10, train_model
+sys.argv = ['train_mnist.py', '--ctx', 'cpu', '--num-epochs', '1',
+            '--synthetic', '--batch-size', '512']
+model = train_model.fit(train_mnist.parse_args(), train_mnist.get_mlp(),
+                        train_mnist.get_iterator((784,)))
+assert model.arg_params['fc3_weight'].shape == (10, 64)
 print('cpu_path', 'mxnet_tpu_torch.ops._build' in sys.modules,
       'mxnet_tpu_torch.ops._nvrtc' in sys.modules, forbidden())
 import mxnet_tpu_torch as pkg
@@ -158,9 +168,12 @@ def _imports(path):
         ROOT / "tests" / "test_torch_sampling_cuda.py",
         ROOT / "tests" / "test_torch_rnn_cuda.py",
         ROOT / "tests" / "test_torch_symbol_trainer_cuda.py",
-        ROOT / "tests" / "test_torch_vision_cuda.py"]
+        ROOT / "tests" / "test_torch_vision_cuda.py",
+        ROOT / "tests" / "test_torch_zoo_cuda.py"]
     + sorted((ROOT / "examples" / "rnn_torch").glob("*.py"))
-    + sorted((ROOT / "examples" / "ssd_torch").glob("*.py")),
+    + sorted((ROOT / "examples" / "ssd_torch").glob("*.py"))
+    + sorted((ROOT / "examples" / "image-classification_torch").glob(
+        "*.py")),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_the_jax_package(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]

@@ -1,0 +1,366 @@
+"""The rest of the port's ``ops/nn.py`` against the JAX package's ops, on
+the CPU: ``LeakyReLU``, ``Deconvolution``, ``InstanceNorm``,
+``L2Normalization``, ``LRN``, ``ElementWiseSum``, ``Cast``,
+``BlockGrad``, ``UpSampling``, ``Crop`` and
+``IdentityAttachKLSparseReg``.
+
+- forward and the gradients of the differentiated inputs under one
+  seeded cotangent an output, on the same numpy-seeded f32 inputs:
+  elementwise ops within rtol 1e-6 (atol 1e-7, for values near zero);
+  the deconvolutions, the normalisations, LRN's window sums, bilinear
+  resizing and the KL penalty's batch mean within rtol 1e-5 / atol 1e-6;
+- ``Deconvolution`` in 1-D, 2-D and 3-D over stride, pad, adj,
+  ``target_shape`` (also where its adj is not below the stride) and
+  ``no_bias``, with ``infer_shape`` equal; ``num_group`` > 1, where the
+  JAX op raises, against the JAX op run once a group;
+- ``LeakyReLU``'s four modes; ``rrelu``'s training slopes bit-equal to
+  ``jax.random.uniform`` under the same key, and in a bound graph
+  (``LeakyReLU`` before a ``Dropout``) the Dropout mask, the output and
+  the key chain's next key equal after a training forward under
+  ``random.seed``;
+- ``UpSampling`` nearest (one input, ``concat`` and ``sum``) and
+  bilinear (its edges; ``weight``'s gradient zero), ``Crop``'s three
+  modes, ``BlockGrad``'s zero gradient and the KL penalty's gradient.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import mxnet_tpu as mj
+import mxnet_tpu_torch as mt
+from mxnet_tpu.ops import registry as reg_j
+from mxnet_tpu_torch import threefry
+from mxnet_tpu_torch.ops import registry as reg_t
+
+ELEM = (1e-6, 1e-7)     # elementwise (rtol, atol)
+REDUCE = (1e-5, 1e-6)   # products, window sums, normalisations
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _warm_cpu_math():
+    """torch 2.13's CPU ``exp`` and ``tanh`` can err up to 1.5e-4 relative
+    on their first multithreaded call in a process; one call of each on
+    a large tensor first avoids it."""
+    t = torch.randn(100000)
+    torch.exp(t)
+    torch.tanh(t)
+    torch.sigmoid(t)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _quick_jax_compiles():
+    """The JAX references run once each: compile them without XLA's
+    optimisation passes, and drop what was compiled when the module
+    ends."""
+    prev = jax.config.values["jax_disable_most_optimizations"]
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", prev)
+    jax.clear_caches()
+
+
+def _x(*shape, seed=0, scale=1.0):
+    return (np.random.RandomState(seed).randn(*shape) * scale).astype(
+        np.float32)
+
+
+def _check(name, params, inputs, diff=(0,), tol=ELEM, is_train=True,
+           key_seed=None):
+    """Outputs and the gradients of the inputs at ``diff`` for one random
+    cotangent an output, the port's op against the JAX op's; returns
+    (port outputs, port gradients) as numpy."""
+    oj, ot = reg_j.get(name), reg_t.get(name)
+    pj, pt = oj.parse_params(dict(params)), ot.parse_params(dict(params))
+    kj = kt = None
+    if key_seed is not None:
+        kj = jax.random.PRNGKey(key_seed)
+        kt = threefry.prng_key(key_seed, device="cpu")
+
+    def fj(*xs):
+        full = [jnp.asarray(v) for v in inputs]
+        for k, x in zip(diff, xs):
+            full[k] = x
+        return oj.apply(pj, full, [], is_train, kj)[0]
+
+    outs_j, vjp = jax.vjp(jax.jit(fj), *[jnp.asarray(inputs[k])
+                                         for k in diff])
+    rng = np.random.RandomState(7)
+    cots = [rng.randn(*o.shape).astype(o.dtype) for o in outs_j]
+    xs = [torch.tensor(x, requires_grad=k in diff)
+          for k, x in enumerate(inputs)]
+    outs_t, _ = ot.apply(pt, xs, [], is_train, kt)
+    grads_j, grads_t = [], []
+    if diff:
+        grads_j = vjp([jnp.asarray(c) for c in cots])
+        grads_t = torch.autograd.grad(
+            [o for o in outs_t if o.requires_grad],
+            [xs[k] for k in diff],
+            [torch.tensor(c) for c, o in zip(cots, outs_t)
+             if o.requires_grad], allow_unused=True)
+        grads_t = [torch.zeros_like(xs[k]) if g is None else g
+                   for k, g in zip(diff, grads_t)]
+    rtol, atol = tol
+    got = [o.detach().numpy() for o in outs_t] + [g.numpy()
+                                                 for g in grads_t]
+    for a, b in zip(got, list(outs_j) + list(grads_j)):
+        b = np.asarray(b)
+        assert a.shape == b.shape and a.dtype == b.dtype
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol)
+    return got[:len(outs_t)], got[len(outs_t):]
+
+
+def _shapes_equal(name, params, in_shapes):
+    oj, ot = reg_j.get(name), reg_t.get(name)
+    assert ot.infer_shape(ot.parse_params(dict(params)), in_shapes) == \
+        oj.infer_shape(oj.parse_params(dict(params)), in_shapes)
+
+
+# -- LeakyReLU -----------------------------------------------------------------
+@pytest.mark.parametrize("params", [
+    {}, {"act_type": "leaky", "slope": 0.1}, {"act_type": "elu"},
+    {"act_type": "elu", "slope": 1.5}, {"act_type": "rrelu"},
+])
+@pytest.mark.parametrize("is_train", [False, True])
+def test_leaky_relu_matches_jax(params, is_train):
+    # rrelu at inference (no key): the mean slope
+    _check("LeakyReLU", params, [_x(4, 3, 5, 2)], is_train=is_train)
+
+
+def test_prelu_matches_jax():
+    _check("LeakyReLU", {"act_type": "prelu"},
+           [_x(4, 3, 5, 2), np.abs(_x(3, seed=1)) * 0.3], diff=(0, 1))
+    _shapes_equal("LeakyReLU", {"act_type": "prelu"}, [(4, 3, 5), None])
+
+
+@pytest.mark.parametrize("seed,lo,hi", [(3, 0.125, 0.334), (8, 0.0, 1.0)])
+def test_rrelu_training_slopes_bit_equal(seed, lo, hi):
+    x = _x(6, 7, 9, seed=seed)
+    outs, grads = _check("LeakyReLU", {"act_type": "rrelu",
+                                       "lower_bound": lo,
+                                       "upper_bound": hi},
+                         [x], key_seed=seed)
+    want = np.asarray(reg_j.get("LeakyReLU").apply(
+        {"act_type": "rrelu", "slope": 0.25, "lower_bound": lo,
+         "upper_bound": hi}, [jnp.asarray(x)], [], True,
+        jax.random.PRNGKey(seed))[0][0])
+    np.testing.assert_array_equal(outs[0], want)
+    neg = x < 0
+    slopes = outs[0][neg] / x[neg]
+    assert slopes.min() >= lo and slopes.max() < hi + 1e-6
+    assert len(np.unique(slopes)) > neg.sum() // 2   # a slope an element
+
+
+@pytest.mark.parametrize("act_type", ["leaky", "rrelu"])
+def test_leaky_relu_keeps_the_key_chain_aligned(act_type):
+    """A LeakyReLU node takes its key whatever its mode, so the Dropout
+    after it draws the same mask in both packages, and both chains sit
+    at the same key after the training forward."""
+    x = _x(4, 10, seed=2)
+    outs = []
+    for pkg in (mj, mt):
+        with pkg.NameManager():
+            sym = pkg.sym.Dropout(pkg.sym.LeakyReLU(
+                pkg.sym.Variable("data"), act_type=act_type), p=0.5)
+        exe = sym.simple_bind(pkg.cpu(), grad_req="write", data=x.shape)
+        exe.arg_dict["data"][:] = x
+        pkg.random.seed(4)
+        exe.forward(is_train=True)
+        outs.append(exe.outputs[0].asnumpy())
+    np.testing.assert_array_equal(outs[1], outs[0])
+    assert 0 < (outs[0] == 0).mean() < 1
+    kj = mj.random.next_key()
+    kj = jax.random.key_data(kj) if jax.dtypes.issubdtype(
+        kj.dtype, jax.dtypes.prng_key) else kj
+    np.testing.assert_array_equal(mt.random.next_key().numpy(),
+                                  np.asarray(kj).astype(np.int64))
+
+
+# -- Deconvolution -------------------------------------------------------------
+DECONV_CASES = {
+    "2d": ((2, 4, 5, 6), {"kernel": (3, 3), "num_filter": 6}),
+    "2d_stride_pad": ((2, 4, 5, 6), {"kernel": (4, 4), "stride": (2, 2),
+                                     "pad": (1, 1), "num_filter": 3}),
+    "2d_adj_nobias": ((2, 3, 4, 5), {"kernel": (3, 3), "stride": (2, 2),
+                                     "pad": (1, 1), "adj": (1, 1),
+                                     "num_filter": 4, "no_bias": True}),
+    "2d_target": ((2, 3, 5, 6), {"kernel": (4, 4), "stride": (2, 2),
+                                 "target_shape": (9, 12), "num_filter": 2}),
+    "2d_target_adj_at_stride": ((1, 2, 4, 4), {"kernel": (3, 3),
+                                               "target_shape": (5, 6),
+                                               "num_filter": 3}),
+    "1d": ((3, 4, 7), {"kernel": (3,), "stride": (2,), "pad": (1,),
+                       "adj": (1,), "num_filter": 5}),
+    "3d": ((1, 2, 3, 4, 3), {"kernel": (2, 3, 2), "stride": (2, 1, 2),
+                             "pad": (0, 1, 1), "num_filter": 4}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECONV_CASES))
+def test_deconvolution_matches_jax(case):
+    dshape, params = DECONV_CASES[case]
+    op = reg_t.get("Deconvolution")
+    ins, outs, _ = op.infer_shape(op.parse_params(dict(params)),
+                                  [dshape, None] + ([] if params.get(
+                                      "no_bias") else [None]))
+    _shapes_equal("Deconvolution", params,
+                  [dshape, None] + ([] if params.get("no_bias") else [None]))
+    inputs = [_x(*s, seed=i) for i, s in enumerate(ins)]
+    got, _ = _check("Deconvolution", params, inputs,
+                    diff=tuple(range(len(inputs))), tol=REDUCE)
+    assert got[0].shape == outs[0]
+    if "target_shape" in params:
+        assert got[0].shape[2:] == params["target_shape"]
+
+
+@pytest.mark.parametrize("dshape,params", [
+    ((2, 4, 5, 5), {"kernel": (3, 2), "stride": (2, 1), "num_filter": 6,
+                    "num_group": 2}),
+    ((1, 6, 3, 4, 3), {"kernel": (2, 3, 2), "stride": (2, 1, 2),
+                       "pad": (0, 1, 1), "num_filter": 3, "num_group": 3,
+                       "no_bias": True}),
+])
+def test_grouped_deconvolution_matches_jax_per_group(dshape, params):
+    """``num_group`` > 1: the JAX op raises (its weight goes to
+    ``conv_general_dilated`` as all ``in_ch`` inputs of every group), so
+    the port's grouped output and gradients are held against the JAX op
+    run once a group (``num_group`` 1 on each group's channels and
+    weight rows), joined on the channel axis."""
+    g = params["num_group"]
+    pj = reg_j.get("Deconvolution").parse_params(dict(params))
+    op = reg_t.get("Deconvolution")
+    pt = op.parse_params(dict(params))
+    ins, outs, _ = op.infer_shape(pt, [dshape, None]
+                                  + ([] if pt["no_bias"] else [None]))
+    inputs = [_x(*s, seed=i) for i, s in enumerate(ins)]
+    with pytest.raises(Exception):
+        reg_j.get("Deconvolution").apply(
+            pj, [jnp.asarray(v) for v in inputs], [], True, None)
+    one = dict(params, num_group=1, num_filter=params["num_filter"] // g)
+    pone = reg_j.get("Deconvolution").parse_params(one)
+
+    def fj(*xs):
+        data, w = xs[0], xs[1]
+        ci, co = data.shape[1] // g, w.shape[0] // g
+        parts = []
+        for i in range(g):
+            gin = [data[:, i * ci:(i + 1) * ci], w[i * co:(i + 1) * co]]
+            if len(xs) > 2:
+                n = params["num_filter"] // g
+                gin.append(xs[2][i * n:(i + 1) * n])
+            parts.append(reg_j.get("Deconvolution").apply(
+                pone, gin, [], True, None)[0][0])
+        return jnp.concatenate(parts, axis=1)
+
+    want, vjp = jax.vjp(jax.jit(fj), *[jnp.asarray(v) for v in inputs])
+    cot = np.random.RandomState(7).randn(*want.shape).astype(np.float32)
+    xs = [torch.tensor(v, requires_grad=True) for v in inputs]
+    got = op.apply(pt, xs, [], True, None)[0][0]
+    assert tuple(got.shape) == outs[0]
+    grads = torch.autograd.grad(got, xs, torch.tensor(cot))
+    for a, b in zip([got] + list(grads),
+                    [want] + list(vjp(jnp.asarray(cot)))):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                   rtol=REDUCE[0], atol=REDUCE[1])
+
+
+# -- normalisations, LRN -------------------------------------------------------
+@pytest.mark.parametrize("shape", [(3, 4, 5, 6), (2, 3, 7)])
+def test_instance_norm_matches_jax(shape):
+    c = shape[1]
+    _check("InstanceNorm", {"eps": 1e-3},
+           [_x(*shape, scale=2.0) + 1.0, _x(c, seed=1), _x(c, seed=2)],
+           diff=(0, 1, 2), tol=REDUCE)
+
+
+@pytest.mark.parametrize("mode", ["instance", "channel", "spatial"])
+def test_l2_normalization_matches_jax(mode):
+    _check("L2Normalization", {"mode": mode}, [_x(3, 4, 5, 2)], tol=REDUCE)
+
+
+@pytest.mark.parametrize("params", [
+    {"nsize": 5}, {"nsize": 3, "alpha": 0.01, "beta": 0.5, "knorm": 1.0}])
+def test_lrn_matches_jax(params):
+    _check("LRN", params, [_x(2, 7, 4, 5, scale=3.0)], tol=REDUCE)
+
+
+# -- ElementWiseSum, Cast, BlockGrad -------------------------------------------
+def test_elementwise_sum_matches_jax():
+    _check("ElementWiseSum", {"num_args": 3},
+           [_x(3, 4), _x(3, 4, seed=1), _x(3, 4, seed=2)], diff=(0, 1, 2))
+
+
+@pytest.mark.parametrize("dtype", ["float16", "float32", "int32"])
+def test_cast_matches_jax(dtype):
+    diff = () if dtype == "int32" else (0,)
+    _check("Cast", {"dtype": dtype}, [_x(4, 5, scale=3.0)], diff=diff)
+    oj, ot = reg_j.get("Cast"), reg_t.get("Cast")
+    p = {"dtype": dtype}
+    assert ot.infer_type(ot.parse_params(p), [None]) == \
+        oj.infer_type(oj.parse_params(p), [None])
+
+
+def test_block_grad_gives_no_gradient():
+    _, grads = _check("BlockGrad", {}, [_x(3, 4)])
+    assert not grads[0].any()
+    assert reg_t.get("BlockGrad").head_no_grad() is True
+
+
+# -- UpSampling ----------------------------------------------------------------
+@pytest.mark.parametrize("scale", [1, 2, 3])
+def test_upsampling_nearest_matches_jax(scale):
+    _check("UpSampling", {"scale": scale, "sample_type": "nearest"},
+           [_x(2, 3, 4, 5)])
+
+
+@pytest.mark.parametrize("mode", ["concat", "sum"])
+def test_upsampling_nearest_multi_input_matches_jax(mode):
+    params = {"scale": 2, "sample_type": "nearest", "num_args": 2,
+              "multi_input_mode": mode}
+    _check("UpSampling", params, [_x(2, 3, 4, 4), _x(2, 3, 4, 4, seed=1)],
+           diff=(0, 1))
+    _shapes_equal("UpSampling", params, [(2, 3, 4, 4), (2, 3, 4, 4)])
+
+
+@pytest.mark.parametrize("scale", [2, 3, 4])
+def test_upsampling_bilinear_matches_jax_resize(scale):
+    """Half-pixel centres and clamped edges (an edge row and column
+    equal the input's edge pixels for scale 2); ``weight`` is not read
+    and its gradient is zero."""
+    params = {"scale": scale, "sample_type": "bilinear", "num_filter": 3}
+    x = _x(2, 3, 5, 4)
+    k = 2 * scale - scale % 2
+    got, grads = _check("UpSampling", params, [x, _x(3, 1, k, k, seed=1)],
+                        diff=(0, 1), tol=REDUCE)
+    assert got[0].shape == (2, 3, 5 * scale, 4 * scale)
+    assert not grads[1].any()
+    if scale == 2:
+        np.testing.assert_allclose(got[0][:, :, 0, 0], x[:, :, 0, 0],
+                                   rtol=1e-6)
+        np.testing.assert_allclose(got[0][:, :, -1, -1], x[:, :, -1, -1],
+                                   rtol=1e-6)
+    _shapes_equal("UpSampling", params, [(2, 3, 5, 4), None])
+
+
+# -- Crop, KL regulariser ------------------------------------------------------
+@pytest.mark.parametrize("params,like", [
+    ({"num_args": 1, "h_w": (3, 4), "offset": (1, 2)}, None),
+    ({"num_args": 1, "h_w": (3, 2), "center_crop": True}, None),
+    ({"num_args": 2}, (2, 1, 4, 3)),
+    ({"num_args": 2, "center_crop": True}, (2, 1, 5, 4)),
+])
+def test_crop_matches_jax(params, like):
+    inputs = [_x(2, 3, 7, 6)] + ([] if like is None else [_x(*like, seed=1)])
+    _check("Crop", params, inputs)
+    _shapes_equal("Crop", params, [(2, 3, 7, 6)]
+                  + ([] if like is None else [like]))
+
+
+@pytest.mark.parametrize("target,penalty", [(0.1, 0.001), (0.3, 0.5)])
+def test_kl_sparse_reg_gradient_matches_jax(target, penalty):
+    x = _x(8, 5, scale=2.0)
+    outs, grads = _check("IdentityAttachKLSparseReg",
+                         {"sparseness_target": target, "penalty": penalty,
+                          "momentum": 0.5}, [x], tol=REDUCE)
+    np.testing.assert_array_equal(outs[0], x)
