@@ -56,8 +56,9 @@ Phases (any failure raises and the script exits non-zero):
    50, [1000, 1001] f16, [4096, 32000] bf16, [8, 2097152] f32 (8 MB
    rows, past the TPU kernel's fallback), [3, 1], the LSTM's [1920,
    200] f32, bench.py's [128, 1000] bf16, Inception-BN's [256, 1000]
-   f32 and train_cifar10's [128, 10] f32, each timed beside the plain
-   version, ``torch.softmax`` and its bytes bound;
+   f32, train_cifar10's [128, 10] f32 and Faster R-CNN's [32, 3] f32,
+   each timed beside the plain version, ``torch.softmax`` and its bytes
+   bound;
 8. the Symbol path, LeNet: the canonical ``FeedForward.fit`` of the
    verify recipe on ``gpu(0)`` (MNISTIter 1024 synthetic digits, batch
    64, 3 epochs, lr 0.1, momentum 0.9, Xavier), which must score > 0.9
@@ -143,13 +144,31 @@ Phases (any failure raises and the script exits non-zero):
    against the host, and every op of the slice (``ZOO_OP_CASES``,
    ``rrelu``'s draws bit-equal) on the card against the host
    (``phase_zoo``);
-17. RTC (K5): the CUDA C bodies of ``RTC_BODIES`` compiled by NVRTC and
+17. Faster R-CNN through the host bridges (``phase_rcnn``):
+   examples/rcnn_torch/train_end2end.py at its defaults (16 synthetic
+   3x128x128 images, batch 1, 30 epochs, SGD 5e-3 / 0.9, wd 5e-4,
+   Xavier) through the per-batch ``Module.fit``, its proposal and
+   proposal_target CustomOps on the host between the card's ops, then
+   detection through the test symbol: the example's asserts (rpn_acc >
+   0.8, mean IoU > 0.3, mAP > 0.2), K1 once a step at [32, 3] (480);
+   train_alternate.py at its defaults (its asserts; K1 once a step of
+   its RCNN head's scanned fits, 216); one train step on the card
+   against the host with the CustomOps' outputs made equal, and three
+   runs of it on the card byte-equal; prints ms a step, the host ops'
+   ms a step and the busy share of the last epoch;
+   then the host-bridge examples (``phase_host_bridges``: DEC with
+   Adam, numpy-ops' ``FeedForward``, the torch example, each to its own
+   gate; a Custom op, a NumpyOp, TorchModule, TorchCriterion and the 31
+   ``mx.th`` functions on the card against the host) and every
+   optimizer's updates on the card against the host
+   (``phase_optimizers``);
+18. RTC (K5): the CUDA C bodies of ``RTC_BODIES`` compiled by NVRTC and
    pushed through ``mx.rtc.Rtc`` on ``gpu(0)``, each held against its
    plain PyTorch twin; the real-size body (a*b + c over 2^26 elements,
    f32 and bf16) timed beside its twin, ``torch.addcmul`` and its bytes
    bound; the cold NVRTC compile and a cached push's host time; a body
    with a syntax error must raise;
-18. the matmul with column statistics (K6) against its plain version at
+19. the matmul with column statistics (K6) against its plain version at
    the probe's four shapes (ResNet-50's 1x1 convolutions at batch 128 as
    matmuls), a ragged M and a nonzero-mean x (the limit must reject a sum
    with one row tile dropped); then the probe's path,
@@ -157,9 +176,9 @@ Phases (any failure raises and the script exits non-zero):
    the unfused matmul-then-statistics sequence, K6, plain,
    ``torch.matmul`` and sequence times), K6's count zeroed just before
    and read just after;
-19. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
+20. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
    main paths, error, times and bound;
-20. the last line: ``{"ok": true, "device": {...}}``.
+21. the last line: ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matrix products and cuDNN convolutions in every phase
 (set once in ``main``), so f32 work runs in full f32.
@@ -1156,7 +1175,8 @@ SOFTMAX_CASES = [((64, 10), "float32", 1.0), ((128, 1000), "float32", 1.0),
                  ((1920, 200), "float32", 1.0),   # the LSTM's T = 60 bucket
                  ((128, 1000), "bfloat16", 1.0),  # bench.py's bf16 step
                  ((256, 1000), "float32", 1.0),   # Inception-BN's fit
-                 ((128, 10), "float32", 1.0)]     # train_cifar10's fit
+                 ((128, 10), "float32", 1.0),     # train_cifar10's fit
+                 ((32, 3), "float32", 1.0)]       # Faster R-CNN's head
 SOFTMAX_OPS = 5   # f32 operations an element: max, subtract, exp, sum, divide
 
 
@@ -3151,7 +3171,8 @@ def phase_ssd(device="cuda", argv=()):
             mock.patch.object(mx.module.Module, "fit", fit), \
             mock.patch.object(ex, "evaluate_detections", evaluate):
         for k in ("MXNET_SCAN_TRAIN", "MXNET_TRAIN_SCAN_K",
-                  "MXNET_COMPUTE_DTYPE", "MXNET_EXAMPLE_SMOKE"):
+                  "MXNET_COMPUTE_DTYPE", "MXNET_EXAMPLE_SMOKE",
+                  "MXNET_ENFORCE_DETERMINISM"):
             os.environ.pop(k, None)   # the defaults: scanned, K = 8
         args = ex.parse_args()
         _sync(device)
@@ -3947,6 +3968,564 @@ def phase_cifar10(device="cuda", argv=()):
     return rec
 
 
+# -- Faster R-CNN through the host bridges, DEC, numpy-ops, the torch plugin
+# and the optimizers ---------------------------------------------------------
+RCNN_DIR = os.path.join("examples", "rcnn_torch")
+RCNN_NAMES = ("proposal", "proposal_target", "rcnn_utils", "symbol_rcnn",
+              "eval_map", "train_end2end", "train_alternate")
+RCNN_INPUTS = ("data", "im_info", "gt_boxes", "label", "bbox_target",
+               "bbox_weight")
+HOST_TOL = 1e-4   # card against host under closeness(), f32
+_examples = {}
+
+
+def _example_modules(dirname, names):
+    """The modules ``names`` of an example directory, imported with the
+    directory first on ``sys.path`` (once a process; they stay in
+    ``sys.modules``, where the example's own imports find them)."""
+    import importlib
+
+    if dirname not in _examples:
+        d = os.path.join(os.path.dirname(os.path.abspath(__file__)), dirname)
+        if d not in sys.path:
+            sys.path.insert(0, d)
+        _examples[dirname] = {n: importlib.import_module(n) for n in names}
+    return _examples[dirname]
+
+
+def _np_close(got, want, tol=HOST_TOL):
+    import numpy as np
+    import torch
+
+    return closeness(torch.from_numpy(np.asarray(got, np.float32)),
+                     torch.from_numpy(np.asarray(want, np.float32)), tol)
+
+
+def _run_main(fn, argv, script):
+    """Run an example's ``main`` under ``argv`` with the fit switches at
+    their defaults, its stdout captured; returns (stdout, seconds)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with mock.patch.object(sys, "argv", [script] + list(argv)), \
+            mock.patch.dict(os.environ), contextlib.redirect_stdout(buf):
+        for k in ("MXNET_SCAN_TRAIN", "MXNET_TRAIN_SCAN_K",
+                  "MXNET_COMPUTE_DTYPE", "MXNET_EXAMPLE_SMOKE",
+                  "MXNET_ENFORCE_DETERMINISM"):
+            os.environ.pop(k, None)
+        t0 = time.perf_counter()
+        try:
+            fn()
+        finally:
+            out = buf.getvalue()
+            print(out, end="", flush=True)
+    return out, time.perf_counter() - t0
+
+
+def rcnn_params(seed=5):
+    """Xavier-scaled (uniform, avg, magnitude 3) seeded numpy weights and
+    zero biases for Faster R-CNN's train symbol."""
+    import numpy as np
+
+    net = _example_modules(RCNN_DIR, RCNN_NAMES)["symbol_rcnn"].get_train(
+        num_classes=3)
+    shapes, _, _ = net.infer_shape(data=(1, 3, 128, 128), im_info=(1, 3),
+                                   gt_boxes=(1, 3, 5))
+    rng = np.random.RandomState(seed)
+    out = {}
+    for n, s in zip(net.list_arguments(), shapes):
+        if n in RCNN_INPUTS:
+            continue
+        if n.endswith("_bias"):
+            out[n] = np.zeros(s, np.float32)
+            continue
+        fan = (s[1] + s[0]) * int(np.prod(s[2:])) / 2.0
+        out[n] = rng.uniform(-1, 1, s).astype(np.float32) * np.float32(
+            np.sqrt(3.0 / fan))
+    return out
+
+
+def _rcnn_step(device, params):
+    """One ``forward_backward`` of the train symbol on the first image of
+    ``DetectionIter(2)``: the five heads and the parameters' gradients
+    as numpy."""
+    import mxnet_tpu_torch as mx
+
+    ex = _example_modules(RCNN_DIR, RCNN_NAMES)
+    ctx = _ctx(device)
+    with ctx:
+        it = ex["train_end2end"].DetectionIter(2)
+        batch = it.next()
+        mod = mx.module.Module(ex["symbol_rcnn"].get_train(num_classes=3),
+                               context=ctx,
+                               data_names=("data", "im_info", "gt_boxes"),
+                               label_names=("label", "bbox_target",
+                                            "bbox_weight"))
+        mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+        mod.init_params(arg_params=mx.model.params_from_numpy(
+            params, ctx=ctx)[0], aux_params={})
+        mod.forward_backward(batch)
+        outs = [o.asnumpy() for o in mod.get_outputs()]
+        grads = {n: g.asnumpy()
+                 for n, g in mod._execs[0].grad_dict.items()
+                 if g is not None and n in params}
+    return outs, grads
+
+
+def rcnn_grad_check(device="cuda"):
+    """Faster R-CNN's train step on ``device`` against the host, with the
+    two CustomOps' outputs made equal: the device run records what each
+    CustomOp's forward wrote, and the host run replays it in place of
+    its own forward (a near-tie among proposal scores could otherwise
+    pick other rois on the two sides). Every head and parameter
+    gradient under :func:`closeness` at HOST_TOL."""
+    ex = _example_modules(RCNN_DIR, RCNN_NAMES)
+    ops = (ex["proposal"].ProposalOperator,
+           ex["proposal_target"].ProposalTargetOperator)
+    params = rcnn_params()
+    recorded = []
+
+    def recording(real):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            real(self, is_train, req, in_data, out_data, aux)
+            recorded.append([o.asnumpy().copy() for o in out_data])
+        return forward
+
+    def replay(self, is_train, req, in_data, out_data, aux):
+        for o, v in zip(out_data, recorded.pop(0)):
+            o[:] = v
+
+    with mock.patch.object(ops[0], "forward", recording(ops[0].forward)), \
+            mock.patch.object(ops[1], "forward", recording(ops[1].forward)):
+        got = _rcnn_step(device, params)
+    n_custom = len(recorded)
+    with mock.patch.object(ops[0], "forward", replay), \
+            mock.patch.object(ops[1], "forward", replay):
+        want = _rcnn_step("cpu", params)
+    heads = [_np_close(g, w) for g, w in zip(got[0], want[0])]
+    grads = {n: _np_close(got[1][n], want[1][n]) for n in want[1]}
+    rec = {"phase": "rcnn_grad_check", "custom_forwards": n_custom,
+           "heads_rel_l2": [h["rel_l2"] for h in heads],
+           "max_grad_rel_l2": max(c["rel_l2"] for c in grads.values()),
+           "max_grad_err_to_limit": max(c["elem"] for c in grads.values()),
+           "tol": HOST_TOL}
+    log(rec)
+    bad = [i for i, h in enumerate(heads) if not within(h, HOST_TOL)] + [
+        n for n, c in grads.items() if not within(c, HOST_TOL)]
+    if n_custom != 2 or bad:
+        raise AssertionError("Faster R-CNN on the card disagrees with the "
+                             "host at %s: %r" % (bad, rec))
+    return rec
+
+
+def rcnn_repeat_check(device="cuda", repeats=3):
+    """Faster R-CNN's train step run ``repeats`` times on ``device`` from
+    the same parameters and image, each in a Module of its own (so each
+    proposal_target draws from a fresh ``RandomState(0)``): every head
+    and every parameter gradient must be byte-equal to the first run's.
+    cuDNN's atomic-summing backward algorithms would break it
+    (``base.deterministic_grads``)."""
+    params = rcnn_params()
+    runs = [_rcnn_step(device, params) for _ in range(repeats)]
+    first = runs[0]
+    differ = sorted({
+        "head%d" % i for outs, _ in runs[1:]
+        for i, (a, b) in enumerate(zip(first[0], outs))
+        if a.tobytes() != b.tobytes()} | {
+        n for _, grads in runs[1:] for n in first[1]
+        if first[1][n].tobytes() != grads[n].tobytes()})
+    rec = {"phase": "rcnn_repeat_check", "repeats": repeats,
+           "tensors": len(first[0]) + len(first[1]), "differ": differ}
+    log(rec)
+    if differ:
+        raise AssertionError("Faster R-CNN's step is not reproducible on "
+                             "%s: %s differ" % (device, differ))
+    return rec
+
+
+def phase_rcnn(device="cuda", argv=(), alternate_argv=()):
+    """Faster R-CNN at examples/rcnn_torch/train_end2end.py's defaults (16
+    synthetic 3x128x128 images, batch 1, 30 epochs, SGD 5e-3 / 0.9, wd
+    5e-4, Xavier) through the per-batch ``Module.fit`` (the scanned
+    trainer refuses a graph with host ops): the proposal and
+    proposal_target CustomOps run on the host between the card's ops;
+    then detection through the test symbol, mean IoU and VOC07 mAP. The
+    example's own asserts must hold (rpn_acc > 0.8, mean IoU > 0.3, mAP
+    > 0.2); K1 (rcnn_cls_prob's [32, 3] SoftmaxOutput) once a step, its
+    count zeroed just before ``main`` and read just after. Then
+    train_alternate.py at its defaults (its asserts: rpn > 0.8, rcnn >
+    0.6; its RCNN head trains on the scanned fit, K1 once a step),
+    :func:`rcnn_grad_check` and :func:`rcnn_repeat_check`. Prints ms a
+    step (the median of the epochs between the first and the profiled
+    last), the host ops' ms a step, the busy share of the last epoch and
+    each epoch's metrics."""
+    import re
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import registry as reg
+    from mxnet_tpu_torch.ops import softmax as sm
+
+    ex = _example_modules(RCNN_DIR, RCNN_NAMES)
+    te = ex["train_end2end"]
+    ctx_args = ["--ctx", "cpu"] if device == "cpu" else []
+    seen = {"stamps": [], "metrics": [], "host_s": []}
+    real_fit = mx.module.Module.fit
+    real_map = ex["eval_map"].evaluate_map
+    host_s = [0.0]
+    real_host = reg._HostOpFn.forward, reg._HostOpFn.backward
+
+    def timed(fn):
+        def run(*a):
+            t = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                host_s[0] += time.perf_counter() - t
+        return staticmethod(run)
+
+    prof = None
+    if device == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def fit(self, train_data, **kw):
+        metric, epochs = kw["eval_metric"], kw["num_epoch"]
+
+        def on_epoch(epoch, *_):
+            _sync(device)
+            seen["stamps"].append(time.perf_counter())
+            seen["metrics"].append(dict(zip(*metric.get())))
+            seen["host_s"].append(host_s[0])
+            if prof is not None and epochs > 2:
+                if epoch == epochs - 2:
+                    prof.start()
+                elif epoch == epochs - 1:
+                    prof.stop()
+
+        kw["epoch_end_callback"] = on_epoch
+        _sync(device)
+        seen["t0"] = time.perf_counter()
+        return real_fit(self, train_data, **kw)
+
+    def evaluate_map(*a, **kw):
+        seen["map"] = real_map(*a, **kw)
+        return seen["map"]
+
+    with mock.patch.object(mx.module.Module, "fit", fit), \
+            mock.patch.object(ex["eval_map"], "evaluate_map", evaluate_map), \
+            mock.patch.object(reg._HostOpFn, "forward", timed(real_host[0])), \
+            mock.patch.object(reg._HostOpFn, "backward",
+                              timed(real_host[1])):
+        _sync(device)
+        sm.fused_softmax.launches = 0
+        out, wall = _run_main(te.main, list(argv) + ctx_args,
+                              "train_end2end.py")
+        _sync(device)
+        launches = sm.fused_softmax.launches
+    m = re.search(r"mean-IoU\(top1\)=([0-9.]+)", out)
+    miou = float(m.group(1)) if m else None
+    n_img = int(_argv_value(argv, "--num-images", 16))
+    epochs = int(_argv_value(argv, "--epochs", 30))
+    epoch_s = [b - a for a, b in zip([seen["t0"]] + seen["stamps"][:-1],
+                                     seen["stamps"])]
+    host_epoch = [b - a for a, b in zip([0.0] + seen["host_s"][:-1],
+                                        seen["host_s"])]
+    plain = list(range(1, len(epoch_s) - (1 if prof is not None else 0)))
+    plain = plain or list(range(len(epoch_s)))
+    steps_ms = sorted(1e3 * epoch_s[e] / n_img for e in plain)
+    host_ms = sorted(1e3 * host_epoch[e] / n_img for e in plain)
+    busy = None
+    if prof is not None:
+        summed_ms, busy_ms, events = device_busy(prof)
+        plain_s = sum(epoch_s[e] for e in plain) / len(plain)
+        busy = {"epoch": epochs - 1, "device_events": events,
+                "device_events_per_step": events / n_img,
+                "device_ms": summed_ms, "device_busy_ms": busy_ms,
+                "profiled_epoch_s": epoch_s[-1],
+                "unprofiled_epoch_s": plain_s,
+                "busy_share": busy_ms / 1e3 / plain_s}
+
+    # train_alternate at its defaults: K1 once a step of its RCNN head's
+    # two scanned fits (12 images, 12 + 6 epochs)
+    alt = ex["train_alternate"]
+    sm.fused_softmax.launches = 0
+    alt_out, alt_wall = _run_main(alt.main, list(alternate_argv) + ctx_args,
+                                  "train_alternate.py")
+    _sync(device)
+    alt_launches = sm.fused_softmax.launches
+    alt_images = int(_argv_value(alternate_argv, "--num-images", 12))
+    rcnn_epochs = int(_argv_value(alternate_argv, "--rcnn-epochs", 12))
+    alt_expected = (alt_images * (rcnn_epochs + rcnn_epochs // 2)
+                    if device == "cuda" else 0)
+
+    check = rcnn_grad_check(device)
+    repeat = rcnn_repeat_check(device)
+    rec = {"phase": "rcnn", "example": RCNN_DIR + "/train_end2end.py",
+           "images": n_img, "epochs": epochs, "image": te.IMAGE,
+           "wall_s": wall, "epoch_s": epoch_s,
+           "step_ms_median": steps_ms[len(steps_ms) // 2],
+           "step_ms_range": [steps_ms[0], steps_ms[-1]],
+           "host_op_ms_per_step_median": host_ms[len(host_ms) // 2],
+           "busy": busy, "metrics_by_epoch": seen["metrics"],
+           "mean_iou": miou, "map": seen.get("map"),
+           "softmax_launches": launches,
+           "alternate": {"wall_s": alt_wall,
+                         "softmax_launches": alt_launches,
+                         "expected": alt_expected,
+                         "ok": "ok: alternating" in alt_out},
+           "grad_check": check, "repeat_check": repeat}
+    log(rec)
+    expected = n_img * epochs if device == "cuda" else 0
+    if launches != expected:
+        raise AssertionError("Faster R-CNN launched K1 %d times, expected "
+                             "%d" % (launches, expected))
+    if alt_launches != alt_expected:
+        raise AssertionError("train_alternate launched K1 %d times, "
+                             "expected %d" % (alt_launches, alt_expected))
+    if "ok: rcnn end-to-end" not in out or "ok: alternating" not in alt_out:
+        raise AssertionError("a Faster R-CNN example did not finish")
+    return rec
+
+
+def _argv_value(argv, flag, default):
+    argv = list(argv)
+    return argv[argv.index(flag) + 1] if flag in argv else default
+
+
+def host_bridge_checks(device="cuda"):
+    """The host bridges on ``device`` against the host: a graph with a
+    Custom op (two inputs, a keyword argument) and a NumpyOp loss head,
+    TorchModule (an MLP, a Conv1d) under a TorchCriterion, and the 31
+    ``mx.th`` functions; outputs and gradients under :func:`closeness`
+    at HOST_TOL."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+
+    _register_smoke_ops()
+
+    def run(dev, net, vals):
+        ctx = _ctx(dev)
+        args = {n: mx.nd.array(v, ctx=ctx) for n, v in vals.items()}
+        grads = {n: mx.nd.zeros(v.shape, ctx=ctx) for n, v in vals.items()
+                 if n not in ("data", "label")}
+        exe = net.bind(ctx, args, args_grad=grads)
+        outs = [o.asnumpy() for o in exe.forward(is_train=True)]
+        exe.backward()
+        return outs, {n: g.asnumpy() for n, g in grads.items()}
+
+    nets = {}
+    with mx.NameManager():
+        d = mx.sym.Variable("data")
+        fc = mx.sym.FullyConnected(d, num_hidden=16, name="fc")
+        aff = mx.sym.Custom(data=fc, gamma=mx.sym.Variable("gamma"),
+                            op_type="smoke_affine", factor="0.5", name="aff")
+        nets["custom_numpy_op"] = (_SMOKE_OPS["lsm"](
+            data=mx.sym.FullyConnected(mx.sym.Activation(
+                aff, act_type="tanh"), num_hidden=10, name="fc2"),
+            label=mx.sym.Variable("label"), name="lsm"), (32, 20))
+    for mstr, shape in (("torch.nn.Sequential(torch.nn.Linear(20, 32), "
+                         "torch.nn.ReLU(), torch.nn.Linear(32, 10))",
+                         (32, 20)),
+                        ("torch.nn.Conv1d(4, 10, 3)", (32, 4, 7))):
+        with mx.NameManager():
+            tm = mx.sym.TorchModule(mx.sym.Variable("data"),
+                                    module_string=mstr, name="tm")
+            lab = mx.sym.Variable("label")
+            nets[mstr.split("(")[0].split(".")[-1]] = (mx.sym.TorchCriterion(
+                mx.sym.Flatten(tm), lab, module_string="torch.nn.MSELoss()",
+                name="crit"), shape)
+    rng = np.random.RandomState(3)
+    checks = {}
+    for name, (net, shape) in nets.items():
+        shapes, out_shapes, _ = net.infer_shape(data=shape)
+        vals = {}
+        for n, s in zip(net.list_arguments(), shapes):
+            vals[n] = (rng.randint(0, 10, s).astype(np.float32)
+                       if n == "label" and name == "custom_numpy_op"
+                       else rng.randn(*s).astype(np.float32) * 0.5)
+        got, want = run(device, net, vals), run("cpu", net, vals)
+        cl = [_np_close(g, w) for g, w in zip(got[0], want[0])] + [
+            _np_close(got[1][n], want[1][n]) for n in want[1]]
+        checks[name] = {"rel_l2": max(c["rel_l2"] for c in cl),
+                        "elem": max(c["elem"] for c in cl),
+                        "ok": all(within(c, HOST_TOL) for c in cl)}
+    th = {}
+    for fname, arity in sorted(mx.torch_plugin._TH_FUNCS.items()):
+        shapes = ([(64,), (64,)] if fname == "dot" else
+                  [(32, 48), (48, 16)] if fname == "mm" else [(32, 48)] * arity)
+        vals = [rng.uniform(0.2, 0.9, s).astype(np.float32) for s in shapes]
+        res = [getattr(mx.th, fname)(*[mx.nd.array(v, ctx=_ctx(dev))
+                                       for v in vals]).asnumpy()
+               for dev in (device, "cpu")]
+        th[fname] = _np_close(res[0], res[1])
+    checks["th"] = {"functions": len(th),
+                    "rel_l2": max(c["rel_l2"] for c in th.values()),
+                    "ok": all(within(c, HOST_TOL) for c in th.values())}
+    return checks
+
+
+_SMOKE_OPS = {}
+
+
+def _register_smoke_ops():
+    """A Custom op and a NumpyOp for :func:`host_bridge_checks`
+    (registered once a process)."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+
+    if _SMOKE_OPS:
+        return
+
+    class Affine(mx.operator.CustomOp):
+        def __init__(self, factor):
+            self.factor = np.float32(factor)
+
+        def forward(self, is_train, req, in_data, out_data, aux):
+            d, g = in_data[0].asnumpy(), in_data[1].asnumpy()
+            self.assign(out_data[0], req[0], d * g[None, :] * self.factor)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            og = out_grad[0].asnumpy()
+            d, g = in_data[0].asnumpy(), in_data[1].asnumpy()
+            self.assign(in_grad[0], req[0], og * g[None, :] * self.factor)
+            self.assign(in_grad[1], req[1], (og * d).sum(0) * self.factor)
+
+    @mx.operator.register("smoke_affine")
+    class AffineProp(mx.operator.CustomOpProp):
+        def __init__(self, factor="1.0"):
+            super().__init__(need_top_grad=True)
+            self.factor = float(factor)
+
+        def list_arguments(self):
+            return ["data", "gamma"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], [in_shape[0][1]]], [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return Affine(self.factor)
+
+    class LogSoftmax(mx.operator.NumpyOp):
+        def __init__(self):
+            super().__init__(False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]]
+
+        def forward(self, in_data, out_data):
+            x = in_data[0] - in_data[0].max(axis=1, keepdims=True)
+            out_data[0][:] = x - np.log(np.exp(x).sum(axis=1, keepdims=True))
+
+        def backward(self, out_grad, in_data, out_data, in_grad):
+            lab = in_data[1].astype(int)
+            in_grad[0][:] = np.exp(out_data[0])
+            in_grad[0][np.arange(len(lab)), lab] -= 1.0
+
+    _SMOKE_OPS["lsm"] = LogSoftmax()
+
+
+def phase_host_bridges(device="cuda"):
+    """The three host-bridge examples at their defaults on ``device``,
+    each to its own gate: examples/dec_torch/dec_clustering.py (DEC with
+    Adam, the DECLoss NumpyOp on the host: cluster accuracy > 0.9 and no
+    worse than the k-means start), examples/numpy-ops_torch/
+    numpy_softmax.py (a NumpyOp log-softmax head through
+    ``FeedForward``'s per-batch loop: validation accuracy > 0.9) and
+    examples/torch_torch/torch_module_mnist.py (a TorchModule layer on
+    the card: validation accuracy > 0.9, ``mx.th``); then
+    :func:`host_bridge_checks`. Prints each example's wall time and
+    reading."""
+    import re
+
+    checks = {}
+    for name, d, script, pattern in (
+            ("dec", "dec_torch", "dec_clustering.py", r"-> DEC ([0-9.]+)"),
+            ("numpy_ops", "numpy-ops_torch", "numpy_softmax.py",
+             r"val acc ([0-9.]+)"),
+            ("torch_module", "torch_torch", "torch_module_mnist.py",
+             r"val accuracy ([0-9.]+)")):
+        mod = _example_modules(os.path.join("examples", d),
+                               (script[:-3],))[script[:-3]]
+        out, wall = _run_main(mod.main, ["--ctx", "cpu"] if device == "cpu"
+                              else [], script)
+        m = re.search(pattern, out)
+        checks[name] = {"wall_s": wall,
+                        "reading": float(m.group(1)) if m else None}
+        if not (m and float(m.group(1)) > 0.9):
+            raise AssertionError("%s: %r" % (script, out[-500:]))
+    bridges = host_bridge_checks(device)
+    rec = {"phase": "host_bridges", "examples": checks,
+           "card_against_host": bridges}
+    log(rec)
+    if bridges and not all(c["ok"] for c in bridges.values()):
+        raise AssertionError("a host bridge on the card disagrees with the "
+                             "host: %r" % bridges)
+    return rec
+
+
+OPTIMIZER_CASES = {"sgd": dict(momentum=0.9), "ccsgd": dict(momentum=0.9),
+                   "nag": dict(momentum=0.9), "sgld": {}, "adam": {},
+                   "adagrad": {}, "rmsprop": {}, "adadelta": {}, "test": {}}
+
+
+def optimizer_updates(name, device, shape=(1024, 1024), steps=3):
+    """``steps`` updates of optimizer ``name`` on ``device`` (wd, rescale,
+    clip, a FactorScheduler), from seeded numpy weights and gradients;
+    the weight and state after each as numpy."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+
+    rng = np.random.RandomState(11)
+    w0 = rng.randn(*shape).astype(np.float32)
+    grads = [rng.randn(*shape).astype(np.float32) * 2 for _ in range(steps)]
+    mx.random.seed(7)
+    opt = mx.optimizer.create(
+        name, learning_rate=0.05, wd=0.01, rescale_grad=0.5,
+        clip_gradient=0.8, param_idx2name={0: "fc_weight"},
+        lr_scheduler=mx.lr_scheduler.FactorScheduler(step=2, factor=0.5),
+        **OPTIMIZER_CASES[name])
+    ctx = _ctx(device)
+    w = mx.nd.array(w0, ctx=ctx)
+    state = opt.create_state(0, w)
+    trail = []
+    for g in grads:
+        opt.update(0, w, mx.nd.array(g, ctx=ctx), state)
+        leaves = ([] if state is None else list(state)
+                  if isinstance(state, tuple) else [state])
+        trail.append([w.asnumpy()] + [s.asnumpy() for s in leaves])
+    return trail
+
+
+def phase_optimizers(device="cuda"):
+    """Every optimizer's three updates of a [1024, 1024] weight on the
+    card against the same updates on the host (SGLD's noise from the
+    same threefry keys, drawn on the card): each weight and state under
+    :func:`closeness` at HOST_TOL."""
+    res = {}
+    for name in sorted(OPTIMIZER_CASES):
+        got = optimizer_updates(name, device)
+        want = optimizer_updates(name, "cpu")
+        cl = [_np_close(g, w) for gs, ws in zip(got, want)
+              for g, w in zip(gs, ws)]
+        res[name] = {"max_abs_err": max(c["abs"] for c in cl),
+                     "rel_l2": max(c["rel_l2"] for c in cl),
+                     "ok": all(within(c, HOST_TOL) for c in cl)}
+    rec = {"phase": "optimizers", "tol": HOST_TOL, "by_optimizer": res}
+    log(rec)
+    if not all(r["ok"] for r in res.values()):
+        raise AssertionError("an optimizer on the card disagrees with the "
+                             "host: %r" % res)
+    return rec
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4019,6 +4598,13 @@ def main():
     torch.cuda.empty_cache()
     phase_zoo()
     torch.cuda.empty_cache()
+    rcnn_rec = phase_rcnn()
+    rcnn = rcnn_rec["softmax_launches"]
+    rcnn_alternate = rcnn_rec["alternate"]["softmax_launches"]
+    torch.cuda.empty_cache()
+    phase_host_bridges()
+    phase_optimizers()
+    torch.cuda.empty_cache()
     rtc = phase_rtc()
     torch.cuda.empty_cache()
     mm_stats = phase_matmul_stats()
@@ -4073,13 +4659,14 @@ def main():
     sm_lstm = sm_case((1920, 200), "float32")    # the LSTM's T = 60
     sm_bench = sm_case((128, 1000), "bfloat16")  # bench.py's bf16 step
     sm_incbn = sm_case((256, 1000), "float32")   # Inception-BN's fit
+    sm_rcnn = sm_case((32, 3), "float32")        # Faster R-CNN's head
     kernels.append({
         "name": "softmax", "route": "cuda",
         "source": "mxnet_tpu_torch/ops/csrc/softmax.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:517",
         "launches": (lenet + resnet + module + resnet_module + lstm
                      + resnet_bench + resnet_scanned + ssd + inception_bn
-                     + cifar10),
+                     + cifar10 + rcnn + rcnn_alternate),
         "launches_by_path": {"lenet_fit": lenet, "resnet50_fit": resnet,
                              "module": module,
                              "resnet50_module_fit": resnet_module,
@@ -4087,7 +4674,8 @@ def main():
                              "resnet50_bench": resnet_bench,
                              "resnet50_scanned_fit": resnet_scanned,
                              "ssd": ssd, "inception_bn": inception_bn,
-                             "cifar10": cifar10},
+                             "cifar10": cifar10, "rcnn": rcnn,
+                             "rcnn_alternate": rcnn_alternate},
         "max_abs_err": max(c["max_abs_err"] for c in softmax_checks),
         "max_err_to_limit": max(c["closeness"]["elem"]
                                 for c in softmax_checks),
@@ -4105,6 +4693,9 @@ def main():
             "shape", "dtype", "variant", "ms", "graph_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "library_graph_ms")},
         "inception_bn_shape": {k: sm_incbn[k] for k in (
+            "shape", "dtype", "variant", "ms", "graph_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library_graph_ms")},
+        "rcnn_shape": {k: sm_rcnn[k] for k in (
             "shape", "dtype", "variant", "ms", "graph_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "library_graph_ms")}})
     f32, bf16 = (rtc["timing"]["mul_add_" + t]

@@ -37,7 +37,12 @@ on one card:
   ``compute_dtype``);
 - runtime-compiled kernels: ``rtc.Rtc`` wraps a user's CUDA C kernel
   body, compiles it with NVRTC for ``sm_90a`` and launches it on
-  NDArrays on the card.
+  NDArrays on the card;
+- the escape hatches: ``operator`` (``CustomOp``/``CustomOpProp`` behind
+  ``sym.Custom``, ``NumpyOp``), whose user code runs on the host between
+  the card's ops, and ``torch_plugin`` (``sym.TorchModule``,
+  ``sym.TorchCriterion`` and ``th``), which runs torch modules on the
+  graph's device.
 
 Entry points run on ``cuda:0`` unless given a device or context; without
 CUDA and without one they raise.
@@ -78,6 +83,11 @@ from . import monitor  # noqa: E402
 from .monitor import Monitor  # noqa: E402
 from . import module  # noqa: E402
 from . import rtc  # noqa: E402
+from . import operator  # noqa: E402
+# the plugin submodule is named ``torch``: this binds the package's
+# global ``torch`` to it, so nothing below may mean the torch library
+from . import torch as torch_plugin  # noqa: E402
+from .torch import th  # noqa: E402
 from . import parallel  # noqa: E402
 from . import serving  # noqa: E402
 
@@ -90,4 +100,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "Prefix", "NDArray", "Executor", "initializer", "optimizer",
            "lr_scheduler", "metric", "callback", "io", "model",
            "FeedForward", "ops", "models", "monitor", "Monitor", "module",
-           "rtc", "parallel", "serving"]
+           "rtc", "operator", "torch_plugin", "th", "parallel", "serving"]

@@ -3,7 +3,8 @@
 The port's own copy of the pieces of ``mxnet_tpu/base.py`` it needs
 (``MXNetError``, ``InferShapeFatal``, the dtype codes, ``env_int``,
 ``env_bool``): importing the JAX package's module would run
-``mxnet_tpu/__init__.py``, which imports jax.
+``mxnet_tpu/__init__.py``, which imports jax. ``deterministic_grads``
+is the port's own (the JAX package's gradients repeat without it).
 
 The dtype codes are the reference's type flags (float32 0 ... int64 6)
 plus bfloat16 as code 7, as in the JAX package. numpy has no bfloat16
@@ -13,6 +14,7 @@ numpy table.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as _np
@@ -21,7 +23,7 @@ import torch
 __all__ = ["MXNetError", "InferShapeFatal", "string_types", "numeric_types",
            "mx_real_t", "_DTYPE_NP_TO_MX", "_DTYPE_MX_TO_NP",
            "_DTYPE_TORCH_TO_MX", "_DTYPE_MX_TO_TORCH", "torch_dtype",
-           "np_dtype", "env_int", "env_bool"]
+           "np_dtype", "env_int", "env_bool", "deterministic_grads"]
 
 
 class MXNetError(Exception):
@@ -106,3 +108,21 @@ def env_bool(name, default):
     if v is None or v == "":
         return default
     return v not in ("0", "false", "False", "")
+
+
+@contextlib.contextmanager
+def deterministic_grads():
+    """cuDNN held to its deterministic algorithms for the gradients taken
+    inside, unless ``MXNET_ENFORCE_DETERMINISM=0`` (MXNet's variable; on
+    by default here, since the JAX package's runs repeat from a seed).
+    Some of cuDNN's convolution backward algorithms sum with atomics in
+    no fixed order, so without this two trainings from one seed part on
+    the card and can end far apart; the forward algorithms are
+    deterministic already. The flag is restored on the way out."""
+    cudnn = torch.backends.cudnn
+    old = cudnn.deterministic
+    cudnn.deterministic = old or env_bool("MXNET_ENFORCE_DETERMINISM", True)
+    try:
+        yield
+    finally:
+        cudnn.deterministic = old

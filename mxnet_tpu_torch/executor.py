@@ -50,8 +50,31 @@ order on ``torch.Tensor``s, and gradients come from ``torch.autograd``:
   forward again under a fresh key (``:971``): its gradients then come
   from other masks than its outputs, and the two chains part.
 
-Not in this slice: the hybrid host-op engine, mirror/remat, group2ctx
-model parallelism (raises), profiling and the compile verifier.
+- Host ops (``Custom``, ``NumpyOp``: ``OpDef.is_host_op``) run in the
+  walk through ``ops.registry._HostOpFn``, the counterpart of the JAX
+  package's hybrid engine (``mxnet_tpu/executor.py:256-518``): inputs to
+  the host as numpy, the user's forward there, outputs back to the
+  device; autograd runs the user's backward. The JAX package's contract
+  for such a graph holds here too:
+
+  - one user operator per (node, input signature) for the executor's
+    life (``_host_op_cache``, ``mxnet_tpu/executor.py:190-211``), so a
+    stateful operator keeps its state across batches;
+  - a host op with loss semantics (a prop with ``need_top_grad=False``)
+    runs its backward even where no gradient reached its outputs
+    (``:457-466``): its outputs are extra roots of the backward, seeded
+    with zeros;
+  - ``backward`` differentiates the forward it saved and never runs the
+    forward again (a second draw of a stateful operator): the training
+    forward works on copies of the arguments, so an argument written
+    since leaves the gradients as they were; ``backward`` after an
+    inference forward, or a second ``backward`` after one forward,
+    raises, as the JAX package's does (``:437``, ``:518``);
+  - ``forward(is_train=...)`` reaches the user's op as given, and the
+    monitor taps host-op outputs like any other.
+
+Not in this slice: mirror/remat, group2ctx model parallelism (raises),
+profiling and the compile verifier.
 """
 from __future__ import annotations
 
@@ -59,7 +82,7 @@ import torch
 
 from . import random as _random
 from . import threefry
-from .base import MXNetError, torch_dtype
+from .base import MXNetError, deterministic_grads, torch_dtype
 from .context import Context
 from .ndarray import NDArray, _as_tensor, ones, zeros
 
@@ -166,8 +189,13 @@ class Executor:
         self._rng_serials = [s for s, n in enumerate(self._nodes)
                              if not n.is_variable and n.op.need_rng]
 
+        self._hybrid = any(not n.is_variable and n.op.is_host_op
+                           for n in self._nodes)
+        self._host_op_cache = {}   # user operators of this binding
+        self._host_roots = []      # loss-semantics host outputs, last walk
+
         self._outputs_nd = None
-        self._graph = None       # (versions, output tensors, leaves)
+        self._graph = None       # (versions, output tensors, leaves, roots)
         self._grad_cache = None  # (versions, grads)
         self._monitor_callback = None
 
@@ -202,6 +230,8 @@ class Executor:
         new_aux = list(aux_vals)
         monitor = self._monitor_callback if tap else None
         node_keys = self._node_keys(key)
+        self._host_roots = roots = []
+        recording = torch.is_grad_enabled()
         for serial, n in enumerate(self._nodes):
             if n.is_variable:
                 env[(id(n), 0)] = arg_vals[self._var_argidx[id(n)]]
@@ -210,7 +240,11 @@ class Executor:
             sl = self._node_aux.get(id(n))
             aux_in = new_aux[sl[0]:sl[1]] if sl else []
             outs, n_aux = n.op.apply(n.params, ins, aux_in, is_train,
-                                     node_keys.get(serial))
+                                     node_keys.get(serial),
+                                     host_cache=self._host_op_cache)
+            if recording and n.op.is_host_op and \
+                    n.op.head_no_grad(n.params):
+                roots.extend(o for o in outs if o.requires_grad)
             onames = n.op.list_outputs(n.params) if monitor else ()
             for i, o in enumerate(outs):
                 env[(id(n), i)] = o
@@ -227,8 +261,11 @@ class Executor:
     def _forward_graph(self, write_aux, key, tap=False):
         """Forward with autograd recording over the differentiated
         arguments, random nodes under ``key``; keeps (versions, outputs,
-        leaves) for backward."""
+        leaves, host roots) for backward. A graph with host ops reads
+        copies of the arguments (see the module's docstring)."""
         vals = [a._data for a in self.arg_arrays]
+        if self._hybrid:
+            vals = [v.detach().clone() for v in vals]
         leaves = []
         for i in self._grad_idx:
             leaf = vals[i].detach().requires_grad_(
@@ -240,7 +277,7 @@ class Executor:
         self._write_outputs(outs)
         if write_aux:
             self._write_aux(new_aux)
-        self._graph = (self._versions(), outs, leaves)
+        self._graph = (self._versions(), outs, leaves, self._host_roots)
 
     # -- helpers ---------------------------------------------------------------
     def _release_device_arrays(self):
@@ -369,23 +406,28 @@ class Executor:
             hg = [None if not o._data.is_floating_point()
                   else _as_tensor(g, self._device, o._data.dtype)
                   for g, o in zip(out_grads, self._outputs_nd)]
-        if self._graph is None or self._graph[0] != self._versions():
+        if self._hybrid:
+            if self._graph is None:
+                raise MXNetError("backward before forward(is_train=True)")
+        elif self._graph is None or self._graph[0] != self._versions():
             self._forward_graph(write_aux=False, key=_random.next_key())
-        _, outs, leaves = self._graph
+        _, outs, leaves, roots = self._graph
         self._graph = None
         pairs = [(o, g) for o, g in zip(outs, hg)
                  if g is not None and o.requires_grad]
+        pairs += [(o, torch.zeros_like(o)) for o in roots]
         diff = [k for k, leaf in enumerate(leaves) if leaf.requires_grad]
         grads = [None] * len(leaves)
         if pairs and diff:
-            got = torch.autograd.grad(
-                [o for o, _ in pairs], [leaves[k] for k in diff],
-                [g for _, g in pairs], allow_unused=True)
+            with deterministic_grads():
+                got = torch.autograd.grad(
+                    [o for o, _ in pairs], [leaves[k] for k in diff],
+                    [g for _, g in pairs], allow_unused=True)
             for k, g in zip(diff, got):
                 grads[k] = g
         grads = [torch.zeros_like(leaf) if g is None else g
                  for g, leaf in zip(grads, leaves)]
-        if out_grads is None:
+        if out_grads is None and not self._hybrid:
             self._grad_cache = (self._versions(), grads)
         self._apply_grads(grads)
 

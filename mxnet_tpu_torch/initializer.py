@@ -1,20 +1,27 @@
-"""Weight initializers: ``Uniform``, ``Normal`` and ``Xavier``.
+"""Weight initializers (ref: python/mxnet/initializer.py).
 
-Counterpart of ``mxnet_tpu/initializer.py:24-60`` and ``:124-153``: the
-same dispatch on the parameter name (bias 0, gamma 1, beta 0, weight by
-the scheme, moving_mean 0, moving_var 1) and the same schemes, drawn
-through the port's ``random`` (one ``torch.Generator`` per device), so
-the numbers differ from the JAX package's for the same seed.
+Counterpart of ``mxnet_tpu/initializer.py``: ``Uniform``, ``Normal``,
+``Orthogonal``, ``Xavier``, ``MSRAPrelu``, ``Load``, ``Mixed``, ``One``
+and ``Zero``, with the same dispatch on the parameter name (bias 0,
+gamma 1, beta 0, weight by the scheme, moving_mean 0, moving_var 1) and
+the same schemes. Random schemes draw through the port's ``random`` (one
+``torch.Generator`` per device), so their numbers differ from the JAX
+package's for the same seed; ``Orthogonal`` takes its SVD on the host,
+as the JAX package does.
 """
 from __future__ import annotations
 
 import math
+import re
 
 import numpy as _np
 
+from . import ndarray
 from . import random as _random
+from .base import MXNetError
 
-__all__ = ["Initializer", "Uniform", "Normal", "Xavier", "init"]
+__all__ = ["Initializer", "Uniform", "Normal", "Orthogonal", "Xavier",
+           "MSRAPrelu", "Load", "Mixed", "One", "Zero", "init"]
 
 
 class Initializer:
@@ -98,6 +105,27 @@ class Normal(Initializer):
         _random.normal(0, self.sigma, out=arr)
 
 
+class Orthogonal(Initializer):
+    """ref: initializer.py:121."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = int(_np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = _random.uniform(-1.0, 1.0, shape=(nout, nin),
+                                  ctx=arr.context).asnumpy()
+        else:
+            tmp = _random.normal(0.0, 1.0, shape=(nout, nin),
+                                 ctx=arr.context).asnumpy()
+        u, _, v = _np.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == tmp.shape else v
+        arr[:] = (self.scale * q).reshape(arr.shape)
+
+
 class Xavier(Initializer):
     """ref: initializer.py:159."""
 
@@ -130,9 +158,76 @@ class Xavier(Initializer):
             raise ValueError("Unknown random type")
 
 
+class MSRAPrelu(Xavier):
+    """ref: initializer.py:209."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        magnitude = 2.0 / (1 + slope ** 2)
+        super().__init__("gaussian", factor_type, magnitude)
+
+
+class Load:
+    """Init from a dict of saved params (ref: initializer.py:46)."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        if isinstance(param, str):
+            param = ndarray.load(param)
+        self.param = {
+            (k[4:] if k.startswith("arg:") or k.startswith("aux:") else k): v
+            for k, v in param.items()
+        }
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            if self.param[name].shape != arr.shape:
+                raise MXNetError(
+                    "Parameter %s shape mismatch: %s vs %s"
+                    % (name, self.param[name].shape, arr.shape)
+                )
+            self.param[name].copyto(arr)
+        else:
+            if self.default_init is None:
+                raise MXNetError("Cannot init %s: not in loaded params" % name)
+            self.default_init(name, arr)
+
+
+class Mixed:
+    """Pattern-dispatched mix of initializers (ref: initializer.py:75)."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise MXNetError("patterns and initializers must have same length")
+        self.map = list(zip([re.compile(p) for p in patterns], initializers))
+
+    def __call__(self, name, arr):
+        for prog, i in self.map:
+            if prog.match(name):
+                i(name, arr)
+                return
+        raise MXNetError("Parameter %s did not match any pattern" % name)
+
+
+class One(Initializer):
+    def _init_weight(self, _, arr):
+        arr[:] = 1.0
+
+
+class Zero(Initializer):
+    def _init_weight(self, _, arr):
+        arr[:] = 0.0
+
+
 class init:
     """The ``mx.init.*`` alias namespace of the initializers."""
     Initializer = Initializer
     Uniform = Uniform
     Normal = Normal
+    Orthogonal = Orthogonal
     Xavier = Xavier
+    MSRAPrelu = MSRAPrelu
+    Load = Load
+    Mixed = Mixed
+    One = One
+    Zero = Zero

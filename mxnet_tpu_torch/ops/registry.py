@@ -3,16 +3,25 @@
 The port's copy of ``mxnet_tpu/ops/registry.py``, host-only: ``OpDef``,
 ``Field`` and the registration helpers are the JAX package's, so every
 op's parameter list and defaults, and with them ``Symbol.tojson()``,
-are the same bytes in both packages. Two things differ: ``forward`` is
+are the same bytes in both packages. Three things differ: ``forward`` is
 a function of ``torch.Tensor`` inputs (gradients come from
-``torch.autograd``; loss ops are ``torch.autograd.Function``s), and
-``register`` attaches no prose docs (the JAX package's ``opdoc``).
+``torch.autograd``; loss ops are ``torch.autograd.Function``s);
+``register`` attaches no prose docs (the JAX package's ``opdoc``); and
+a host op (``host_apply``/``host_grad``: ``Custom`` and ``NumpyOp``)
+runs through :class:`_HostOpFn`, the port's counterpart of the JAX
+executor's hybrid engine (``mxnet_tpu/executor.py:339-518``): its inputs
+go to the host as numpy, ``host_apply`` runs the user's code there, its
+outputs come back to the inputs' device, and autograd calls
+``host_grad`` with the out-grads as numpy.
 ``tests/test_torch_symbol.py`` holds every registered op's fields,
 inputs, outputs and aux states to the JAX package's.
 """
 from __future__ import annotations
 
 import ast
+
+import numpy as _np
+import torch
 
 from ..base import MXNetError
 
@@ -112,11 +121,9 @@ class OpDef:
         self.imperative = imperative
         self.init_aux = init_aux  # fn(params, aux_shapes)->list of np arrays
         # host-op contract: ops whose kernels are host Python/numpy
-        # (Custom, NumpyOp, torch bridge). When set, the Executor runs
-        # them EAGERLY between jitted graph segments — host values in,
-        # host values out, no jax.pure_callback inside a compiled
-        # program (the callback runtime deadlocks are structural; see
-        # executor.py hybrid mode).
+        # (Custom, NumpyOp). When set, apply() runs them through
+        # _HostOpFn between the device ops — host values in, host
+        # values out.
         #   host_apply(params, ins_np, is_train, cache=None)
         #       -> (outs_np, bwd_ctx)   (cache: executor-owned dict for
         #          per-binding operator instances)
@@ -207,8 +214,15 @@ class OpDef:
         return [t] * n_in, [t] * n_out, [t] * n_aux
 
     # -- execution -------------------------------------------------------------
-    def apply(self, params, inputs, aux=None, is_train=False, rng=None):
-        """Run forward. Returns (outputs: list, new_aux: list)."""
+    def apply(self, params, inputs, aux=None, is_train=False, rng=None,
+              host_cache=None):
+        """Run forward. Returns (outputs: list, new_aux: list). A host op
+        keeps its user operators in ``host_cache`` (the executor's, one
+        a binding); without one each call makes a fresh operator."""
+        if self.is_host_op:
+            outs = _HostOpFn.apply(self, params, host_cache, bool(is_train),
+                                   *inputs)
+            return list(outs), list(aux or [])
         out = self.forward(
             params, inputs, list(aux or []), bool(is_train), rng
         )
@@ -219,6 +233,51 @@ class OpDef:
         if not isinstance(outputs, (list, tuple)):
             outputs = [outputs]
         return list(outputs), list(new_aux)
+
+
+def _to_host(t):
+    """A tensor as a numpy array the user's code may keep or write: a
+    copy (bf16, which numpy lacks, as f32)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy() if t.is_cuda else t.numpy().copy()
+
+
+def _from_host(a, device, dtype=None):
+    return torch.from_numpy(_np.ascontiguousarray(a)).to(
+        device, dtype, copy=True)
+
+
+class _HostOpFn(torch.autograd.Function):
+    """A host op between device ops: the inputs go to the host, the
+    user's ``host_apply`` runs there, the outputs come back to the first
+    input's device. The backward gives ``host_grad`` the out-grads as
+    numpy (zeros where none arrived) and moves the input gradients back;
+    integer inputs get none and integer outputs are not differentiable,
+    as in the JAX package's hybrid engine."""
+
+    @staticmethod
+    def forward(ctx, op, params, cache, is_train, *ins):
+        device = ins[0].device
+        outs_np, bwd_ctx = op.host_apply(
+            params, [_to_host(t) for t in ins], is_train, cache=cache)
+        outs = tuple(_from_host(o, device) for o in outs_np)
+        ctx.op, ctx.params, ctx.bwd_ctx = op, params, bwd_ctx
+        ctx.in_dtypes = [t.dtype if t.is_floating_point() else None
+                         for t in ins]
+        ctx.mark_non_differentiable(
+            *[o for o in outs if not o.is_floating_point()])
+        return outs
+
+    @staticmethod
+    def backward(ctx, *out_grads):
+        device = out_grads[0].device
+        in_grads = ctx.op.host_grad(ctx.params, ctx.bwd_ctx,
+                                    [_to_host(g) for g in out_grads])
+        return (None, None, None, None) + tuple(
+            None if dt is None else _from_host(g, device, dt)
+            for g, dt in zip(in_grads, ctx.in_dtypes))
 
 
 def register(opdef):

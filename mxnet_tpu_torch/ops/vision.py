@@ -11,8 +11,11 @@ its inputs. Gradients come from autograd.
   half to even, then for each output bin the max over the bin's rows and
   columns (an empty bin gives 0); the ROI's image is gathered by its
   batch index (negative indices wrap once, then clamp, as JAX's gather
-  does). The max uses ``amax``, which, like ``jnp.max``'s gradient,
-  shares the gradient evenly between equal maxima.
+  does), and the gather's backward sums each image's ROI gradients by a
+  one-hot product, in the same order on every run (``index_put_``
+  accumulates with atomics on the CPU, ``index_add_`` on CUDA). The max
+  uses ``amax``, which, like ``jnp.max``'s gradient, shares the gradient
+  evenly between equal maxima.
 - ``SpatialTransformer`` (``:82-147``): an affine grid over
   ``linspace(-1, 1)`` and bilinear sampling with zeros outside the image.
 - ``Correlation`` (``:151-236``): for each displacement, the product (or
@@ -48,6 +51,24 @@ from .registry import REGISTRY, Field, OpDef, register
 
 
 # -- ROIPooling ----------------------------------------------------------------
+class _GatherImages(torch.autograd.Function):
+    """``data[idx]`` over the batch axis; the backward sums the rows of
+    each image as ``one_hot(idx).T @ grad``, in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, data, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = data.shape[0]
+        return data.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        hot = F.one_hot(idx, ctx.n).to(grad.dtype)          # (R, N)
+        g = hot.t() @ grad.reshape(grad.shape[0], -1)
+        return g.reshape((ctx.n,) + grad.shape[1:]), None
+
+
 def _roi_pooling_fwd(params, inputs, aux, is_train, rng):
     data, rois = inputs
     ph, pw = params["pooled_size"]
@@ -61,7 +82,7 @@ def _roi_pooling_fwd(params, inputs, aux, is_train, rng):
     rh = torch.clamp(y2 - y1 + 1, min=1)[:, None]
     rw = torch.clamp(x2 - x1 + 1, min=1)[:, None]
     y1, x1 = y1[:, None], x1[:, None]
-    img = data[idx]  # (R, C, H, W)
+    img = _GatherImages.apply(data, idx)  # (R, C, H, W)
     ys = torch.arange(H, device=dev)[None, :]
     xs = torch.arange(W, device=dev)[None, :]
     bins = []

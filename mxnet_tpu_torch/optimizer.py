@@ -1,23 +1,40 @@
-"""Optimizers: ``Optimizer``, ``SGD``, ``create`` and ``get_updater``.
+"""Optimizers (ref: python/mxnet/optimizer.py:1-823).
 
-Counterpart of ``mxnet_tpu/optimizer.py:29-170`` and ``:368``. The
-``Optimizer`` base is the JAX package's: the lr scheduler, the
-idx2name lr/wd multipliers, ``__lr_mult__``/``__wd_mult__`` symbol
-attrs, and wd 0 for every name ending in neither ``_weight`` nor
-``_gamma``. ``SGD`` keeps the JAX update's order of operations,
-``mom = mom * momentum - lr * (clip(rescale * g) + wd * w)`` then
-``w += mom``, and writes state and weight in place (the executor reads
-the same storage). ``get_updater`` creates state lazily per index and
-has no fault injection or guardian. The JAX package's other optimizers
-are a later slice.
+Counterpart of ``mxnet_tpu/optimizer.py``: the registry and the
+reference's set, ``SGD``, ``ccSGD``, ``NAG``, ``SGLD``, ``Adam``,
+``AdaGrad``, ``RMSProp``, ``AdaDelta`` and ``Test``, with ``create`` and
+``get_updater``. The ``Optimizer`` base is the JAX package's: the lr
+scheduler, the idx2name lr/wd multipliers, ``__lr_mult__``/
+``__wd_mult__`` symbol attrs, and wd 0 for every name ending in neither
+``_weight`` nor ``_gamma``. Each update keeps the JAX update's
+arithmetic, operation for operation, in the weight's dtype, and writes
+the weight and its state in place (the executor reads the same
+storage). Two notes:
+
+- ``SGLD``'s noise is JAX's: ``threefry.normal`` under the key that
+  ``random.next_key()`` gives, as ``jax.random.normal`` is in the JAX
+  package (its ``erfinv`` may differ from XLA's by ulps);
+- ``Adam``'s bias correction reads the index's update count, which in
+  the scanned fit (``parallel/fit_trainer.py``) is the step's own count
+  inside the chunk, since the trainer calls ``update`` once a step.
+
+``get_updater`` creates state lazily per index and has no fault
+injection or guardian.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from . import random as _random
+from . import threefry
 from .ndarray import NDArray, zeros
 
-__all__ = ["Optimizer", "SGD", "create", "get_updater", "register"]
+__all__ = [
+    "Optimizer", "SGD", "NAG", "SGLD", "ccSGD", "Adam", "AdaGrad", "RMSProp",
+    "AdaDelta", "Test", "create", "get_updater", "register",
+]
 
 
 class Optimizer:
@@ -158,6 +175,202 @@ class SGD(Optimizer):
                 w.add_(mom)
             else:
                 w.sub_(step)
+
+
+@register
+class ccSGD(SGD):
+    """Alias of SGD; the reference's C++-engine variant (ref:
+    src/optimizer/sgd.cc:24, python/mxnet/optimizer.py:426); a negative
+    ``clip_gradient`` means none."""
+
+    def __init__(self, momentum=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                 **kwargs):
+        if clip_gradient is not None and clip_gradient < 0:
+            clip_gradient = None
+        super().__init__(momentum=momentum, rescale_grad=rescale_grad,
+                         clip_gradient=clip_gradient, **kwargs)
+
+
+@register
+class NAG(SGD):
+    """Nesterov accelerated SGD (ref: optimizer.py:313)."""
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        with torch.no_grad():
+            g = self._preprocess_grad(grad)
+            w = weight._data
+            if state is not None:
+                mom = self.momentum * state._data + g + wd * w
+                g2 = self.momentum * mom + g
+                state._data.copy_(mom)
+                w.copy_(w - lr * g2)
+            else:
+                w.copy_(w - lr * (g + wd * w))
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics (ref: optimizer.py:361)."""
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        with torch.no_grad():
+            g = self._preprocess_grad(grad)
+            w = weight._data
+            key = _random.keys_to(_random.next_key(), w.device)
+            noise = threefry.normal(key, w.shape).to(w.dtype) * math.sqrt(lr)
+            w.copy_(w - lr / 2 * (g + wd * w) + noise)
+
+
+@register
+class Adam(Optimizer):
+    """ref: optimizer.py:504. ``decay_factor`` is accepted for the
+    reference's API; the bias correction uses the index's update
+    count."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, decay_factor=(1 - 1e-8), **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.decay_factor = decay_factor
+
+    def create_state(self, index, weight):
+        return (
+            zeros(weight.shape, weight.context, dtype=weight.dtype),  # mean
+            zeros(weight.shape, weight.context, dtype=weight.dtype),  # variance
+        )
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        self._update_count(index)
+        t = self._index_update_count[index]
+        mean, var = state
+        with torch.no_grad():
+            g = self._preprocess_grad(grad)
+            wd = self._get_wd(index)
+            w = weight._data
+            g = g + wd * w
+            m = self.beta1 * mean._data + (1 - self.beta1) * g
+            v = self.beta2 * var._data + (1 - self.beta2) * torch.square(g)
+            mean._data.copy_(m)
+            var._data.copy_(v)
+            coef1 = 1.0 - self.beta1 ** t
+            coef2 = 1.0 - self.beta2 ** t
+            lr_t = lr * math.sqrt(coef2) / coef1
+            w.copy_(w - lr_t * m / (torch.sqrt(v) + self.epsilon))
+
+
+@register
+class AdaGrad(Optimizer):
+    """ref: optimizer.py:605."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return zeros(weight.shape, weight.context, dtype=weight.dtype)
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        with torch.no_grad():
+            g = self._preprocess_grad(grad)
+            h = state._data + torch.square(g)
+            state._data.copy_(h)
+            w = weight._data
+            w.copy_(w - lr * (g / torch.sqrt(h + self.float_stable_eps)
+                              + wd * w))
+
+
+@register
+class RMSProp(Optimizer):
+    """Tieleman & Hinton variant with E[g], E[g^2] and momentum delta
+    (ref: optimizer.py:654)."""
+
+    def __init__(self, learning_rate=0.002, gamma1=0.95, gamma2=0.9,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+
+    def create_state(self, index, weight):
+        return (
+            zeros(weight.shape, weight.context, dtype=weight.dtype),  # n = E[g^2]
+            zeros(weight.shape, weight.context, dtype=weight.dtype),  # g = E[g]
+            zeros(weight.shape, weight.context, dtype=weight.dtype),  # delta
+        )
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        n, g_avg, delta = state
+        with torch.no_grad():
+            g = self._preprocess_grad(grad)
+            w = weight._data
+            g = g + wd * w
+            n_ = (1 - self.gamma1) * torch.square(g) + self.gamma1 * n._data
+            g_ = (1 - self.gamma1) * g + self.gamma1 * g_avg._data
+            d_ = self.gamma2 * delta._data - lr * g / torch.sqrt(
+                n_ - torch.square(g_) + 1e-4)
+            n._data.copy_(n_)
+            g_avg._data.copy_(g_)
+            delta._data.copy_(d_)
+            w.copy_(w + d_)
+
+
+@register
+class AdaDelta(Optimizer):
+    """ref: optimizer.py:730."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (
+            zeros(weight.shape, weight.context, dtype=weight.dtype),  # E[g^2]
+            zeros(weight.shape, weight.context, dtype=weight.dtype),  # E[dx^2]
+        )
+
+    def update(self, index, weight, grad, state):
+        wd = self._get_wd(index)
+        self._update_count(index)
+        acc_g, acc_delta = state
+        with torch.no_grad():
+            g = self._preprocess_grad(grad)
+            ag = self.rho * acc_g._data + (1.0 - self.rho) * torch.square(g)
+            delta = (torch.sqrt(acc_delta._data + self.epsilon)
+                     / torch.sqrt(ag + self.epsilon) * g)
+            ad = self.rho * acc_delta._data + (1.0 - self.rho) * torch.square(
+                delta)
+            acc_g._data.copy_(ag)
+            acc_delta._data.copy_(ad)
+            w = weight._data
+            w.copy_(w - delta - wd * w)
+
+
+@register
+class Test(Optimizer):
+    """ref: optimizer.py:784 — weight += grad * rescale_grad."""
+
+    def create_state(self, index, weight):
+        return zeros(weight.shape, weight.context, dtype=weight.dtype)
+
+    def update(self, index, weight, grad, state):
+        with torch.no_grad():
+            w = weight._data
+            w.copy_(w + grad._data * self.rescale_grad)
 
 
 create = Optimizer.create_optimizer

@@ -16,9 +16,9 @@ Semantics kept from the JAX trainer:
   (``base`` the optimizer's ``num_update`` before the chunk) for every
   parameter, times its lr multiplier: ``lr`` is set to it and the
   scheduler unset while the step's updates run, which count as usual,
-  so the counts stand K higher after the chunk (the JAX trainer also
-  reads a traced count inside the step for Adam's bias correction; the
-  port's one optimizer, SGD, reads none);
+  so the counts stand K higher after the chunk, and Adam's bias
+  correction reads step k's own count, ``base + k + 1``, as the JAX
+  trainer's traced count is;
 - the trainer keeps its own f32 copies of the parameters, aux states and
   optimizer states until :meth:`FitTrainer.write_back`;
 - with ``compute_dtype``, parameters of two or more dimensions and

@@ -25,7 +25,7 @@ import numpy as _np
 import torch
 
 from .. import threefry
-from ..base import MXNetError, torch_dtype
+from ..base import MXNetError, deterministic_grads, torch_dtype
 from ..context import Context, cpu, current_context, gpu
 from ..ndarray import _as_tensor
 
@@ -52,9 +52,10 @@ def train_grads(run, arg_names, params, batch, aux, key, cdt=None):
     names = list(leaves)
     got = [None] * len(names)
     if heads:
-        got = torch.autograd.grad(
-            heads, [leaves[n] for n in names],
-            [torch.ones_like(o) for o in heads], allow_unused=True)
+        with deterministic_grads():
+            got = torch.autograd.grad(
+                heads, [leaves[n] for n in names],
+                [torch.ones_like(o) for o in heads], allow_unused=True)
     grads = {n: (torch.zeros_like(params[n]) if g is None
                  else g.to(torch.float32))
              for n, g in zip(names, got)}

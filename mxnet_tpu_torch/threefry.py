@@ -38,7 +38,13 @@ that sampler uses, read from JAX 0.9.0 (``jax/_src/prng.py`` and
   uniform of an n-d shape drawn over its row-major linear index;
 - :func:`gumbel` is ``_gumbel`` in mode "low" (random.py:1723-1740;
   ``jax_high_dynamic_range_gumbel`` defaults to False):
-  ``-log(-log(uniform(key, minval=tiny, maxval=1)))``.
+  ``-log(-log(uniform(key, minval=tiny, maxval=1)))``;
+- :func:`normal` is ``_normal_real`` for float32:
+  ``sqrt(2) * erf_inv(uniform(key, minval=nextafter(-1, 0), maxval=1))``,
+  with ``erf_inv`` as XLA expands ``chlo.erf_inv`` for f32 (Giles'
+  single-precision polynomials in ``w = -log1p(-x * x)``, split at
+  ``w = 5``); ``torch.erfinv`` is more exact and differs from it by up
+  to ~60 ulp in the tails.
 
 Words are held in int64 tensors masked to 32 bits (torch's uint32
 support is partial); a rotation is ``((x << r) & M) | (x >> (32 - r))``.
@@ -49,7 +55,8 @@ other function runs on its keys' device and vectorises over the
 leading axes: ``[N, 2]`` keys give
 ``[N, V]`` draws in one pass. Keys, bits and uniforms are integers or
 bit patterns and equal JAX's exactly on any device; only the two
-``log``s of :func:`gumbel` may differ from XLA's by ulps.
+``log``s of :func:`gumbel` and the ``erfinv`` of :func:`normal` may
+differ from XLA's by ulps.
 
 ``threefry2x32.calls`` counts hash evaluations by device type (``{"cuda":
 n}``); every key derivation and draw goes through it, so a caller can
@@ -63,7 +70,7 @@ import torch
 from .context import resolve_device
 
 __all__ = ["threefry2x32", "prng_key", "fold_in", "split", "random_bits",
-           "uniform", "bernoulli", "gumbel"]
+           "uniform", "bernoulli", "gumbel", "normal"]
 
 M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -165,3 +172,36 @@ def gumbel(key, n):
     key: ``[..., n]`` float32."""
     u = uniform(key, n, minval=_TINY, maxval=1.0)
     return -torch.log(-torch.log(u))
+
+
+_NORMAL_LO = np.nextafter(np.float32(-1.0), np.float32(0.0))
+_ERFINV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                  -4.39150654e-06, 0.00021858087, -0.00125372503,
+                  -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                  -0.00367342844, 0.00573950773, -0.0076224613,
+                  0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x):
+    """XLA's float32 ``erf_inv`` of a float32 tensor."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    coef = [torch.where(lt, torch.tensor(np.float32(a), device=x.device),
+                        torch.tensor(np.float32(b), device=x.device))
+            for a, b in zip(_ERFINV_W_LT_5, _ERFINV_W_GE_5)]
+    p = coef[0]
+    for c in coef[1:]:
+        p = c + p * w
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max,
+                       p * x)
+
+
+def normal(key, shape):
+    """``jax.random.normal(key, shape, float32)`` of one ``[2]`` key: a
+    float32 tensor of ``shape``, drawn over its row-major linear index."""
+    shape = tuple(int(d) for d in shape)
+    u = uniform(key, int(np.prod(shape, dtype=np.int64)),
+                minval=_NORMAL_LO, maxval=1.0)
+    return (np.float32(np.sqrt(2)) * erf_inv(u)).reshape(shape)

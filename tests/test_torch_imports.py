@@ -4,8 +4,10 @@
   neither ``jax`` nor ``mxnet_tpu`` in ``sys.modules``;
 - no source of the port, nor ``chip_smoke.py``, the profile tools, the
   card's test files or the port's examples (``examples/rnn_torch``,
-  ``examples/ssd_torch``, ``examples/image-classification_torch``),
-  imports either;
+  ``examples/ssd_torch``, ``examples/image-classification_torch``,
+  ``examples/rcnn_torch``, ``examples/dec_torch``,
+  ``examples/numpy-ops_torch``, ``examples/torch_torch``), imports
+  either;
 - on the CPU path (serving, LM training, a LeNet ``FeedForward`` fit
   and predict, a LeNet ``Module`` fit and predict (both on the scanned
   path), a bf16 ``make_symbol_train_step`` loop, a callable ``Rtc``
@@ -17,7 +19,8 @@
   module ``ops._build`` nor the NVRTC binding ``ops._nvrtc`` is
   imported; the walk over every submodule
   reaches ``rtc``, ``ops._nvrtc``, ``ops.matmul_stats``, ``monitor``,
-  ``module/`` and the two Symbol trainers of ``parallel/``;
+  ``module/``, the two Symbol trainers of ``parallel/``, ``operator``
+  and the torch plugin (``torch``);
 - every card test file (``tests/test_torch_*_cuda.py``) carries the
   ``cuda`` marker;
 - the host-only scheduler copy matches its original below the imports.
@@ -115,7 +118,8 @@ for must in ('model', 'rtc', 'ops._nvrtc', 'ops.matmul_stats', 'monitor',
              'ops.sequence', 'ops.vision', 'models.lstm', 'models.gru', 'models.rnn',
              'module', 'module.module', 'module.base_module', 'module.python_module',
              'module.sequential_module', 'module.bucketing_module',
-             'parallel.symbol_trainer', 'parallel.fit_trainer'):
+             'parallel.symbol_trainer', 'parallel.fit_trainer',
+             'operator', 'torch'):
     assert 'mxnet_tpu_torch.' + must in names, (must, names)
 for n in names:
     importlib.import_module(n)
@@ -169,11 +173,15 @@ def _imports(path):
         ROOT / "tests" / "test_torch_rnn_cuda.py",
         ROOT / "tests" / "test_torch_symbol_trainer_cuda.py",
         ROOT / "tests" / "test_torch_vision_cuda.py",
-        ROOT / "tests" / "test_torch_zoo_cuda.py"]
+        ROOT / "tests" / "test_torch_zoo_cuda.py",
+        ROOT / "tests" / "test_torch_host_ops_cuda.py"]
     + sorted((ROOT / "examples" / "rnn_torch").glob("*.py"))
     + sorted((ROOT / "examples" / "ssd_torch").glob("*.py"))
     + sorted((ROOT / "examples" / "image-classification_torch").glob(
-        "*.py")),
+        "*.py"))
+    + [p for d in ("rcnn_torch", "dec_torch", "numpy-ops_torch",
+                   "torch_torch")
+       for p in sorted((ROOT / "examples" / d).glob("*.py"))],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_the_jax_package(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
