@@ -56,7 +56,8 @@ Phases (any failure raises and the script exits non-zero):
    50, [1000, 1001] f16, [4096, 32000] bf16, [8, 2097152] f32 (8 MB
    rows, past the TPU kernel's fallback), [3, 1], the LSTM's [1920,
    200] f32, bench.py's [128, 1000] bf16, Inception-BN's [256, 1000]
-   f32, train_cifar10's [128, 10] f32 and Faster R-CNN's [32, 3] f32,
+   f32, train_cifar10's [128, 10] f32, Faster R-CNN's [32, 3] f32 and
+   the ``.rec`` fit's [256, 4] f32,
    each timed beside the plain version, ``torch.softmax`` and its bytes
    bound;
 8. the Symbol path, LeNet: the canonical ``FeedForward.fit`` of the
@@ -144,6 +145,20 @@ Phases (any failure raises and the script exits non-zero):
    against the host, and every op of the slice (``ZOO_OP_CASES``,
    ``rrelu``'s draws bit-equal) on the card against the host
    (``phase_zoo``);
+   the RecordIO pipeline (``phase_recordio``): a seeded folder of
+   2,560 + 256 JPEGs (4 classes of stripes, 300-500 px a side) in a
+   temporary directory, packed by tools/torch_im2rec.py ``--resize 256``
+   into ``train.rec``/``val.rec`` (every record read back equal to the
+   bytes packed), then train_imagenet.py at its defaults (ResNet-50,
+   batch 256, lr 0.1, ``kv-store device``) for 2 epochs from the
+   ``.rec`` through ``ImageRecordIter`` (rand crop, mirror, HLS jitter,
+   the ImageNet mean) under ``PrefetchingIter``: each batch's labels
+   equal the ``.lst``'s for its records and, in epoch 1, its data
+   finite and within the mean's range, its images showing their label's
+   stripes; K1 once a training and a validation batch; prints img/s and
+   the busy share of epoch 2's training window, with the same example
+   on ``--synthetic`` timed the same way beside it; then one step on the
+   first ``.rec`` batch (batch 8) on the card against the host;
 17. Faster R-CNN through the host bridges (``phase_rcnn``):
    examples/rcnn_torch/train_end2end.py at its defaults (16 synthetic
    3x128x128 images, batch 1, 30 epochs, SGD 5e-3 / 0.9, wd 5e-4,
@@ -1176,7 +1191,8 @@ SOFTMAX_CASES = [((64, 10), "float32", 1.0), ((128, 1000), "float32", 1.0),
                  ((128, 1000), "bfloat16", 1.0),  # bench.py's bf16 step
                  ((256, 1000), "float32", 1.0),   # Inception-BN's fit
                  ((128, 10), "float32", 1.0),     # train_cifar10's fit
-                 ((32, 3), "float32", 1.0)]       # Faster R-CNN's head
+                 ((32, 3), "float32", 1.0),       # Faster R-CNN's head
+                 ((256, 4), "float32", 1.0)]      # ResNet-50 from the .rec
 SOFTMAX_OPS = 5   # f32 operations an element: max, subtract, exp, sum, divide
 
 
@@ -3750,33 +3766,10 @@ def phase_inception_bn(device="cuda", argv=(), synthetic=None):
     import torch
 
     import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch.ops import registry
-    from mxnet_tpu_torch.ops import softmax as sm
-    from mxnet_tpu_torch.parallel import fit_trainer
 
-    tm, ex = _ic_example("train_imagenet.py")
     argv = (["--network", "inception-bn", "--synthetic", "--num-epochs",
-             "4"] + list(argv) + (["--ctx", "cpu"] if device == "cpu"
-                                  else []))
-    seen = {"built": 0, "ce": [], "stamps": [], "params": []}
-    real_make = fit_trainer.make_fit_trainer
-    real_fit = mx.FeedForward.fit
-    real_apply = registry.OpDef.apply
-    prof = None
-    if device == "cuda":
-        from torch.profiler import (ProfilerActivity, profile,
-                                    record_function)
-
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
-
-        def labelled_apply(self, *a, **k):
-            with record_function("mx::" + self.name):
-                return real_apply(self, *a, **k)
-
-    def make(*a, **kw):
-        seen["built"] += 1
-        return real_make(*a, **kw)
+             "4"] + list(argv))
+    seen = {"ce": []}
 
     def on_batch(param):
         loc = param.locals
@@ -3786,59 +3779,18 @@ def phase_inception_bn(device="cuda", argv=(), synthetic=None):
         p = prob[np.arange(len(lab)), lab.astype(np.int64)]
         seen["ce"].append(float(-np.log(np.maximum(p, 1e-30)).mean()))
 
-    def fit(self, X, **kw):
-        epochs = self.num_epoch
-
-        def on_epoch(epoch, symbol, arg, aux):
-            _sync(device)
-            seen["stamps"].append(time.perf_counter())
-            seen["params"].append({k: v.asnumpy() for k, v in arg.items()})
-            if len(seen["params"]) > 2:
-                seen["params"].pop(1)
-            if prof is not None and epoch == epochs - 2:
-                registry.OpDef.apply = labelled_apply
-                prof.start()
-            elif prof is not None and epoch == epochs - 1:
-                prof.stop()
-                registry.OpDef.apply = real_apply
-
-        kw["epoch_end_callback"] = on_epoch
-        kw["eval_metric"] = mx.metric.create(["acc", "ce"])
-        _sync(device)
-        seen["t0"] = time.perf_counter()
-        return real_fit(self, X, **kw)
-
-    patches = [mock.patch.object(sys, "argv", ["train_imagenet.py"] + argv),
-               mock.patch.object(fit_trainer, "make_fit_trainer", make),
-               mock.patch.object(mx.FeedForward, "fit", fit),
-               mock.patch.dict(os.environ)]
-    if synthetic is not None:
-        patches.append(mock.patch.object(ex, "_synthetic", synthetic))
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    try:
-        for pt in patches:
-            pt.start()
-        for k in ("MXNET_SCAN_TRAIN", "MXNET_TRAIN_SCAN_K",
-                  "MXNET_COMPUTE_DTYPE"):
-            os.environ.pop(k, None)   # the defaults: scanned, K = 8
-        args = ex.parse_args()
-        net = mx.models.get_inception_bn(num_classes=args.num_classes)
-        t0 = time.perf_counter()
-        sm.fused_softmax.launches = 0
-        model = tm.fit(args, net, ex.get_iterator, batch_end_callback=on_batch)
-        _sync(device)
-        launches = sm.fused_softmax.launches
-        wall = time.perf_counter() - t0
-    finally:
-        registry.OpDef.apply = real_apply
-        for pt in reversed(patches):
-            pt.stop()
+    run = _imagenet_run(
+        device, argv, lambda args: mx.models.get_inception_bn(
+            num_classes=args.num_classes),
+        on_batch=on_batch, synthetic=synthetic, label_ops=True)
+    args, net, model, prof = run["args"], run["net"], run["model"], \
+        run["prof"]
+    launches, epoch_s = run["launches"], run["epoch_s"]
     peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" \
         else None
     steps_per_epoch = args.num_examples // args.batch_size
-    epoch_s = [b - a for a, b in zip([seen["t0"]] + seen["stamps"][:-1],
-                                     seen["stamps"])]
     timed = epoch_s[1:-1] if prof is not None else epoch_s[1:]
     timed = timed or epoch_s
     step_ms = 1e3 * sum(timed) / len(timed) / steps_per_epoch
@@ -3847,7 +3799,7 @@ def phase_inception_bn(device="cuda", argv=(), synthetic=None):
            "images": args.num_examples, "classes": args.num_classes,
            "epochs": args.num_epochs, "steps_per_epoch": steps_per_epoch,
            "lr": args.lr, "kv_store": args.kv_store,
-           "scanned_trainer_built": seen["built"], "wall_s": wall,
+           "scanned_trainer_built": run["built"], "wall_s": run["wall_s"],
            "epoch_s": epoch_s, "step_ms": step_ms,
            "img_per_s": args.batch_size / step_ms * 1e3,
            "params": int(sum(v.size for v in model.arg_params.values())),
@@ -3871,7 +3823,7 @@ def phase_inception_bn(device="cuda", argv=(), synthetic=None):
             "device_ms_per_step_by_kind": device_time_by_kind(
                 prof, steps_per_epoch)})
     log(rec)
-    first, last = seen["params"][0], seen["params"][-1]
+    first, last = run["params"][0], run["params"][-1]
     if not (len(seen["ce"]) == args.num_epochs * steps_per_epoch
             and all(math.isfinite(v) for v in seen["ce"])):
         raise AssertionError("Inception-BN: a step's cross-entropy is not "
@@ -3880,9 +3832,9 @@ def phase_inception_bn(device="cuda", argv=(), synthetic=None):
         raise AssertionError("Inception-BN: non-finite parameters")
     if all(np.array_equal(first[k], last[k]) for k in first):
         raise AssertionError("Inception-BN: the parameters did not change")
-    if seen["built"] != 1:
+    if run["built"] != 1:
         raise AssertionError("Inception-BN's fit built its scanned trainer "
-                             "%d times, expected once" % seen["built"])
+                             "%d times, expected once" % run["built"])
     expected = args.num_epochs * steps_per_epoch if device == "cuda" else 0
     if launches != expected:
         raise AssertionError("Inception-BN launched K1 %d times, expected %d"
@@ -3965,6 +3917,523 @@ def phase_cifar10(device="cuda", argv=()):
     if launches != expected:
         raise AssertionError("train_cifar10 launched K1 %d times, expected "
                              "%d" % (launches, expected))
+    return rec
+
+
+# -- the RecordIO image pipeline: im2rec, ImageRecordIter, PrefetchingIter,
+# train_imagenet.py from a packed .rec ---------------------------------------
+RECORDIO_CLASSES = 4      # stripes along x or y, of two periods
+RECORDIO_PERIODS = (12, 40)   # px in the original image: classes 0-1, 2-3
+RECORDIO_TRAIN = 2560     # 10 batches of train_imagenet.py's 256
+RECORDIO_VAL = 256      # one validation batch
+RECORDIO_CROSSINGS = 32   # zero crossings across 224 px between periods
+RECORDIO_MEAN = (123.68, 116.779, 103.939)   # train_imagenet.py's mean
+RECORDIO_PATTERN_MISS = 0.01  # share of augmented images read as another class
+
+
+def make_image_folder(root, n, classes=RECORDIO_CLASSES, seed=0,
+                      sides=(300, 501), threads=None):
+    """``n`` seeded JPEGs under ``root/class<c>/<i>.jpg``, ImageNet-like
+    sizes (each side 300-500 px): image ``i`` is class ``i % classes``,
+    stripes that vary along x (even classes) or y (odd), of period
+    ``RECORDIO_PERIODS[c >= 2]`` px, in a random tint with pixel noise.
+    Random crop, mirror and HLS jitter keep a class's stripes, so
+    :func:`pattern_class` reads the class back from an augmented
+    image."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    specs = [(i, i % classes, int(rng.randint(*sides)),
+              int(rng.randint(*sides)), rng.uniform(120, 230, 3),
+              rng.uniform(0, 2 * np.pi), int(rng.randint(1 << 30)))
+             for i in range(n)]
+    for c in range(classes):
+        os.makedirs(os.path.join(root, "class%d" % c), exist_ok=True)
+
+    def write(spec):
+        i, c, h, w, tint, phase, noise_seed = spec
+        period = RECORDIO_PERIODS[c >= 2]
+        along = np.arange(w if c % 2 == 0 else h, dtype=np.float32)
+        wave = 0.6 + 0.3 * np.sin(2 * np.pi * along / period + phase)
+        wave = wave[None, :] if c % 2 == 0 else wave[:, None]
+        img = np.broadcast_to(wave, (h, w))[:, :, None] * tint[None, None]
+        img = img + np.random.RandomState(noise_seed).randn(h, w, 3) * 12
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            os.path.join(root, "class%d" % c, "%05d.jpg" % i), quality=90)
+
+    with ThreadPoolExecutor(threads or os.cpu_count()) as pool:
+        list(pool.map(write, specs))
+    return n
+
+
+def pattern_class(chw):
+    """The class of :func:`make_image_folder` that an image (C, H, W,
+    any mean subtracted) shows: the axis its stripes vary along, and
+    their period from the zero crossings of the mean profile along it."""
+    import numpy as np
+
+    gray = np.asarray(chw, np.float64).mean(axis=0)
+    gx = np.abs(np.diff(gray, axis=1)).mean()
+    gy = np.abs(np.diff(gray, axis=0)).mean()
+    along_x = gx > gy
+    profile = gray.mean(axis=0 if along_x else 1)
+    sign = np.sign(profile - profile.mean())
+    crossings = int(np.count_nonzero(sign[1:] != sign[:-1]))
+    return (0 if along_x else 1) + (0 if crossings > RECORDIO_CROSSINGS
+                                    else 2)
+
+
+def pil_resize_signature():
+    """PIL's version, whether its default ``Image.resize`` filter (the
+    one ``ImageRecordIter`` uses) is BICUBIC, and the first 16 hex digits
+    of the SHA-256 of a default resize of a seeded 300x500 image to
+    224x224: equal digits on two machines mean the same filter and the
+    same results."""
+    import hashlib
+
+    import numpy as np
+    import PIL
+    from PIL import Image
+
+    img = Image.fromarray((np.random.RandomState(0).rand(300, 500, 3)
+                           * 255).astype(np.uint8))
+    out = img.resize((224, 224))
+    return {"version": PIL.__version__,
+            "default_is_bicubic": out.tobytes() == img.resize(
+                (224, 224), Image.BICUBIC).tobytes(),
+            "sha256_16": hashlib.sha256(out.tobytes()).hexdigest()[:16]}
+
+
+def _load_tool(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_" + name, os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "tools",
+            name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def pack_image_folder(prefix, root, threads=None):
+    """``tools/torch_im2rec.py`` at train_imagenet's packing: ``--list
+    --recursive`` (folder names become labels, the list shuffled), then
+    ``--resize 256`` (shorter side) into ``prefix.rec``/``.idx``.
+    Returns the tool module and the seconds the pack took."""
+    tool = _load_tool("torch_im2rec")
+    t0 = time.perf_counter()
+    for extra in (["--list", "--recursive"],
+                  ["--resize", "256", "--num-thread",
+                   str(threads or os.cpu_count())]):
+        with mock.patch.object(sys, "argv", ["torch_im2rec.py", *extra,
+                                             prefix, root]):
+            if tool.main() != 0:
+                raise AssertionError("torch_im2rec failed on %s" % root)
+    return tool, time.perf_counter() - t0
+
+
+def check_packed_records(tool, prefix, root, threads=None):
+    """Every record of ``prefix.rec``, read back in file order with the
+    port's reader, equals the bytes the tool packs for its ``.lst`` line
+    (re-encoded here: PIL's encoder is deterministic), and the ``.idx``
+    finds each record by its id. Returns ({id: label}, the ids in file
+    order)."""
+    import argparse
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mxnet_tpu_torch import recordio
+
+    items = list(tool.read_list(prefix + ".lst"))
+    args = argparse.Namespace(center_crop=False, resize=256,
+                              encoding=".jpg", quality=95)
+    with ThreadPoolExecutor(threads or os.cpu_count()) as pool:
+        want = list(pool.map(lambda it: tool._encode_one(it, root, args)[1],
+                             items))
+    reader = recordio.MXRecordIO(prefix + ".rec", "r")
+    got = []
+    while True:
+        s = reader.read()
+        if s is None:
+            break
+        got.append(s)
+    reader.close()
+    if got != want:
+        bad = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                   min(len(got), len(want)))
+        raise AssertionError("%s.rec: %d records against %d packed, first "
+                             "difference at record %d"
+                             % (prefix, len(got), len(want), bad))
+    indexed = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec",
+                                         "r")
+    for (idx, _, _), rec in list(zip(items, got))[::97]:
+        if indexed.read_idx(idx) != rec:
+            raise AssertionError("%s.idx: record %d read back wrong"
+                                 % (prefix, idx))
+    indexed.close()
+    labels = {idx: lab[0] for idx, lab, _ in items}
+    ids = [recordio.unpack(s)[0].id for s in got]
+    if ids != [idx for idx, _, _ in items]:
+        raise AssertionError("%s.rec: ids out of the .lst order" % prefix)
+    return labels, ids
+
+
+def _imagenet_run(device, argv, build_net, on_batch=None, synthetic=None,
+                  label_ops=False):
+    """examples/image-classification_torch/train_imagenet.py through its
+    ``train_model.fit`` under ``argv`` (the fit switches at their
+    defaults: scanned, K = 8), ``build_net(args)`` its network, the
+    metric accuracy with a cross-entropy beside it.
+
+    Each epoch's training window runs from the end of the previous
+    epoch's validation (the example's ``val.rec``; without one, from the
+    previous epoch's end) to its end; on the card ``torch.profiler``
+    traces the last epoch's window, with the host and each op's forward
+    labelled ``mx::<op>`` when ``label_ops``. K1's count is zeroed just
+    before the fit and read just after. ``synthetic`` replaces the
+    example's in-memory data. Returns a dict: ``args``, ``net``,
+    ``model``, ``launches``, ``wall_s``, ``epoch_s`` (epoch end to epoch
+    end, validation included), ``train_s`` (the training windows),
+    ``built`` (scanned trainers built), ``params`` (the first and the
+    last epoch's end parameters) and ``prof``."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import registry
+    from mxnet_tpu_torch.ops import softmax as sm
+    from mxnet_tpu_torch.parallel import fit_trainer
+
+    tm, ex = _ic_example("train_imagenet.py")
+    argv = list(argv) + (["--ctx", "cpu"] if device == "cpu" else [])
+    seen = {"built": 0, "stamps": [], "starts": [], "params": []}
+    real_make = fit_trainer.make_fit_trainer
+    real_fit = mx.FeedForward.fit
+    real_apply = registry.OpDef.apply
+    prof = None
+    if device == "cuda":
+        from torch.profiler import (ProfilerActivity, profile,
+                                    record_function)
+
+        prof = profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if label_ops else []))
+
+        def labelled_apply(self, *a, **k):
+            with record_function("mx::" + self.name):
+                return real_apply(self, *a, **k)
+
+    def make(*a, **kw):
+        seen["built"] += 1
+        return real_make(*a, **kw)
+
+    def start_window(last):
+        seen["starts"].append(time.perf_counter())
+        if prof is not None and last:
+            if label_ops:
+                registry.OpDef.apply = labelled_apply
+            prof.start()
+
+    def fit(self, X, **kw):
+        epochs = self.num_epoch
+        val = kw.get("eval_data")
+        resets = [0]
+        if val is not None:
+            real_reset = val.reset
+
+            def reset():
+                # the validation loop resets its iterator before and
+                # after it: the second ends the validation
+                real_reset()
+                resets[0] += 1
+                if resets[0] == 2:
+                    start_window(len(seen["stamps"]) == epochs - 1)
+
+            val.reset = reset
+
+        def on_epoch(epoch, symbol, arg, aux):
+            _sync(device)
+            seen["stamps"].append(time.perf_counter())
+            seen["params"].append({k: v.asnumpy() for k, v in arg.items()})
+            if len(seen["params"]) > 2:
+                seen["params"].pop(1)
+            if prof is not None and epoch == epochs - 1:
+                prof.stop()
+                registry.OpDef.apply = real_apply
+            resets[0] = 0
+            if val is None and epoch < epochs - 1:
+                start_window(epoch == epochs - 2)
+
+        kw["epoch_end_callback"] = on_epoch
+        kw["eval_metric"] = mx.metric.create(["acc", "ce"])
+        _sync(device)
+        seen["t0"] = time.perf_counter()
+        start_window(epochs == 1)
+        return real_fit(self, X, **kw)
+
+    patches = [mock.patch.object(sys, "argv", ["train_imagenet.py"] + argv),
+               mock.patch.object(fit_trainer, "make_fit_trainer", make),
+               mock.patch.object(mx.FeedForward, "fit", fit),
+               mock.patch.dict(os.environ)]
+    if synthetic is not None:
+        patches.append(mock.patch.object(ex, "_synthetic", synthetic))
+    try:
+        for pt in patches:
+            pt.start()
+        for k in ("MXNET_SCAN_TRAIN", "MXNET_TRAIN_SCAN_K",
+                  "MXNET_COMPUTE_DTYPE"):
+            os.environ.pop(k, None)   # the defaults: scanned, K = 8
+        args = ex.parse_args()
+        net = build_net(args)
+        t0 = time.perf_counter()
+        sm.fused_softmax.launches = 0
+        model = tm.fit(args, net, ex.get_iterator, batch_end_callback=on_batch)
+        _sync(device)
+        launches = sm.fused_softmax.launches
+        wall = time.perf_counter() - t0
+    finally:
+        registry.OpDef.apply = real_apply
+        for pt in reversed(patches):
+            pt.stop()
+    stamps = seen["stamps"]
+    return {"args": args, "net": net, "model": model, "launches": launches,
+            "wall_s": wall, "built": seen["built"], "prof": prof,
+            "params": seen["params"],
+            "epoch_s": [b - a for a, b in zip([seen["t0"]] + stamps[:-1],
+                                              stamps)],
+            "train_s": [b - a for a, b in zip(seen["starts"], stamps)]}
+
+
+def phase_recordio(device="cuda", n_train=RECORDIO_TRAIN, n_val=RECORDIO_VAL,
+                   argv=(), step_batch=8, synthetic=None):
+    """train_imagenet.py at its defaults (ResNet-50, batch 256, 3x224x224,
+    lr 0.1, ``kv-store device``) from a packed RecordIO file, 2 epochs.
+
+    A seeded image folder of :func:`make_image_folder` (``n_train`` and
+    ``n_val`` images of 4 classes, 300-500 px a side) is made in a
+    temporary directory and packed by ``tools/torch_im2rec.py --resize
+    256`` into ``train.rec`` and ``val.rec``; every record read back
+    equals the bytes packed (:func:`check_packed_records`). The example
+    then trains with ``--data-dir`` there, ``--num-classes 4`` and
+    ``--num-examples n_train`` through ``ImageRecordIter`` (rand crop,
+    mirror, HLS jitter 36/50/50, the ImageNet mean) under
+    ``PrefetchingIter`` and the scanned ``FeedForward.fit``, validating
+    on ``val.rec`` after each epoch. Every batch's labels are held, as
+    the fit stages it, against the ``.lst`` labels of the records it
+    holds (the iterator keeps the file order: the example does not
+    shuffle). In the first epoch only, each batch's data is also held:
+    finite, within what the mean allows, and at most
+    RECORDIO_PATTERN_MISS of its images showing another class's stripes
+    (:func:`pattern_class`; a pipeline that parts data from labels
+    misreads three in four). The second epoch is the timed one: its
+    window (:func:`_imagenet_run`) holds its training steps alone, the
+    callback there only compares labels and reads the cross-entropy
+    (its seconds are printed), and the card's busy share is taken over
+    that window. PIL's version and a hash of its default
+    ``Image.resize`` (the iterator's filter) on a seeded image are
+    printed. Every step's cross-entropy is finite and the parameters
+    change and stay finite; K1 runs once a training and a validation
+    batch. Beside it: the same example with ``--synthetic`` (2048 seeded
+    images in memory, 2 epochs, no validation), timed the same way, and
+    one step at batch ``step_batch`` on the first ``.rec`` batch on the
+    card against the host (:func:`net_closeness`). ``synthetic``
+    replaces the example's in-memory data (a CPU rehearsal at a small
+    size). The iterator's own rate is ``tools/torch_bench_io.py``'s."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    def resnet50(args):
+        return mx.models.get_resnet(num_classes=args.num_classes,
+                                    num_layers=50)
+
+    tmp = tempfile.mkdtemp(prefix="mx_recordio_")
+    try:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        t0 = time.perf_counter()
+        labels, ids, pack_s = {}, {}, {}
+        for split, n, seed in (("train", n_train, 1), ("val", n_val, 2)):
+            root = os.path.join(tmp, "images", split)
+            make_image_folder(root, n, seed=seed)
+            prefix = os.path.join(data, split)
+            tool, pack_s[split] = pack_image_folder(prefix, root)
+            labels[split], ids[split] = check_packed_records(tool, prefix,
+                                                             root)
+        prepare_s = time.perf_counter() - t0
+        train_rec = os.path.join(data, "train.rec")
+        rec_bytes = os.path.getsize(train_rec)
+
+        seen = {"ce": [], "batches": 0, "label_bad": 0, "pattern_miss": 0,
+                "images": 0, "range": [math.inf, -math.inf], "finite": True,
+                "callback_s": {}}
+        mean = np.asarray(RECORDIO_MEAN, np.float32)[:, None, None]
+
+        def on_batch(param):
+            t = time.perf_counter()
+            loc = param.locals
+            b, k = loc["b"], loc["k"]
+            lab = np.asarray(b["softmax_label"])
+            n = len(lab)
+            start = (param.nbatch - 1) * n
+            want = [labels["train"][i] for i in ids["train"][start:start + n]]
+            seen["label_bad"] += int(np.count_nonzero(lab != np.asarray(want)))
+            seen["batches"] += 1
+            prob = loc["host_outs"][0][k]
+            p = prob[np.arange(n), lab.astype(np.int64)]
+            seen["ce"].append(float(-np.log(np.maximum(p, 1e-30)).mean()))
+            if param.epoch == 0:
+                x = np.asarray(b["data"])
+                seen["finite"] &= bool(np.all(np.isfinite(x)))
+                lo, hi = float((x + mean).min()), float((x + mean).max())
+                seen["range"] = [min(seen["range"][0], lo),
+                                 max(seen["range"][1], hi)]
+                seen["pattern_miss"] += sum(pattern_class(x[j]) != int(lab[j])
+                                            for j in range(n))
+                seen["images"] += n
+            seen["callback_s"][param.epoch] = seen["callback_s"].get(
+                param.epoch, 0.0) + time.perf_counter() - t
+
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        run = _imagenet_run(
+            device, ["--data-dir", data, "--num-classes",
+                     str(RECORDIO_CLASSES), "--num-examples", str(n_train),
+                     "--num-epochs", "2"] + list(argv), resnet50,
+            on_batch=on_batch)
+        args, launches, train_s = run["args"], run["launches"], run["train_s"]
+        peak = (torch.cuda.max_memory_allocated() / 1e9
+                if device == "cuda" else None)
+        B = args.batch_size
+        steps = n_train // B
+        val_batches = n_val // B
+        first, last = run["params"][0], run["params"][-1]
+        rec = {"phase": "recordio",
+               "example": IC_DIR + "/train_imagenet.py",
+               "network": args.network, "batch": B, "lr": args.lr,
+               "kv_store": args.kv_store, "classes": RECORDIO_CLASSES,
+               "images": {"train": n_train, "val": n_val},
+               "prepare_s": prepare_s, "pack_s": pack_s,
+               "train_rec_mb": rec_bytes / 1e6,
+               "records_checked": len(ids["train"]) + len(ids["val"]),
+               "epochs": args.num_epochs, "steps_per_epoch": steps,
+               "scanned_trainer_built": run["built"],
+               "epoch_s": run["epoch_s"], "train_s": train_s,
+               "img_per_s_by_epoch": [steps * B / s for s in train_s],
+               "img_per_s": steps * B / train_s[-1],
+               "callback_s_by_epoch": [seen["callback_s"].get(e, 0.0)
+                                       for e in range(args.num_epochs)],
+               "batches_held": seen["batches"],
+               "label_mismatches": seen["label_bad"],
+               "images_pattern_checked": seen["images"],
+               "pattern_miss_share": seen["pattern_miss"]
+               / max(seen["images"], 1),
+               "data_range_plus_mean": seen["range"],
+               "cross_entropy": seen["ce"], "peak_mem_gb": peak,
+               "softmax_launches": launches}
+        if run["prof"] is not None:
+            _, busy_ms, events = device_busy(run["prof"])
+            rec["busy"] = {"epoch": args.num_epochs - 1,
+                           "device_busy_ms": busy_ms,
+                           "device_events": events,
+                           "window_s": train_s[-1],
+                           "busy_share": busy_ms / 1e3 / train_s[-1]}
+        rec["pil"] = pil_resize_signature()
+        log(rec)
+        if seen["batches"] != args.num_epochs * steps:
+            raise AssertionError("recordio: %d batches staged, expected %d"
+                                 % (seen["batches"], args.num_epochs * steps))
+        if seen["label_bad"]:
+            raise AssertionError("recordio: %d labels differ from the .lst"
+                                 % seen["label_bad"])
+        if seen["images"] != steps * B:
+            raise AssertionError("recordio: %d images checked in the first "
+                                 "epoch, expected %d"
+                                 % (seen["images"], steps * B))
+        if not (seen["finite"] and seen["range"][0] >= -1e-3
+                and seen["range"][1] <= 255 + 1e-3):
+            raise AssertionError("recordio: data not finite or outside "
+                                 "[-mean, 255 - mean]: %r" % seen["range"])
+        if rec["pattern_miss_share"] > RECORDIO_PATTERN_MISS:
+            raise AssertionError("recordio: %.4f of the images show another "
+                                 "class than their label"
+                                 % rec["pattern_miss_share"])
+        if not all(math.isfinite(v) for v in seen["ce"]):
+            raise AssertionError("recordio: a step's cross-entropy is not "
+                                 "finite: %r" % seen["ce"])
+        if not all(np.all(np.isfinite(v)) for v in last.values()):
+            raise AssertionError("recordio: non-finite parameters")
+        if all(np.array_equal(first[k], last[k]) for k in first):
+            raise AssertionError("recordio: the parameters did not change")
+        expected = (args.num_epochs * (steps + val_batches)
+                    if device == "cuda" else 0)
+        if launches != expected:
+            raise AssertionError("recordio launched K1 %d times, expected %d"
+                                 % (launches, expected))
+
+        # the same example on its in-memory synthetic data
+        srun = _imagenet_run(
+            device, ["--synthetic", "--num-classes", str(RECORDIO_CLASSES),
+                     "--num-epochs", "2"] + list(argv), resnet50,
+            synthetic=synthetic)
+        sargs, strain_s = srun["args"], srun["train_s"]
+        ssteps = sargs.num_examples // sargs.batch_size
+        srec = {"phase": "recordio_synthetic", "batch": sargs.batch_size,
+                "images": sargs.num_examples, "steps_per_epoch": ssteps,
+                "epoch_s": srun["epoch_s"], "train_s": strain_s,
+                "img_per_s_by_epoch": [ssteps * sargs.batch_size / s
+                                       for s in strain_s],
+                "img_per_s": ssteps * sargs.batch_size / strain_s[-1],
+                "softmax_launches": srun["launches"]}
+        if srun["prof"] is not None:
+            _, busy_ms, events = device_busy(srun["prof"])
+            srec["busy"] = {"device_busy_ms": busy_ms,
+                            "device_events": events,
+                            "window_s": strain_s[-1],
+                            "busy_share": busy_ms / 1e3 / strain_s[-1]}
+        srec["rec_slowdown"] = srec["img_per_s"] / rec["img_per_s"]
+        log(srec)
+        sexpected = sargs.num_epochs * ssteps if device == "cuda" else 0
+        if srun["launches"] != sexpected:
+            raise AssertionError("recordio --synthetic launched K1 %d times, "
+                                 "expected %d" % (srun["launches"], sexpected))
+
+        # one step on the first .rec batch, card against host
+        it = mx.io.ImageRecordIter(
+            path_imgrec=train_rec, mean_r=RECORDIO_MEAN[0],
+            mean_g=RECORDIO_MEAN[1], mean_b=RECORDIO_MEAN[2],
+            data_shape=(3, 224, 224), batch_size=step_batch, rand_crop=True,
+            rand_mirror=True, random_h=36, random_s=50, random_l=50)
+        batch0 = it.next()
+        with mx.NameManager():
+            sym = mx.models.get_resnet(num_classes=RECORDIO_CLASSES,
+                                       num_layers=50)
+        shapes = {"data": (step_batch, 3, 224, 224),
+                  "softmax_label": (step_batch,)}
+        pargs, aux = zoo_params(sym, shapes, seed=13)
+        pargs["data"] = batch0.data[0].asnumpy()
+        pargs["softmax_label"] = batch0.label[0].asnumpy()
+        got = net_step(sym, shapes, pargs, aux, device)
+        want = net_step(sym, shapes, pargs, aux, "cpu")
+        nudged = net_step(sym, shapes, nudge(pargs), aux, device)
+        grad = dict(net_closeness(got, want, nudged),
+                    phase="recordio_grad_check", batch=step_batch,
+                    tol=NET_TOL)
+        log(grad)
+        if not grad["ok"]:
+            raise AssertionError("ResNet-50's step on the first .rec batch "
+                                 "on the card differs from the host's: %r"
+                                 % grad)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["synthetic"] = srec
+    rec["grad_check"] = grad
     return rec
 
 
@@ -4560,54 +5029,72 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    card = phase_setup()
-    fwd_checks = phase_kernels()
-    bwd_checks = phase_bwd_kernels()
-    phase_grad_check()
+    phase_s = {}
+
+    def _timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    card = _timed("setup", phase_setup)
+    fwd_checks = _timed("kernels", phase_kernels)
+    bwd_checks = _timed("bwd_kernels", phase_bwd_kernels)
+    _timed("grad_check", phase_grad_check)
     torch.cuda.empty_cache()
-    serving = phase_serving()
+    serving = _timed("serving", phase_serving)
     torch.cuda.empty_cache()
-    serving_sampled = phase_serving_sampled(card=card)
+    serving_sampled = _timed("serving_sampled", phase_serving_sampled,
+                             card=card)
     torch.cuda.empty_cache()
-    training = phase_training()
+    training = _timed("training", phase_training)
     torch.cuda.empty_cache()
-    softmax_checks = phase_softmax_kernel()
-    lenet = phase_lenet()
-    phase_resnet_grad_check()
+    softmax_checks = _timed("softmax_kernel", phase_softmax_kernel)
+    lenet = _timed("lenet", phase_lenet)
+    _timed("resnet_grad_check", phase_resnet_grad_check)
     torch.cuda.empty_cache()
-    resnet_ff = phase_resnet_fit()
+    resnet_ff = _timed("resnet_fit", phase_resnet_fit)
     resnet = resnet_ff["softmax_launches"]
     torch.cuda.empty_cache()
-    module = phase_module()
-    resnet_module = phase_resnet_module_fit(feedforward=resnet_ff)
+    module = _timed("module", phase_module)
+    resnet_module = _timed("resnet_module_fit", phase_resnet_module_fit,
+                           feedforward=resnet_ff)
     torch.cuda.empty_cache()
-    resnet_bench = phase_resnet_bench()["softmax_launches"]
+    resnet_bench = _timed("resnet_bench",
+                          phase_resnet_bench)["softmax_launches"]
     torch.cuda.empty_cache()
-    resnet_scanned = phase_resnet_scanned_fit(
-        feedforward=resnet_ff)["softmax_launches"]
+    resnet_scanned = _timed("resnet_scanned_fit", phase_resnet_scanned_fit,
+                            feedforward=resnet_ff)["softmax_launches"]
     torch.cuda.empty_cache()
-    lstm = phase_lstm_bucketing()["softmax_launches"]
+    lstm = _timed("lstm_bucketing", phase_lstm_bucketing)["softmax_launches"]
     torch.cuda.empty_cache()
-    ssd = phase_ssd()["softmax_launches"]
+    ssd = _timed("ssd", phase_ssd)["softmax_launches"]
     torch.cuda.empty_cache()
-    inception_bn = phase_inception_bn()["softmax_launches"]
+    inception_bn = _timed("inception_bn",
+                          phase_inception_bn)["softmax_launches"]
     torch.cuda.empty_cache()
-    phase_inception_bn_grad_check()
+    _timed("inception_bn_grad_check", phase_inception_bn_grad_check)
     torch.cuda.empty_cache()
-    cifar10 = phase_cifar10()["softmax_launches"]
+    cifar10 = _timed("cifar10", phase_cifar10)["softmax_launches"]
     torch.cuda.empty_cache()
-    phase_zoo()
+    recordio = _timed("recordio", phase_recordio)
+    recordio_launches = recordio["softmax_launches"]
+    recordio_synthetic = recordio["synthetic"]["softmax_launches"]
     torch.cuda.empty_cache()
-    rcnn_rec = phase_rcnn()
+    _timed("zoo", phase_zoo)
+    torch.cuda.empty_cache()
+    rcnn_rec = _timed("rcnn", phase_rcnn)
     rcnn = rcnn_rec["softmax_launches"]
     rcnn_alternate = rcnn_rec["alternate"]["softmax_launches"]
     torch.cuda.empty_cache()
-    phase_host_bridges()
-    phase_optimizers()
+    _timed("host_bridges", phase_host_bridges)
+    _timed("optimizers", phase_optimizers)
     torch.cuda.empty_cache()
-    rtc = phase_rtc()
+    rtc = _timed("rtc", phase_rtc)
     torch.cuda.empty_cache()
-    mm_stats = phase_matmul_stats()
+    mm_stats = _timed("matmul_stats", phase_matmul_stats)
+    log({"phase_seconds": phase_s,
+         "phases_total_s": sum(phase_s.values())})
     fwd_main = fwd_checks[-1]   # the training shape, the LM's views
     bwd_main = bwd_checks[-1]   # the training shape, the LM's views
     kernels = [{
@@ -4660,13 +5147,15 @@ def main():
     sm_bench = sm_case((128, 1000), "bfloat16")  # bench.py's bf16 step
     sm_incbn = sm_case((256, 1000), "float32")   # Inception-BN's fit
     sm_rcnn = sm_case((32, 3), "float32")        # Faster R-CNN's head
+    sm_rec = sm_case((256, RECORDIO_CLASSES), "float32")   # the .rec fit
     kernels.append({
         "name": "softmax", "route": "cuda",
         "source": "mxnet_tpu_torch/ops/csrc/softmax.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:517",
         "launches": (lenet + resnet + module + resnet_module + lstm
                      + resnet_bench + resnet_scanned + ssd + inception_bn
-                     + cifar10 + rcnn + rcnn_alternate),
+                     + cifar10 + recordio_launches + recordio_synthetic
+                     + rcnn + rcnn_alternate),
         "launches_by_path": {"lenet_fit": lenet, "resnet50_fit": resnet,
                              "module": module,
                              "resnet50_module_fit": resnet_module,
@@ -4674,7 +5163,10 @@ def main():
                              "resnet50_bench": resnet_bench,
                              "resnet50_scanned_fit": resnet_scanned,
                              "ssd": ssd, "inception_bn": inception_bn,
-                             "cifar10": cifar10, "rcnn": rcnn,
+                             "cifar10": cifar10,
+                             "recordio": recordio_launches,
+                             "recordio_synthetic": recordio_synthetic,
+                             "rcnn": rcnn,
                              "rcnn_alternate": rcnn_alternate},
         "max_abs_err": max(c["max_abs_err"] for c in softmax_checks),
         "max_err_to_limit": max(c["closeness"]["elem"]
@@ -4696,6 +5188,9 @@ def main():
             "shape", "dtype", "variant", "ms", "graph_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "library_graph_ms")},
         "rcnn_shape": {k: sm_rcnn[k] for k in (
+            "shape", "dtype", "variant", "ms", "graph_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library_graph_ms")},
+        "recordio_shape": {k: sm_rec[k] for k in (
             "shape", "dtype", "variant", "ms", "graph_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "library_graph_ms")}})
     f32, bf16 = (rtc["timing"]["mul_add_" + t]

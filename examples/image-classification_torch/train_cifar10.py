@@ -7,7 +7,9 @@ synthetic 32x32 data when absent.
 
 On mxnet_tpu_torch: examples/image-classification/train_cifar10.py with its
 imports rewritten and ``--ctx`` taking ``auto`` (``gpu(0)``, with no
-fallback to the CPU when there is no card), ``gpu`` or ``cpu``:
+fallback to the CPU when there is no card), ``gpu`` or ``cpu``. Its
+RecordIO branch reads ``train.rec``, ``test.rec`` and ``mean.bin`` in
+``--data-dir`` (packs made with tools/torch_im2rec.py):
 
     python3 examples/image-classification_torch/train_cifar10.py --synthetic
 """
@@ -47,9 +49,6 @@ def get_iterator(args, kv):
     train_rec = os.path.join(args.data_dir, "train.rec")
     if not os.path.exists(train_rec) or args.synthetic:
         return _synthetic(args)
-    if not hasattr(mx.io, "ImageRecordIter"):
-        raise mx.MXNetError("ImageRecordIter is not ported to mxnet_tpu_torch "
-                            "(ROADMAP Queue 1 item 3): run with --synthetic")
     data_shape = (3, 28, 28)
     train = mx.io.ImageRecordIter(
         path_imgrec=train_rec, mean_img=os.path.join(args.data_dir, "mean.bin"),

@@ -7,10 +7,14 @@ README.md:150-176. Synthetic fallback generates ImageNet-shaped batches.
 
 On mxnet_tpu_torch: examples/image-classification/train_imagenet.py with its
 imports rewritten and ``--ctx`` taking ``auto`` (``gpu(0)``, with no
-fallback to the CPU when there is no card), ``gpu`` or ``cpu``; without
-RecordIO packs (ImageRecordIter is not ported yet) it needs
-``--synthetic``:
+fallback to the CPU when there is no card), ``gpu`` or ``cpu``. It reads
+``train.rec`` (and ``val.rec``) in ``--data-dir``, packed with
+tools/torch_im2rec.py, through ``ImageRecordIter`` and ``PrefetchingIter``;
+without them, or with ``--synthetic``, it makes seeded batches:
 
+    python3 tools/torch_im2rec.py --list --recursive imagenet/train <image folder>
+    python3 tools/torch_im2rec.py --resize 256 imagenet/train <image folder>
+    python3 examples/image-classification_torch/train_imagenet.py --data-dir imagenet/
     python3 examples/image-classification_torch/train_imagenet.py --synthetic [--network inception-bn]
 """
 import argparse
@@ -42,9 +46,6 @@ def get_iterator(args, kv):
     train_rec = os.path.join(args.data_dir, "train.rec")
     if not os.path.exists(train_rec) or args.synthetic:
         return _synthetic(args)
-    if not hasattr(mx.io, "ImageRecordIter"):
-        raise mx.MXNetError("ImageRecordIter is not ported to mxnet_tpu_torch "
-                            "(ROADMAP Queue 1 item 3): run with --synthetic")
     data_shape = (3, 224, 224)
     train = mx.io.ImageRecordIter(
         path_imgrec=train_rec, mean_r=123.68, mean_g=116.779, mean_b=103.939,

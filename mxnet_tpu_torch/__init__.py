@@ -42,7 +42,15 @@ on one card:
   ``sym.Custom``, ``NumpyOp``), whose user code runs on the host between
   the card's ops, and ``torch_plugin`` (``sym.TorchModule``,
   ``sym.TorchCriterion`` and ``th``), which runs torch modules on the
-  graph's device.
+  graph's device;
+- the image data path: ``recordio`` (RecordIO files byte-equal to the
+  JAX package's, ``tools/torch_im2rec.py`` to pack them),
+  ``io.ImageRecordIter`` (PIL decode and augmentation on a thread pool)
+  with ``io.PrefetchingIter``, ``io.ResizeIter`` and ``io.CSVIter``,
+  ``opencv``, and ``stream`` (``mem://``, ``s3://``, ``hdfs://`` URIs
+  for ``nd.save``/``load`` and checkpoints); the dependency ``engine``
+  (C++, built with ``g++`` at first use) writes checkpoints
+  asynchronously.
 
 Entry points run on ``cuda:0`` unless given a device or context; without
 CUDA and without one they raise.
@@ -90,6 +98,11 @@ from . import torch as torch_plugin  # noqa: E402
 from .torch import th  # noqa: E402
 from . import parallel  # noqa: E402
 from . import serving  # noqa: E402
+from . import engine  # noqa: E402
+from . import stream  # noqa: E402
+from . import recordio  # noqa: E402
+from . import opencv  # noqa: E402
+from . import opencv as cv  # noqa: E402
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_devices", "nd", "ndarray", "random", "sym", "symbol",
@@ -100,4 +113,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "Prefix", "NDArray", "Executor", "initializer", "optimizer",
            "lr_scheduler", "metric", "callback", "io", "model",
            "FeedForward", "ops", "models", "monitor", "Monitor", "module",
-           "rtc", "operator", "torch_plugin", "th", "parallel", "serving"]
+           "rtc", "operator", "torch_plugin", "th", "parallel", "serving",
+           "engine", "stream", "recordio", "opencv", "cv"]

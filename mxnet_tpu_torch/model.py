@@ -40,14 +40,24 @@ parameters from it, and the executor manager binds each other bucket
 over the same storage when its first batch comes; ``predict`` and
 ``score`` then run the default bucket's symbol, as the JAX package's do.
 
+``save_checkpoint`` writes asynchronously by default: the file write is
+pushed to the dependency engine (``engine.py``) under a write variable
+of its prefix, so the checkpoints of one prefix land in order while
+training goes on; ``keep_n`` keeps the newest epochs; ``load_checkpoint``,
+``find_latest_checkpoint`` and ``nd.waitall`` fence the writes, and
+``fit`` fences them before it returns. ``fit`` takes ``monitor`` (the
+per-batch loop, with the monitor's taps) and ``work_load_list`` (one
+entry on one device).
+
 A kvstore other than a local one and more than one device raise. Not
-in this slice: the guardian, telemetry, mxprof, monitors and ``resume``.
+in this slice: the guardian, telemetry, mxprof and ``resume``.
 """
 from __future__ import annotations
 
 import logging
 import os
 import re
+import threading
 import time
 from collections import namedtuple
 
@@ -65,7 +75,8 @@ from .initializer import Uniform
 from .symbol import Symbol, load as sym_load
 
 __all__ = ["FeedForward", "save_checkpoint", "load_checkpoint",
-           "find_latest_checkpoint", "params_from_numpy", "BatchEndParam"]
+           "find_latest_checkpoint", "fence_checkpoint", "params_from_numpy",
+           "BatchEndParam"]
 
 BatchEndParam = namedtuple(
     "BatchEndParams", ["epoch", "nbatch", "eval_metric", "locals"])
@@ -262,14 +273,16 @@ def _train_multi_device(symbol, ctx, arg_names, param_names, aux_names,
                         eval_metric=None, epoch_end_callback=None,
                         batch_end_callback=None, logger=None,
                         eval_batch_end_callback=None, sym_gen=None,
-                        compute_dtype=None):
+                        compute_dtype=None, work_load_list=None,
+                        monitor=None):
     """The scanned fit where it applies, else the per-batch loop, on one
     device."""
     if logger is None:
         logger = logging
     K = _scan_k()
     scan_attempted = False
-    if K > 1 and len(ctx) == 1 and sym_gen is None:
+    if (K > 1 and len(ctx) == 1 and sym_gen is None and monitor is None
+            and work_load_list is None):
         from .parallel.fit_trainer import make_fit_trainer, supports_optimizer
 
         if supports_optimizer(optimizer):
@@ -307,29 +320,38 @@ def _train_multi_device(symbol, ctx, arg_names, param_names, aux_names,
                      arg_params, aux_params, begin_epoch, end_epoch,
                      epoch_size, optimizer, train_data, eval_data,
                      eval_metric, epoch_end_callback, batch_end_callback,
-                     logger, eval_batch_end_callback, sym_gen)
+                     logger, eval_batch_end_callback, sym_gen,
+                     work_load_list, monitor)
 
 
 def _train_per_batch(symbol, ctx, arg_names, param_names, aux_names,
                      arg_params, aux_params, begin_epoch, end_epoch,
                      epoch_size, optimizer, train_data, eval_data,
                      eval_metric, epoch_end_callback, batch_end_callback,
-                     logger, eval_batch_end_callback, sym_gen):
-    """The per-batch training loop on one device."""
+                     logger, eval_batch_end_callback, sym_gen,
+                     work_load_list=None, monitor=None):
+    """The per-batch training loop on one device; a ``monitor`` is
+    installed on the executors and ticks around each step."""
     executor_manager = DataParallelExecutorManager(
         symbol=symbol, sym_gen=sym_gen, ctx=ctx, train_data=train_data,
         param_names=param_names, arg_names=arg_names, aux_names=aux_names,
-        logger=logger)
+        work_load_list=work_load_list, logger=logger)
+    if monitor:
+        executor_manager.install_monitor(monitor)
     executor_manager.set_params(arg_params, aux_params)
     updater = opt.get_updater(optimizer)
 
     def _train_one_batch(data_batch, epoch, nbatch, eval_metric):
         executor_manager.load_data_batch(data_batch)
+        if monitor is not None:
+            monitor.tic()
         executor_manager.forward(is_train=True)
         executor_manager.backward()
         _update_params(executor_manager.param_arrays,
                        executor_manager.grad_arrays, updater=updater,
                        num_device=len(ctx))
+        if monitor is not None:
+            monitor.toc_print()
         executor_manager.update_metric(eval_metric, data_batch.label)
         if batch_end_callback is not None:
             batch_end_params = BatchEndParam(
@@ -384,42 +406,141 @@ def _train_per_batch(symbol, ctx, arg_names, param_names, aux_names,
         _train_one_epoch(epoch)
 
 
+_ckpt_vars = {}  # prefix -> engine write-var serializing its checkpoints
+_ckpt_vars_lock = threading.Lock()  # guards check-then-insert on _ckpt_vars
+
+
+def fence_checkpoint(prefix):
+    """Block until all queued async checkpoint writes of `prefix` have
+    landed (no-op when none are pending)."""
+    with _ckpt_vars_lock:
+        var = _ckpt_vars.get(prefix)
+    if var is not None:
+        var._engine.wait_for_var(var)
+
+
 def _write_params_atomic(param_name, save_dict):
-    """tmp file, fsync, atomic rename: ``param_name`` is always absent,
-    the previous file or the new one."""
+    """Crash-safe params write: tmp file → fsync → atomic rename →
+    best-effort directory fsync, so ``param_name`` is always absent, the
+    previous complete file or the new one. Stream URIs (s3:// etc.) have
+    no rename; they keep the plain write."""
+    if "://" in param_name:
+        nd_save(param_name, save_dict)
+        return
     tmp = "%s.tmp-%d" % (param_name, os.getpid())
     nd_save(tmp, save_dict)
     with open(tmp, "rb") as f:
         os.fsync(f.fileno())
     os.replace(tmp, param_name)
+    dirfd = None
+    try:  # durability of the rename itself
+        dirfd = os.open(os.path.dirname(os.path.abspath(param_name)),
+                        os.O_RDONLY)
+        os.fsync(dirfd)
+    except OSError:
+        pass
+    finally:
+        if dirfd is not None:
+            os.close(dirfd)
 
 
-def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
+_CKPT_RE = re.compile(r"-(\d{4,})\.params")
+
+
+def _checkpoint_epochs(prefix):
+    """Epochs with an existing `prefix-NNNN.params`, newest first.
+    The suffix is FULL-matched so a sibling run's longer prefix
+    ('model-ft-0006.params' while scanning 'model') can neither inject
+    phantom epochs nor get its files pruned by this run."""
+    d = os.path.dirname(os.path.abspath(prefix)) or "."
+    base = os.path.basename(prefix)
+    epochs = []
+    try:
+        names = os.listdir(d)
+    except OSError:
+        return []
+    for fn in names:
+        if not fn.startswith(base + "-"):
+            continue
+        m = _CKPT_RE.fullmatch(fn[len(base):])
+        if m is not None:
+            epochs.append(int(m.group(1)))
+    return sorted(set(epochs), reverse=True)
+
+
+def _prune_checkpoints(prefix, keep_n):
+    """Rolling retention: keep the newest `keep_n` epochs of `prefix`,
+    delete the rest — including stranded tmp siblings from crashed
+    writes and the epoch's optimizer `.states` sidecar. Best-effort —
+    retention must never fail a training step."""
+    import glob as _glob
+
+    for epoch in _checkpoint_epochs(prefix)[keep_n:]:
+        path = "%s-%04d.params" % (prefix, epoch)
+        try:
+            os.remove(path)
+            logging.info('Pruned old checkpoint "%s"', path)
+        except OSError:
+            pass
+        stale = _glob.glob(_glob.escape(path) + ".tmp-*")
+        stale.append("%s-%04d.states" % (prefix, epoch))
+        for f in stale:
+            try:
+                os.remove(f)
+            except OSError:
+                pass
+
+
+def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params,
+                    sync=False, keep_n=None):
     """Write ``prefix-symbol.json`` and ``prefix-%04d.params``
-    (synchronously)."""
+    (ref: python/mxnet/model.py:311).
+
+    Async by default: the parameters are copied to the host now, and the
+    file write is pushed to the dependency engine under a write variable
+    of ``prefix`` (checkpoints of one prefix land in order; different
+    prefixes overlap), fenced by ``fence_checkpoint``, ``nd.waitall()``
+    and the end of ``fit``. ``sync=True`` or ``MXNET_ENGINE_TYPE=
+    NaiveEngine`` writes before returning. The params file lands via tmp
+    + fsync + atomic rename; ``keep_n`` keeps only the newest ``keep_n``
+    epochs of this prefix after a successful write."""
     if symbol is not None:
         symbol.save("%s-symbol.json" % prefix)
-    save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
-    save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
+    # snapshot the parameters now: later updates must not leak into the
+    # checkpoint being written
+    save_dict = {("arg:%s" % k): v._data.detach().to("cpu", copy=True)
+                 for k, v in arg_params.items()}
+    save_dict.update({("aux:%s" % k): v._data.detach().to("cpu", copy=True)
+                      for k, v in aux_params.items()})
     param_name = "%s-%04d.params" % (prefix, epoch)
-    _write_params_atomic(param_name, save_dict)
-    logging.info('Saved checkpoint to "%s"', param_name)
+
+    def _write():
+        _write_params_atomic(param_name, save_dict)
+        logging.info('Saved checkpoint to "%s"', param_name)
+        if keep_n is not None and keep_n >= 1:
+            _prune_checkpoints(prefix, int(keep_n))
+
+    if sync:
+        fence_checkpoint(prefix)
+        _write()
+        return
+    from . import engine as _engine
+
+    eng = _engine.Engine.get()
+    with _ckpt_vars_lock:
+        var = _ckpt_vars.get(prefix)
+        if var is None or var._engine is not eng:
+            var = _ckpt_vars[prefix] = eng.new_variable()
+    eng.push(_write, mutable_vars=[var])
 
 
 def find_latest_checkpoint(prefix):
     """The newest epoch whose ``prefix-NNNN.params`` loads, or None;
     a corrupt or partial file is skipped with a warning (the JAX
-    package's ``find_latest_checkpoint``, checked by loading)."""
-    d = os.path.dirname(os.path.abspath(prefix)) or "."
-    base = os.path.basename(prefix)
-    try:
-        names = os.listdir(d)
-    except OSError:
-        return None
-    epochs = sorted({int(m.group(1)) for m in (
-        re.fullmatch(re.escape(base) + r"-(\d{4,})\.params", fn)
-        for fn in names) if m}, reverse=True)
-    for epoch in epochs:
+    package's ``find_latest_checkpoint``, checked by loading). Fences
+    the prefix's in-flight writes first."""
+    fence_checkpoint(prefix)
+    for epoch in _checkpoint_epochs(prefix):
         path = "%s-%04d.params" % (prefix, epoch)
         try:
             nd_load(path)
@@ -432,7 +553,9 @@ def find_latest_checkpoint(prefix):
 
 def load_checkpoint(prefix, epoch):
     """``(symbol, arg_params, aux_params)`` with the arrays on the
-    host."""
+    host (ref: python/mxnet/model.py:341). Fences any in-flight async
+    checkpoint of this prefix before reading."""
+    fence_checkpoint(prefix)
     symbol = sym_load("%s-symbol.json" % prefix)
     save_dict = nd_load("%s-%04d.params" % (prefix, epoch))
     arg_params = {}
@@ -656,15 +779,23 @@ class FeedForward:
 
     def fit(self, X, y=None, eval_data=None, eval_metric="acc",
             epoch_end_callback=None, batch_end_callback=None,
-            kvstore="local", logger=None, eval_batch_end_callback=None):
+            kvstore="local", logger=None, work_load_list=None, monitor=None,
+            eval_batch_end_callback=None):
         """Train for ``num_epoch`` epochs. ``kvstore`` may only name a
-        local store, which on one device is none."""
+        local store, which on one device is none; ``work_load_list`` may
+        only have one entry; ``monitor`` installs its taps on the
+        per-batch loop."""
         if logger is None:
             logger = logging
         if kvstore is not None and (not isinstance(kvstore, str)
                                     or "dist" in kvstore):
             raise MXNetError("kvstore %r: kvstores are not ported; fit "
                              "runs on one device without one" % (kvstore,))
+        if work_load_list is not None and (
+                not isinstance(work_load_list, list)
+                or len(work_load_list) != len(self.ctx)):
+            raise MXNetError("work_load_list %r: one entry a device, and "
+                             "fit runs on one device" % (work_load_list,))
         data = self._init_iter(X, y, is_train=True)
         if isinstance(eval_data, (tuple, list)) and len(eval_data) == 2:
             eval_data = self._init_iter(eval_data[0], eval_data[1],
@@ -696,14 +827,23 @@ class FeedForward:
             epoch_end_callback=epoch_end_callback,
             batch_end_callback=batch_end_callback, logger=logger,
             eval_batch_end_callback=eval_batch_end_callback,
-            sym_gen=self.sym_gen, compute_dtype=self.compute_dtype)
+            sym_gen=self.sym_gen, compute_dtype=self.compute_dtype,
+            work_load_list=work_load_list, monitor=monitor)
+        # fence host tasks (async epoch checkpoints): a failed write
+        # surfaces here, at the training call site
+        from . import engine as _engine
+
+        if _engine.Engine._instance is not None:
+            _engine.Engine._instance.wait_for_all()
 
     def save(self, prefix, epoch=None):
         if epoch is None:
             epoch = self.num_epoch
         assert epoch is not None
+        # explicit save → durable on return (async path is the epoch-end
+        # do_checkpoint callback)
         save_checkpoint(prefix, epoch, self.symbol, self.arg_params,
-                        self.aux_params)
+                        self.aux_params, sync=True)
 
     @staticmethod
     def load(prefix, epoch, ctx=None, **kwargs):
@@ -711,3 +851,21 @@ class FeedForward:
         return FeedForward(symbol, ctx=ctx, arg_params=arg_params,
                            aux_params=aux_params, begin_epoch=epoch,
                            **kwargs)
+
+    @staticmethod
+    def create(symbol, X, y=None, ctx=None, num_epoch=None, epoch_size=None,
+               optimizer="sgd", initializer=Uniform(0.01), eval_data=None,
+               eval_metric="acc", epoch_end_callback=None,
+               batch_end_callback=None, kvstore="local", logger=None,
+               work_load_list=None, eval_batch_end_callback=None, **kwargs):
+        """Build a FeedForward and fit it (ref: model.py:862)."""
+        model = FeedForward(
+            symbol, ctx=ctx, num_epoch=num_epoch, epoch_size=epoch_size,
+            optimizer=optimizer, initializer=initializer, **kwargs)
+        model.fit(
+            X, y, eval_data=eval_data, eval_metric=eval_metric,
+            epoch_end_callback=epoch_end_callback,
+            batch_end_callback=batch_end_callback,
+            kvstore=kvstore, logger=logger, work_load_list=work_load_list,
+            eval_batch_end_callback=eval_batch_end_callback)
+        return model

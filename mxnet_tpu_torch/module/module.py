@@ -23,7 +23,6 @@ package, each in so many words:
   JAX package pickles its own), so a ``.states`` file round-trips
   within the port only; like the JAX package's, it holds no momentum
   (that lives in the updater), so a resumed run restarts it at zero;
-- ``save_checkpoint`` has no ``keep_n`` retention;
 - ``bind`` of a module whose parameters are initialized (``Module.load``,
   a re-bind) copies them into the new executor, as the reference's
   ``module.py`` does; the JAX package's ``bind`` does not, so there a
@@ -114,15 +113,18 @@ class Module(BaseModule):
             mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
         return mod
 
-    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False,
+                        keep_n=None):
         """ref: module.py:119: ``prefix-symbol.json``, ``prefix-NNNN.params``
-        (tmp file, fsync, atomic rename) and, if asked,
-        ``prefix-NNNN.states``."""
+        (written before returning: tmp file, fsync, atomic rename) and, if
+        asked, ``prefix-NNNN.states``; ``keep_n`` keeps only the newest N
+        epochs on disk."""
         from ..model import save_checkpoint as _save_ckpt
 
         self._sync_params_from_devices()
         arg_params, aux_params = self.get_params()
-        _save_ckpt(prefix, epoch, self.symbol, arg_params, aux_params)
+        _save_ckpt(prefix, epoch, self.symbol, arg_params, aux_params,
+                   sync=True, keep_n=keep_n)
         if save_optimizer_states:
             self.save_optimizer_states("%s-%04d.states" % (prefix, epoch))
 

@@ -25,11 +25,12 @@ The module functions ``add``, ``subtract``, ``multiply``, ``divide``
 (``true_divide``), ``power``, ``maximum``, ``minimum`` and ``negative``
 take an NDArray or a scalar on either side, as the JAX package's
 (``mxnet_tpu/ndarray.py:679-770``); ``onehot_encode`` writes into its
-``out``; ``waitall`` synchronises the cards.
+``out``; ``waitall`` waits for the dependency engine's host tasks
+and synchronises the cards; ``imdecode`` decodes an image with PIL.
 
 ``save``/``load``/``load_frombuffer`` read and write the JAX package's
 binary format byte for byte (``mxnet_tpu/ndarray.py`` ``_write_tensor``
-and ``save``), on local paths; bfloat16 (dtype code 7) is written from
+and ``save``), on local paths and stream URIs (``stream.py``); bfloat16 (dtype code 7) is written from
 the tensor's int16 view.
 """
 from __future__ import annotations
@@ -48,6 +49,7 @@ from .context import Context, cpu, current_context, gpu
 
 __all__ = ["NDArray", "zeros", "ones", "full", "empty", "array", "arange",
            "concatenate", "load", "save", "load_frombuffer", "waitall",
+           "imdecode",
            "onehot_encode", "add", "subtract", "multiply", "divide",
            "true_divide", "negative", "power", "maximum", "minimum"]
 
@@ -442,11 +444,44 @@ def onehot_encode(indices, out):
 
 
 def waitall():
-    """Block until the work queued on every initialised card has
+    """Block until the host tasks pushed to the dependency engine (async
+    checkpoints) and the work queued on every initialised card have
     finished."""
+    from . import engine as _engine
+
+    if _engine.Engine._instance is not None:
+        _engine.Engine._instance.wait_for_all()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         for i in range(torch.cuda.device_count()):
             torch.cuda.synchronize(i)
+
+
+def imdecode(str_img, clip_rect=(0, 0, 0, 0), out=None, index=0, channels=3,
+             mean=None):
+    """Decode an image from compressed bytes into a [1, C, H, W] f32
+    array on the current context (ref: src/ndarray/ndarray.cc:798
+    _imdecode, which uses OpenCV; PIL here, as in the JAX package)."""
+    try:
+        from PIL import Image
+    except ImportError as e:  # pragma: no cover
+        raise MXNetError("imdecode requires PIL") from e
+    img = Image.open(_io.BytesIO(str_img))
+    if channels == 3:
+        img = img.convert("RGB")
+    arr = _np.asarray(img, dtype=_np.float32)
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    x0, y0, x1, y1 = clip_rect
+    if x1 > 0 and y1 > 0:
+        arr = arr[y0:y1, x0:x1]
+    if mean is not None:
+        arr = arr - mean.asnumpy()
+    arr = arr.transpose(2, 0, 1)[None]  # NCHW
+    res = array(arr)
+    if out is not None:
+        out._set_data(res._data)
+        return out
+    return res
 
 
 # -- serialization -----------------------------------------------------------
@@ -490,7 +525,8 @@ def _read_tensor(f, ctx):
 
 
 def save(fname, data):
-    """Save a list or dict of NDArray to a local file."""
+    """Save a list or dict of NDArray to a file or stream URI
+    (``mem://``, ``s3://``, ``hdfs://``; ``stream.open_stream``)."""
     if isinstance(data, dict):
         names = list(data.keys())
         arrays = [data[k] for k in names]
@@ -499,7 +535,9 @@ def save(fname, data):
         arrays = list(data)
     else:
         raise MXNetError("save requires a list or dict of NDArray")
-    with open(fname, "wb") as f:
+    from .stream import open_stream
+
+    with open_stream(fname, "wb") as f:
         f.write(struct.pack("<QQQ", _ND_MAGIC, 0, len(arrays)))
         f.write(struct.pack("<Q", len(names)))
         for name in names:
@@ -511,9 +549,11 @@ def save(fname, data):
 
 
 def load(fname, ctx=None):
-    """Load a list or dict of NDArray from a local file (onto ``ctx``,
-    by default the host)."""
-    with open(fname, "rb") as f:
+    """Load a list or dict of NDArray from a file or stream URI (onto
+    ``ctx``, by default the host)."""
+    from .stream import open_stream
+
+    with open_stream(fname, "rb") as f:
         return load_frombuffer(f.read(), ctx)
 
 

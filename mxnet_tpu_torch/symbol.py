@@ -429,7 +429,9 @@ class Symbol:
         }, indent=2)
 
     def save(self, fname):
-        with open(fname, "w") as f:
+        from .stream import open_stream
+
+        with open_stream(fname, "w") as f:
             f.write(self.tojson())
 
     def debug_str(self):
@@ -577,8 +579,10 @@ def load_json(json_str):
 
 
 def load(fname):
-    """Load a Symbol from a local JSON file."""
-    with open(fname, "r") as f:
+    """Load a Symbol from a JSON file or stream URI."""
+    from .stream import open_stream
+
+    with open_stream(fname, "r") as f:
         return load_json(f.read())
 
 

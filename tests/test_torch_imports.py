@@ -2,25 +2,31 @@
 
 - a fresh interpreter that imports the package and every submodule has
   neither ``jax`` nor ``mxnet_tpu`` in ``sys.modules``;
-- no source of the port, nor ``chip_smoke.py``, the profile tools, the
-  card's test files or the port's examples (``examples/rnn_torch``,
+- no source of the port, nor ``chip_smoke.py``, the profile tools,
+  ``tools/torch_im2rec.py``, ``tools/torch_bench_io.py``, the card's
+  test files or the port's examples (``examples/rnn_torch``,
   ``examples/ssd_torch``, ``examples/image-classification_torch``,
   ``examples/rcnn_torch``, ``examples/dec_torch``,
   ``examples/numpy-ops_torch``, ``examples/torch_torch``), imports
-  either;
+  either, nor names the JAX package's native runtime
+  (``mxnet_tpu/_native``);
 - on the CPU path (serving, LM training, a LeNet ``FeedForward`` fit
   and predict, a LeNet ``Module`` fit and predict (both on the scanned
   path), a bf16 ``make_symbol_train_step`` loop, a callable ``Rtc``
   push, ``matmul_stats`` on CPU tensors, ``examples/ssd_torch``'s
   training graph through ``Module.fit`` and its detection graph,
   ``examples/image-classification_torch``'s MLP through its
-  ``train_model.fit``) neither
+  ``train_model.fit``, an async checkpoint through the dependency
+  engine, a packed ``.rec`` read through ``ImageRecordIter`` under
+  ``PrefetchingIter``, ``opencv.resize``, ``nd.save`` to ``mem://``)
+  neither
   the kernel build
   module ``ops._build`` nor the NVRTC binding ``ops._nvrtc`` is
   imported; the walk over every submodule
   reaches ``rtc``, ``ops._nvrtc``, ``ops.matmul_stats``, ``monitor``,
-  ``module/``, the two Symbol trainers of ``parallel/``, ``operator``
-  and the torch plugin (``torch``);
+  ``module/``, the two Symbol trainers of ``parallel/``, ``operator``,
+  the torch plugin (``torch``), ``stream``, ``recordio``, ``opencv``
+  and ``engine``;
 - every card test file (``tests/test_torch_*_cuda.py``) carries the
   ``cuda`` marker;
 - the host-only scheduler copy matches its original below the imports.
@@ -108,6 +114,26 @@ sys.argv = ['train_mnist.py', '--ctx', 'cpu', '--num-epochs', '1',
 model = train_model.fit(train_mnist.parse_args(), train_mnist.get_mlp(),
                         train_mnist.get_iterator((784,)))
 assert model.arg_params['fc3_weight'].shape == (10, 64)
+import tempfile
+tmp = tempfile.mkdtemp()
+mx.model.save_checkpoint(tmp + '/mlp', 1, model.symbol, model.arg_params,
+                         model.aux_params)
+assert mx.model.load_checkpoint(tmp + '/mlp', 1)[1].keys() == \
+    model.arg_params.keys()
+w = mx.recordio.MXRecordIO(tmp + '/t.rec', 'w')
+for i in range(4):
+    w.write(mx.recordio.pack_img((0, float(i), i, 0),
+                                 np.full((40, 50, 3), 9 * i, np.uint8)))
+w.close()
+it = mx.io.PrefetchingIter(mx.io.ImageRecordIter(
+    path_imgrec=tmp + '/t.rec', data_shape=(3, 32, 32), batch_size=2,
+    rand_crop=True, random_h=36, mean_r=1.0))
+assert [b.data[0].shape for b in it] == [(2, 3, 32, 32)] * 2
+with mx.cpu():
+    assert mx.cv.resize(mx.nd.array(np.zeros((8, 8, 3), np.uint8),
+                                    dtype=np.uint8), (4, 4)).shape == (4, 4, 3)
+mx.nd.save('mem://probe.params', [mx.nd.array(np.ones(3), ctx=mx.cpu())])
+assert mx.nd.load('mem://probe.params')[0].shape == (3,)
 print('cpu_path', 'mxnet_tpu_torch.ops._build' in sys.modules,
       'mxnet_tpu_torch.ops._nvrtc' in sys.modules, forbidden())
 import mxnet_tpu_torch as pkg
@@ -119,7 +145,8 @@ for must in ('model', 'rtc', 'ops._nvrtc', 'ops.matmul_stats', 'monitor',
              'module', 'module.module', 'module.base_module', 'module.python_module',
              'module.sequential_module', 'module.bucketing_module',
              'parallel.symbol_trainer', 'parallel.fit_trainer',
-             'operator', 'torch'):
+             'operator', 'torch', 'stream', 'recordio', 'opencv',
+             'engine'):
     assert 'mxnet_tpu_torch.' + must in names, (must, names)
 for n in names:
     importlib.import_module(n)
@@ -164,6 +191,8 @@ def _imports(path):
         ROOT / "tools" / "torch_train_profile.py",
         ROOT / "tools" / "torch_fit_profile.py",
         ROOT / "tools" / "torch_probe_matmul_stats.py",
+        ROOT / "tools" / "torch_im2rec.py",
+        ROOT / "tools" / "torch_bench_io.py",
         ROOT / "tests" / "test_torch_flash_kernel_cuda.py",
         ROOT / "tests" / "test_torch_flash_bwd_kernel_cuda.py",
         ROOT / "tests" / "test_torch_softmax_kernel_cuda.py",
@@ -174,7 +203,8 @@ def _imports(path):
         ROOT / "tests" / "test_torch_symbol_trainer_cuda.py",
         ROOT / "tests" / "test_torch_vision_cuda.py",
         ROOT / "tests" / "test_torch_zoo_cuda.py",
-        ROOT / "tests" / "test_torch_host_ops_cuda.py"]
+        ROOT / "tests" / "test_torch_host_ops_cuda.py",
+        ROOT / "tests" / "test_torch_recordio_cuda.py"]
     + sorted((ROOT / "examples" / "rnn_torch").glob("*.py"))
     + sorted((ROOT / "examples" / "ssd_torch").glob("*.py"))
     + sorted((ROOT / "examples" / "image-classification_torch").glob(
@@ -186,6 +216,9 @@ def _imports(path):
 def test_no_source_imports_jax_or_the_jax_package(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, "%s imports %s" % (path, bad)
+    text = path.read_text()
+    assert "mxnet_tpu._native" not in text
+    assert "mxnet_tpu/_native" not in text
 
 
 @pytest.mark.parametrize(

@@ -433,6 +433,7 @@ def test_checkpoint_bytes_equal(checkpoints):
     mt.model.save_checkpoint(prefix, 1, mt.sym.load_json(
         checkpoints[mj][1].symbol.tojson()), _nd(mt, _np(arg)),
         _nd(mt, _np(aux)))
+    mt.model.fence_checkpoint(prefix)
     assert open(prefix + "-0001.params", "rb").read() == files[0][0]
 
 

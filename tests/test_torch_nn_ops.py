@@ -8,8 +8,11 @@ the CPU: ``LeakyReLU``, ``Deconvolution``, ``InstanceNorm``,
   seeded cotangent an output, on the same numpy-seeded f32 inputs:
   elementwise ops within rtol 1e-6 (atol 1e-7, for values near zero);
   the deconvolutions, the normalisations, LRN's window sums, bilinear
-  resizing and the KL penalty's batch mean within rtol 1e-5 / atol 1e-6;
-- ``Deconvolution`` in 1-D, 2-D and 3-D over stride, pad, adj,
+  resizing and the KL penalty's batch mean within rtol 1e-5 / atol 1e-6
+  (the deconvolutions at one torch thread within rtol 2.5e-5, see
+  SUM_ORDER_1T);
+- ``Deconvolution`` at one and at four torch threads, in 1-D, 2-D and
+  3-D over stride, pad, adj,
   ``target_shape`` (also where its adj is not below the stride) and
   ``no_bias``, with ``infer_shape`` equal; ``num_group`` > 1, where the
   JAX op raises, against the JAX op run once a group;
@@ -197,8 +200,27 @@ DECONV_CASES = {
 }
 
 
+# At one torch thread the CPU transposed convolution's weight gradient
+# sums in another order than at 2-8: the 2-D case then needs rtol
+# 1.21e-5 at atol 1e-6 against the JAX op's f32 result (one element:
+# 2.07e-5 relative, 2.4e-6 absolute), the port's one-thread result
+# alone 1.00e-5 against float64, the JAX op's 2.4e-6, the port's at 2-8
+# threads 2.3e-6 (tests/torch_deconv_sum_order.py). The one-thread
+# bound is about twice that gap; at four threads the cases hold REDUCE.
+SUM_ORDER_1T = (2.5e-5, 1e-6)
+
+
+@pytest.fixture(params=[1, 4], ids=["1thread", "4threads"])
+def torch_threads(request):
+    """torch at 1 or 4 CPU threads for the test, restored after."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(request.param)
+    yield request.param
+    torch.set_num_threads(prev)
+
+
 @pytest.mark.parametrize("case", sorted(DECONV_CASES))
-def test_deconvolution_matches_jax(case):
+def test_deconvolution_matches_jax(case, torch_threads):
     dshape, params = DECONV_CASES[case]
     op = reg_t.get("Deconvolution")
     ins, outs, _ = op.infer_shape(op.parse_params(dict(params)),
@@ -208,7 +230,8 @@ def test_deconvolution_matches_jax(case):
                   [dshape, None] + ([] if params.get("no_bias") else [None]))
     inputs = [_x(*s, seed=i) for i, s in enumerate(ins)]
     got, _ = _check("Deconvolution", params, inputs,
-                    diff=tuple(range(len(inputs))), tol=REDUCE)
+                    diff=tuple(range(len(inputs))),
+                    tol=REDUCE if torch_threads > 1 else SUM_ORDER_1T)
     assert got[0].shape == outs[0]
     if "target_shape" in params:
         assert got[0].shape[2:] == params["target_shape"]
