@@ -145,6 +145,24 @@ Phases (any failure raises and the script exits non-zero):
    against the host, and every op of the slice (``ZOO_OP_CASES``,
    ``rrelu``'s draws bit-equal) on the card against the host
    (``phase_zoo``);
+   mirroring (``phase_mirror``): one Executor step of Inception-BN at
+   train_imagenet.py's width (batch 256, 3x224x224, 1000 classes)
+   unmirrored and under ``MXNET_BACKWARD_DO_MIRROR=1`` from one set of
+   parameters, outputs, gradients and BatchNorm statistics bit-equal
+   (else within relative L2 1e-6, the reason recorded), the mirrored
+   peak memory lower, K1 once a step; examples/memcost_torch/
+   lstm_memcost.py at its defaults; train_cifar10.py ``--mirror`` for
+   one epoch through the scanned fit (a mirror plan, finite parameters,
+   K1 once a training and a validation batch);
+   the Predictor (``phase_predictor``): Inception-BN's checkpoint through
+   ``Predictor.from_checkpoint`` at batch 32, outputs bit-equal to
+   ``FeedForward.predict``, a partial output and ``reshape`` to batch 8;
+   ``export_compiled`` loaded by ``load_compiled`` in a fresh process
+   that builds no Symbol (outputs bit-equal, K1 launched inside the
+   exported program; cold load, first batch and ms a batch);
+   ``test_utils.check_consistency`` of LeNet and Inception-BN-small over
+   the card and the host; a profiler trace around two Predictor calls
+   holding the scope and K1;
    the RecordIO pipeline (``phase_recordio``): a seeded folder of
    2,560 + 256 JPEGs (4 classes of stripes, 300-500 px a side) in a
    temporary directory, packed by tools/torch_im2rec.py ``--resize 256``
@@ -3842,26 +3860,24 @@ def phase_inception_bn(device="cuda", argv=(), synthetic=None):
     return rec
 
 
-def phase_cifar10(device="cuda", argv=()):
-    """examples/image-classification_torch/train_cifar10.py at its
-    defaults (``--synthetic``: Inception-BN-28-small, the example's 4096
-    training and 1024 validation 3x28x28 images with class rows, batch
-    128, SGD lr 0.05, momentum 0.9, wd 1e-5, Xavier(in, 2.34)) for 3
-    epochs through the scanned ``FeedForward.fit``: validation accuracy
-    after the last epoch > CIFAR_VAL_ACC (the port's two host runs:
-    0.887 and 0.603 after the first epoch, 1.0 after the second and the
-    third), K1 launched once a training and a validation batch.
-    Prints each epoch's validation accuracy, ms a step and img/s."""
+def _cifar10_run(device, argv):
+    """examples/image-classification_torch/train_cifar10.py's
+    ``--synthetic`` fit with ``argv`` through ``train_model.fit``, as its
+    ``__main__`` runs it (``--mirror`` sets ``MXNET_BACKWARD_DO_MIRROR=1``
+    for the fit): the record (validation accuracy a epoch, ms a step,
+    img/s, peak memory, K1's launches, which must be one a training and
+    a validation batch on the card) and the scanned trainers built."""
     import torch
 
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import softmax as sm
 
     tm, ex = _ic_example("train_cifar10.py")
-    argv = (["--synthetic", "--num-epochs", "3"] + list(argv)
+    argv = (["--synthetic"] + list(argv)
             + (["--ctx", "cpu"] if device == "cpu" else []))
-    seen = {"val": {}, "stamps": []}
+    seen = {"val": {}, "stamps": [], "trainers": []}
     real_fit = mx.FeedForward.fit
+    real_trainer = mx.parallel.fit_trainer.FitTrainer.__init__
 
     def fit(self, X, **kw):
         def on_eval(param):
@@ -3877,15 +3893,25 @@ def phase_cifar10(device="cuda", argv=()):
         seen["t0"] = time.perf_counter()
         return real_fit(self, X, **kw)
 
+    def trainer(self, *a, **kw):
+        real_trainer(self, *a, **kw)
+        seen["trainers"].append(self)
+
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     with mock.patch.object(sys, "argv", ["train_cifar10.py"] + argv), \
             mock.patch.object(mx.FeedForward, "fit", fit), \
+            mock.patch.object(mx.parallel.fit_trainer.FitTrainer,
+                              "__init__", trainer), \
             mock.patch.dict(os.environ):
         for k in ("MXNET_SCAN_TRAIN", "MXNET_TRAIN_SCAN_K",
-                  "MXNET_COMPUTE_DTYPE"):
+                  "MXNET_COMPUTE_DTYPE", "MXNET_BACKWARD_DO_MIRROR",
+                  "MXNET_BACKWARD_MIRROR_STEP",
+                  "MXNET_BACKWARD_MIRROR_PATTERN"):
             os.environ.pop(k, None)
         args = ex.parse_args()
+        if args.mirror:   # what the script's __main__ does
+            os.environ["MXNET_BACKWARD_DO_MIRROR"] = "1"
         net = mx.models.get_inception_bn_small(num_classes=10)
         sm.fused_softmax.launches = 0
         tm.fit(args, net, ex.get_iterator)
@@ -3898,7 +3924,7 @@ def phase_cifar10(device="cuda", argv=()):
     step_ms = 1e3 * sum(timed) / len(timed) / steps
     val = [seen["val"][e] for e in sorted(seen["val"])]
     val_batches = 1024 // args.batch_size
-    rec = {"phase": "cifar10", "example": IC_DIR + "/train_cifar10.py",
+    rec = {"example": IC_DIR + "/train_cifar10.py", "argv": argv,
            "network": args.network, "batch": args.batch_size,
            "epochs": args.num_epochs, "steps_per_epoch": steps,
            "val_accuracy": val, "epoch_s": epoch_s,
@@ -3907,16 +3933,32 @@ def phase_cifar10(device="cuda", argv=()):
            "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
                            if device == "cuda" else None),
            "softmax_launches": launches}
-    log(rec)
-    if not (val and val[-1] > CIFAR_VAL_ACC):
-        raise AssertionError("train_cifar10: validation accuracy %r, not "
-                             "> %g after %d epochs"
-                             % (val, CIFAR_VAL_ACC, args.num_epochs))
     expected = (args.num_epochs * (steps + val_batches)
                 if device == "cuda" else 0)
     if launches != expected:
         raise AssertionError("train_cifar10 launched K1 %d times, expected "
                              "%d" % (launches, expected))
+    return rec, seen["trainers"]
+
+
+def phase_cifar10(device="cuda", argv=()):
+    """examples/image-classification_torch/train_cifar10.py at its
+    defaults (``--synthetic``: Inception-BN-28-small, the example's 4096
+    training and 1024 validation 3x28x28 images with class rows, batch
+    128, SGD lr 0.05, momentum 0.9, wd 1e-5, Xavier(in, 2.34)) for 3
+    epochs through the scanned ``FeedForward.fit``: validation accuracy
+    after the last epoch > CIFAR_VAL_ACC (the port's two host runs:
+    0.887 and 0.603 after the first epoch, 1.0 after the second and the
+    third), K1 launched once a training and a validation batch.
+    Prints each epoch's validation accuracy, ms a step and img/s."""
+    rec, _ = _cifar10_run(device, ["--num-epochs", "3"] + list(argv))
+    rec = dict(rec, phase="cifar10")
+    log(rec)
+    val = rec["val_accuracy"]
+    if not (val and val[-1] > CIFAR_VAL_ACC):
+        raise AssertionError("train_cifar10: validation accuracy %r, not "
+                             "> %g after %d epochs"
+                             % (val, CIFAR_VAL_ACC, rec["epochs"]))
     return rec
 
 
@@ -4995,6 +5037,439 @@ def phase_optimizers(device="cuda"):
     return rec
 
 
+# -- slice 16: mirroring (gradient checkpointing) and the Predictor --------
+MIRROR_ENV = ("MXNET_BACKWARD_DO_MIRROR", "MXNET_BACKWARD_MIRROR_PATTERN",
+              "MXNET_BACKWARD_MIRROR_STEP")
+MIRROR_TOL = 1e-6   # relative L2 a tensor, where cuDNN parts the two steps
+PREDICT_TOL = 1e-4  # the Predictor at another batch, and its internal head
+MEMCOST_DIR = os.path.join("examples", "memcost_torch")
+MEMCOST_LINE = re.compile(r"mirror=(\w+)\s+remat_segments=(\d+)\s+"
+                          r"saved_residual_MB=([\d.]+)")
+
+
+def _inception_bn_net(mx, classes=1000):
+    with mx.NameManager():
+        return mx.models.get_inception_bn(num_classes=classes)
+
+
+def mirror_step(sym, shapes, args, aux, device, mirror, seed=0, steps=2):
+    """``steps`` Executor training steps (forward, backward) of ``sym``
+    bound with ``MXNET_BACKWARD_DO_MIRROR`` set to 1 or unset (the other
+    mirror variables unset), from numpy parameters, Dropout keys under
+    ``random.seed(seed)``: the last step's outputs, gradients and the
+    aux states after it as numpy, with the last step's ms, the card's
+    peak memory over it (the peak statistics reset just before; the
+    first step warms cuDNN and the allocator) and K1's launches in it."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import softmax as sm
+
+    with mock.patch.dict(os.environ):
+        for k in MIRROR_ENV:
+            os.environ.pop(k, None)
+        if mirror:
+            os.environ["MXNET_BACKWARD_DO_MIRROR"] = "1"
+        exe = sym.simple_bind(_ctx(device), grad_req="write", **shapes)
+    for n, v in args.items():
+        exe.arg_dict[n][:] = v
+    for n, v in aux.items():
+        exe.aux_dict[n][:] = v
+    cuda = device == "cuda"
+    mx.random.seed(seed)
+    for _ in range(steps - 1):
+        exe.forward(is_train=True)
+        exe.backward()
+    _sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        bound = torch.cuda.memory_allocated()
+    sm.fused_softmax.launches = 0
+    t0 = time.perf_counter()
+    exe.forward(is_train=True)
+    exe.backward()
+    _sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = sm.fused_softmax.launches
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    out = {"outputs": [o.asnumpy() for o in exe.outputs],
+           "grads": {n: g.asnumpy() for n, g in exe.grad_dict.items()
+                     if n not in shapes},
+           "aux": {n: a.asnumpy() for n, a in exe.aux_dict.items()},
+           "ms": ms, "softmax_launches": launches,
+           "segments": sum(1 for it in exe._plan if it[0] == "seg"),
+           "peak_gb": peak / 1e9 if cuda else None,
+           "peak_above_bound_gb": (peak - bound) / 1e9 if cuda else None}
+    del exe
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def mirror_compare(got, want):
+    """Every output, gradient and aux state of ``got`` against ``want``:
+    bit-equal, or else within relative L2 MIRROR_TOL a tensor."""
+    import numpy as np
+
+    pairs = [("output%d" % i, a, b) for i, (a, b) in
+             enumerate(zip(got["outputs"], want["outputs"]))]
+    for part in ("grads", "aux"):
+        pairs += [(n, got[part][n], want[part][n]) for n in want[part]]
+    unequal = {n: float(np.linalg.norm(a - b)
+                        / max(np.linalg.norm(b), 1e-30))
+               for n, a, b in pairs if not np.array_equal(a, b)}
+    return {"tensors": len(pairs), "bit_equal": not unequal,
+            "unequal": len(unequal),
+            "max_rel_l2": max(unequal.values(), default=0.0),
+            "worst": max(unequal, key=unequal.get) if unequal else None,
+            "ok": all(v <= MIRROR_TOL for v in unequal.values())}
+
+
+def _memcost(device):
+    """examples/memcost_torch/lstm_memcost.py's ``main`` at its defaults
+    (seq-len 64, batch 32, 2 layers of 256) on ``device``: its two lines,
+    parsed."""
+    import io
+    from contextlib import redirect_stdout
+
+    ex = _example_modules(MEMCOST_DIR, ["lstm_memcost"])["lstm_memcost"]
+    argv = ["lstm_memcost.py", "--device", "gpu" if device == "cuda"
+            else "cpu"]
+    buf = io.StringIO()
+    with mock.patch.object(sys, "argv", argv), mock.patch.dict(os.environ), \
+            redirect_stdout(buf):
+        for k in MIRROR_ENV:
+            os.environ.pop(k, None)
+        ex.main()
+    lines = buf.getvalue().strip().splitlines()
+    parsed = [MEMCOST_LINE.search(line) for line in lines]
+    if len(parsed) != 2 or not all(parsed):
+        raise AssertionError("lstm_memcost printed %r" % lines)
+    return lines, [{"mirror": m.group(1) == "True",
+                    "remat_segments": int(m.group(2)),
+                    "saved_mb": float(m.group(3))} for m in parsed]
+
+
+def phase_mirror(device="cuda", batch=256, image=224, cifar_argv=()):
+    """Mirroring (gradient checkpointing) in the executor:
+
+    - one Executor training step of Inception-BN at train_imagenet.py's
+      defaults (batch 256, 3x224x224, 1000 classes, f32) from one set of
+      seeded parameters, unmirrored and then under
+      ``MXNET_BACKWARD_DO_MIRROR=1`` (each the second of two steps, the
+      first a warm-up): outputs, every gradient and the BatchNorm moving
+      statistics bit-equal (else within relative L2 MIRROR_TOL, the
+      reason recorded); the mirrored step's peak memory below the
+      unmirrored one's; K1 once a step;
+    - examples/memcost_torch/lstm_memcost.py at its defaults: mirroring
+      cuts the bytes saved for backward;
+    - train_cifar10.py ``--mirror`` for one epoch through the scanned
+      fit: its trainer runs a mirror plan, its parameters stay finite,
+      K1 once a training and a validation batch."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import softmax as sm
+
+    sym = _inception_bn_net(mx)
+    shapes = {"data": (batch, 3, image, image), "softmax_label": (batch,)}
+    args, aux = zoo_params(sym, shapes, seed=13)
+    plain = mirror_step(sym, shapes, args, aux, device, False)
+    mirrored = mirror_step(sym, shapes, args, aux, device, True)
+    cmp = mirror_compare(mirrored, plain)
+    sm.fused_softmax.launches = 0
+    lines, memcost = _memcost(device)
+    memcost_launches = sm.fused_softmax.launches
+    for line in lines:
+        log(line)
+    cifar, trainers = _cifar10_run(device, ["--num-epochs", "1", "--mirror"]
+                                   + list(cifar_argv))
+    finite = all(bool(torch.isfinite(p).all()) for t in trainers
+                 for p in list(t.params.values()) + list(t.aux))
+    rec = {"phase": "mirror", "batch": batch, "image": image,
+           "segments": mirrored["segments"], "compare": cmp,
+           "unmirrored": {k: plain[k] for k in (
+               "ms", "peak_gb", "peak_above_bound_gb", "softmax_launches")},
+           "mirrored": {k: mirrored[k] for k in (
+               "ms", "peak_gb", "peak_above_bound_gb", "softmax_launches")},
+           "peak_ratio": (mirrored["peak_gb"] / plain["peak_gb"]
+                          if device == "cuda" else None),
+           "memcost": memcost, "memcost_softmax_launches": memcost_launches,
+           "cifar10_mirror": dict(cifar, trainers=len(trainers),
+                                  mirror_plan=[t._run.__self__._remat
+                                               for t in trainers],
+                                  params_finite=finite),
+           "softmax_launches": (plain["softmax_launches"]
+                                + mirrored["softmax_launches"])}
+    if not cmp["bit_equal"]:
+        rec["compare"]["reason"] = (
+            "cuDNN picked other algorithms for the recompute than for the "
+            "forward" if cmp["ok"] else "the mirrored step differs")
+    log(rec)
+    if not cmp["ok"]:
+        raise AssertionError("the mirrored Inception-BN step differs from "
+                             "the unmirrored one: %r" % cmp)
+    if not (np.all(np.isfinite(plain["outputs"][0]))
+            and mirrored["segments"] > 0):
+        raise AssertionError("mirror: no segments or non-finite outputs")
+    if device == "cuda" and not mirrored["peak_gb"] < plain["peak_gb"]:
+        raise AssertionError("mirroring did not lower the peak: %r vs %r"
+                             % (mirrored["peak_gb"], plain["peak_gb"]))
+    if device == "cuda" and (plain["softmax_launches"],
+                             mirrored["softmax_launches"]) != (1, 1):
+        raise AssertionError("K1 launched %d and %d times in the two steps"
+                             % (plain["softmax_launches"],
+                                mirrored["softmax_launches"]))
+    base, mir = memcost
+    if not (base["remat_segments"] == 0 and mir["remat_segments"] > 0
+            and mir["saved_mb"] < base["saved_mb"]):
+        raise AssertionError("lstm_memcost: mirroring saved nothing: %r"
+                             % memcost)
+    if not (trainers and all(rec["cifar10_mirror"]["mirror_plan"])
+            and finite):
+        raise AssertionError("train_cifar10 --mirror: %r"
+                             % rec["cifar10_mirror"])
+    return rec
+
+
+_LOAD_COMPILED_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+from mxnet_tpu_torch import predictor, symbol
+from mxnet_tpu_torch.ops import registry, softmax as sm
+
+
+def refuse(*a, **k):
+    raise AssertionError("load_compiled built a Symbol or read the registry")
+
+
+symbol.Symbol.__init__ = refuse
+registry.get = refuse
+torch.backends.cuda.matmul.allow_tf32 = False   # as main() sets them
+torch.backends.cudnn.allow_tf32 = False
+sync = torch.cuda.synchronize if torch.cuda.is_available() else (
+    lambda: None)
+d, runs = sys.argv[1], int(sys.argv[2])
+blob = open(d + "/model.mxtc", "rb").read()
+x = np.load(d + "/x.npy")
+sm.fused_softmax.launches = 0
+t0 = time.perf_counter()
+c = predictor.load_compiled(blob)
+sync()
+load_ms = (time.perf_counter() - t0) * 1e3
+t0 = time.perf_counter()
+c.forward(data=x)
+out = c.get_output(0)
+first_ms = (time.perf_counter() - t0) * 1e3
+ms = []
+for _ in range(runs):
+    t0 = time.perf_counter()
+    c.forward(data=x)
+    sync()
+    ms.append((time.perf_counter() - t0) * 1e3)
+np.save(d + "/out.npy", out)
+print(json.dumps({"load_ms": load_ms, "first_ms": first_ms,
+                  "ms_per_batch": sorted(ms)[len(ms) // 2],
+                  "ms_min": min(ms), "ms_max": max(ms),
+                  "launches": sm.fused_softmax.launches}))
+"""
+
+
+def bias_before_batchnorm(sym):
+    """The biases of the convolutions whose output goes straight into a
+    BatchNorm: their gradient is zero but for rounding (the BatchNorm
+    takes the batch mean out), so a relative comparison of two devices'
+    values of it compares rounding noise alone."""
+    nodes = json.loads(sym.tojson())["nodes"]
+    out = []
+    for n in nodes:
+        if n["op"] != "BatchNorm":
+            continue
+        src = nodes[n["inputs"][0][0]]
+        if src["op"] == "Convolution":
+            out += [nodes[i]["name"] for i, _ in src["inputs"]
+                    if nodes[i]["name"].endswith("_bias")]
+    return sorted(out)
+
+
+def phase_predictor(device="cuda", batch=32, small=8, image=224, runs=10):
+    """The Predictor on Inception-BN at full width (1000 classes,
+    3x224x224, seeded parameters and moving statistics saved with
+    ``save_checkpoint``):
+
+    - ``Predictor.from_checkpoint`` on ``device`` at batch ``batch``:
+      outputs bit-equal to ``FeedForward.predict`` on the same batch;
+      partial outputs (``global_pool``) against the internal head bound
+      alone (PREDICT_TOL); ``reshape`` to ``small`` against the first
+      rows (PREDICT_TOL: cuDNN picks per shape);
+    - ``export_compiled``, then ``load_compiled`` in a fresh process
+      that builds no Symbol and reads no op registry: outputs bit-equal
+      to the Predictor's, and K1 launched there (inside the exported
+      program); its cold load, first batch and ms a batch;
+    - ``test_utils.check_consistency`` of LeNet and Inception-BN-small
+      over ``[gpu(0), cpu()]`` at the helper's own tolerances, every
+      gradient but those of the biases a BatchNorm follows
+      (:func:`bias_before_batchnorm`: zero but for rounding);
+    - ``profiler`` around two Predictor calls: the trace holds the
+      scope's name and a K1 launch.
+    Prints the Predictor's and the exported program's ms a batch."""
+    import json
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import softmax as sm
+
+    ctx = _ctx(device)
+    sym = _inception_bn_net(mx)
+    shapes = {"data": (batch, 3, image, image), "softmax_label": (batch,)}
+    args, aux = zoo_params(sym, shapes, seed=17)
+    rng = np.random.RandomState(18)
+    aux = {n: (0.1 * rng.randn(*v.shape) if n.endswith("mean")
+               else 0.5 + rng.rand(*v.shape)).astype(np.float32)
+           for n, v in aux.items()}
+    tmp = tempfile.mkdtemp(prefix="mx_predictor_")
+    try:
+        prefix = os.path.join(tmp, "inception-bn")
+        mx.model.save_checkpoint(
+            prefix, 1, sym,
+            {k: mx.nd.array(v, ctx=mx.cpu()) for k, v in args.items()
+             if k not in shapes},
+            {k: mx.nd.array(v, ctx=mx.cpu()) for k, v in aux.items()},
+            sync=True)
+        x = args["data"]
+        dshape = {"data": x.shape}
+
+        sm.fused_softmax.launches = 0
+        pred = mx.Predictor.from_checkpoint(prefix, 1, ctx=ctx,
+                                            input_shapes=dshape)
+        pred.forward(data=x)
+        out = pred.get_output(0)
+        launches = sm.fused_softmax.launches
+        ff = mx.FeedForward.load(prefix, 1, ctx=ctx).predict(
+            mx.io.NDArrayIter(x, batch_size=batch))
+        same_as_predict = bool(np.array_equal(ff, out))
+
+        head = "global_pool"
+        part = mx.Predictor.from_checkpoint(prefix, 1, ctx=ctx,
+                                            input_shapes=dshape,
+                                            output_names=[head])
+        part.forward(data=x)
+        _, sargs, saux = mx.model.load_checkpoint(prefix, 1)
+        inner = sym.get_internals()[head + "_output"]
+        exe = inner.simple_bind(ctx, grad_req="null", data=x.shape)
+        exe.copy_params_from(sargs, saux, allow_extra_params=True)
+        exe.forward(is_train=False, data=x)
+        part_close = _np_close(part.get_output(0), exe.outputs[0].asnumpy(),
+                               PREDICT_TOL)
+        del exe, part
+
+        pred.reshape({"data": (small,) + x.shape[1:]})
+        pred.forward(data=x[:small])
+        small_close = _np_close(pred.get_output(0), out[:small], PREDICT_TOL)
+        small_shape = pred.get_output_shape(0)
+        pred.reshape(dshape)
+
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            pred.forward(data=x)
+            _sync(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        times.sort()
+
+        t0 = time.perf_counter()
+        blob = pred.export_compiled()
+        export_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "model.mxtc"), "wb") as f:
+            f.write(blob)
+        np.save(os.path.join(tmp, "x.npy"), x)
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=root)
+        if device != "cuda":
+            env["CUDA_VISIBLE_DEVICES"] = ""
+        child = subprocess.run(
+            [sys.executable, "-c", _LOAD_COMPILED_CHILD, tmp, str(runs)],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        if child.returncode != 0:
+            raise AssertionError("load_compiled in a fresh process failed:"
+                                 "\n%s" % child.stderr[-4000:])
+        loaded = json.loads(child.stdout.strip().splitlines()[-1])
+        exported_out = np.load(os.path.join(tmp, "out.npy"))
+        exported_same = bool(np.array_equal(exported_out, out))
+        exported_close = _np_close(exported_out, out, PREDICT_TOL)
+
+        consistency = {}
+        for name, build, dshape_c in (
+                ("lenet", lambda: mx.models.get_lenet(), (8, 1, 28, 28)),
+                ("inception_bn_small",
+                 lambda: mx.models.get_inception_bn_small(num_classes=10),
+                 (8, 3, 28, 28))):
+            np.random.seed(21)
+            with mx.NameManager():
+                net = build()
+            skip = bias_before_batchnorm(net)
+            mx.test_utils.check_consistency(
+                net, [{"ctx": ctx, "data": dshape_c},
+                      {"ctx": mx.cpu(), "data": dshape_c}],
+                grad_req={n: "null" if n in skip else "write"
+                          for n in net.list_arguments()})
+            consistency[name] = {"held": True, "gradients_not_taken": skip}
+
+        mx.profiler.profiler_set_config(filename=os.path.join(tmp, "trace"))
+        mx.profiler.profiler_set_state("run")
+        with mx.profiler.scope("predictor-batch"):
+            for _ in range(2):
+                pred.forward(data=x)
+                pred.get_output(0)
+        mx.profiler.profiler_set_state("stop")
+        with open(mx.profiler.last_trace()) as f:
+            events = json.load(f)["traceEvents"]
+        scope_seen = any(e.get("name") == "predictor-batch" for e in events)
+        k1_seen = sum(1 for e in events if e.get("cat") == "kernel"
+                      and "softmax" in e.get("name", ""))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    rec = {"phase": "predictor", "batch": batch, "image": image,
+           "classes": 1000, "softmax_launches": launches,
+           "exported_softmax_launches": loaded["launches"],
+           "same_as_feedforward_predict": same_as_predict,
+           "partial_head": head, "partial_closeness": part_close,
+           "reshape_shape": list(small_shape),
+           "reshape_closeness": small_close,
+           "predictor_ms_per_batch": times[len(times) // 2],
+           "predictor_ms_min_max": [times[0], times[-1]],
+           "export_s": export_s, "artifact_mb": len(blob) / 1e6,
+           "exported": loaded, "exported_same_as_predictor": exported_same,
+           "exported_closeness": exported_close,
+           "consistency": consistency, "profiler_scope": scope_seen,
+           "profiler_k1_kernels": k1_seen}
+    log(rec)
+    cuda = device == "cuda"
+    checks = {
+        "outputs finite": bool(np.all(np.isfinite(out))),
+        "Predictor = FeedForward.predict": same_as_predict,
+        "partial head": within(part_close, PREDICT_TOL),
+        "reshape": (small_shape == (small, 1000)
+                    and within(small_close, PREDICT_TOL)),
+        "exported = Predictor": exported_same,
+        "K1 in the Predictor": launches == (1 if cuda else 0),
+        "K1 in the exported program": loaded["launches"] == (
+            runs + 1 if cuda else 0),
+        "profiler scope": scope_seen,
+        "profiler K1": k1_seen >= 2 if cuda else True}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError("predictor: %s failed: %r" % (failed, rec))
+    return rec
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5077,6 +5552,10 @@ def main():
     torch.cuda.empty_cache()
     cifar10 = _timed("cifar10", phase_cifar10)["softmax_launches"]
     torch.cuda.empty_cache()
+    mirror = _timed("mirror", phase_mirror)
+    torch.cuda.empty_cache()
+    predictor = _timed("predictor", phase_predictor)
+    torch.cuda.empty_cache()
     recordio = _timed("recordio", phase_recordio)
     recordio_launches = recordio["softmax_launches"]
     recordio_synthetic = recordio["synthetic"]["softmax_launches"]
@@ -5155,7 +5634,11 @@ def main():
         "launches": (lenet + resnet + module + resnet_module + lstm
                      + resnet_bench + resnet_scanned + ssd + inception_bn
                      + cifar10 + recordio_launches + recordio_synthetic
-                     + rcnn + rcnn_alternate),
+                     + rcnn + rcnn_alternate + mirror["softmax_launches"]
+                     + mirror["memcost_softmax_launches"]
+                     + mirror["cifar10_mirror"]["softmax_launches"]
+                     + predictor["softmax_launches"]
+                     + predictor["exported_softmax_launches"]),
         "launches_by_path": {"lenet_fit": lenet, "resnet50_fit": resnet,
                              "module": module,
                              "resnet50_module_fit": resnet_module,
@@ -5167,7 +5650,16 @@ def main():
                              "recordio": recordio_launches,
                              "recordio_synthetic": recordio_synthetic,
                              "rcnn": rcnn,
-                             "rcnn_alternate": rcnn_alternate},
+                             "rcnn_alternate": rcnn_alternate,
+                             "inception_bn_mirror": mirror[
+                                 "softmax_launches"],
+                             "lstm_memcost": mirror[
+                                 "memcost_softmax_launches"],
+                             "cifar10_mirror": mirror["cifar10_mirror"][
+                                 "softmax_launches"],
+                             "predictor": predictor["softmax_launches"],
+                             "predictor_exported": predictor[
+                                 "exported_softmax_launches"]},
         "max_abs_err": max(c["max_abs_err"] for c in softmax_checks),
         "max_err_to_limit": max(c["closeness"]["elem"]
                                 for c in softmax_checks),

@@ -50,7 +50,14 @@ on one card:
   ``opencv``, and ``stream`` (``mem://``, ``s3://``, ``hdfs://`` URIs
   for ``nd.save``/``load`` and checkpoints); the dependency ``engine``
   (C++, built with ``g++`` at first use) writes checkpoints
-  asynchronously.
+  asynchronously;
+- prediction and deployment: ``Predictor`` (the c_predict_api call
+  sequence over a checkpoint, on ``gpu(0)`` unless given ``ctx``) and
+  its ``export_compiled``/``predictor.load_compiled`` over
+  ``torch.export``; mirroring (``MXNET_BACKWARD_DO_MIRROR``,
+  ``force_mirroring``) in the executor; the host modules ``viz``,
+  ``test_utils``, ``profiler`` (``torch.profiler``), ``runtime``,
+  ``libinfo`` and ``misc``.
 
 Entry points run on ``cuda:0`` unless given a device or context; without
 CUDA and without one they raise.
@@ -60,7 +67,8 @@ from __future__ import annotations
 __version__ = "0.1.0"
 
 from .base import MXNetError
-from .context import Context, cpu, current_context, gpu, num_devices
+from .context import (Context, cpu, cpu_pinned, current_context, gpu,
+                      num_devices)
 from . import ndarray
 from . import ndarray as nd
 from . import random
@@ -103,6 +111,15 @@ from . import stream  # noqa: E402
 from . import recordio  # noqa: E402
 from . import opencv  # noqa: E402
 from . import opencv as cv  # noqa: E402
+from . import predictor  # noqa: E402
+from .predictor import Predictor  # noqa: E402
+from . import test_utils  # noqa: E402
+from . import visualization  # noqa: E402
+from . import visualization as viz  # noqa: E402
+from . import profiler  # noqa: E402
+from . import runtime  # noqa: E402
+from . import libinfo  # noqa: E402
+from . import misc  # noqa: E402
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_devices", "nd", "ndarray", "random", "sym", "symbol",
@@ -114,4 +131,6 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "lr_scheduler", "metric", "callback", "io", "model",
            "FeedForward", "ops", "models", "monitor", "Monitor", "module",
            "rtc", "operator", "torch_plugin", "th", "parallel", "serving",
-           "engine", "stream", "recordio", "opencv", "cv"]
+           "engine", "stream", "recordio", "opencv", "cv", "cpu_pinned",
+           "predictor", "Predictor", "test_utils", "visualization", "viz",
+           "profiler", "runtime", "libinfo", "misc"]

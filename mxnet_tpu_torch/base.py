@@ -1,10 +1,12 @@
 """Error types, dtype tables and environment knobs for mxnet_tpu_torch.
 
 The port's own copy of the pieces of ``mxnet_tpu/base.py`` it needs
-(``MXNetError``, ``InferShapeFatal``, the dtype codes, ``env_int``,
-``env_bool``): importing the JAX package's module would run
+(``MXNetError``, ``InferShapeFatal``, the dtype codes, ``getenv``,
+``env_int``, ``env_bool``, ``env_str``, ``check_call``): importing the JAX package's module would run
 ``mxnet_tpu/__init__.py``, which imports jax. ``deterministic_grads``
-is the port's own (the JAX package's gradients repeat without it).
+and :func:`rdiv_scalar` are the port's own (the JAX package's gradients
+repeat without the first; XLA divides correctly rounded without the
+second).
 
 The dtype codes are the reference's type flags (float32 0 ... int64 6)
 plus bfloat16 as code 7, as in the JAX package. numpy has no bfloat16
@@ -23,7 +25,8 @@ import torch
 __all__ = ["MXNetError", "InferShapeFatal", "string_types", "numeric_types",
            "mx_real_t", "_DTYPE_NP_TO_MX", "_DTYPE_MX_TO_NP",
            "_DTYPE_TORCH_TO_MX", "_DTYPE_MX_TO_TORCH", "torch_dtype",
-           "np_dtype", "env_int", "env_bool", "deterministic_grads"]
+           "np_dtype", "getenv", "env_int", "env_bool", "env_str",
+           "check_call", "deterministic_grads", "rdiv_scalar"]
 
 
 class MXNetError(Exception):
@@ -66,6 +69,11 @@ _DTYPE_MX_TO_TORCH = {v: k for k, v in _DTYPE_TORCH_TO_MX.items()}
 mx_real_t = _np.float32   # default real type
 
 
+# outside the file format's codes: a uint8 array's sum (``jnp.sum``'s
+# uint32)
+_DTYPE_EXTRA = {torch.uint32: _np.dtype(_np.uint32)}
+
+
 def torch_dtype(dtype):
     """The ``torch.dtype`` of a numpy dtype, a dtype name or a torch
     dtype; ``None`` is ``mx_real_t``."""
@@ -78,6 +86,9 @@ def torch_dtype(dtype):
         return torch.bfloat16
     code = _DTYPE_NP_TO_MX.get(_np.dtype(dtype))
     if code is None:
+        for t, n in _DTYPE_EXTRA.items():
+            if n == _np.dtype(dtype):
+                return t
         raise MXNetError("unsupported dtype %r" % (dtype,))
     return _DTYPE_MX_TO_TORCH[code]
 
@@ -85,10 +96,17 @@ def torch_dtype(dtype):
 def np_dtype(dtype):
     """The numpy dtype of a torch dtype; bfloat16, which numpy lacks,
     stays ``torch.bfloat16``."""
-    code = _DTYPE_TORCH_TO_MX.get(torch_dtype(dtype))
+    t = torch_dtype(dtype)
+    code = _DTYPE_TORCH_TO_MX.get(t)
     if code is None:
+        if t in _DTYPE_EXTRA:
+            return _DTYPE_EXTRA[t]
         raise MXNetError("unsupported dtype %r" % (dtype,))
     return _DTYPE_MX_TO_NP.get(code, torch.bfloat16)
+
+
+def getenv(name, default=None):
+    return os.environ.get(name, default)
 
 
 def env_int(name, default):
@@ -108,6 +126,25 @@ def env_bool(name, default):
     if v is None or v == "":
         return default
     return v not in ("0", "false", "False", "")
+
+
+def env_str(name, default):
+    return os.environ.get(name, default)
+
+
+def check_call(ret):
+    """Kept for API familiarity; there is no C return code to check."""
+    return ret
+
+
+def rdiv_scalar(s, x):
+    """``s / x`` for a Python scalar ``s``, correctly rounded as
+    ``jnp.divide`` is: torch evaluates ``s / x`` as ``reciprocal(x) * s``,
+    which rounds twice. ``s`` becomes a 0-d tensor of ``x``'s dtype
+    (float32 for an integer ``x``, as the JAX package's weak typing
+    gives), made on ``x``'s device without a host copy."""
+    dt = x.dtype if x.is_floating_point() else torch.get_default_dtype()
+    return torch.div(torch.full((), s, dtype=dt, device=x.device), x)
 
 
 @contextlib.contextmanager

@@ -15,16 +15,16 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "num_devices",
-           "resolve_device"]
+__all__ = ["Context", "cpu", "gpu", "cpu_pinned", "current_context",
+           "num_devices", "resolve_device"]
 
 
 class Context:
     """Device context; works as a with-scope that sets the default
     device for entry points called inside the block."""
 
-    devtype2str = {1: "cpu", 2: "gpu"}
-    devstr2type = {"cpu": 1, "gpu": 2}
+    devtype2str = {1: "cpu", 2: "gpu", 3: "cpu_pinned"}
+    devstr2type = {"cpu": 1, "gpu": 2, "cpu_pinned": 3}
 
     _default = threading.local()
 
@@ -59,7 +59,7 @@ class Context:
     def torch_device(self):
         """The ``torch.device`` this context denotes; raises for a GPU
         context when CUDA is missing or the id is out of range."""
-        if self.device_type == "cpu":
+        if self.device_type in ("cpu", "cpu_pinned"):
             return torch.device("cpu")
         n = num_devices("gpu")
         if self.device_id >= n:
@@ -87,12 +87,19 @@ def gpu(device_id=0):
     return Context(2, device_id)
 
 
+def cpu_pinned(device_id=0):
+    """Pinned-host context (ref: include/mxnet/base.h:90): host memory,
+    kept so reference scripts parse, as in the JAX package."""
+    return Context(3, device_id)
+
+
 def current_context():
-    """The innermost ``with`` context, else ``gpu(0)``."""
+    """The innermost ``with`` context, else the process default:
+    ``gpu(0)`` unless ``test_utils.set_default_context`` set another."""
     stack = getattr(Context._default, "stack", None)
     if stack:
         return stack[-1]
-    return gpu(0)
+    return getattr(Context, "_default_bottom", None) or gpu(0)
 
 
 def num_devices(device_type="gpu"):

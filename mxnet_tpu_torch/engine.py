@@ -48,15 +48,21 @@ _lib_lock = threading.Lock()
 _lib = None
 
 
+def library_path(build_dir=None):
+    """Where :func:`build` puts the library of this ``csrc/engine.cc``
+    (named by the hash of the source and the flags)."""
+    digest = hashlib.sha256(
+        _SRC.read_bytes() + " ".join(_CXX_FLAGS).encode()).hexdigest()[:16]
+    return Path(build_dir or BUILD_DIR) / ("libengine-%s.so" % digest)
+
+
 def build(build_dir=None, cxx=None):
     """Compile ``csrc/engine.cc`` (if its library is not there yet) and
     return the library's path; raises ``MXNetError`` when the compiler
     is missing or fails."""
     build_dir = Path(build_dir or BUILD_DIR)
     cxx = cxx or os.environ.get("CXX") or "g++"
-    digest = hashlib.sha256(
-        _SRC.read_bytes() + " ".join(_CXX_FLAGS).encode()).hexdigest()[:16]
-    so = build_dir / ("libengine-%s.so" % digest)
+    so = library_path(build_dir)
     if so.exists():
         return so
     exe = shutil.which(cxx)

@@ -73,16 +73,40 @@ order on ``torch.Tensor``s, and gradients come from ``torch.autograd``:
   - ``forward(is_train=...)`` reaches the user's op as given, and the
     monitor taps host-op outputs like any other.
 
-Not in this slice: mirror/remat, group2ctx model parallelism (raises),
-profiling and the compile verifier.
+- Mirroring (gradient checkpointing, ``mxnet_tpu/executor.py:521-600``):
+  nodes tagged ``force_mirroring``, every node under
+  ``MXNET_BACKWARD_DO_MIRROR=1``, or the nodes whose op name matches
+  ``MXNET_BACKWARD_MIRROR_PATTERN`` (a regex) are grouped, at bind
+  time, into segments of ``MXNET_BACKWARD_MIRROR_STEP`` consecutive
+  nodes (0: the square root of the run's length), the JAX executor's
+  plan. In a training forward that records autograd each segment runs
+  under ``torch.utils.checkpoint`` (non-reentrant): its activations are
+  not kept but recomputed in the backward, from the segment's inputs,
+  under the same per-node keys, so masks, outputs and gradients are
+  the unmirrored graph's. A segment returns its new aux states; the
+  recompute's are dropped. Monitor taps fire in the first run only. A
+  loss head that ends a segment runs after its checkpointed part (its
+  output is kept anyway), so SoftmaxOutput's K1 runs once a step.
+  Host ops never enter a segment, and neither does a ``TorchModule``
+  or ``TorchCriterion`` whose module holds buffers or a Dropout: each
+  closes the segment before it, so a user's forward runs once a step.
+
+Not in this slice: group2ctx model parallelism (raises), profiling and
+the compile verifier.
 """
 from __future__ import annotations
 
+import math
+import os
+import re
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import random as _random
 from . import threefry
-from .base import MXNetError, deterministic_grads, torch_dtype
+from .base import (MXNetError, deterministic_grads, env_bool, env_int,
+                   torch_dtype)
 from .context import Context
 from .ndarray import NDArray, _as_tensor, ones, zeros
 
@@ -186,6 +210,13 @@ class Executor:
             for nd, _ in symbol._outputs]
         self._grad_idx = [i for i, r in enumerate(self._reqs) if r != "null"]
         self._release = self._plan_release()
+        # gradient checkpointing ("mirror"): read at bind, as the JAX
+        # executor does
+        self._node_plan = [("node", i) for i in range(len(self._nodes))]
+        self._plan = self._build_mirror_plan()
+        self._remat = any(item[0] == "seg" for item in self._plan)
+        self._seg_runs = [self._split_segment(item) if item[0] == "seg"
+                          else None for item in self._plan]
         self._rng_serials = [s for s, n in enumerate(self._nodes)
                              if not n.is_variable and n.op.need_rng]
 
@@ -213,6 +244,127 @@ class Executor:
                 release.setdefault(serial, []).append(key)
         return release
 
+    # -- mirror (gradient checkpointing) planning --------------------------
+    def _graph_meta(self):
+        head_keys = {(id(self._nodes[i]), j) for i, j in self._heads}
+        consumers = {}
+        for serial, n in enumerate(self._nodes):
+            if n.is_variable:
+                continue
+            for s, i in n.inputs:
+                consumers.setdefault((id(s), i), set()).add(serial)
+        return head_keys, consumers
+
+    def _segment_item(self, chunk, head_keys, consumers):
+        """``("seg", serials, external inputs, live outputs, aux window,
+        random serials)`` of one segment, as the JAX executor's."""
+        seg_set = set(chunk)
+        produced = []
+        for s in chunk:
+            n = self._nodes[s]
+            for i in range(len(n.op.list_outputs(n.params))):
+                produced.append((id(n), i))
+        produced_set = set(produced)
+        ext, seen = [], set()
+        for s in chunk:
+            for src, i in self._nodes[s].inputs:
+                k = (id(src), i)
+                if k not in produced_set and k not in seen:
+                    seen.add(k)
+                    ext.append(k)
+        outs = [k for k in produced
+                if k in head_keys or (consumers.get(k, set()) - seg_set)]
+        aux_ids = [j for s in chunk
+                   for j in range(*self._node_aux.get(id(self._nodes[s]),
+                                                      (0, 0)))]
+        rng_serials = [s for s in chunk if self._nodes[s].op.need_rng]
+        return ("seg", tuple(chunk), tuple(ext), tuple(outs),
+                tuple(aux_ids), tuple(rng_serials))
+
+    def _build_mirror_plan(self):
+        """``("node", serial)`` and segment items in topological order:
+        the JAX executor's ``_build_mirror_plan``, except that a node
+        that must run once a step (:meth:`_recomputable` false) closes
+        the open run instead of joining it."""
+        mirror_all = env_bool("MXNET_BACKWARD_DO_MIRROR", False)
+        pattern = os.environ.get("MXNET_BACKWARD_MIRROR_PATTERN", "")
+        pat = re.compile(pattern) if pattern else None
+        mirror_step = env_int("MXNET_BACKWARD_MIRROR_STEP", 0)
+
+        def mirrored(n):
+            if n.is_variable or not self._recomputable(n):
+                return False
+            a = n.attrs.get("force_mirroring")
+            if a is not None:
+                return str(a).lower() in ("true", "1")
+            if pat is not None and pat.search(n.op.name):
+                return True
+            return mirror_all
+
+        if not any(mirrored(n) for n in self._nodes):
+            return self._node_plan
+        head_keys, consumers = self._graph_meta()
+        plan, run = [], []
+
+        def flush():
+            if not run:
+                return
+            step = mirror_step or max(1, int(math.sqrt(len(run))))
+            for lo in range(0, len(run), step):
+                plan.append(self._segment_item(
+                    tuple(run[lo:lo + step]), head_keys, consumers))
+            run.clear()
+
+        for serial, n in enumerate(self._nodes):
+            if mirrored(n):
+                run.append(serial)
+            elif n.is_variable:
+                # an env load: emitted ahead of the open run, not closing it
+                plan.append(("node", serial))
+            else:
+                flush()
+                plan.append(("node", serial))
+        flush()
+        return plan
+
+    def _split_segment(self, item):
+        """(the part of a segment that runs under ``checkpoint``, as a
+        segment item or None, and the serials after it): the loss heads
+        that end a segment run after the checkpointed part, since their
+        outputs are the graph's and kept anyway; recomputing them would
+        only launch their kernels (SoftmaxOutput's K1) a second time."""
+        serials = list(item[1])
+        heads = {id(self._nodes[i]) for i, _ in self._heads}
+        tail = []
+        while serials:
+            n = self._nodes[serials[-1]]
+            if not (id(n) in heads and n.op.head_no_grad(n.params)):
+                break
+            tail.insert(0, serials.pop())
+        if not tail:
+            return item, ()
+        if not serials:
+            return None, tuple(tail)
+        return self._segment_item(tuple(serials), *self._graph_meta()), \
+            tuple(tail)
+
+    @staticmethod
+    def _recomputable(n):
+        """Whether running ``n`` a second time, in the backward, is
+        invisible: not for a host op (the user's operator would run its
+        forward twice), nor for a torch module with buffers or a
+        Dropout of its own."""
+        if n.op.is_host_op:
+            return False
+        if n.op.name in ("TorchModule", "TorchCriterion"):
+            from .torch import _resolve_module_string, module_creator
+
+            mod = module_creator(_resolve_module_string(n.params))
+            return not (any(True for _ in mod.buffers()) or any(
+                isinstance(m, torch.nn.modules.dropout._DropoutNd)
+                for m in mod.modules()))
+        return True
+
     # -- the graph walk --------------------------------------------------------
     def _node_keys(self, key):
         """serial -> ``fold_in(key, serial)`` on the executor's device for
@@ -223,40 +375,112 @@ class Executor:
         return dict(zip(self._rng_serials,
                         _random.keys_to(keys, self._device).unbind(0)))
 
+    def _apply_node(self, serial, env, aux, rng, is_train, monitor):
+        """Evaluate one op node into ``env``; ``aux`` is indexed by the
+        global aux position (the walk's list, or a segment's dict)."""
+        n = self._nodes[serial]
+        ins = [env[(id(s), i)] for s, i in n.inputs]
+        sl = self._node_aux.get(id(n))
+        aux_in = [aux[j] for j in range(*sl)] if sl else []
+        outs, n_aux = n.op.apply(n.params, ins, aux_in, is_train, rng,
+                                 host_cache=self._host_op_cache)
+        onames = n.op.list_outputs(n.params) if monitor else ()
+        for i, o in enumerate(outs):
+            env[(id(n), i)] = o
+            if monitor is not None:
+                monitor("%s_%s" % (n.name, onames[i]),
+                        NDArray(o.detach(), self._ctx))
+        if sl:
+            for j, v in zip(range(*sl), n_aux):
+                aux[j] = v
+        return outs
+
     def _run(self, arg_vals, aux_vals, is_train, tap=False, key=None):
         """Walk the graph; random nodes draw under ``key``; with ``tap``
-        every op output goes to the monitor callback as it is made."""
+        every op output goes to the monitor callback as it is made. A
+        training forward that records autograd runs the mirror plan's
+        segments under ``checkpoint``."""
         env = {}
         new_aux = list(aux_vals)
         monitor = self._monitor_callback if tap else None
         node_keys = self._node_keys(key)
         self._host_roots = roots = []
         recording = torch.is_grad_enabled()
-        for serial, n in enumerate(self._nodes):
-            if n.is_variable:
-                env[(id(n), 0)] = arg_vals[self._var_argidx[id(n)]]
-                continue
-            ins = [env[(id(s), i)] for s, i in n.inputs]
-            sl = self._node_aux.get(id(n))
-            aux_in = new_aux[sl[0]:sl[1]] if sl else []
-            outs, n_aux = n.op.apply(n.params, ins, aux_in, is_train,
-                                     node_keys.get(serial),
-                                     host_cache=self._host_op_cache)
-            if recording and n.op.is_host_op and \
-                    n.op.head_no_grad(n.params):
-                roots.extend(o for o in outs if o.requires_grad)
-            onames = n.op.list_outputs(n.params) if monitor else ()
-            for i, o in enumerate(outs):
-                env[(id(n), i)] = o
-                if monitor is not None:
-                    monitor("%s_%s" % (n.name, onames[i]),
-                            NDArray(o.detach(), self._ctx))
-            if sl:
-                new_aux[sl[0]:sl[1]] = n_aux
-            for key in self._release.get(serial, ()):
-                env.pop(key, None)
+        plan = self._plan if (self._remat and is_train and recording) \
+            else self._node_plan
+        for idx, item in enumerate(plan):
+            if item[0] == "seg":
+                body, tail = self._seg_runs[idx]
+                if body is not None:
+                    self._run_segment(body, env, new_aux, node_keys,
+                                      is_train, monitor)
+                for serial in tail:
+                    self._apply_node(serial, env, new_aux,
+                                     node_keys.get(serial), is_train,
+                                     monitor)
+                serials = item[1]
+            else:
+                serial = item[1]
+                serials = (serial,)
+                n = self._nodes[serial]
+                if n.is_variable:
+                    env[(id(n), 0)] = arg_vals[self._var_argidx[id(n)]]
+                    continue
+                outs = self._apply_node(serial, env, new_aux,
+                                        node_keys.get(serial), is_train,
+                                        monitor)
+                if recording and n.op.is_host_op and \
+                        n.op.head_no_grad(n.params):
+                    roots.extend(o for o in outs if o.requires_grad)
+            for serial in serials:
+                for k in self._release.get(serial, ()):
+                    env.pop(k, None)
         outputs = [env[(id(self._nodes[i]), j)] for i, j in self._heads]
         return outputs, new_aux
+
+    def _run_segment(self, item, env, new_aux, node_keys, is_train,
+                     monitor):
+        """One mirror segment under ``torch.utils.checkpoint``: its
+        external inputs, aux window and node keys go in, its live
+        outputs and new aux states come out; the backward runs the
+        segment again from the same inputs and keys (no taps then) for
+        the activations it did not keep."""
+        _, serials, ext_keys, out_keys, aux_ids, rng_serials = item
+        n_ext, n_aux = len(ext_keys), len(aux_ids)
+        first = [True]
+        # the recompute picks cuDNN's algorithms as the forward did (the
+        # backward runs under deterministic_grads)
+        cudnn = torch.backends.cudnn
+        deterministic = cudnn.deterministic
+
+        def seg_fn(*vals):
+            local = dict(zip(ext_keys, vals[:n_ext]))
+            laux = dict(zip(aux_ids, vals[n_ext:n_ext + n_aux]))
+            keys = dict(zip(rng_serials, vals[n_ext + n_aux:]))
+            tap = monitor if first[0] else None
+            first[0] = False
+            saved, cudnn.deterministic = cudnn.deterministic, deterministic
+            try:
+                for s in serials:
+                    self._apply_node(s, local, laux, keys.get(s), is_train,
+                                     tap)
+            finally:
+                cudnn.deterministic = saved
+            return tuple([local[k] for k in out_keys]
+                         + [laux[j] for j in aux_ids])
+
+        # the aux states go in as copies: the forward's caller writes the
+        # new states into the bound ones in place before the backward
+        # recomputes from its inputs
+        vals = ([env[k] for k in ext_keys]
+                + [new_aux[j].detach().clone() for j in aux_ids]
+                + [node_keys.get(s) for s in rng_serials])
+        # the ops draw from their keys, never from torch's generators
+        got = checkpoint(seg_fn, *vals, use_reentrant=False,
+                         preserve_rng_state=False)
+        env.update(zip(out_keys, got[:len(out_keys)]))
+        for j, v in zip(aux_ids, got[len(out_keys):]):
+            new_aux[j] = v
 
     def _forward_graph(self, write_aux, key, tap=False):
         """Forward with autograd recording over the differentiated

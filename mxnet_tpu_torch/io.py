@@ -1,4 +1,5 @@
-"""Data iterators: ``DataDesc``, ``DataBatch``, ``DataIter``,
+"""Data iterators: ``DataDesc`` (with ``get_list``), ``LayoutMapper``,
+``DefaultLayoutMapper``, ``DataBatch``, ``DataIter``,
 ``NDArrayIter``, ``MNISTIter``, ``CSVIter``, ``ResizeIter``,
 ``PrefetchingIter`` and ``ImageRecordIter``.
 
@@ -27,6 +28,7 @@ from __future__ import annotations
 import gzip
 import os
 import queue as _queue
+import re as _re
 import struct
 import threading
 
@@ -37,7 +39,8 @@ from .context import cpu
 from .ndarray import NDArray, array
 
 __all__ = ["DataBatch", "DataIter", "NDArrayIter", "MNISTIter", "CSVIter",
-           "ResizeIter", "PrefetchingIter", "ImageRecordIter", "DataDesc"]
+           "ResizeIter", "PrefetchingIter", "ImageRecordIter", "DataDesc",
+           "LayoutMapper", "DefaultLayoutMapper"]
 
 
 class DataDesc:
@@ -49,6 +52,15 @@ class DataDesc:
         self.shape = tuple(shape)
         self.dtype = dtype
         self.layout = layout
+
+    @staticmethod
+    def get_list(shapes, types):
+        """DataDesc list from (name, shape) and optional (name, type)
+        attribute lists (ref: io.py:629)."""
+        if types is not None:
+            type_dict = dict(types)
+            return [DataDesc(x[0], x[1], type_dict[x[0]]) for x in shapes]
+        return [DataDesc(x[0], x[1]) for x in shapes]
 
     def __repr__(self):
         return "DataDesc[%s,%s,%s,%s]" % (self.name, self.shape, self.dtype, self.layout)
@@ -62,6 +74,42 @@ class DataDesc:
 
     def __len__(self):
         return 2
+
+
+class LayoutMapper:
+    """Decide which axis of a named tensor is the batch axis
+    (ref: python/mxnet/io.py:24). Subclass to override."""
+
+    def get_layout_string(self, name):
+        """Layout string (e.g. "NCHW") for ``name``, or None if unknown."""
+        raise NotImplementedError()
+
+    def get_batch_axis(self, name):
+        """Index of the batch dimension for ``name``."""
+        raise NotImplementedError()
+
+
+class DefaultLayoutMapper(LayoutMapper):
+    """Layout from a ``:__layout_X__`` tag in the name, else a fixed
+    default batch axis (ref: python/mxnet/io.py:59; the rnn-time-major
+    example relies on this convention). The tag's pattern is the JAX
+    package's multi-character one (the reference's ``([^_*])`` matches
+    one character only, so its own tags NCHW and TNC never match)."""
+
+    LAYOUT_PATTERN = _re.compile(r":__layout_([^_]+?)__")
+
+    def __init__(self, default_batch_axis=0):
+        self._default_batch_axis = default_batch_axis
+
+    def get_layout_string(self, name):
+        ret = self.LAYOUT_PATTERN.search(name)
+        return None if ret is None else ret.group(1)
+
+    def get_batch_axis(self, name):
+        layout = self.get_layout_string(name)
+        if layout is None:
+            return self._default_batch_axis
+        return layout.find("N")  # -1 when N absent, as the reference
 
 
 class DataBatch:

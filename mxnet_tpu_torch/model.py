@@ -49,8 +49,11 @@ training goes on; ``keep_n`` keeps the newest epochs; ``load_checkpoint``,
 per-batch loop, with the monitor's taps) and ``work_load_list`` (one
 entry on one device).
 
+``fit(resume=True)`` (or a prefix) restarts from the newest valid
+checkpoint of the prefix, as the JAX package's does.
+
 A kvstore other than a local one and more than one device raise. Not
-in this slice: the guardian, telemetry, mxprof and ``resume``.
+in this slice: the guardian, telemetry and mxprof.
 """
 from __future__ import annotations
 
@@ -777,16 +780,52 @@ class FeedForward:
                     locals=locals()))
         return eval_metric.get()[1]
 
+    def _resume_from_checkpoint(self, resume, epoch_end_callback, logger):
+        """Preemption-safe restart (``mxnet_tpu/model.py:1142-1173``):
+        load the newest valid checkpoint of the prefix and continue from
+        its epoch. ``resume`` is the prefix, or True to take it from a
+        ``do_checkpoint`` epoch-end callback's ``.prefix``. With no
+        checkpoint yet the fit starts fresh."""
+        prefix = resume if isinstance(resume, str) else None
+        if prefix is None:
+            cbs = epoch_end_callback if isinstance(epoch_end_callback, list) \
+                else [epoch_end_callback]
+            for cb in cbs:
+                p = getattr(cb, "prefix", None)
+                if isinstance(p, str):
+                    prefix = p
+                    break
+        if prefix is None:
+            raise MXNetError(
+                "fit(resume=True) needs a checkpoint prefix: pass "
+                "resume='<prefix>' or a callback.do_checkpoint(prefix) "
+                "epoch_end_callback")
+        epoch = find_latest_checkpoint(prefix)
+        if epoch is None:
+            logger.info("resume: no valid checkpoint under prefix %r; "
+                        "starting fresh", prefix)
+            return
+        _sym, arg_params, aux_params = load_checkpoint(prefix, epoch)
+        self.arg_params = arg_params
+        self.aux_params = aux_params
+        self.begin_epoch = epoch
+        logger.info("resume: restarting from checkpoint %r epoch %d",
+                    prefix, epoch)
+
     def fit(self, X, y=None, eval_data=None, eval_metric="acc",
             epoch_end_callback=None, batch_end_callback=None,
             kvstore="local", logger=None, work_load_list=None, monitor=None,
-            eval_batch_end_callback=None):
+            eval_batch_end_callback=None, resume=False):
         """Train for ``num_epoch`` epochs. ``kvstore`` may only name a
         local store, which on one device is none; ``work_load_list`` may
         only have one entry; ``monitor`` installs its taps on the
-        per-batch loop."""
+        per-batch loop; ``resume`` (True or a checkpoint prefix) first
+        reloads the newest valid checkpoint and continues from its
+        epoch."""
         if logger is None:
             logger = logging
+        if resume:
+            self._resume_from_checkpoint(resume, epoch_end_callback, logger)
         if kvstore is not None and (not isinstance(kvstore, str)
                                     or "dist" in kvstore):
             raise MXNetError("kvstore %r: kvstores are not ported; fit "

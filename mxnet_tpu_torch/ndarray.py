@@ -44,7 +44,7 @@ import torch
 
 from .base import (MXNetError, _DTYPE_MX_TO_NP, _DTYPE_MX_TO_TORCH,
                    _DTYPE_TORCH_TO_MX, mx_real_t, np_dtype, numeric_types,
-                   torch_dtype)
+                   rdiv_scalar, torch_dtype)
 from .context import Context, cpu, current_context, gpu
 
 __all__ = ["NDArray", "zeros", "ones", "full", "empty", "array", "arange",
@@ -285,7 +285,13 @@ class NDArray:
         return self._binary(other, _operator.truediv)
 
     def __rtruediv__(self, other):
-        return self._binary(other, _operator.truediv, reverse=True)
+        # only a scalar reaches here: NDArray / NDArray is __truediv__
+        return self._binary(other, rdiv_scalar, reverse=True)
+
+    def __mod__(self, other):
+        """Floor modulo (the divisor's sign), as ``jnp.mod``; like the
+        JAX package's NDArray there is no ``__rmod__``."""
+        return self._binary(other, torch.remainder)
 
     def __pow__(self, other):
         return self._binary(other, _operator.pow)

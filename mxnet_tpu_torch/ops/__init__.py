@@ -15,7 +15,8 @@ The operator registry of the Symbol path: importing this package
 registers the ops of :mod:`.tensor`, :mod:`.nn`, :mod:`.loss`,
 :mod:`.sequence` and :mod:`.vision`;
 :func:`install` then exposes each as an imperative NDArray function and
-a Symbol constructor, as ``mxnet_tpu/ops/__init__.py:27-60`` does.
+a Symbol constructor, each with the docstring :func:`.opdoc.build_doc`
+renders, as ``mxnet_tpu/ops/__init__.py:27-60`` does.
 """
 from __future__ import annotations
 
@@ -30,6 +31,10 @@ from . import nn  # noqa: F401
 from . import loss  # noqa: F401
 from . import sequence  # noqa: F401
 from . import vision  # noqa: F401
+
+# prose docs attach inside register(); build_doc renders them per
+# wrapper, as in the JAX package
+from .opdoc import build_doc
 
 __all__ = ["REGISTRY", "Field", "OpDef", "get", "list_ops", "register",
            "install"]
@@ -73,7 +78,7 @@ def _make_imperative(op):
         return res[0] if len(res) == 1 else res
 
     fn.__name__ = op.name
-    fn.__doc__ = "Imperative form of the %s op." % op.name
+    fn.__doc__ = build_doc(op, op.name, kind="ndarray")
     return fn
 
 

@@ -45,6 +45,10 @@ from .softmax import fused_softmax
 
 
 def _forward(params, data):
+    if not data.is_floating_point():
+        # integer data gives float32 probabilities, as the JAX op does;
+        # K1 reads the converted rows
+        data = data.float()
     if params["multi_output"]:
         return torch.softmax(data.float(), dim=1).to(data.dtype)
     if params["preserve_shape"]:
@@ -413,5 +417,8 @@ register(
         arguments=("data", "label"),
         infer_shape=_warpctc_infer_shape,
         no_head_grad=True,
+        doc="CTC loss layer (ref: plugin/warpctc/warpctc-inl.h); "
+            "forward = softmax over the alphabet, backward = CTC gradient "
+            "wrt activations, blank index 0.",
     )
 )

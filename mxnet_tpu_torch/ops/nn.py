@@ -648,6 +648,8 @@ register(
 # -- SoftmaxActivation ---------------------------------------------------------
 def _softmax_act_fwd(params, inputs, aux, is_train, rng):
     x = inputs[0]
+    if not x.is_floating_point():   # jax.nn.softmax's float32
+        x = x.float()
     if params["mode"] == "channel":
         return [torch.softmax(x, dim=1)], []
     n = x.shape[0]
@@ -878,6 +880,8 @@ register(
 # -- InstanceNorm --------------------------------------------------------------
 def _in_fwd(params, inputs, aux, is_train, rng):
     data, gamma, beta = inputs
+    if not data.is_floating_point():   # jnp.mean/var's float32
+        data = data.float()
     eps = params["eps"]
     axes = tuple(range(2, data.dim()))
     mean = data.mean(dim=axes, keepdim=True)

@@ -3,10 +3,11 @@
 The port's copy of ``mxnet_tpu/ops/registry.py``, host-only: ``OpDef``,
 ``Field`` and the registration helpers are the JAX package's, so every
 op's parameter list and defaults, and with them ``Symbol.tojson()``,
-are the same bytes in both packages. Three things differ: ``forward`` is
-a function of ``torch.Tensor`` inputs (gradients come from
-``torch.autograd``; loss ops are ``torch.autograd.Function``s);
-``register`` attaches no prose docs (the JAX package's ``opdoc``); and
+are the same bytes in both packages, and ``register`` attaches the
+prose docs of ``opdoc`` (a byte copy of the JAX package's), so every
+op's docstring is the JAX package's too. Two things differ: ``forward``
+is a function of ``torch.Tensor`` inputs (gradients come from
+``torch.autograd``; loss ops are ``torch.autograd.Function``s); and
 a host op (``host_apply``/``host_grad``: ``Custom`` and ``NumpyOp``)
 runs through :class:`_HostOpFn`, the port's counterpart of the JAX
 executor's hybrid engine (``mxnet_tpu/executor.py:339-518``): its inputs
@@ -284,6 +285,9 @@ def register(opdef):
     if opdef.name in REGISTRY:
         raise MXNetError("op %s already registered" % opdef.name)
     REGISTRY[opdef.name] = opdef
+    from . import opdoc  # lazy: opdoc imports nothing from here at top level
+
+    opdoc.apply_to(opdef)
     return opdef
 
 

@@ -16,6 +16,14 @@ forward. The kernel is ``csrc/softmax.cu``.
 kernel is launched and nowhere else. :func:`variant` is the host's half
 of the kernel: which of its variants (the table in ``csrc/softmax.cu``)
 a row width takes.
+
+:func:`fused_softmax` calls the custom op ``mxnet_tpu_torch::fused_softmax``
+(``torch.library``): its CUDA kernel is the launch above, its CPU kernel
+:func:`softmax_reference`, its fake an empty tensor of the input's
+shape. So a program traced by ``torch.export`` (the Predictor's
+``export_compiled``) holds the op itself, and running the exported
+program on a CUDA tensor launches the kernel, in a process that imports
+only this module's package.
 """
 from __future__ import annotations
 
@@ -61,9 +69,28 @@ def softmax_reference(x):
 
 def fused_softmax(x):
     """Softmax over the last axis of a 2-D ``[N, C]`` tensor: the kernel
-    on CUDA, :func:`softmax_reference` on the CPU."""
-    if not x.is_cuda:
-        return softmax_reference(x)
+    on CUDA, :func:`softmax_reference` on the CPU (through the custom op,
+    which dispatches on the tensor's device)."""
+    return torch.ops.mxnet_tpu_torch.fused_softmax(x)
+
+
+fused_softmax.launches = 0
+
+
+@torch.library.custom_op("mxnet_tpu_torch::fused_softmax", mutates_args=(),
+                         device_types="cpu")
+def _fused_softmax_op(x: torch.Tensor) -> torch.Tensor:
+    return softmax_reference(x)
+
+
+@_fused_softmax_op.register_fake
+def _(x):
+    return torch.empty_like(x)
+
+
+@_fused_softmax_op.register_kernel("cuda")
+def _launch(x):
+    """The kernel on a CUDA tensor, or a raise: never a fallback."""
     if x.dim() != 2 or x.dtype not in _DTYPE_CODE or not x.is_contiguous() \
             or x.shape[0] < 1 or x.shape[1] < 1:
         raise MXNetError(
@@ -88,6 +115,3 @@ def fused_softmax(x):
     if err != 0:
         raise MXNetError("softmax kernel launch failed: cudaError %d" % err)
     return y
-
-
-fused_softmax.launches = 0

@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as _np
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, rdiv_scalar
 from .registry import REGISTRY, Field, OpDef, register, scalar_op, \
     simple_binary, simple_unary
 
@@ -62,7 +62,7 @@ scalar_op("_minus_scalar", lambda x, s: x - s)
 scalar_op("_rminus_scalar", lambda x, s: s - x)
 scalar_op("_mul_scalar", lambda x, s: x * s)
 scalar_op("_div_scalar", lambda x, s: x / s)
-scalar_op("_rdiv_scalar", lambda x, s: s / x)
+scalar_op("_rdiv_scalar", lambda x, s: rdiv_scalar(s, x))
 scalar_op("_power_scalar", lambda x, s: torch.pow(x, s))
 scalar_op("_rpower_scalar", lambda x, s: torch.pow(s, x))
 scalar_op("_maximum_scalar", lambda x, s: torch.clamp(x, min=s))
@@ -129,11 +129,30 @@ def _make_reduce(name, fn, aliases=()):
     return op
 
 
+_UNSIGNED = (torch.uint8, torch.uint16, torch.uint32, torch.uint64)
+
+
+def _sum(x, *args, **kwargs):
+    """``jnp.sum``'s dtypes: integer and bool inputs sum to int32, or to
+    uint32 when unsigned (torch's sum gives int64); the wrap is modulo
+    2^32 either way."""
+    out = torch.sum(x, *args, **kwargs)
+    if x.is_floating_point() or x.is_complex():
+        return out
+    return out.to(torch.uint32 if x.dtype in _UNSIGNED else torch.int32)
+
+
+def _mean(x, *args, **kwargs):
+    """``jnp.mean``: an integer input is averaged in float32."""
+    return torch.mean(x if x.is_floating_point() else x.float(), *args,
+                      **kwargs)
+
+
 # amax/amin share a tie's gradient evenly, as the JAX reductions do
-_make_reduce("sum", torch.sum, aliases=("sum_axis",))
+_make_reduce("sum", _sum, aliases=("sum_axis",))
 _make_reduce("max", torch.amax, aliases=("max_axis",))
 _make_reduce("min", torch.amin, aliases=("min_axis",))
-_make_reduce("mean", torch.mean)
+_make_reduce("mean", _mean)
 
 
 def _norm_fwd(params, inputs, aux, is_train, rng):

@@ -33,7 +33,7 @@ from .ndarray import NDArray, zeros
 
 __all__ = [
     "Optimizer", "SGD", "NAG", "SGLD", "ccSGD", "Adam", "AdaGrad", "RMSProp",
-    "AdaDelta", "Test", "create", "get_updater", "register",
+    "AdaDelta", "Test", "create", "get_updater", "register", "state_nbytes",
 ]
 
 
@@ -388,3 +388,22 @@ def get_updater(optimizer):
 
     updater.states = states
     return updater
+
+
+def state_nbytes(updater):
+    """Total bytes of optimizer state an updater has materialized (the
+    JAX package's ``kvstore.optimizer_state_bytes`` gauge). Walks the
+    lazy per-index state dict; tuple/list states (Adam, RMSProp) count
+    every slot."""
+    def _leaf_bytes(st):
+        if st is None:
+            return 0
+        if isinstance(st, (tuple, list)):
+            return sum(_leaf_bytes(s) for s in st)
+        t = st._data if hasattr(st, "_data") else st
+        return t.numel() * t.element_size()
+
+    total = 0
+    for st in getattr(updater, "states", {}).values():
+        total += _leaf_bytes(st)
+    return total

@@ -554,7 +554,9 @@ def _make_op_func(op, func_name):
         return Symbol([(node, i) for i in range(nout)]) if nout > 1 else Symbol([(node, 0)])
 
     creator.__name__ = func_name
-    creator.__doc__ = "Symbol constructor of the %s op." % op.name
+    from .ops.opdoc import build_doc
+
+    creator.__doc__ = build_doc(op, func_name, kind="symbol")
     return creator
 
 

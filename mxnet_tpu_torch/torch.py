@@ -178,6 +178,8 @@ _register_opdef(
         outputs=_torch_module_outputs,
         infer_shape=_torch_module_infer_shape,
         imperative=False,
+        doc="Run a torch.nn.Module as an operator (ref: plugin/torch/"
+            "torch_module-inl.h).",
     )
 )
 
@@ -238,6 +240,8 @@ _register_opdef(
         infer_shape=_torch_criterion_infer_shape,
         imperative=False,
         no_head_grad=True,
+        doc="Run a torch criterion as a loss op (ref: plugin/torch/"
+            "torch_criterion-inl.h).",
     )
 )
 

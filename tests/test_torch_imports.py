@@ -7,7 +7,8 @@
   test files or the port's examples (``examples/rnn_torch``,
   ``examples/ssd_torch``, ``examples/image-classification_torch``,
   ``examples/rcnn_torch``, ``examples/dec_torch``,
-  ``examples/numpy-ops_torch``, ``examples/torch_torch``), imports
+  ``examples/numpy-ops_torch``, ``examples/torch_torch``,
+  ``examples/memcost_torch``), imports
   either, nor names the JAX package's native runtime
   (``mxnet_tpu/_native``);
 - on the CPU path (serving, LM training, a LeNet ``FeedForward`` fit
@@ -18,15 +19,18 @@
   ``examples/image-classification_torch``'s MLP through its
   ``train_model.fit``, an async checkpoint through the dependency
   engine, a packed ``.rec`` read through ``ImageRecordIter`` under
-  ``PrefetchingIter``, ``opencv.resize``, ``nd.save`` to ``mem://``)
+  ``PrefetchingIter``, ``opencv.resize``, ``nd.save`` to ``mem://``, a
+  mirrored LeNet step, a ``Predictor`` and its exported program, a
+  profiled ``test_utils.simple_forward``, ``runtime``)
   neither
   the kernel build
   module ``ops._build`` nor the NVRTC binding ``ops._nvrtc`` is
   imported; the walk over every submodule
   reaches ``rtc``, ``ops._nvrtc``, ``ops.matmul_stats``, ``monitor``,
   ``module/``, the two Symbol trainers of ``parallel/``, ``operator``,
-  the torch plugin (``torch``), ``stream``, ``recordio``, ``opencv``
-  and ``engine``;
+  the torch plugin (``torch``), ``stream``, ``recordio``, ``opencv``,
+  ``engine``, ``predictor``, ``test_utils``, ``visualization``,
+  ``profiler``, ``runtime``, ``libinfo``, ``misc`` and ``ops.opdoc``;
 - every card test file (``tests/test_torch_*_cuda.py``) carries the
   ``cuda`` marker;
 - the host-only scheduler copy matches its original below the imports.
@@ -134,6 +138,26 @@ with mx.cpu():
                                     dtype=np.uint8), (4, 4)).shape == (4, 4, 3)
 mx.nd.save('mem://probe.params', [mx.nd.array(np.ones(3), ctx=mx.cpu())])
 assert mx.nd.load('mem://probe.params')[0].shape == (3,)
+import os
+os.environ['MXNET_BACKWARD_DO_MIRROR'] = '1'
+exe = mx.models.get_lenet().simple_bind(mx.cpu(), data=(2, 1, 28, 28))
+del os.environ['MXNET_BACKWARD_DO_MIRROR']
+assert exe._remat
+exe.forward(is_train=True)
+exe.backward()
+pred = mx.Predictor.from_checkpoint(tmp + '/mlp', 1, ctx=mx.cpu(),
+                                    input_shapes={'data': (2, 784)})
+pred.forward(data=np.zeros((2, 784), 'f'))
+compiled = mx.predictor.load_compiled(pred.export_compiled())
+compiled.forward(data=np.zeros((2, 784), 'f'))
+assert (compiled.get_output(0) == pred.get_output(0)).all()
+mx.profiler.profiler_set_config(filename=tmp + '/trace')
+mx.profiler.profiler_set_state('run')
+with mx.profiler.scope('probe'):
+    mx.test_utils.simple_forward(mx.sym.Variable('x') * 2, ctx=mx.cpu(),
+                                 x=np.ones(3, 'f'))
+mx.profiler.profiler_set_state('stop')
+assert mx.runtime.has_feature('TORCH')
 print('cpu_path', 'mxnet_tpu_torch.ops._build' in sys.modules,
       'mxnet_tpu_torch.ops._nvrtc' in sys.modules, forbidden())
 import mxnet_tpu_torch as pkg
@@ -146,7 +170,8 @@ for must in ('model', 'rtc', 'ops._nvrtc', 'ops.matmul_stats', 'monitor',
              'module.sequential_module', 'module.bucketing_module',
              'parallel.symbol_trainer', 'parallel.fit_trainer',
              'operator', 'torch', 'stream', 'recordio', 'opencv',
-             'engine'):
+             'engine', 'predictor', 'test_utils', 'visualization',
+             'profiler', 'runtime', 'libinfo', 'misc', 'ops.opdoc'):
     assert 'mxnet_tpu_torch.' + must in names, (must, names)
 for n in names:
     importlib.import_module(n)
@@ -204,13 +229,14 @@ def _imports(path):
         ROOT / "tests" / "test_torch_vision_cuda.py",
         ROOT / "tests" / "test_torch_zoo_cuda.py",
         ROOT / "tests" / "test_torch_host_ops_cuda.py",
-        ROOT / "tests" / "test_torch_recordio_cuda.py"]
+        ROOT / "tests" / "test_torch_recordio_cuda.py",
+        ROOT / "tests" / "test_torch_predictor_cuda.py"]
     + sorted((ROOT / "examples" / "rnn_torch").glob("*.py"))
     + sorted((ROOT / "examples" / "ssd_torch").glob("*.py"))
     + sorted((ROOT / "examples" / "image-classification_torch").glob(
         "*.py"))
     + [p for d in ("rcnn_torch", "dec_torch", "numpy-ops_torch",
-                   "torch_torch")
+                   "torch_torch", "memcost_torch")
        for p in sorted((ROOT / "examples" / d).glob("*.py"))],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_the_jax_package(path):

@@ -206,3 +206,44 @@ def test_warpctc_rejects_non_2d_data_as_jax_does():
     with pytest.raises(ErrT) as et:
         ot.apply(pt, [torch.tensor(x), torch.tensor(y)])
     assert str(et.value) == str(ej.value)
+
+
+# -- integer data into the softmaxes (a fault of the port, repaired) ---------
+SOFTMAX_INT_CASES = [("SoftmaxOutput", {}), ("Softmax", {}),
+                     ("SoftmaxOutput", {"multi_output": True}),
+                     ("SoftmaxOutput", {"preserve_shape": True}),
+                     ("SoftmaxActivation", {"mode": "instance"}),
+                     ("SoftmaxActivation", {"mode": "channel"})]
+
+
+@pytest.mark.parametrize("dtype", ["int32", "uint8"])
+@pytest.mark.parametrize("name,params", SOFTMAX_INT_CASES,
+                         ids=["%s%s" % (n, sorted(p)) for n, p in
+                              SOFTMAX_INT_CASES])
+def test_softmaxes_of_integer_data_give_float32_as_jax(dtype, name, params):
+    """Integer data gives float32 probabilities, the JAX ops' values
+    within the file's tolerance (the port's SoftmaxOutput reads the
+    rows converted to float32; SoftmaxActivation no longer raises).
+    Over uint8 the JAX ops subtract the row's maximum in uint8, which
+    wraps, and give NaN (a divergence the port does not copy): there
+    the port is held to the JAX op on the same values as int32."""
+    x = np.random.RandomState(4).randint(0, 6, (3, 4, 5)).astype(dtype)
+    label = np.random.RandomState(5).randint(0, 4, (3, 5) if params.get(
+        "multi_output") else (3, 4) if params.get("preserve_shape")
+        else (3,)).astype(np.float32)
+    oj, pj, ot, pt = _ops(name, params)
+    ins = [x] if name == "SoftmaxActivation" else [x, label]
+    if dtype == "uint8":
+        wrapped = oj.apply(pj, [jax.numpy.asarray(v) for v in ins], [],
+                           False, None)[0][0]
+        assert not np.isfinite(np.asarray(wrapped)).all()
+        ins_j = [ins[0].astype(np.int32)] + ins[1:]
+    else:
+        ins_j = ins
+    out_j = oj.apply(pj, [jax.numpy.asarray(v) for v in ins_j], [], False,
+                     None)[0][0]
+    out_t = ot.apply(pt, [torch.from_numpy(v) for v in ins], [], False,
+                     None)[0][0]
+    assert out_t.dtype == torch.float32 and out_j.dtype == np.float32
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j),
+                               rtol=RTOL, atol=ATOL)

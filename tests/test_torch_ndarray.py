@@ -236,3 +236,71 @@ def test_default_device_without_cuda_raises():
         pytest.skip("this machine has a CUDA device")
     with pytest.raises(mt.MXNetError):
         mt.nd.zeros((2,))
+
+
+# -- scalar / NDArray and % (faults of the port, repaired) ----------------------
+def _quotient_inputs(dtype, n=100000):
+    """``n`` seeded values of ``dtype`` spread over magnitudes 1e-3-1e3,
+    of both signs (no zeros)."""
+    rng = np.random.RandomState(5)
+    mag = 10.0 ** rng.uniform(-3, 3, n)
+    return (mag * np.where(rng.rand(n) < 0.5, -1, 1)).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+@pytest.mark.parametrize("s", [2.5, -3, 7])
+@pytest.mark.parametrize("form", ["operator", "nd.divide"])
+def test_scalar_over_ndarray_is_bit_equal_to_jax(dtype, s, form):
+    """``s / x`` and ``nd.divide(s, x)`` over 100,000 values: bit-equal
+    to the JAX package's ``jnp.divide``, which rounds once (torch's
+    ``s / x`` multiplies by the reciprocal, rounding twice)."""
+    x = _quotient_inputs(dtype)
+    outs = []
+    for pkg in (mj, mt):
+        a = pkg.nd.array(x, ctx=pkg.cpu(), dtype=x.dtype)
+        outs.append(s / a if form == "operator" else pkg.nd.divide(s, a))
+    assert outs[1].dtype == outs[0].dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(outs[1].asnumpy().view(np.uint16 if
+                                                          dtype == "float16"
+                                                          else np.uint32),
+                                  outs[0].asnumpy().view(np.uint16 if
+                                                         dtype == "float16"
+                                                         else np.uint32))
+
+
+def test_scalar_over_int32_gives_float32_as_jax():
+    for s in (2.5, 7):
+        outs = [s / pkg.nd.array(np.asarray([1, 3, -7], np.int32),
+                                 ctx=pkg.cpu()) for pkg in (mj, mt)]
+        assert outs[1].dtype == outs[0].dtype == np.float32
+        np.testing.assert_array_equal(outs[1].asnumpy(), outs[0].asnumpy())
+
+
+MOD_CASES = {
+    "int32_int": (np.arange(-7, 8, dtype=np.int32), 3),
+    "int32_neg_int": (np.arange(-7, 8, dtype=np.int32), -4),
+    "int32_float": (np.arange(-7, 8, dtype=np.int32), 2.5),
+    "float32_float": (np.linspace(-5.3, 5.3, 21).astype(np.float32), 1.7),
+    "float32_neg": (np.linspace(-5.3, 5.3, 21).astype(np.float32), -0.9),
+    "int32_ndarray": (np.arange(-7, 8, dtype=np.int32),
+                      np.array([3, -2, 5] * 5, np.int32)),
+    "float32_ndarray": (np.linspace(-5.3, 5.3, 21).astype(np.float32),
+                        np.linspace(0.5, 2.5, 21).astype(np.float32)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MOD_CASES))
+def test_mod_is_floor_modulo_as_jax(case):
+    """``x % y`` is ``jnp.mod`` (the divisor's sign), value and dtype;
+    neither package defines ``__rmod__``."""
+    x, y = MOD_CASES[case]
+    outs = []
+    for pkg in (mj, mt):
+        a = pkg.nd.array(x, ctx=pkg.cpu(), dtype=x.dtype)
+        b = pkg.nd.array(y, ctx=pkg.cpu(), dtype=y.dtype) \
+            if isinstance(y, np.ndarray) else y
+        outs.append(a % b)
+    assert outs[1].dtype == outs[0].dtype
+    np.testing.assert_array_equal(outs[1].asnumpy(), outs[0].asnumpy())
+    assert not hasattr(mt.nd.NDArray, "__rmod__")
+    assert not hasattr(mj.nd.NDArray, "__rmod__")

@@ -364,3 +364,89 @@ def test_imperative_ops_match_jax(name, args, kw):
         outs.append(getattr(pkg.nd, name)(
             *[pkg.nd.array(a, ctx=pkg.cpu()) for a in args], **kw))
     _same(outs[1], outs[0])
+
+
+# -- faults of the port, repaired: _rdiv_scalar, integer reductions ----------
+def _bound_forward(pkg, sym, x, type_dict=None, extra=None):
+    shapes = {"data": x.shape}
+    shapes.update({k: v.shape for k, v in (extra or {}).items()})
+    exe = sym.simple_bind(pkg.cpu(), grad_req="null",
+                          type_dict=type_dict or {"data": x.dtype},
+                          **shapes)
+    exe.arg_dict["data"][:] = x
+    for k, v in (extra or {}).items():
+        exe.arg_dict[k][:] = v
+    return exe.forward(is_train=False)[0]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+@pytest.mark.parametrize("s", [2.5, -3, 7])
+def test_rdiv_scalar_through_an_executor_is_bit_equal(dtype, s):
+    """``s / sym`` binds ``_rdiv_scalar``; over 100,000 values its output
+    is bit-equal to the JAX executor's (correctly rounded)."""
+    rng = np.random.RandomState(6)
+    x = (10.0 ** rng.uniform(-3, 3, 100000)
+         * np.where(rng.rand(100000) < 0.5, -1, 1)).astype(dtype)
+    outs = []
+    for pkg in (mj, mt):
+        sym = s / pkg.sym.Variable("data")
+        assert sym.tojson().count("_rdiv_scalar") == 1
+        outs.append(_bound_forward(pkg, sym, x))
+    view = np.uint16 if dtype == "float16" else np.uint32
+    assert outs[1].dtype == outs[0].dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(outs[1].asnumpy().view(view),
+                                  outs[0].asnumpy().view(view))
+
+
+INT_DATA = {"int32": np.random.RandomState(2).randint(
+    -50, 50, (3, 4, 5)).astype(np.int32),
+            "uint8": np.random.RandomState(3).randint(
+    0, 255, (3, 4, 5)).astype(np.uint8)}
+INT_REDUCE = [("sum", {}), ("sum", {"axis": 1}), ("sum_axis", {"axis": 2}),
+              ("sum", {"axis": (0, 2), "keepdims": True}),
+              ("mean", {}), ("mean", {"axis": 1})]
+
+
+@pytest.mark.parametrize("dtype", sorted(INT_DATA))
+@pytest.mark.parametrize("op,params", INT_REDUCE,
+                         ids=["%s%s" % (o, sorted(p.items()))
+                              for o, p in INT_REDUCE])
+def test_integer_reductions_match_jax(dtype, op, params):
+    """``sum`` of int32 is int32 and of uint8 uint32; ``mean`` is float32:
+    the JAX ops' dtypes and values, through ``nd`` and a bound
+    executor; for int32 the output's dtype is the port's own
+    ``infer_type``'s."""
+    x = INT_DATA[dtype]
+    nds, syms = [], []
+    for pkg in (mj, mt):
+        nds.append(getattr(pkg.nd, op)(
+            pkg.nd.array(x, ctx=pkg.cpu(), dtype=x.dtype), **params))
+        syms.append(_bound_forward(
+            pkg, getattr(pkg.sym, op)(pkg.sym.Variable("data"), **params),
+            x))
+    for got, want in ((nds[1], nds[0]), (syms[1], syms[0])):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_allclose(got.asnumpy(), want.asnumpy(),
+                                   rtol=1e-6)
+    if dtype == "int32":
+        _, out_types, _ = getattr(mt.sym, op)(
+            mt.sym.Variable("data"), **params).infer_type(data=x.dtype)
+        assert op == "mean" or out_types[0] == syms[1].dtype
+
+
+@pytest.mark.parametrize("dtype", sorted(INT_DATA))
+def test_instance_norm_of_integer_data_matches_jax(dtype):
+    """InstanceNorm over integer data (gamma and beta of the same type,
+    as ``infer_type`` binds them) gives float32, as the JAX op does."""
+    x = INT_DATA[dtype].reshape(3, 4, 5, 1)
+    extra = {"gamma": np.arange(1, 5).astype(dtype),
+             "beta": np.arange(4).astype(dtype)}
+    outs = []
+    for pkg in (mj, mt):
+        sym = pkg.sym.InstanceNorm(pkg.sym.Variable("data"), name="in")
+        outs.append(_bound_forward(
+            pkg, sym, x, type_dict={"data": x.dtype},
+            extra={"in_gamma": extra["gamma"], "in_beta": extra["beta"]}))
+    assert outs[1].dtype == outs[0].dtype == np.float32
+    np.testing.assert_allclose(outs[1].asnumpy(), outs[0].asnumpy(),
+                               rtol=1e-5, atol=1e-6)
