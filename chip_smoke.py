@@ -209,9 +209,36 @@ Phases (any failure raises and the script exits non-zero):
    the unfused matmul-then-statistics sequence, K6, plain,
    ``torch.matmul`` and sequence times), K6's count zeroed just before
    and read just after;
-20. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
+20. the kvstore (``phase_kvstore``): the semantics of the JAX package's
+   kvstore tests on four card contexts against four host contexts (one
+   pair, a push from every context, a list of keys, a custom updater,
+   SGD-momentum through ``set_optimizer`` for three pushes; the sums
+   bit-equal, the updates within 1e-6; a one-value push owns its
+   storage), and tools/torch_bandwidth.py's device leg;
+21. data parallelism (``phase_data_parallel``): config #2 as
+   train_imagenet.py writes it, ``--network resnet --synthetic
+   --kv-store device`` at full width (batch 256, 224^2, 1000 classes,
+   f32) over every card, or two contexts on the one card, for one epoch
+   of 8 steps through the per-batch loop and the kvstore (every step's
+   cross-entropy finite, the parameters changed, K1 once a context and
+   step, img/s); a 2-context ResNet-50 step at batch 8 against the
+   host's; LeNet's canonical fit and mnist_mlp's ``Module.fit`` over
+   the contexts; a ``multi_device`` line says which cards and contexts
+   ran;
+22. model parallelism (``phase_model_parallel``): config #4,
+   examples/model-parallel-lstm_torch/lstm_ptb.py at its defaults, its
+   groups over the cards (the map printed; perplexity falling from
+   epoch 1 to 2; K1 once a step), and one step of the 4-way
+   partitioned LSTM against the unpartitioned one (1e-4/1e-5);
+23. dist (``phase_dist``): ``tools/torch_launch.py -n 2`` on the card
+   starts two ranks, each running tests/torch_nightly/dist_sync_kvstore.py
+   (the exact dist_sync arithmetic) and dist_lenet.py (sharded LeNet,
+   accuracy > 0.9 on each rank, weights equal across ranks), then the
+   bandwidth tool's dist-leg worker; the backend the store's rule chose
+   is printed;
+24. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
    main paths, error, times and bound;
-21. the last line: ``{"ok": true, "device": {...}}``.
+25. the last line: ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matrix products and cuDNN convolutions in every phase
 (set once in ``main``), so f32 work runs in full f32.
@@ -4124,7 +4151,7 @@ def check_packed_records(tool, prefix, root, threads=None):
 
 
 def _imagenet_run(device, argv, build_net, on_batch=None, synthetic=None,
-                  label_ops=False):
+                  label_ops=False, trace=True):
     """examples/image-classification_torch/train_imagenet.py through its
     ``train_model.fit`` under ``argv`` (the fit switches at their
     defaults: scanned, K = 8), ``build_net(args)`` its network, the
@@ -4136,7 +4163,8 @@ def _imagenet_run(device, argv, build_net, on_batch=None, synthetic=None,
     traces the last epoch's window, with the host and each op's forward
     labelled ``mx::<op>`` when ``label_ops``. K1's count is zeroed just
     before the fit and read just after. ``synthetic`` replaces the
-    example's in-memory data. Returns a dict: ``args``, ``net``,
+    example's in-memory data; ``trace=False`` profiles nothing. Returns
+    a dict: ``args``, ``net``,
     ``model``, ``launches``, ``wall_s``, ``epoch_s`` (epoch end to epoch
     end, validation included), ``train_s`` (the training windows),
     ``built`` (scanned trainers built), ``params`` (the first and the
@@ -4155,7 +4183,7 @@ def _imagenet_run(device, argv, build_net, on_batch=None, synthetic=None,
     real_fit = mx.FeedForward.fit
     real_apply = registry.OpDef.apply
     prof = None
-    if device == "cuda":
+    if device == "cuda" and trace:
         from torch.profiler import (ProfilerActivity, profile,
                                     record_function)
 
@@ -5470,6 +5498,521 @@ def phase_predictor(device="cuda", batch=32, small=8, image=224, runs=10):
     return rec
 
 
+# -- the kvstore, data and model parallelism, dist -----------------------------
+KV_SHAPE = (64, 33)
+KV_KEYS = [5, 7, 11]
+KV_CONTEXTS = 4          # push from N contexts
+KV_UPDATE_RTOL = 1e-6    # set_optimizer's updates, card against host
+MP_RTOL, MP_ATOL = 1e-4, 1e-5   # group2ctx against the unpartitioned net
+DP_NUM_EPOCHS = 1        # train_imagenet.py --kv-store device: 8 steps
+LSTM_PTB = "examples/model-parallel-lstm_torch/lstm_ptb.py"
+DIST_TIMEOUT = 300       # s, each launched job
+
+
+def card_contexts(device, n):
+    """``n`` contexts on ``device``: the cards ``gpu(i % cards)`` (a
+    context repeats when there are fewer cards than ``n``), or ``n``
+    host contexts."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    if device == "cpu":
+        return [mx.cpu(i) for i in range(n)]
+    cards = torch.cuda.device_count()
+    return [mx.gpu(i % cards) for i in range(n)]
+
+
+def dp_contexts(device):
+    """The data-parallel contexts: every card when there are two or
+    more, else two contexts on the one card (two host contexts on the
+    CPU)."""
+    import torch
+
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    return card_contexts(device, cards if cards >= 2 else 2)
+
+
+def kvstore_cases(mx, contexts, seed=0, shape=KV_SHAPE):
+    """The semantics of tests/unittest/test_kvstore.py on ``contexts``
+    with seeded random values, for either package (``mx``): each case's
+    pulled arrays as numpy. ``single``: one pair; ``multi``: a push from
+    every context; ``list``: three keys at once; ``updater``: a custom
+    updater, two pushes; ``sgd_momentum``: ``set_optimizer`` with SGD
+    (lr 0.1, momentum 0.9, wd 1e-4), three pushes; ``own_storage``: a
+    one-value push, pulled before and after the pushed array is written
+    in place."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+
+    def vals(ctxs):
+        return [mx.nd.array(rng.rand(*shape).astype(np.float32), ctx=c)
+                for c in ctxs]
+
+    def fresh():
+        kv = mx.kvstore.create("local")
+        kv.init(3, mx.nd.zeros(shape, contexts[0]))
+        kv.init(KV_KEYS, [mx.nd.zeros(shape, contexts[0])] * len(KV_KEYS))
+        return kv
+
+    def pull(kv, key, ctxs):
+        outs = [mx.nd.empty(shape, c) for c in ctxs]
+        kv.pull(key, out=outs)
+        return [o.asnumpy() for o in outs]
+
+    out = {}
+    kv = fresh()
+    kv.push(3, vals(contexts[:1])[0])
+    out["single"] = pull(kv, 3, contexts[:1])
+    kv = fresh()
+    kv.push(3, vals(contexts))
+    out["multi"] = pull(kv, 3, contexts)
+    kv = fresh()
+    kv.push(KV_KEYS, [vals(contexts) for _ in KV_KEYS])
+    out["list"] = [a for k in KV_KEYS for a in pull(kv, k, contexts)]
+    kv = fresh()
+
+    def updater(key, recv, local):
+        local += recv
+
+    kv._set_updater(updater)
+    v = vals(contexts)
+    kv.push(3, v)
+    kv.push(3, v)
+    out["updater"] = pull(kv, 3, contexts)
+    kv = mx.kvstore.create("local")
+    kv.init(0, vals(contexts[:1])[0])
+    kv.set_optimizer(mx.optimizer.create(
+        "sgd", learning_rate=0.1, momentum=0.9, wd=1e-4,
+        rescale_grad=1.0 / len(contexts)))
+    for _ in range(3):
+        kv.push(0, vals(contexts))
+    out["sgd_momentum"] = pull(kv, 0, contexts)
+    kv = fresh()
+    v = vals(contexts[:1])[0]
+    kv.push(3, v)
+    before = pull(kv, 3, contexts[:1])
+    v[:] = 0.0
+    out["own_storage"] = before + pull(kv, 3, contexts[:1])
+    return out
+
+
+def kvstore_check(got, want):
+    """Card (``got``) against host (``want``) cases: the sums bit-equal,
+    the updates within KV_UPDATE_RTOL; raises AssertionError; returns
+    the worst update error."""
+    import numpy as np
+
+    worst = 0.0
+    for name, w in want.items():
+        for a, b in zip(got[name], w):
+            if name == "sgd_momentum":
+                err = float(np.max(np.abs(a - b) / np.maximum(np.abs(b),
+                                                               1e-30)))
+                worst = max(worst, err)
+                if not np.allclose(a, b, rtol=KV_UPDATE_RTOL, atol=0):
+                    raise AssertionError("kvstore %s: rel err %g > %g"
+                                         % (name, err, KV_UPDATE_RTOL))
+            elif not np.array_equal(a, b):
+                raise AssertionError("kvstore %s: not bit-equal, max abs "
+                                     "err %g" % (name, np.abs(a - b).max()))
+    o = got["own_storage"]
+    if not np.array_equal(o[0], o[1]):
+        raise AssertionError("kvstore: an in-place write to a pushed "
+                             "array changed the store")
+    return worst
+
+
+def phase_kvstore(device="cuda", size_mb=64):
+    """The kvstore's cases (:func:`kvstore_cases`) on ``KV_CONTEXTS``
+    card contexts against the same on host contexts (sums bit-equal,
+    updates within KV_UPDATE_RTOL, the store's own storage), then
+    tools/torch_bandwidth.py's device leg (every card; with one, its
+    note and 0.0)."""
+    import argparse
+
+    import mxnet_tpu_torch as mx
+
+    ctxs = card_contexts(device, KV_CONTEXTS)
+    got = kvstore_cases(mx, ctxs)
+    want = kvstore_cases(mx, [mx.cpu(i) for i in range(KV_CONTEXTS)])
+    worst = kvstore_check(got, want)
+    bw = _load_tool("torch_bandwidth").run_device(argparse.Namespace(
+        ctx="gpu" if device == "cuda" else "cpu", num_devices=2,
+        size_mb=size_mb, iters=10, warmup=2, repeats=3))
+    rec = {"phase": "kvstore", "contexts": [str(c) for c in ctxs],
+           "cases": sorted(got), "shape": list(KV_SHAPE),
+           "sgd_momentum_max_rel_err": worst, "bandwidth_device": bw}
+    log(rec)
+    return rec
+
+
+def dp_step(sym, shapes, args, aux, contexts, seed=0):
+    """One data-parallel training step of ``sym`` over ``contexts``: an
+    executor a context on its slice of the batch, forward and backward,
+    the gradients summed through a ``device`` kvstore. (outputs
+    concatenated, summed gradients, aux states averaged) as numpy."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.executor_manager import _split_input_slice
+
+    slices = _split_input_slice(shapes["data"][0], [1] * len(contexts))
+    exes = []
+    for c, sl in zip(contexts, slices):
+        sub = {k: (sl.stop - sl.start,) + tuple(v[1:])
+               for k, v in shapes.items()}
+        exe = sym.simple_bind(c, grad_req="write", **sub)
+        for n, v in args.items():
+            exe.arg_dict[n][:] = v[sl] if n in shapes else v
+        for n, v in aux.items():
+            exe.aux_dict[n][:] = v
+        exes.append(exe)
+    mx.random.seed(seed)
+    for exe in exes:
+        exe.forward(is_train=True)
+        exe.backward()
+    kv = mx.kvstore.create("device")
+    grads = {}
+    for i, n in enumerate(k for k in args if k not in shapes):
+        kv.init(i, exes[0].arg_dict[n])
+        kv.push(i, [e.grad_dict[n] for e in exes])
+        out = mx.nd.zeros(exes[0].grad_dict[n].shape, mx.cpu())
+        kv.pull(i, out=out)
+        grads[n] = out.asnumpy()
+    outs = [np.concatenate([e.outputs[j].asnumpy() for e in exes])
+            for j in range(len(exes[0].outputs))]
+    auxs = {n: sum(e.aux_dict[n].asnumpy() for e in exes) / len(exes)
+            for n in aux}
+    return outs, grads, auxs
+
+
+def _dp_fit_checks(device, contexts):
+    """LeNet's canonical fit over ``contexts`` with ``kvstore="device"``
+    (score > 0.9) and mnist_mlp's ``Module.fit`` over them with
+    ``local`` and ``device`` (validation accuracy > 0.9): records."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import softmax as sm
+
+    recs = []
+    mx.random.seed(0)
+    train = mx.io.MNISTIter(batch_size=64, num_synthetic=1024, seed=1)
+    val = mx.io.MNISTIter(batch_size=64, num_synthetic=512, seed=2,
+                          shuffle=False)
+    with contexts[0]:
+        model = mx.FeedForward(mx.models.get_lenet(), ctx=contexts,
+                               num_epoch=3, learning_rate=0.1, momentum=0.9,
+                               initializer=mx.initializer.Xavier())
+        sm.fused_softmax.launches = 0
+        model.fit(X=train, eval_data=val, kvstore="device")
+        score = model.score(val)
+    _sync(device)
+    recs.append({"fit": "lenet FeedForward", "kvstore": "device",
+                 "score": score, "softmax_launches":
+                 sm.fused_softmax.launches})
+    if not score > 0.9:
+        raise AssertionError("LeNet over %s scored %g <= 0.9"
+                             % (contexts, score))
+    for kind in ("local", "device"):
+        mx.random.seed(0)
+        train, val = _mnist_iters(100, 2000, 1000)
+        with contexts[0]:
+            mod = mx.module.Module(_mlp_symbol([128]), context=contexts)
+            sm.fused_softmax.launches = 0
+            mod.fit(train, eval_data=val, num_epoch=3, kvstore=kind,
+                    optimizer_params={"learning_rate": 0.1,
+                                      "momentum": 0.9},
+                    initializer=mx.initializer.Xavier())
+            acc = dict(mod.score(val, "acc"))["accuracy"]
+        _sync(device)
+        recs.append({"fit": "mnist_mlp Module", "kvstore": kind,
+                     "update_on_kvstore": mod._update_on_kvstore,
+                     "val_accuracy": acc,
+                     "softmax_launches": sm.fused_softmax.launches})
+        if not acc > 0.9:
+            raise AssertionError("Module.fit over %s, kvstore %s: accuracy "
+                                 "%g <= 0.9" % (contexts, kind, acc))
+    return recs
+
+
+def phase_data_parallel(device="cuda", argv=(), synthetic=None,
+                        check_batch=8, check_image=224, check_classes=1000):
+    """Config #2 as train_imagenet.py writes it: ``--network resnet
+    --synthetic --kv-store device`` (ResNet-50, batch 256, 224^2, 1000
+    classes, f32) over :func:`dp_contexts` for one epoch of 8 steps
+    through ``train_model.fit`` and the per-batch loop, the gradients
+    summed and the optimizer run in the kvstore. Checks: every step's
+    cross-entropy finite, the parameters changed and finite, K1 once a
+    context and step. Then a 2-context step at ``check_batch`` on the
+    card against the host's 2-context step from the same parameters
+    (:func:`net_closeness`), LeNet's canonical fit and mnist_mlp's
+    ``Module.fit`` over the contexts (:func:`_dp_fit_checks`). Prints
+    ``{"multi_device": {"cards": n, "contexts": [...]}}``; returns the
+    record (K1's launches on the paths in ``softmax_launches`` and
+    ``fits``)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    ctxs = dp_contexts(device)
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    log({"multi_device": {"cards": cards,
+                          "contexts": [str(c) for c in ctxs],
+                          "route": "one executor a card" if cards >= 2
+                          else "two executors on one device"}})
+    seen = {"ce": [], "stamps": [], "first": None}
+
+    def on_batch(param):
+        loc = param.locals
+        if seen["first"] is None:
+            seen["first"] = {k: v.asnumpy()
+                             for k, v in loc["arg_params"].items()}
+        grp = loc["executor_manager"].curr_execgrp
+        lab = loc["data_batch"].label[0].asnumpy().astype(np.int64)
+        ce = []
+        for exe, sl in zip(grp.train_execs, grp.slices):
+            prob = exe.outputs[0].asnumpy()
+            lb = lab[sl]
+            ce.append(-np.log(np.maximum(
+                prob[np.arange(len(lb)), lb], 1e-30)))
+        seen["ce"].append(float(np.concatenate(ce).mean()))
+        seen["stamps"].append(time.perf_counter())
+
+    argv = (["--network", "resnet", "--synthetic", "--kv-store", "device",
+             "--num-devices", str(len(ctxs)), "--num-epochs",
+             str(DP_NUM_EPOCHS)] + list(argv))
+    run = _imagenet_run(
+        device, argv, lambda args: mx.models.get_resnet(
+            num_classes=args.num_classes, num_layers=50),
+        on_batch=on_batch, synthetic=synthetic, trace=False)
+    args, model, launches = run["args"], run["model"], run["launches"]
+    steps = args.num_examples // args.batch_size * args.num_epochs
+    st = seen["stamps"]
+    warm_ms = 1e3 * (st[-1] - st[0]) / (len(st) - 1) if len(st) > 1 \
+        else None
+    rec = {"phase": "data_parallel", "example": IC_DIR + "/train_imagenet.py",
+           "argv": argv, "contexts": [str(c) for c in ctxs],
+           "batch": args.batch_size, "epochs": args.num_epochs,
+           "steps": steps, "wall_s": run["wall_s"],
+           "epoch_s": run["epoch_s"], "scanned_trainer_built": run["built"],
+           "img_per_s_epoch": steps * args.batch_size / sum(run["epoch_s"]),
+           "step_ms_after_first": warm_ms,
+           "img_per_s_after_first": (args.batch_size / warm_ms * 1e3
+                                     if warm_ms else None),
+           "cross_entropy": seen["ce"], "softmax_launches": launches}
+    last = {k: v.asnumpy() for k, v in model.arg_params.items()}
+    if not (len(seen["ce"]) == steps
+            and all(math.isfinite(v) for v in seen["ce"])):
+        raise AssertionError("data parallel ResNet-50: a step's "
+                             "cross-entropy is not finite, or missing: %r"
+                             % seen["ce"])
+    if not all(np.all(np.isfinite(v)) for v in last.values()):
+        raise AssertionError("data parallel ResNet-50: non-finite "
+                             "parameters")
+    if all(np.array_equal(seen["first"][k], last[k]) for k in last):
+        raise AssertionError("data parallel ResNet-50: the parameters "
+                             "did not change")
+    if run["built"]:
+        raise AssertionError("data parallel ResNet-50 built a scanned "
+                             "trainer: the kvstore path did not run")
+    expected = len(ctxs) * steps if device == "cuda" else 0
+    if launches != expected:
+        raise AssertionError("data parallel ResNet-50 launched K1 %d times, "
+                             "expected %d" % (launches, expected))
+    # one 2-context step at check_batch against the host
+    with mx.NameManager():
+        sym = mx.models.get_resnet(num_classes=check_classes, num_layers=50)
+    shapes = {"data": (check_batch, 3, check_image, check_image),
+              "softmax_label": (check_batch,)}
+    params, aux = zoo_params(sym, shapes, seed=11)
+    two = ctxs[:2]
+    got = dp_step(sym, shapes, params, aux, two)
+    want = dp_step(sym, shapes, params, aux, [mx.cpu(0), mx.cpu(1)])
+    nudged = dp_step(sym, shapes, nudge(params), aux, two)
+    rec["step_check"] = dict(net_closeness(got, want, nudged),
+                             batch=check_batch, contexts=[str(c)
+                                                          for c in two])
+    rec["fits"] = _dp_fit_checks(device, ctxs)
+    log(rec)
+    if not rec["step_check"]["ok"]:
+        raise AssertionError("the 2-context ResNet-50 step on the card "
+                             "differs from the host's: %r"
+                             % rec["step_check"])
+    return rec
+
+
+def mp_grad_check(mx, mp_ctxs, sp_ctx, num_layers=4, seq_len=32,
+                  vocab=200, num_hidden=200, num_embed=128, batch=32,
+                  seed=5):
+    """One training step of the model-parallel LSTM over ``mp_ctxs``
+    (``lstm_group2ctx``) against the same net unpartitioned on
+    ``sp_ctx`` from the same seeded parameters: outputs and the
+    gradients of l0_i2h_weight, embed_weight and cls_weight within
+    MP_RTOL/MP_ATOL, and each argument's context its group's. Raises;
+    returns the worst errors."""
+    import numpy as np
+
+    from mxnet_tpu_torch.models.lstm import lstm_group2ctx, lstm_unroll
+
+    net_mp = lstm_unroll(num_layers, seq_len, vocab, num_hidden, num_embed,
+                         vocab, group2ctx_layers=True)
+    net_sp = lstm_unroll(num_layers, seq_len, vocab, num_hidden, num_embed,
+                         vocab, group2ctx_layers=False)
+    shapes = {"data": (batch, seq_len), "softmax_label": (batch, seq_len)}
+    for i in range(num_layers):
+        shapes["l%d_init_c" % i] = shapes["l%d_init_h" % i] = (batch,
+                                                               num_hidden)
+    g2c = lstm_group2ctx(num_layers, mp_ctxs)
+    exe_mp = net_mp.simple_bind(mp_ctxs[0], group2ctx=g2c, **shapes)
+    exe_sp = net_sp.simple_bind(sp_ctx, **shapes)
+    for name, arr in exe_mp.arg_dict.items():
+        group = [n for n in net_mp.nodes if n.is_variable
+                 and n.name == name][0].attrs.get("ctx_group")
+        want_ctx = g2c.get(group, mp_ctxs[0])
+        if arr.context != want_ctx:
+            raise AssertionError("group2ctx: %s on %s, its group %s on %s"
+                                 % (name, arr.context, group, want_ctx))
+    rng = np.random.RandomState(seed)
+    vals = {k: rng.uniform(-0.1, 0.1, v.shape).astype("f")
+            for k, v in exe_sp.arg_dict.items()}
+    vals["data"] = rng.randint(0, vocab, shapes["data"]).astype("f")
+    vals["softmax_label"] = rng.randint(0, vocab, shapes["data"]).astype(
+        "f")
+    for exe in (exe_sp, exe_mp):
+        for k, v in exe.arg_dict.items():
+            v[:] = vals[k]
+        exe.forward(is_train=True)
+        exe.backward()
+    errs = {}
+    pairs = [("outputs", exe_mp.outputs[0], exe_sp.outputs[0])] + [
+        (k, exe_mp.grad_dict[k], exe_sp.grad_dict[k])
+        for k in ("l0_i2h_weight", "embed_weight", "cls_weight")]
+    for k, a, b in pairs:
+        a, b = a.asnumpy(), b.asnumpy()
+        errs[k] = float(np.max(np.abs(a - b)))
+        if not np.allclose(a, b, rtol=MP_RTOL, atol=MP_ATOL):
+            raise AssertionError("group2ctx LSTM %s: max abs err %g"
+                                 % (k, errs[k]))
+    return {"max_abs_err": errs,
+            "group2ctx": {k: str(v) for k, v in g2c.items()},
+            "outputs_context": str(exe_mp.outputs[0].context)}
+
+
+def phase_model_parallel(device="cuda", argv=(), check=None):
+    """Config #4: examples/model-parallel-lstm_torch/lstm_ptb.py at its
+    defaults (4 layers, 200 hidden, 128 embed, seq 32, batch 32, lr 0.5,
+    2 epochs, the synthetic corpus), its groups on every card when there
+    are four or more, else on what exists. Checks: the perplexity falls
+    from epoch 1 to 2, K1 once a step; then :func:`mp_grad_check` at the
+    example's sizes (``check`` overrides them), the groups over four
+    contexts against one. Prints the group map; returns the record."""
+    import importlib.util
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import softmax as sm
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        LSTM_PTB)
+    spec = importlib.util.spec_from_file_location("mp_lstm_ptb", path)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    argv = (["--ctx", "gpu" if device == "cuda" else "cpu"]
+            + list(argv))
+    mx.random.seed(0)
+    _sync(device)
+    sm.fused_softmax.launches = 0
+    t0 = time.perf_counter()
+    res = ex.main(argv)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = sm.fused_softmax.launches
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    ppl = res["perplexity"]
+    rec = {"phase": "model_parallel", "example": LSTM_PTB, "argv": argv,
+           "cards": cards, "group2ctx": res["group2ctx"],
+           "perplexity": ppl, "samples_per_s": res["samples_per_s"],
+           "batches": res["batches"], "wall_s": wall,
+           "softmax_launches": launches}
+    mp = card_contexts(device, 4)
+    rec["grad_check"] = mp_grad_check(mx, mp, mp[0], **dict(check or {}))
+    log(rec)
+    if not (len(ppl) >= 2 and ppl[1] < ppl[0]):
+        raise AssertionError("model-parallel LSTM: perplexity did not fall "
+                             "from epoch 1 to 2: %r" % ppl)
+    expected = res["batches"] if device == "cuda" else 0
+    if launches != expected:
+        raise AssertionError("model-parallel LSTM launched K1 %d times, "
+                             "expected %d" % (launches, expected))
+    return rec
+
+
+def dist_worker(ctx, size_mb):
+    """One rank of ``phase_dist``: tests/torch_nightly/dist_sync_kvstore.py
+    and dist_lenet.py, then tools/torch_bandwidth.py's dist-leg worker,
+    in one process (one start and one rendezvous for the three)."""
+    import argparse
+    import importlib.util
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    for name in ("dist_sync_kvstore", "dist_lenet"):
+        spec = importlib.util.spec_from_file_location(
+            "nightly_" + name,
+            os.path.join(root, "tests", "torch_nightly", name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        mod.main(["--ctx", ctx])
+    _load_tool("torch_bandwidth")._dist_worker(argparse.Namespace(
+        ctx=ctx, size_mb=size_mb, iters=10, warmup=2, repeats=3))
+
+
+def phase_dist(device="cuda", workers=2, size_mb=64):
+    """``tools/torch_launch.py -n 2`` on the card, each rank running
+    :func:`dist_worker`: the counterparts of
+    tests/nightly/dist_sync_kvstore.py (the exact dist_sync arithmetic,
+    the (1200, 1200) key, the bucketed multi-key push) and
+    tests/nightly/dist_lenet.py (rank-sharded MNISTIter, accuracy > 0.9
+    on each rank, parameters equal across ranks), then the bandwidth
+    tool's dist leg (rank 0 prints it). Prints the backend the store's
+    rule chose; returns the record."""
+    ctx = "gpu" if device == "cuda" else "cpu"
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-c",
+           "import chip_smoke; chip_smoke.dist_worker(%r, %r)"
+           % (ctx, size_mb)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "tools", "torch_launch.py"),
+         "-n", str(workers), "--timeout", str(DIST_TIMEOUT - 30), "--"]
+        + cmd, cwd=root, capture_output=True, text=True,
+        timeout=DIST_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError("the dist ranks exited %d:\n%s\n%s" % (
+            proc.returncode, proc.stdout[-4000:], proc.stderr[-4000:]))
+    lines = [json.loads(x) for x in proc.stdout.splitlines()
+             if x.startswith("{")]
+    sync = [x["dist_sync_kvstore"] for x in lines
+            if "dist_sync_kvstore" in x]
+    lenet = [x["dist_lenet"] for x in lines if "dist_lenet" in x]
+    bw = [x for x in lines if x.get("metric") == "comm_dist_allreduce_fp32"]
+    rec = {"phase": "dist", "workers": workers,
+           "backend": sorted({r["backend"] for r in sync + lenet}),
+           "dist_sync_kvstore": sync, "dist_lenet": lenet,
+           "bandwidth_dist": bw, "wall_s": wall}
+    log(rec)
+    if len(sync) != workers or len(lenet) != workers or len(bw) != 1:
+        raise AssertionError("dist: expected a line from each of %d ranks "
+                             "and one bandwidth record: %r"
+                             % (workers, rec))
+    return rec
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5572,6 +6115,15 @@ def main():
     rtc = _timed("rtc", phase_rtc)
     torch.cuda.empty_cache()
     mm_stats = _timed("matmul_stats", phase_matmul_stats)
+    torch.cuda.empty_cache()
+    _timed("kvstore", phase_kvstore)
+    dp = _timed("data_parallel", phase_data_parallel)
+    dp_fits = {"%s_%s" % (f["fit"].split()[0], f["kvstore"]):
+               f["softmax_launches"] for f in dp["fits"]}
+    torch.cuda.empty_cache()
+    mp = _timed("model_parallel", phase_model_parallel)
+    torch.cuda.empty_cache()
+    _timed("dist", phase_dist)
     log({"phase_seconds": phase_s,
          "phases_total_s": sum(phase_s.values())})
     fwd_main = fwd_checks[-1]   # the training shape, the LM's views
@@ -5638,7 +6190,9 @@ def main():
                      + mirror["memcost_softmax_launches"]
                      + mirror["cifar10_mirror"]["softmax_launches"]
                      + predictor["softmax_launches"]
-                     + predictor["exported_softmax_launches"]),
+                     + predictor["exported_softmax_launches"]
+                     + dp["softmax_launches"] + sum(dp_fits.values())
+                     + mp["softmax_launches"]),
         "launches_by_path": {"lenet_fit": lenet, "resnet50_fit": resnet,
                              "module": module,
                              "resnet50_module_fit": resnet_module,
@@ -5659,7 +6213,13 @@ def main():
                                  "softmax_launches"],
                              "predictor": predictor["softmax_launches"],
                              "predictor_exported": predictor[
-                                 "exported_softmax_launches"]},
+                                 "exported_softmax_launches"],
+                             "resnet50_data_parallel": dp[
+                                 "softmax_launches"],
+                             **{"data_parallel_" + k: v
+                                for k, v in dp_fits.items()},
+                             "lstm_model_parallel": mp[
+                                 "softmax_launches"]},
         "max_abs_err": max(c["max_abs_err"] for c in softmax_checks),
         "max_err_to_limit": max(c["closeness"]["elem"]
                                 for c in softmax_checks),

@@ -2,17 +2,26 @@
 mxnet_tpu_torch.
 
 examples/image-classification/train_model.py with its import rewritten
-and its contexts made the port's: ``--ctx`` is ``auto`` (``gpu(0)``,
-with no fallback to the CPU when there is no card), ``gpu`` or ``cpu``,
-and the chosen context is the current one while the model is built and
-fitted. The port has no kvstore yet: ``--kv-store`` goes to
-``FeedForward.fit`` as a string, which takes a local kind (``local``,
-``device``) for none on one device and refuses a ``dist`` kind; the
-data loaders and the epoch size see rank 0 of 1 worker where the
-original reads ``kv.rank`` and ``kv.num_workers``.
+and its contexts made the port's: ``--ctx`` is ``auto`` or ``gpu``
+(``gpu(i)`` for ``i < --num-devices``, no fallback to the CPU when there
+is no card) or ``cpu``, and the first context is the current one while
+the model is built and fitted. With more devices asked for than there
+are cards, the contexts wrap around the cards (``--num-devices 2`` on
+one card is ``[gpu(0), gpu(0)]``: two executors on one card, reduced
+through the kvstore as two cards would be); the mapping is logged.
+
+The kvstore is created from ``--kv-store`` as in the original
+(``kv = mx.kvstore.create(args.kv_store)``), and the data loaders and
+the epoch size read its ``rank`` and ``num_workers``. ``FeedForward.fit``
+gets that one store on several devices or under a dist type, as in the
+original, and None on one device otherwise: ``model._create_kvstore``
+makes no store of a type name there either, and a fit with no store
+keeps the scanned path, where one with a store updates through it in
+the per-batch loop.
 
 Mirrors the reference's example/image-classification/train_model.py:6-89:
-build FeedForward, wire checkpoint / speedometer callbacks, call .fit().
+create the kvstore from --kv-store, build FeedForward, wire checkpoint /
+speedometer callbacks, call .fit().
 """
 import logging
 import os
@@ -26,21 +35,21 @@ if _ROOT not in sys.path:
 import mxnet_tpu_torch as mx  # noqa: E402
 
 
-class _OneWorker:
-    """What the data loaders read of a kvstore: rank 0 of 1 worker."""
-    rank = 0
-    num_workers = 1
-
-
 def _contexts(args):
-    dev = mx.cpu if args.ctx == "cpu" else mx.gpu
     n = max(1, args.num_devices)
-    return [dev(i) for i in range(n)]
+    if args.ctx == "cpu":
+        return [mx.cpu(i) for i in range(n)]
+    cards = mx.context.num_devices("gpu")
+    devs = [mx.gpu(i % cards if cards else i) for i in range(n)]
+    if cards and n > cards:
+        logging.info("%d devices on %d card(s): %s", n, cards, devs)
+    return devs
 
 
 def fit(args, network, data_loader, batch_end_callback=None):
-    # kvstore: 'local' | 'device' on one device; no kvstore is ported
-    kv = _OneWorker()
+    # kvstore: 'local' | 'device' | 'dist_sync' | 'dist_async'
+    # (ref train_model.py:8  kv = mx.kvstore.create(args.kv_store))
+    kv = mx.kvstore.create(args.kv_store)
 
     head = "%(asctime)-15s Node[" + str(kv.rank) + "] %(message)s"
     logging.basicConfig(level=logging.DEBUG, format=head)
@@ -97,7 +106,8 @@ def fit(args, network, data_loader, batch_end_callback=None):
         model.fit(
             X=train,
             eval_data=val,
-            kvstore=args.kv_store,
+            kvstore=kv if len(devs) > 1 or "dist" in args.kv_store
+            else None,
             batch_end_callback=batch_cbs,
             epoch_end_callback=checkpoint,
         )

@@ -51,6 +51,12 @@ on one card:
   for ``nd.save``/``load`` and checkpoints); the dependency ``engine``
   (C++, built with ``g++`` at first use) writes checkpoints
   asynchronously;
+- several devices and processes: ``kvstore`` (``mx.kv.create``: local,
+  device and dist types; the dist types over ``torch.distributed``
+  when ``tools/torch_launch.py`` starts the processes),
+  ``FeedForward``/``Module`` over a list of contexts (data parallelism,
+  the gradients summed through a kvstore), and ``group2ctx`` model
+  parallelism in the ``Executor``;
 - prediction and deployment: ``Predictor`` (the c_predict_api call
   sequence over a checkpoint, on ``gpu(0)`` unless given ``ctx``) and
   its ``export_compiled``/``predictor.load_compiled`` over
@@ -92,6 +98,14 @@ from . import lr_scheduler  # noqa: E402
 from . import metric  # noqa: E402
 from . import callback  # noqa: E402
 from . import io  # noqa: E402
+from . import kvstore  # noqa: E402
+from . import kvstore as kv  # noqa: E402
+from .kvstore import create as kvstore_create  # noqa: E402
+from . import kvstore_server as _kvstore_server  # noqa: E402
+
+# a legacy DMLC_ROLE=server launch fails at import, as the reference
+# boots its server loop from package init (kvstore_server.py:58)
+_kvstore_server._init_kvstore_server_module()
 from . import model  # noqa: E402
 from .model import FeedForward  # noqa: E402
 from . import models  # noqa: E402
@@ -128,7 +142,8 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "init",
            "Symbol", "Variable", "Group", "AttrScope", "NameManager",
            "Prefix", "NDArray", "Executor", "initializer", "optimizer",
-           "lr_scheduler", "metric", "callback", "io", "model",
+           "lr_scheduler", "metric", "callback", "io", "kvstore", "kv",
+           "kvstore_create", "model",
            "FeedForward", "ops", "models", "monitor", "Monitor", "module",
            "rtc", "operator", "torch_plugin", "th", "parallel", "serving",
            "engine", "stream", "recordio", "opencv", "cv", "cpu_pinned",

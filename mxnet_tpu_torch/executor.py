@@ -91,8 +91,22 @@ order on ``torch.Tensor``s, and gradients come from ``torch.autograd``:
   or ``TorchCriterion`` whose module holds buffers or a Dropout: each
   closes the segment before it, so a user's forward runs once a step.
 
-Not in this slice: group2ctx model parallelism (raises), profiling and
-the compile verifier.
+- Model parallelism (``group2ctx``, ``mxnet_tpu/executor.py:127``,
+  ``:176-182``): a node whose ``ctx_group`` attribute names a group of
+  ``group2ctx`` runs on that group's context, every other node on the
+  bind context. Argument and gradient arrays live on their variable's
+  context and aux states on their op's (``simple_bind`` allocates them
+  there; ``bind`` checks them), heads come out on their node's context,
+  and a value crossing a group boundary is copied to its consumer's
+  device with ``Tensor.to``, which autograd differentiates, so the
+  gradients travel back across the same boundary. A copy between cards
+  runs on the source card's current stream after the destination's
+  current stream has caught up, and the destination's stream waits for
+  it (torch's device-to-device copy), so the next kernel reads it
+  complete. On the host every context is the one CPU device: there the
+  contexts are bookkeeping and no copy happens.
+
+Not in this slice: profiling and the compile verifier.
 """
 from __future__ import annotations
 
@@ -123,16 +137,39 @@ def _as_req_list(grad_req, arg_names):
     raise MXNetError("invalid grad_req %r" % (grad_req,))
 
 
+def _node_contexts(symbol, ctx, group2ctx):
+    """id(node) -> the context it runs on: its ``ctx_group``'s in
+    ``group2ctx``, else the bind context."""
+    out = {}
+    for n in symbol.nodes:
+        grp = n.attrs.get("ctx_group") if group2ctx else None
+        out[id(n)] = group2ctx.get(grp, ctx) if grp else ctx
+    return out
+
+
+def _arg_contexts(symbol, node_ctx):
+    """Each argument's context: its variable node's, in argument order."""
+    return [node_ctx[id(n)] for n in symbol.nodes if n.is_variable]
+
+
+def _aux_contexts(symbol, node_ctx):
+    """Each aux state's context: the op node's that owns it, in aux
+    order."""
+    return [node_ctx[id(n)] for n in symbol.nodes if not n.is_variable
+            for _ in n.op.list_auxiliary_states(n.params)]
+
+
 class Executor:
     def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
                  aux_states=None, group2ctx=None, shared_exec=None,
                  _compile_opts=None):
-        if group2ctx:
-            raise MXNetError("group2ctx (model parallelism) is not ported: "
-                             "the port's Executor runs on one device")
         self._symbol = symbol
         self._ctx = ctx if isinstance(ctx, Context) else Context(ctx)
         self._device = self._ctx.torch_device
+        self._group2ctx = dict(group2ctx or {})
+        self._node_ctx = _node_contexts(symbol, self._ctx, self._group2ctx)
+        self._multi_device = len(
+            {c.torch_device for c in self._node_ctx.values()}) > 1
 
         self._arg_names = symbol.list_arguments()
         self._aux_names = symbol.list_auxiliary_states()
@@ -171,7 +208,8 @@ class Executor:
                 if aux_shapes is None or any(s is None for s in aux_shapes):
                     raise MXNetError("bind: aux_states required (shapes "
                                      "underdetermined)")
-                self.aux_arrays = [zeros(s, self._ctx) for s in aux_shapes]
+                self.aux_arrays = [zeros(s, c) for s, c in zip(
+                    aux_shapes, _aux_contexts(symbol, self._node_ctx))]
             else:
                 self.aux_arrays = []
         elif isinstance(aux_states, dict):
@@ -179,13 +217,15 @@ class Executor:
         else:
             self.aux_arrays = list(aux_states)
 
-        for kind, arrs in (("argument", self.arg_arrays),
-                           ("gradient", self.grad_arrays),
-                           ("aux state", self.aux_arrays)):
-            for a in arrs:
-                if a is not None and a._data.device != self._device:
-                    raise MXNetError("bind: %s array on %s, executor on %s"
-                                     % (kind, a._data.device, self._device))
+        arg_ctx = _arg_contexts(symbol, self._node_ctx)
+        aux_ctx = _aux_contexts(symbol, self._node_ctx)
+        for kind, arrs, ctxs in (("argument", self.arg_arrays, arg_ctx),
+                                 ("gradient", self.grad_arrays, arg_ctx),
+                                 ("aux state", self.aux_arrays, aux_ctx)):
+            for a, c in zip(arrs, ctxs):
+                if a is not None and a._data.device != c.torch_device:
+                    raise MXNetError("bind: %s array on %s, its node on %s"
+                                     % (kind, a._data.device, c))
 
         self._nodes = symbol.nodes
         self._var_argidx = {}
@@ -380,6 +420,13 @@ class Executor:
         global aux position (the walk's list, or a segment's dict)."""
         n = self._nodes[serial]
         ins = [env[(id(s), i)] for s, i in n.inputs]
+        if self._multi_device:
+            # a group boundary: the consumer's device (autograd carries
+            # the gradient back through the copy)
+            dev = self._node_ctx[id(n)].torch_device
+            ins = [x.to(dev) for x in ins]
+            if rng is not None:
+                rng = rng.to(dev)
         sl = self._node_aux.get(id(n))
         aux_in = [aux[j] for j in range(*sl)] if sl else []
         outs, n_aux = n.op.apply(n.params, ins, aux_in, is_train, rng,
@@ -389,7 +436,7 @@ class Executor:
             env[(id(n), i)] = o
             if monitor is not None:
                 monitor("%s_%s" % (n.name, onames[i]),
-                        NDArray(o.detach(), self._ctx))
+                        NDArray(o.detach(), self._node_ctx[id(n)]))
         if sl:
             for j, v in zip(range(*sl), n_aux):
                 aux[j] = v
@@ -524,7 +571,9 @@ class Executor:
     def _write_outputs(self, outs):
         outs = [o.detach() for o in outs]
         if self._outputs_nd is None:
-            self._outputs_nd = [NDArray(o, self._ctx) for o in outs]
+            self._outputs_nd = [
+                NDArray(o, self._node_ctx[id(self._nodes[i])])
+                for o, (i, _) in zip(outs, self._heads)]
         else:
             for nd, o in zip(self._outputs_nd, outs):
                 nd._data = o
@@ -628,7 +677,7 @@ class Executor:
             if self._outputs_nd is None:
                 self.forward(is_train=False)
             hg = [None if not o._data.is_floating_point()
-                  else _as_tensor(g, self._device, o._data.dtype)
+                  else _as_tensor(g, o._data.device, o._data.dtype)
                   for g, o in zip(out_grads, self._outputs_nd)]
         if self._hybrid:
             if self._graph is None:
@@ -712,7 +761,7 @@ class Executor:
             self._symbol, self._ctx, new_args,
             args_grad=new_grads or None,
             grad_req={n: r for n, r in zip(self._arg_names, self._reqs)},
-            aux_states=self.aux_arrays)
+            aux_states=self.aux_arrays, group2ctx=self._group2ctx)
 
     def debug_str(self):
         return self._symbol.debug_str()
@@ -723,11 +772,15 @@ class Executor:
                      group2ctx=None, shared_exec=None, **kwargs):
         """Allocate argument, gradient and aux arrays from inferred
         shapes (aux states named ``*var*`` start at one, the rest at
-        zero). With ``shared_exec``, reuse its argument, gradient and aux
-        NDArrays where name, shape and dtype match; a gradient only
+        zero), each on its node's context under ``group2ctx``. With
+        ``shared_exec``, reuse its argument, gradient and aux NDArrays
+        where name, shape, dtype and context match; a gradient only
         where both executors write it (an ``add`` accumulator stays
         private on both sides)."""
         ctx = ctx if isinstance(ctx, Context) else Context(ctx)
+        node_ctx = _node_contexts(symbol, ctx, dict(group2ctx or {}))
+        arg_ctx = _arg_contexts(symbol, node_ctx)
+        aux_ctx = _aux_contexts(symbol, node_ctx)
         arg_shapes, out_shapes, aux_shapes = symbol.infer_shape(**kwargs)
         if arg_shapes is None:
             raise MXNetError("simple_bind: cannot infer shapes from %s"
@@ -744,32 +797,36 @@ class Executor:
         else:
             shared_args = shared_grads = shared_aux = shared_reqs = {}
 
-        def reuse(cand, shape, t):
+        def reuse(cand, shape, t, c):
             return (cand is not None and cand.shape == tuple(shape)
-                    and cand._data.dtype == torch_dtype(t))
+                    and cand._data.dtype == torch_dtype(t)
+                    and cand.context == c)
 
         args = {}
-        for name, shape, t in zip(arg_names, arg_shapes, arg_types):
+        for name, shape, t, c in zip(arg_names, arg_shapes, arg_types,
+                                     arg_ctx):
             cand = shared_args.get(name)
-            args[name] = cand if reuse(cand, shape, t) else zeros(
-                shape, ctx, dtype=t)
+            args[name] = cand if reuse(cand, shape, t, c) else zeros(
+                shape, c, dtype=t)
         reqs = _as_req_list(grad_req, arg_names)
         args_grad = {}
-        for name, shape, t, r in zip(arg_names, arg_shapes, arg_types, reqs):
+        for name, shape, t, r, c in zip(arg_names, arg_shapes, arg_types,
+                                        reqs, arg_ctx):
             if r == "null":
                 continue
             cand = shared_grads.get(name)
             if r == "write" and shared_reqs.get(name) == "write" and \
-                    reuse(cand, shape, t):
+                    reuse(cand, shape, t, c):
                 args_grad[name] = cand
             else:
-                args_grad[name] = zeros(shape, ctx, dtype=t)
+                args_grad[name] = zeros(shape, c, dtype=t)
         aux_states = []
-        for name, shape, t in zip(aux_names, aux_shapes, aux_types):
+        for name, shape, t, c in zip(aux_names, aux_shapes, aux_types,
+                                     aux_ctx):
             cand = shared_aux.get(name)
-            aux_states.append(cand if reuse(cand, shape, t) else
+            aux_states.append(cand if reuse(cand, shape, t, c) else
                               (ones if "var" in name else zeros)(
-                                  shape, ctx, dtype=t))
+                                  shape, c, dtype=t))
         return Executor(symbol, ctx, args, args_grad=args_grad or None,
                         grad_req=grad_req, aux_states=aux_states,
                         group2ctx=group2ctx, shared_exec=shared_exec)

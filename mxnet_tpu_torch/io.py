@@ -19,9 +19,10 @@ order. The JAX package's native decoder (``src/imagedec.cc``, built
 against libjpeg) is not carried over: the port has this one route.
 ``PrefetchingIter`` runs its iterators on a background thread; its
 ``reset`` waits for the thread's batch in progress, so no batch crosses
-an epoch, and an error on the thread is raised to the consumer. Not
-carried over: ``NDArrayIter``'s distributed sharding (``num_parts``),
-``DataServiceIter`` (with ``data_service/``) and telemetry.
+an epoch, and an error on the thread is raised to the consumer.
+``NDArrayIter`` (and ``MNISTIter`` through it) shards by
+``num_parts``/``part_index`` as the JAX package's does. Not carried
+over: ``DataServiceIter`` (with ``data_service/``) and telemetry.
 """
 from __future__ import annotations
 
@@ -195,10 +196,29 @@ class NDArrayIter(DataIter):
     """Iterate over in-memory arrays (ref: python/mxnet/io.py:475)."""
 
     def __init__(self, data, label=None, batch_size=1, shuffle=False,
-                 last_batch_handle="pad", data_name="data", label_name="softmax_label"):
+                 last_batch_handle="pad", data_name="data", label_name="softmax_label",
+                 num_parts=1, part_index=0):
         super().__init__()
         self.data = _init_data(data, allow_empty=False, default_name=data_name)
         self.label = _init_data(label, allow_empty=True, default_name=label_name)
+        if num_parts > 1:
+            # distributed sharding (mxnet_tpu/io.py:202-225): every part
+            # gets n // num_parts samples, so the workers' batch counts
+            # agree; shuffled, a permutation of the whole set under a
+            # shared seed comes before the split
+            if not 0 <= part_index < num_parts:
+                raise ValueError(
+                    "part_index must be in [0, num_parts), got %d/%d"
+                    % (part_index, num_parts))
+            n = self.data[0][1].shape[0]
+            per = n // num_parts
+            if shuffle:
+                perm = _np.random.RandomState(0).permutation(n)
+                sel = perm[part_index * per:(part_index + 1) * per]
+            else:
+                sel = _np.arange(part_index * per, (part_index + 1) * per)
+            self.data = [(k, v[sel]) for k, v in self.data]
+            self.label = [(k, v[sel]) for k, v in self.label]
         self.num_data = self.data[0][1].shape[0]
         assert self.num_data >= batch_size, "batch_size needs to be smaller than data size."
         self.idx = _np.arange(self.num_data)
@@ -299,7 +319,7 @@ class MNISTIter(NDArrayIter):
     def __init__(self, image="train-images-idx3-ubyte", label="train-labels-idx1-ubyte",
                  batch_size=128, shuffle=True, flat=False, silent=False, seed=0,
                  input_shape=None, allow_synthetic=True, num_synthetic=2048,
-                 **kwargs):
+                 num_parts=1, part_index=0, **kwargs):
         if os.path.exists(image) and os.path.exists(label):
             images = _read_idx_images(image).astype(_np.float32) / 255.0
             labels = _read_idx_labels(label)
@@ -321,7 +341,8 @@ class MNISTIter(NDArrayIter):
             images = images.reshape(images.shape[0], 1, 28, 28)
         super().__init__(
             images, labels, batch_size=batch_size, shuffle=shuffle,
-            last_batch_handle="discard",
+            last_batch_handle="discard", num_parts=num_parts,
+            part_index=part_index,
             data_name=kwargs.pop("data_name", "data"),
             label_name=kwargs.pop("label_name", "softmax_label"),
         )

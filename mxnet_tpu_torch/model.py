@@ -10,7 +10,8 @@ package's files byte for byte). The optimizer is created with
 ``fit`` takes one of the JAX package's two loops
 (``_train_multi_device``, ``model.py:370-437``):
 
-- **the scanned fit**, the default on one device (``MXNET_SCAN_TRAIN``
+- **the scanned fit**, the default on one device with no kvstore
+  (``MXNET_SCAN_TRAIN``
   unset or on, K = ``MXNET_TRAIN_SCAN_K``, 8): K batches at a time go
   to ``parallel/fit_trainer.py``, whose K steps run with no host
   synchronisation; the chunk's outputs are read after the next chunk
@@ -28,10 +29,22 @@ package's files byte for byte). The optimizer is created with
   propagates, where the JAX package falls back on every exception,
   since on the card that would hide a failed device or kernel behind
   the per-batch loop;
-- **the per-batch loop** (``model.py:491-566``): load the batch, forward
-  with ``is_train``, backward, one optimizer update per parameter in
-  parameter order, then the metric. A ``compute_dtype`` is then
-  ignored with a warning, as in the JAX package.
+- **the per-batch loop** (``model.py:491-566``), on one device or
+  several (``ctx`` a list; a context may repeat, ``[gpu(0), gpu(0)]``):
+  each device's executor takes its slice of the batch
+  (``work_load_list`` weights the slices), forward with ``is_train``,
+  backward, then the update in parameter order and the metric. The
+  update goes through the kvstore of ``_create_kvstore``
+  (``mxnet_tpu/model.py:41-101``): a type name on one device that is
+  not a dist type is no store; ``local`` with every parameter under 16M
+  elements sums the gradients in the store and updates on each device
+  (updater index ``index * num_device + k``); otherwise the store runs
+  the optimizer and every device pulls the new weights. The optimizer's
+  ``rescale_grad`` is one over the whole batch, times the workers under
+  ``dist_sync``. The parameters are each device's copy averaged
+  (``sum(...) / len``) at the last epoch's end or when an epoch-end
+  callback wants them. A ``compute_dtype`` is then ignored with a
+  warning, as in the JAX package.
 
 ``symbol`` may be a bucketing symbol generator (``sym_gen(bucket_key)
 -> Symbol``, ``mxnet_tpu/model.py:898-910``): ``fit`` builds the default
@@ -46,14 +59,12 @@ of its prefix, so the checkpoints of one prefix land in order while
 training goes on; ``keep_n`` keeps the newest epochs; ``load_checkpoint``,
 ``find_latest_checkpoint`` and ``nd.waitall`` fence the writes, and
 ``fit`` fences them before it returns. ``fit`` takes ``monitor`` (the
-per-batch loop, with the monitor's taps) and ``work_load_list`` (one
-entry on one device).
+per-batch loop, with the monitor's taps) and ``work_load_list``.
 
 ``fit(resume=True)`` (or a prefix) restarts from the newest valid
 checkpoint of the prefix, as the JAX package's does.
 
-A kvstore other than a local one and more than one device raise. Not
-in this slice: the guardian, telemetry and mxprof.
+Not in this slice: the guardian, telemetry and mxprof.
 """
 from __future__ import annotations
 
@@ -103,11 +114,66 @@ def _desc_shape(d):
     return tuple(d.shape if isinstance(d, io.DataDesc) else d[1])
 
 
-def _update_params(param_arrays, grad_arrays, updater, num_device):
+def _create_kvstore(kvstore, num_device, arg_params):
+    """``(kvstore, update_on_kvstore)`` (ref: python/mxnet/model.py:39):
+    a name on one device that is not a dist type is no store; a
+    ``local`` store whose largest parameter has fewer than 16M elements
+    updates on the devices; an object is used as it is."""
+    update_on_kvstore = True
+    if kvstore is None:
+        kv = None
+    elif isinstance(kvstore, str):
+        if num_device == 1 and "dist" not in kvstore:
+            kv = None
+        else:
+            from . import kvstore as kvs
+
+            kv = kvs.create(kvstore)
+            if kvstore == "local":
+                max_size = max(_np.prod(param.shape)
+                               for param in arg_params.values())
+                if max_size < 1024 * 1024 * 16:
+                    update_on_kvstore = False
+    else:
+        kv = kvstore
+    if kv is None:
+        update_on_kvstore = False
+    return (kv, update_on_kvstore)
+
+
+def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
+                        update_on_kvstore):
+    """ref: model.py:87: one key a parameter, pulled into every
+    device's copy when the store updates."""
+    for idx, param_on_devs in enumerate(param_arrays):
+        kvstore.init(idx, arg_params[param_names[idx]])
+        if update_on_kvstore:
+            kvstore.pull(idx, param_on_devs, priority=-idx)
+
+
+def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore):
+    """ref: model.py:97: push the devices' gradients, pull the updated
+    weights into every device's copy."""
     for index, pair in enumerate(zip(param_arrays, grad_arrays)):
         arg_list, grad_list = pair
         if grad_list[0] is None:
             continue
+        kvstore.push(index, grad_list, priority=-index)
+        kvstore.pull(index, arg_list, priority=-index)
+
+
+def _update_params(param_arrays, grad_arrays, updater, num_device,
+                   kvstore=None):
+    """ref: model.py:107: with a store, its sum replaces every device's
+    gradient first; then one updater call a device, index
+    ``index * num_device + k``."""
+    for index, pair in enumerate(zip(param_arrays, grad_arrays)):
+        arg_list, grad_list = pair
+        if grad_list[0] is None:
+            continue
+        if kvstore:
+            kvstore.push(index, grad_list, priority=-index)
+            kvstore.pull(index, grad_list, priority=-index)
         for k, p in enumerate(zip(arg_list, grad_list)):
             w, g = p
             updater(index * num_device + k, g, w)
@@ -277,14 +343,15 @@ def _train_multi_device(symbol, ctx, arg_names, param_names, aux_names,
                         batch_end_callback=None, logger=None,
                         eval_batch_end_callback=None, sym_gen=None,
                         compute_dtype=None, work_load_list=None,
-                        monitor=None):
-    """The scanned fit where it applies, else the per-batch loop, on one
-    device."""
+                        monitor=None, kvstore=None, update_on_kvstore=False):
+    """The scanned fit where it applies (one device, no kvstore), else
+    the per-batch loop over every device."""
     if logger is None:
         logger = logging
     K = _scan_k()
     scan_attempted = False
-    if (K > 1 and len(ctx) == 1 and sym_gen is None and monitor is None
+    if (K > 1 and len(ctx) == 1 and kvstore is None and not update_on_kvstore
+            and sym_gen is None and monitor is None
             and work_load_list is None):
         from .parallel.fit_trainer import make_fit_trainer, supports_optimizer
 
@@ -324,7 +391,7 @@ def _train_multi_device(symbol, ctx, arg_names, param_names, aux_names,
                      epoch_size, optimizer, train_data, eval_data,
                      eval_metric, epoch_end_callback, batch_end_callback,
                      logger, eval_batch_end_callback, sym_gen,
-                     work_load_list, monitor)
+                     work_load_list, monitor, kvstore, update_on_kvstore)
 
 
 def _train_per_batch(symbol, ctx, arg_names, param_names, aux_names,
@@ -332,9 +399,14 @@ def _train_per_batch(symbol, ctx, arg_names, param_names, aux_names,
                      epoch_size, optimizer, train_data, eval_data,
                      eval_metric, epoch_end_callback, batch_end_callback,
                      logger, eval_batch_end_callback, sym_gen,
-                     work_load_list=None, monitor=None):
-    """The per-batch training loop on one device; a ``monitor`` is
-    installed on the executors and ticks around each step."""
+                     work_load_list=None, monitor=None, kvstore=None,
+                     update_on_kvstore=False):
+    """The per-batch training loop over the devices of ``ctx``
+    (``mxnet_tpu/model.py:491-566``): gradients are summed and the
+    weights updated through ``kvstore`` when it updates, else through
+    it and a local updater, else by the local updater alone; a
+    ``monitor`` is installed on the executors and ticks around each
+    step."""
     executor_manager = DataParallelExecutorManager(
         symbol=symbol, sym_gen=sym_gen, ctx=ctx, train_data=train_data,
         param_names=param_names, arg_names=arg_names, aux_names=aux_names,
@@ -342,7 +414,14 @@ def _train_per_batch(symbol, ctx, arg_names, param_names, aux_names,
     if monitor:
         executor_manager.install_monitor(monitor)
     executor_manager.set_params(arg_params, aux_params)
-    updater = opt.get_updater(optimizer)
+    updater = None if update_on_kvstore else opt.get_updater(optimizer)
+    if kvstore:
+        _initialize_kvstore(
+            kvstore=kvstore, param_arrays=executor_manager.param_arrays,
+            arg_params=arg_params, param_names=executor_manager.param_names,
+            update_on_kvstore=update_on_kvstore)
+    if update_on_kvstore:
+        kvstore.set_optimizer(optimizer)
 
     def _train_one_batch(data_batch, epoch, nbatch, eval_metric):
         executor_manager.load_data_batch(data_batch)
@@ -350,9 +429,13 @@ def _train_per_batch(symbol, ctx, arg_names, param_names, aux_names,
             monitor.tic()
         executor_manager.forward(is_train=True)
         executor_manager.backward()
-        _update_params(executor_manager.param_arrays,
-                       executor_manager.grad_arrays, updater=updater,
-                       num_device=len(ctx))
+        if update_on_kvstore:
+            _update_params_on_kvstore(executor_manager.param_arrays,
+                                      executor_manager.grad_arrays, kvstore)
+        else:
+            _update_params(executor_manager.param_arrays,
+                           executor_manager.grad_arrays, updater=updater,
+                           num_device=len(ctx), kvstore=kvstore)
         if monitor is not None:
             monitor.toc_print()
         executor_manager.update_metric(eval_metric, data_batch.label)
@@ -604,9 +687,6 @@ class FeedForward:
             ctx = [current_context()]
         elif isinstance(ctx, Context):
             ctx = [ctx]
-        if len(ctx) != 1:
-            raise MXNetError("FeedForward runs on one device in this port, "
-                             "got %s" % (ctx,))
         self.ctx = ctx
         self.num_epoch = num_epoch
         self.epoch_size = epoch_size
@@ -816,25 +896,21 @@ class FeedForward:
             epoch_end_callback=None, batch_end_callback=None,
             kvstore="local", logger=None, work_load_list=None, monitor=None,
             eval_batch_end_callback=None, resume=False):
-        """Train for ``num_epoch`` epochs. ``kvstore`` may only name a
-        local store, which on one device is none; ``work_load_list`` may
-        only have one entry; ``monitor`` installs its taps on the
-        per-batch loop; ``resume`` (True or a checkpoint prefix) first
-        reloads the newest valid checkpoint and continues from its
-        epoch."""
+        """Train for ``num_epoch`` epochs. ``kvstore`` is a KVStore, a
+        type name (``_create_kvstore``) or None; ``work_load_list``
+        weights the devices' slices of each batch; ``monitor`` installs
+        its taps on the per-batch loop; ``resume`` (True or a checkpoint
+        prefix) first reloads the newest valid checkpoint and continues
+        from its epoch."""
         if logger is None:
             logger = logging
         if resume:
             self._resume_from_checkpoint(resume, epoch_end_callback, logger)
-        if kvstore is not None and (not isinstance(kvstore, str)
-                                    or "dist" in kvstore):
-            raise MXNetError("kvstore %r: kvstores are not ported; fit "
-                             "runs on one device without one" % (kvstore,))
         if work_load_list is not None and (
                 not isinstance(work_load_list, list)
                 or len(work_load_list) != len(self.ctx)):
-            raise MXNetError("work_load_list %r: one entry a device, and "
-                             "fit runs on one device" % (work_load_list,))
+            raise MXNetError("work_load_list %r: one entry a device of %s"
+                             % (work_load_list, self.ctx))
         data = self._init_iter(X, y, is_train=True)
         if isinstance(eval_data, (tuple, list)) and len(eval_data) == 2:
             eval_data = self._init_iter(eval_data[0], eval_data[1],
@@ -848,11 +924,26 @@ class FeedForward:
             data.provide_data + data.provide_label)
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
-        self.kwargs["param_idx2name"] = dict(enumerate(param_names))
 
+        (kvstore, update_on_kvstore) = _create_kvstore(
+            kvstore, len(self.ctx), self.arg_params)
+        param_idx2name = {}
+        if update_on_kvstore:
+            param_idx2name.update(enumerate(param_names))
+        else:
+            for i, n in enumerate(param_names):
+                for k in range(len(self.ctx)):
+                    param_idx2name[i * len(self.ctx) + k] = n
+        self.kwargs["param_idx2name"] = param_idx2name
+
+        # the rescale is over the whole batch: every device's slice, and
+        # every worker's under dist_sync
         if isinstance(self.optimizer, str):
+            batch_size = data.batch_size
+            if kvstore and "dist" in kvstore.type and "_sync" in kvstore.type:
+                batch_size *= kvstore.num_workers
             optimizer = opt.create(self.optimizer,
-                                   rescale_grad=(1.0 / data.batch_size),
+                                   rescale_grad=(1.0 / batch_size),
                                    **self.kwargs)
         else:
             optimizer = self.optimizer
@@ -867,7 +958,8 @@ class FeedForward:
             batch_end_callback=batch_end_callback, logger=logger,
             eval_batch_end_callback=eval_batch_end_callback,
             sym_gen=self.sym_gen, compute_dtype=self.compute_dtype,
-            work_load_list=work_load_list, monitor=monitor)
+            work_load_list=work_load_list, monitor=monitor,
+            kvstore=kvstore, update_on_kvstore=update_on_kvstore)
         # fence host tasks (async epoch checkpoints): a failed write
         # surfaces here, at the training call site
         from . import engine as _engine

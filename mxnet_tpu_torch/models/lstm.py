@@ -8,8 +8,10 @@ AttrScope(ctx_group=...) exactly like the reference.
 
 The port's copy of ``mxnet_tpu/models/lstm.py``, on this package's
 ``symbol`` and ``attribute``; ``tojson()`` of its graphs is the JAX
-package's, byte for byte. ``lstm_group2ctx`` builds the map, but the
-port's ``Executor`` runs on one device and raises on a ``group2ctx``.
+package's, byte for byte. ``lstm_group2ctx`` builds the map that
+``simple_bind(group2ctx=...)`` places the groups by (``executor.py``:
+each group's arrays and nodes on its context, copies at the
+boundaries), as examples/model-parallel-lstm_torch/lstm_ptb.py binds it.
 """
 from __future__ import annotations
 

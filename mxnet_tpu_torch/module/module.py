@@ -1,30 +1,36 @@
-"""Module: symbol + context + optimizer state
+"""Module: symbol + contexts + optimizer state
 (ref: python/mxnet/module/module.py:1-622).
 
-The port's copy of ``mxnet_tpu/module/module.py`` on one device: one
-executor bound by ``simple_bind`` (with ``shared_exec`` when a
-``shared_module`` is given, as bucketing does), parameters held on the
-module's context, and a local updater. What differs from the JAX
-package, each in so many words:
+The port's copy of ``mxnet_tpu/module/module.py``: one executor a
+context (a context may repeat: ``[gpu(0), gpu(0)]``), each bound by
+``simple_bind`` over its slice of the batch (``work_load_list``
+weights the slices; ``shared_exec`` when a ``shared_module`` is given,
+as bucketing does), the module's own copies of the parameters on the
+first context, and the update through a kvstore or a local updater as
+``mxnet_tpu/model.py``'s ``_create_kvstore`` decides
+(``init_optimizer``, ``mxnet_tpu/module/module.py:244-288``: the
+rescale is one over the whole batch, times the workers under
+``dist_sync``; updater indices ``i * num_device + k`` when the devices
+update). ``get_outputs``/``get_input_grads`` concatenate the devices'
+slices on the host, and the parameters read back are the devices'
+copies averaged. What differs from the JAX package, each in so many
+words:
 
-- more than one context raises ``MXNetError``;
-- ``kvstore``: ``None`` or a local kind (``"local"``, ``"device"``)
-  means no kvstore on one device, as ``mxnet_tpu/model.py:41-61`` has
-  it; a ``dist`` kind or a KVStore object raises;
 - ``fit`` takes the JAX package's scanned path
   (``_try_scanned_fit``, ``parallel/fit_trainer.py``) where it applies:
-  ``MXNET_SCAN_TRAIN`` on (the default), a scannable optimizer,
-  ``grad_req="write"``, no monitor, labels; ``MXNET_COMPUTE_DTYPE``
-  sets its precision; batches are numbered from 0. An ineligible graph
-  (an ``MXNetError`` from the trainer's construction) falls back to the
-  per-batch loop with a log line; any other error propagates, where the
-  JAX package falls back on every exception;
+  ``MXNET_SCAN_TRAIN`` on (the default), one context and no kvstore, a
+  scannable optimizer, ``grad_req="write"``, no monitor, labels;
+  ``MXNET_COMPUTE_DTYPE`` sets its precision; batches are numbered
+  from 0. An ineligible graph (an ``MXNetError`` from the trainer's
+  construction) falls back to the per-batch loop with a log line; any
+  other error propagates, where the JAX package falls back on every
+  exception;
 - ``save_optimizer_states`` pickles the port's optimizer object (as the
   JAX package pickles its own), so a ``.states`` file round-trips
   within the port only; like the JAX package's, it holds no momentum
   (that lives in the updater), so a resumed run restarts it at zero;
 - ``bind`` of a module whose parameters are initialized (``Module.load``,
-  a re-bind) copies them into the new executor, as the reference's
+  a re-bind) copies them into the new executors, as the reference's
   ``module.py`` does; the JAX package's ``bind`` does not, so there a
   loaded module predicts with zero weights until ``set_params``.
 """
@@ -34,22 +40,14 @@ import logging
 import pickle
 
 from ..base import MXNetError
-from ..context import Context, current_context
+from ..context import Context, cpu, current_context
 from ..initializer import Uniform
-from ..ndarray import zeros
+from ..ndarray import concatenate, zeros
 from .. import optimizer as opt
 from ..executor_manager import _split_input_slice
-from ..model import _update_params
+from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
+                     _update_params_on_kvstore)
 from .base_module import BaseModule
-
-
-def _check_kvstore(kvstore):
-    """Raise unless the kvstore is one that on one device is none (the
-    port has no kvstore)."""
-    if kvstore is not None and not (isinstance(kvstore, str)
-                                    and "dist" not in kvstore):
-        raise MXNetError("kvstore %r: kvstores are not ported; a Module "
-                         "trains on one device without one" % (kvstore,))
 
 
 class Module(BaseModule):
@@ -60,9 +58,6 @@ class Module(BaseModule):
             context = [current_context()]
         if isinstance(context, Context):
             context = [context]
-        if len(context) != 1:
-            raise MXNetError("Module runs on one device in this port, got %s"
-                             % (context,))
         self._context = context
         if work_load_list is None:
             work_load_list = [1] * len(self._context)
@@ -283,11 +278,22 @@ class Module(BaseModule):
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
-        _check_kvstore(kvstore)
-        rescale_grad = 1.0 / self._data_shapes[0].shape[0]
+        (kvstore, update_on_kvstore) = _create_kvstore(
+            kvstore, len(self._context), self._arg_params)
+        batch_size = self._data_shapes[0].shape[0]
+        if kvstore and "dist" in kvstore.type and "_sync" in kvstore.type:
+            batch_size *= kvstore.num_workers
+        rescale_grad = 1.0 / batch_size
 
         if isinstance(optimizer, str):
-            idx2name = {i: n for i, n in enumerate(self._param_names)}
+            idx2name = {}
+            if update_on_kvstore:
+                idx2name.update(enumerate(self._param_names))
+            else:
+                for k in range(len(self._context)):
+                    idx2name.update(
+                        {i * len(self._context) + k: n
+                         for i, n in enumerate(self._param_names)})
             optimizer_params = dict(optimizer_params)
             if "rescale_grad" not in optimizer_params:
                 optimizer_params["rescale_grad"] = rescale_grad
@@ -298,9 +304,18 @@ class Module(BaseModule):
             assert isinstance(optimizer, opt.Optimizer)
 
         self._optimizer = optimizer
-        self._kvstore = None
-        self._update_on_kvstore = False
-        self._updater = opt.get_updater(optimizer)
+        self._kvstore = kvstore
+        self._update_on_kvstore = update_on_kvstore
+        self._updater = None
+        if kvstore:
+            _initialize_kvstore(
+                kvstore=kvstore, param_arrays=self._param_arrays(),
+                arg_params=self._arg_params, param_names=self._param_names,
+                update_on_kvstore=update_on_kvstore)
+        if update_on_kvstore:
+            kvstore.set_optimizer(self._optimizer)
+        else:
+            self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
@@ -351,18 +366,35 @@ class Module(BaseModule):
             exec_.backward(out_grads=out_grads)
 
     def update(self):
-        """ref: module.py:480: one updater call per parameter, in place."""
+        """ref: module.py:480: through the kvstore, or one updater call
+        a parameter and device, in place."""
         assert self.binded and self.params_initialized and self.optimizer_initialized
         self._params_dirty = True
-        _update_params(self._param_arrays(), self._grad_arrays(),
-                       updater=self._updater, num_device=len(self._context))
+        if self._update_on_kvstore:
+            _update_params_on_kvstore(self._param_arrays(),
+                                      self._grad_arrays(), self._kvstore)
+        else:
+            _update_params(self._param_arrays(), self._grad_arrays(),
+                           updater=self._updater,
+                           num_device=len(self._context),
+                           kvstore=self._kvstore)
+
+    @staticmethod
+    def _merge(per_device):
+        """One array an output: the devices' slices concatenated on the
+        host (one device: its own arrays)."""
+        if len(per_device) == 1:
+            return list(per_device[0])
+        return [concatenate([per_device[d][i].as_in_context(cpu())
+                             for d in range(len(per_device))])
+                for i in range(len(per_device[0]))]
 
     def get_outputs(self, merge_multi_context=True):
         """ref: module.py:500."""
         assert self.binded and self.params_initialized
         outputs = [exec_.outputs for exec_ in self._execs]
         if merge_multi_context:
-            return list(outputs[0])
+            return self._merge(outputs)
         return outputs
 
     def get_input_grads(self, merge_multi_context=True):
@@ -372,7 +404,7 @@ class Module(BaseModule):
         idx = [arg_names.index(n) for n in self._data_names]
         grads = [[e.grad_arrays[i] for i in idx] for e in self._execs]
         if merge_multi_context:
-            return list(grads[0])
+            return self._merge(grads)
         return grads
 
     def update_metric(self, eval_metric, labels):
@@ -382,13 +414,22 @@ class Module(BaseModule):
             eval_metric.update(labels_slice, exec_.outputs)
 
     def _sync_params_from_devices(self):
-        """Copy the executor's parameters back into the module's
-        (ref: module.py:546; one device, so no averaging)."""
-        exec_ = self._execs[0]
-        for name in self._param_names:
-            exec_.arg_dict[name].copyto(self._arg_params[name])
-        for name in self._aux_names:
-            exec_.aux_dict[name].copyto(self._aux_params[name])
+        """The devices' copies averaged into the module's: the first
+        copied, the others added in device order, divided by the count
+        (ref: module.py:546)."""
+        for names, dicts, dst in (
+                (self._param_names, [e.arg_dict for e in self._execs],
+                 self._arg_params),
+                (self._aux_names, [e.aux_dict for e in self._execs],
+                 self._aux_params)):
+            for name in names:
+                blocks = [d[name] for d in dicts]
+                w = blocks[0].copy()
+                for b in blocks[1:]:
+                    w += b.as_in_context(w.context)
+                if len(blocks) > 1:
+                    w /= len(blocks)
+                w.copyto(dst[name])
         self._params_dirty = False
 
     def save_optimizer_states(self, fname):

@@ -60,7 +60,7 @@ def _feature_list_cached():
     | NATIVE_RECORDIO | (dmlc recordio) | not ported: the Python reader |
     | NATIVE_IMAGEDEC | USE_OPENCV | not ported: PIL decodes |
     | OPENCV | USE_OPENCV | the mx.cv facade is importable (PIL) |
-    | DIST_KVSTORE | USE_DIST_KVSTORE | not ported: one device |
+    | DIST_KVSTORE | USE_DIST_KVSTORE | torch.distributed available |
     | S3 | USE_S3 | boto3 present (stream.py s3:// backend) |
     | HDFS | USE_HDFS | pyarrow present (stream.py hdfs:// backend) |
     | TORCH | torch plugin | torch importable (mx.th) |
@@ -75,7 +75,7 @@ def _feature_list_cached():
         "NATIVE_RECORDIO": False,
         "NATIVE_IMAGEDEC": False,
         "OPENCV": _try_import("PIL"),
-        "DIST_KVSTORE": False,
+        "DIST_KVSTORE": torch.distributed.is_available(),
         "S3": _try_import("boto3"),
         "HDFS": _try_import("pyarrow"),
         "TORCH": True,

@@ -7,7 +7,7 @@ CPU.
   with and without shapes; ``plot_network``'s graphviz source (or,
   without graphviz, its error) equal;
 - ``runtime``: the JAX package's keys with ``CUDA`` for ``TPU``; the
-  unported native routes and ``DIST_KVSTORE`` off;
+  unported native routes off, ``DIST_KVSTORE`` as torch.distributed;
 - ``profiler``: a run writes a Chrome trace holding the scope's name;
   ``start_server`` raises;
 - ``test_utils``: the gradient checks pass and fail on the same inputs
@@ -121,8 +121,9 @@ def test_runtime_keys_match_jax():
     fj, ft = mj.runtime.feature_list(), mt.runtime.feature_list()
     assert sorted(ft) == sorted("CUDA" if k == "TPU" else k for k in fj)
     assert ft["CUDA"] == torch.cuda.is_available()
-    for k in ("NATIVE_RECORDIO", "NATIVE_IMAGEDEC", "DIST_KVSTORE"):
+    for k in ("NATIVE_RECORDIO", "NATIVE_IMAGEDEC"):
         assert ft[k] is False
+    assert ft["DIST_KVSTORE"] == torch.distributed.is_available()
     assert ft["TORCH"] and ft["PROFILER"]
     assert ft["NATIVE_ENGINE"] == mt.engine.library_path().exists()
     for k in ("OPENCV", "S3", "HDFS", "CAFFE"):

@@ -3,12 +3,15 @@
 - a fresh interpreter that imports the package and every submodule has
   neither ``jax`` nor ``mxnet_tpu`` in ``sys.modules``;
 - no source of the port, nor ``chip_smoke.py``, the profile tools,
-  ``tools/torch_im2rec.py``, ``tools/torch_bench_io.py``, the card's
+  ``tools/torch_im2rec.py``, ``tools/torch_bench_io.py``,
+  ``tools/torch_launch.py``, ``tools/torch_bandwidth.py``, the dist
+  workers of ``tests/torch_nightly``, the card's
   test files or the port's examples (``examples/rnn_torch``,
   ``examples/ssd_torch``, ``examples/image-classification_torch``,
   ``examples/rcnn_torch``, ``examples/dec_torch``,
   ``examples/numpy-ops_torch``, ``examples/torch_torch``,
-  ``examples/memcost_torch``), imports
+  ``examples/memcost_torch``, ``examples/model-parallel-lstm_torch``),
+  imports
   either, nor names the JAX package's native runtime
   (``mxnet_tpu/_native``);
 - on the CPU path (serving, LM training, a LeNet ``FeedForward`` fit
@@ -21,8 +24,8 @@
   engine, a packed ``.rec`` read through ``ImageRecordIter`` under
   ``PrefetchingIter``, ``opencv.resize``, ``nd.save`` to ``mem://``, a
   mirrored LeNet step, a ``Predictor`` and its exported program, a
-  profiled ``test_utils.simple_forward``, ``runtime``)
-  neither
+  profiled ``test_utils.simple_forward``, ``runtime``, a ``local``
+  kvstore summing a push from two contexts) neither
   the kernel build
   module ``ops._build`` nor the NVRTC binding ``ops._nvrtc`` is
   imported; the walk over every submodule
@@ -30,7 +33,8 @@
   ``module/``, the two Symbol trainers of ``parallel/``, ``operator``,
   the torch plugin (``torch``), ``stream``, ``recordio``, ``opencv``,
   ``engine``, ``predictor``, ``test_utils``, ``visualization``,
-  ``profiler``, ``runtime``, ``libinfo``, ``misc`` and ``ops.opdoc``;
+  ``profiler``, ``runtime``, ``libinfo``, ``misc``, ``ops.opdoc``,
+  ``kvstore`` and ``kvstore_server``;
 - every card test file (``tests/test_torch_*_cuda.py``) carries the
   ``cuda`` marker;
 - the host-only scheduler copy matches its original below the imports.
@@ -158,6 +162,12 @@ with mx.profiler.scope('probe'):
                                  x=np.ones(3, 'f'))
 mx.profiler.profiler_set_state('stop')
 assert mx.runtime.has_feature('TORCH')
+kv = mx.kv.create('local')
+kv.init(0, mx.nd.zeros((2, 3), ctx=mx.cpu()))
+kv.push(0, [mx.nd.ones((2, 3), ctx=mx.cpu(i)) for i in range(2)])
+pulled = mx.nd.zeros((2, 3), ctx=mx.cpu())
+kv.pull(0, out=pulled)
+assert (pulled.asnumpy() == 2).all()
 print('cpu_path', 'mxnet_tpu_torch.ops._build' in sys.modules,
       'mxnet_tpu_torch.ops._nvrtc' in sys.modules, forbidden())
 import mxnet_tpu_torch as pkg
@@ -171,7 +181,8 @@ for must in ('model', 'rtc', 'ops._nvrtc', 'ops.matmul_stats', 'monitor',
              'parallel.symbol_trainer', 'parallel.fit_trainer',
              'operator', 'torch', 'stream', 'recordio', 'opencv',
              'engine', 'predictor', 'test_utils', 'visualization',
-             'profiler', 'runtime', 'libinfo', 'misc', 'ops.opdoc'):
+             'profiler', 'runtime', 'libinfo', 'misc', 'ops.opdoc',
+             'kvstore', 'kvstore_server'):
     assert 'mxnet_tpu_torch.' + must in names, (must, names)
 for n in names:
     importlib.import_module(n)
@@ -218,6 +229,11 @@ def _imports(path):
         ROOT / "tools" / "torch_probe_matmul_stats.py",
         ROOT / "tools" / "torch_im2rec.py",
         ROOT / "tools" / "torch_bench_io.py",
+        ROOT / "tools" / "torch_launch.py",
+        ROOT / "tools" / "torch_bandwidth.py",
+        ROOT / "tests" / "torch_nightly" / "dist_sync_kvstore.py",
+        ROOT / "tests" / "torch_nightly" / "dist_lenet.py",
+        ROOT / "tests" / "test_torch_kvstore_cuda.py",
         ROOT / "tests" / "test_torch_flash_kernel_cuda.py",
         ROOT / "tests" / "test_torch_flash_bwd_kernel_cuda.py",
         ROOT / "tests" / "test_torch_softmax_kernel_cuda.py",
@@ -236,7 +252,8 @@ def _imports(path):
     + sorted((ROOT / "examples" / "image-classification_torch").glob(
         "*.py"))
     + [p for d in ("rcnn_torch", "dec_torch", "numpy-ops_torch",
-                   "torch_torch", "memcost_torch")
+                   "torch_torch", "memcost_torch",
+                   "model-parallel-lstm_torch")
        for p in sorted((ROOT / "examples" / d).glob("*.py"))],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_the_jax_package(path):

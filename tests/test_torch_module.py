@@ -23,7 +23,8 @@ and atol 1e-5 for a single step.
 - checkpoints: ``-symbol.json`` and ``.params`` bytes, ``Module.load``
   both ways, a ``begin_epoch`` resume; ``save_params``/``load_params``,
   ``score`` and ``iter_predict``;
-- what the port refuses: a second context, a ``dist`` kvstore,
+- what the port refuses: a second context that is not there, a
+  ``dist`` kvstore under the unported sharded update,
   ``MXNET_GUARDIAN=1``.
 """
 import os
@@ -518,16 +519,23 @@ def test_begin_epoch_resume_matches(checkpoints):
 
 # -- what the port refuses -----------------------------------------------------
 def test_second_context_raises():
-    with pytest.raises(mt.MXNetError):
-        mt.module.Module(_mlp(mt), context=[mt.cpu(0), mt.cpu(1)])
+    # several contexts bind one executor each (tests/test_torch_multi_
+    # device.py); a card that is not there raises, naming the count
+    missing = mt.gpu(mt.context.num_devices("gpu"))
+    mod = mt.module.Module(_mlp(mt), context=[mt.cpu(0), missing])
+    with pytest.raises(mt.MXNetError, match="visible"):
+        mod.bind(data_shapes=[("data", (BATCH, 784))],
+                 label_shapes=[("softmax_label", (BATCH,))])
 
 
 def test_dist_kvstore_and_guardian_raise(monkeypatch):
     x, y = _digits(BATCH, (784,), seed=14)
     it = mt.io.NDArrayIter(x, y, batch_size=BATCH)
     mod = mt.module.Module(_mlp(mt, 32), context=mt.cpu())
-    with pytest.raises(mt.MXNetError):
+    monkeypatch.setenv("MXNET_KV_SHARD_UPDATE", "1")
+    with pytest.raises(mt.MXNetError, match="MXNET_KV_SHARD_UPDATE"):
         mod.fit(it, num_epoch=1, kvstore="dist_sync")
+    monkeypatch.delenv("MXNET_KV_SHARD_UPDATE")
     monkeypatch.setenv("MXNET_GUARDIAN", "1")
     with pytest.raises(mt.MXNetError):
         mt.module.Module(_mlp(mt, 32), context=mt.cpu()).fit(it, num_epoch=1)

@@ -341,7 +341,7 @@ def test_examples_ctx_and_record_branch(monkeypatch, tmp_path):
             (240, 250, 3), 40 * i, np.uint8)))
     w.close()
     args.batch_size = 2
-    train, val = ex.get_iterator(args, tm._OneWorker())
+    train, val = ex.get_iterator(args, mt.kvstore.create("local"))
     assert isinstance(train, mt.io.PrefetchingIter) and val is None
     assert isinstance(train.iters[0], mt.io.ImageRecordIter)
     batches = list(train)
