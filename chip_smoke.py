@@ -236,9 +236,30 @@ Phases (any failure raises and the script exits non-zero):
    accuracy > 0.9 on each rank, weights equal across ranks), then the
    bandwidth tool's dist-leg worker; the backend the store's rule chose
    is printed;
-24. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
+24. the serving fleet (``phase_fleet``), at the flagship's width and
+   phase 4's engine geometry: (A) two Engines behind ``ReplicaServer``s
+   and a ``Router`` on loopback sockets serve 8 requests (one 2048-token
+   prompt through the cp prefill, five short greedy prompts, two
+   sampled), byte-equal to a lone Engine, then again with the replica
+   holding the long prompt stopped mid-decode (its streams redelivered
+   byte-equal; K2 36 times); (B) two ``python -m
+   mxnet_tpu_torch.serving.fleet.replica`` processes at the demo size,
+   one SIGKILLed with a stream in flight (every stream byte-equal to the
+   seeded demo engine here), the other SIGTERMed (it drains, leaves,
+   exits 0); (C) version 1 from two LM trainer steps at batch 4, seq 1024
+   (K2, K3, K4 24 times each) published by a ``WeightPublisher``, synced
+   by an engine under ``MXNET_WSYNC=1`` between steps while four
+   streams run (the sync's seconds and bytes, the longest decode gap
+   across the swap), its streams then equal to a cold engine's on
+   version 1, a non-finite and a reshaped set refused with the live
+   fingerprints unchanged, and after ``rollback_weights`` version 0's;
+   (D) leg A again under ``MXNET_TELEMETRY=1`` with a journal and the
+   HTTP server: ``/metrics`` holds ``TELEMETRY_CATALOG``, ``/servingz``
+   the live request table, every journal line parses, and one engine's
+   decode step time with telemetry off and on;
+25. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
    main paths, error, times and bound;
-25. the last line: ``{"ok": true, "device": {...}}``.
+26. the last line: ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matrix products and cuDNN convolutions in every phase
 (set once in ``main``), so f32 work runs in full f32.
@@ -6013,6 +6034,708 @@ def phase_dist(device="cuda", workers=2, size_mb=64):
     return rec
 
 
+# the serving fleet (phase_fleet). Leg A's requests: one long_len prompt
+# (the Ulysses cp prefill, K2 once a layer), five short greedy prompts
+# and two sampled ones, each (prompt length or "long", sampling kwargs)
+FLEET_REQUESTS = [("long", {}), (5, {}), (37, {}), (12, {}), (64, {}),
+                  (23, {}), (9, dict(temperature=0.8, top_p=0.95, seed=1)),
+                  (17, dict(temperature=1.0, top_k=50, seed=2))]
+# phase_serving's engine geometry
+FLEET_SERVING = dict(block_size=16, num_blocks=512, max_batch=8,
+                     prefill_chunk=64)
+FLEET_DEMO_SEED = 7
+# the serving.*, wsync.* and fleet.* metrics the JAX package emits for
+# leg D's scenario (tests/test_torch_telemetry.py holds this set to the
+# JAX package's at a tiny size)
+TELEMETRY_CATALOG = (
+    "fleet.queue_depth", "fleet.redeliveries_total",
+    "fleet.replica_evictions_total", "fleet.replicas_alive",
+    "fleet.replicas_registered_total", "fleet.requests_completed",
+    "fleet.requests_total", "fleet.tokens_per_s", "fleet.ttft_s",
+    "serving.decode_batch_size", "serving.decode_step_s",
+    "serving.kv_pool_hwm_blocks", "serving.kv_pool_utilization",
+    "serving.queue_depth", "serving.requests_admitted",
+    "serving.requests_completed", "serving.token_latency_s",
+    "serving.tokens_per_s", "serving.ttft_s", "serving.ttft_sync_s",
+    "wsync.acks_total", "wsync.apply_secs", "wsync.bytes_fetched_total",
+    "wsync.current_version", "wsync.published_version",
+    "wsync.rollbacks_total", "wsync.tensors_fetched_total",
+    "wsync.versions_applied_total", "wsync.versions_published_total")
+
+
+def _fleet_prompts(vocab, long_len, requests=FLEET_REQUESTS, seed=0):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [(rng.randint(0, vocab, (long_len if n == "long" else n,))
+             .astype(np.int32), kw) for n, kw in requests]
+
+
+def _engine_streams(eng, reqs, new, timeout=600):
+    """The streams of ``reqs`` on one engine (its background loop, or
+    driven here when it has none)."""
+    hs = [eng.submit(p, max_new_tokens=new, **kw) for p, kw in reqs]
+    if eng._thread is None:
+        eng.run_until_idle()
+    return [h.result(timeout=timeout) for h in hs]
+
+
+def _fleet_serve(router, reqs, new, kill=None, timeout=300, pace=0.01):
+    """Submit ``reqs`` through ``router`` and collect the streams,
+    driving the router's pump from this thread every ``pace`` seconds
+    (``Router.start``'s loop polls without pause, and beside engines in
+    the same process it holds the GIL that their every torch call gives
+    up and retakes: PERF.md §5). With ``kill(router, entry)``, it is
+    called once the first request has streamed two tokens through the
+    router (it stops that request's replica mid-decode); returns the
+    streams and what ``kill`` said."""
+    streams = [router.submit(p, max_new_tokens=new, **kw) for p, kw in reqs]
+    killed = None
+    deadline = time.monotonic() + timeout
+    while any(s.rid in router._requests for s in streams):
+        router.step()
+        if kill is not None and killed is None:
+            ent = router._requests.get(streams[0].rid)
+            if ent is not None and ent.replica and len(ent.tokens) >= 2:
+                killed = kill(router, ent)
+        if time.monotonic() > deadline:
+            raise AssertionError("fleet streams unfinished after %d s"
+                                 % timeout)
+        time.sleep(pace)
+    if kill is not None and killed is None:
+        raise AssertionError("the first request finished before the kill")
+    outs = [s.result(timeout=timeout) for s in streams]
+    bad = [s.status for s in streams if s.status != "finished"]
+    if bad:
+        raise AssertionError("fleet streams ended %r" % bad)
+    return outs, killed
+
+
+def _fleet(engines, names=("rep0", "rep1")):
+    """ReplicaServers on loopback around started engines, registered with
+    a Router (on loopback too) through its fleet_register RPC."""
+    from mxnet_tpu_torch.serving.fleet import (FleetClient, ReplicaServer,
+                                               Router)
+
+    router = Router(bind=("127.0.0.1", 0), health_interval=0.05)
+    host, port = router.serve()
+    reps = []
+    for name, eng in zip(names, engines):
+        eng.start()
+        rep = ReplicaServer(eng, name=name, bind=("127.0.0.1", 0))
+        rhost, rport = rep.start()
+        FleetClient("%s:%d" % (host, port)).register(
+            name=name, addr="%s:%d" % (rhost, rport))
+        reps.append(rep)
+    return router, reps
+
+
+def _kill_replica(reps, engines):
+    """The leg's kill: stop the engine serving the request (mid-decode)
+    and close its server, so the router's next poll fails."""
+    def kill(router, ent):
+        i = [r.name for r in reps].index(ent.replica)
+        engines[i].stop()
+        unfinished = len(engines[i].sched.active) + len(engines[i].sched.queue)
+        reps[i].close()
+        return {"replica": ent.replica, "router_tokens": len(ent.tokens),
+                "unfinished_on_replica": unfinished}
+    return kill
+
+
+def _close_fleet(router, reps, engines):
+    router.close()
+    for rep, eng in zip(reps, engines):
+        rep.close()
+        eng.stop()
+
+
+# a stream parts from the reference only at a decision within the bf16
+# noise of the engines' batch-dependent products, and agrees with the
+# plain forward wherever its margin is wider (phase_serving's 0.25)
+FLEET_MARGIN = {"bfloat16": 0.25, "float32": 1e-3}
+
+
+def _decisions(params, cfg, prompt, stream, kw):
+    """The plain forward's choice and its margin at each position of
+    ``stream``, teacher-forced on prompt + stream: the gap between the
+    best and second-best score, the f32 logits for a greedy request and
+    the filtered, scaled logits plus that position's Gumbel noise (the
+    engine's draw) for a sampled one."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import threefry as tf
+    from mxnet_tpu_torch.models.transformer import forward
+    from mxnet_tpu_torch.ops.flash_attention import attention_reference
+    from mxnet_tpu_torch.serving import sampling as samp
+
+    seq = np.concatenate([prompt, np.asarray(stream[:-1], np.int32)])
+    with torch.no_grad():
+        logits = forward(params, seq[None], cfg, attn_fn=lambda q, k, v:
+                         attention_reference(q, k, v, causal=True)[0])
+        logits = logits[0, len(prompt) - 1:].float()
+    n, V = logits.shape
+    if kw.get("temperature", 0.0) > 0:
+        masked, _ = samp.filter_dist(
+            logits, np.full(n, kw["temperature"], np.float32),
+            np.full(n, kw.get("top_k", 0), np.int64),
+            np.full(n, kw.get("top_p", 1.0), np.float32))
+        keys = samp.fold_keys(np.full(n, kw.get("seed", 0), np.uint32),
+                              np.arange(len(prompt), len(prompt) + n),
+                              samp.SALT_TARGET, logits.device)
+        logits = masked + tf.gumbel(keys, V)
+    top2 = logits.topk(2, dim=-1)
+    return (top2.indices[:, 0].cpu().numpy(),
+            (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy())
+
+
+def stream_agreement(params, cfg, reqs, want, got, margin):
+    """Each fleet stream against the reference stream of the same
+    request: equal, or parting first where the reference's decision
+    margin is at most ``margin`` (a near-tie: an engine's products
+    depend on its batch, so two schedules round differently); and the
+    stream agrees with the plain forward wherever the forward's margin
+    is wider than ``margin``. Returns per-stream records; raises on a
+    stream that breaks either rule."""
+    import numpy as np
+
+    recs = []
+    for (prompt, kw), w, g in zip(reqs, want, got):
+        rec = {"prompt_len": int(len(prompt)), "sampled":
+               kw.get("temperature", 0.0) > 0, "equal": g == w}
+        if len(g) != len(w):
+            raise AssertionError("stream length %d, reference %d"
+                                 % (len(g), len(w)))
+        if g != w:
+            part = next(i for i, (a, b) in enumerate(zip(w, g)) if a != b)
+            _, m_ref = _decisions(params, cfg, prompt, w, kw)
+            rec.update(parted_at=part, margin_at_part=float(m_ref[part]))
+        pred, m = _decisions(params, cfg, prompt, g, kw)
+        wide = m > margin
+        rec["wide_checked"] = int(wide.sum())
+        rec["wide_mismatches"] = int(np.sum(wide & (pred != np.asarray(g))))
+        recs.append(rec)
+        if rec["wide_mismatches"] or rec.get("margin_at_part", 0.0) > margin:
+            raise AssertionError("fleet stream breaks the agreement rule: "
+                                 "%r" % rec)
+    return recs
+
+
+def _fp_all(params):
+    from mxnet_tpu_torch.wsync import common as wc
+
+    return {k: wc.fingerprint(v) for k, v in wc.flatten_params(params).items()}
+
+
+def _http_get(port, path):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen("http://127.0.0.1:%d%s" % (port, path),
+                                    timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def fleet_processes(device, root, n_requests=12, new=60, timeout=180):
+    """Leg B: two ``python -m mxnet_tpu_torch.serving.fleet.replica``
+    processes at the demo size on ``device``, registered with a router in
+    this process; the first is SIGKILLed while one of its streams is in
+    flight, every stream completes byte-equal to the same seeded demo
+    engine here, then the second is SIGTERMed: it drains, leaves the
+    fleet and exits 0."""
+    import signal
+
+    import numpy as np
+
+    from mxnet_tpu_torch.serving.fleet import Router
+    from mxnet_tpu_torch.serving.fleet.replica import build_demo_engine
+
+    t0 = time.perf_counter()
+    router = Router(bind=("127.0.0.1", 0), health_interval=0.05)
+    host, port = router.serve()
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = {}
+    try:
+        for name in ("proc0", "proc1"):
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "mxnet_tpu_torch.serving.fleet.replica",
+                 "--router", "%s:%d" % (host, port), "--name", name,
+                 "--seed", str(FLEET_DEMO_SEED), "--device", str(device)],
+                cwd=root, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        ref_eng = build_demo_engine(FLEET_DEMO_SEED, device)
+        rng = np.random.RandomState(3)
+        reqs = [(rng.randint(0, ref_eng.model_cfg.vocab_size,
+                             (int(rng.randint(5, 21)),)).astype(np.int32),
+                 {} if i % 3 else dict(temperature=0.9, seed=i))
+                for i in range(n_requests)]
+        want = _engine_streams(ref_eng, reqs, new)
+        deadline = time.monotonic() + timeout
+        while len(router._replicas) < 2:
+            for name, p in procs.items():
+                if p.poll() is not None:
+                    raise AssertionError("replica %s exited %d: %s" % (
+                        name, p.returncode, p.communicate()[1][-2000:]))
+            if time.monotonic() > deadline:
+                raise AssertionError("replicas never registered")
+            time.sleep(0.05)
+        up_s = time.perf_counter() - t0
+        router.start()
+        streams = [router.submit(p, max_new_tokens=new, **kw)
+                   for p, kw in reqs]
+        while True:   # a stream of proc0's with tokens, not finished
+            with router._lock:
+                live = [e for e in router._requests.values()
+                        if e.replica == "proc0" and 0 < len(e.tokens) < new]
+            if live:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError("no stream in flight on proc0")
+            time.sleep(0.0005)
+        procs["proc0"].send_signal(signal.SIGKILL)
+        killed_streamed = len(live[0].tokens)
+        got = [s.result(timeout=timeout) for s in streams]
+        rc0 = procs["proc0"].wait(timeout=60)
+        stats = router.stats()
+        procs["proc1"].send_signal(signal.SIGTERM)
+        out1, err1 = procs["proc1"].communicate(timeout=120)
+        rc1 = procs["proc1"].returncode
+        left = router.stats()["left"]
+    finally:
+        router.close()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    agree = stream_agreement(ref_eng.params, ref_eng.model_cfg, reqs, want,
+                             got, FLEET_MARGIN[ref_eng.model_cfg.dtype])
+    rec = {"leg": "B", "replica_processes": 2, "requests": n_requests,
+           "max_new_tokens": new, "startup_s": up_s,
+           "streams_equal": sum(r["equal"] for r in agree),
+           "parted": [r for r in agree if not r["equal"]],
+           "killed_stream_tokens_at_sigkill": killed_streamed,
+           "proc0_rc": rc0, "proc1_rc": rc1, "evictions": stats["evictions"],
+           "redelivered": stats["redelivered"], "left": left,
+           "statuses": sorted({s.status for s in streams}),
+           "seconds": time.perf_counter() - t0}
+    log(dict(phase="fleet_processes", **rec))
+    if rc0 != -signal.SIGKILL or rc1 != 0:
+        raise AssertionError("replica exit codes %r, %r: %s"
+                             % (rc0, rc1, err1[-2000:]))
+    if stats["evictions"] != 1 or not stats["redelivered"] or left != 1:
+        raise AssertionError("router saw %r, left %d" % (stats, left))
+    if "fleet replica proc1 listening" not in out1:
+        raise AssertionError("proc1 printed %r" % out1[-500:])
+    return rec
+
+
+def fleet_wsync(device, cfg, params, scfg, reqs, new, trainer_batch=4,
+                trainer_seq=1024, swap_new=1024):
+    """Leg C: version 1 from two steps of the LM trainer over the serving
+    weights, published by a WeightPublisher on loopback; a serving engine
+    built under MXNET_WSYNC=1 syncs it between steps while streams run.
+    Its streams then equal a cold engine's on version 1, and after
+    rollback_weights version 0's; a non-finite and a reshaped set are
+    refused with the live fingerprints unchanged."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.models.transformer import loss_fn
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    from mxnet_tpu_torch.serving import Engine
+    from mxnet_tpu_torch.wsync.publisher import WeightPublisher
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    trained = _tree_map(lambda t: t.detach().clone(), params)
+    trainer = ShardedTrainer(loss_fn(cfg), trained,
+                             lambda ps: torch.optim.Adam(ps, lr=1e-4))
+    rng = np.random.RandomState(4)
+    data = {"tokens": rng.randint(0, cfg.vocab_size,
+                                  (trainer_batch, trainer_seq + 1))
+            .astype(np.int32)}
+    sync()
+    fa.flash_attention.launches = 0
+    fa.flash_bwd_dq.launches = 0
+    fa.flash_bwd_dkv.launches = 0
+    losses = [trainer.step(data).item() for _ in range(2)]
+    sync()
+    train_counts = {"flash_fwd": fa.flash_attention.launches,
+                    "flash_bwd_dq": fa.flash_bwd_dq.launches,
+                    "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+    v1 = _tree_map(lambda t: t.detach(), trainer.params)
+    del trainer
+    pub = WeightPublisher(bind=("127.0.0.1", 0))
+    host, port = pub.start()
+    serving_k2 = 0
+    try:
+        with mock.patch.dict(os.environ, {
+                "MXNET_WSYNC": "1",
+                "MXNET_WSYNC_PUBLISHER": "%s:%d" % (host, port),
+                "MXNET_WSYNC_POLL_WAIT": "0.2"}):
+            eng = Engine(params, cfg, scfg, device=device)
+        sub = eng._wsync_sub
+        if sub is None:
+            raise AssertionError("MXNET_WSYNC=1 started no subscriber")
+        sync()
+        fa.flash_attention.launches = 0
+        # the compared runs are driven here, each on an idle engine, so
+        # hot and cold engines batch them alike (a batch's products
+        # round by its shape)
+        v0_streams = _engine_streams(eng, reqs, new)
+        eng.start()
+        # streams that run across the swap: every token's arrival time
+        arrivals = []
+        bg = [eng.submit(np.arange(5 + i, dtype=np.int32) % cfg.vocab_size,
+                         max_new_tokens=swap_new) for i in range(4)]
+
+        def consume(h, out):
+            for _ in h.tokens():
+                out.append(time.monotonic())
+
+        threads = []
+        for h in bg:
+            arrivals.append([])
+            threads.append(threading.Thread(target=consume,
+                                            args=(h, arrivals[-1])))
+            threads[-1].start()
+        while not all(len(a) >= 8 for a in arrivals):
+            time.sleep(0.001)
+        t_pub = time.perf_counter()
+        pub.publish(v1)
+        publish_s = time.perf_counter() - t_pub
+        deadline = time.monotonic() + 300
+        while eng.weight_version() != 1:
+            if time.monotonic() > deadline:
+                raise AssertionError("version 1 never landed: %r" % sub.last)
+            time.sleep(0.001)
+        sync_rec = dict(sub.last)
+        t_swap = eng._sync_mark_until - eng._sync_ttft_window
+        while not all(sum(1 for t in a if t > t_swap) >= 20
+                      for a in arrivals):
+            if any(len(a) >= swap_new for a in arrivals):
+                raise AssertionError("a stream ended before the swap + 20 "
+                                     "tokens: raise swap_new")
+            time.sleep(0.001)
+        for h in bg:
+            h.cancel()
+        for th in threads:
+            th.join(timeout=60)
+        eng.stop()
+        eng.run_until_idle()
+        gaps_across, gaps_other = [], []
+        for a in arrivals:
+            for x, y in zip(a, a[1:]):
+                (gaps_across if x <= t_swap <= y else gaps_other).append(y - x)
+        hot_v1 = _engine_streams(eng, reqs, new)
+        fps_v1 = _fp_all(eng.params)
+        # the gates: a non-finite set and a reshaped one, both refused
+        refused = {}
+        for version, what in ((2, "nonfinite"), (3, "reshaped")):
+            bad = _tree_map(lambda t: t, v1)
+            if what == "nonfinite":
+                w1 = bad["layers"][-1]["w1"].clone()
+                w1.view(-1)[w1.numel() // 2] = float("nan")
+                bad["layers"][-1]["w1"] = w1
+            else:
+                bad["embed"] = bad["embed"][:-1]
+            pub.publish(bad, version=version)
+            deadline = time.monotonic() + 120
+            while not any(a[0] == version for a in pub.acks()):
+                if time.monotonic() > deadline:
+                    raise AssertionError("no ack for version %d" % version)
+                time.sleep(0.002)
+            refused[what] = [a[2] for a in pub.acks() if a[0] == version][0]
+        fps_after = _fp_all(eng.params)
+        version_after = eng.weight_version()
+        rollback = eng.rollback_weights()
+        rolled = _engine_streams(eng, reqs, new)
+        sync()
+        serving_k2 += fa.flash_attention.launches
+        sub.stop()
+        del eng
+        cold = Engine(v1, cfg, scfg, device=device)
+        sync()
+        fa.flash_attention.launches = 0
+        cold_v1 = _engine_streams(cold, reqs, new)
+        sync()
+        serving_k2 += fa.flash_attention.launches
+        del cold
+    finally:
+        pub.close()
+    nbytes = sync_rec["bytes"]
+    rec = {"leg": "C", "trainer_steps": 2, "trainer_batch": trainer_batch,
+           "trainer_seq": trainer_seq, "losses": losses,
+           "launches_training": train_counts, "publish_s": publish_s,
+           "sync_s": sync_rec["secs"], "sync_tensors": sync_rec["fetched"],
+           "sync_bytes": nbytes,
+           "sync_gb_per_s": nbytes / sync_rec["secs"] / 1e9,
+           "max_decode_gap_across_swap_ms": 1e3 * max(gaps_across),
+           "decode_gaps_across_swap": len(gaps_across),
+           "max_decode_gap_other_ms": 1e3 * max(gaps_other),
+           "median_decode_gap_ms": 1e3 * float(np.median(gaps_other)),
+           "refused": refused, "rollback": rollback,
+           "fingerprints_unchanged": fps_after == fps_v1,
+           "version_after_refusals": version_after,
+           "hot_equals_cold_v1": hot_v1 == cold_v1,
+           "rollback_equals_v0": rolled == v0_streams,
+           "v1_changes_streams": hot_v1 != v0_streams,
+           "launches_serving_k2": serving_k2,
+           "seconds": time.perf_counter() - t0}
+    log(dict(phase="fleet_wsync", **rec))
+    if hot_v1 != cold_v1:
+        raise AssertionError("hot-swapped streams differ from a cold engine "
+                             "on version 1")
+    if rolled != v0_streams:
+        raise AssertionError("streams after rollback differ from version 0")
+    if hot_v1 == v0_streams:
+        raise AssertionError("version 1 did not change the streams")
+    if not (all(v.startswith("rejected:") for v in refused.values())
+            and fps_after == fps_v1 and version_after == 1):
+        raise AssertionError("a bad set was not refused cleanly: %r"
+                             % refused)
+    if not gaps_across:
+        raise AssertionError("no stream ran across the swap")
+    return rec
+
+
+def fleet_telemetry(device, cfg, params, scfg, reqs, new, steps_new=32):
+    """Leg D: leg A's fleet (two replicas, one killed mid-decode) and a
+    weight sync, run with MXNET_TELEMETRY=1, a journal and the HTTP
+    server on a free port: /metrics holds TELEMETRY_CATALOG, /servingz
+    the live request table, every journal line parses; the decode step
+    time of one engine with telemetry off and on."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import telemetry as tel
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.serving import Engine
+    from mxnet_tpu_torch.telemetry.export import _prom_name
+    from mxnet_tpu_torch.wsync.publisher import WeightPublisher
+    from mxnet_tpu_torch.wsync.subscriber import WeightSubscriber
+
+    def step_ms(eng):
+        hs = [eng.submit(np.arange(3 + i, 40 + i, dtype=np.int32)
+                         % cfg.vocab_size, max_new_tokens=steps_new)
+              for i in range(8)]
+        eng.step()   # the prefill
+        times = []
+        while True:
+            t = time.perf_counter()
+            if not eng.step():
+                break
+            times.append(time.perf_counter() - t)
+        for h in hs:
+            h.result(timeout=60)
+        return 1e3 * float(np.median(times)), len(times)
+
+    t0 = time.perf_counter()
+    timing = Engine(params, cfg, scfg, device=device)
+    step_ms(timing)   # warm
+    off_ms, n_steps = step_ms(timing)
+    tmp = tempfile.mkdtemp(prefix="fleet_telemetry_")
+    journal = os.path.join(tmp, "journal.jsonl")
+    with mock.patch.dict(os.environ, {
+            "MXNET_TELEMETRY": "1", "MXNET_TELEMETRY_JOURNAL": journal,
+            "MXNET_TELEMETRY_HTTP": "127.0.0.1:0",
+            "MXNET_WSYNC_TTFT_WINDOW": "30"}):
+        tel.reset()
+        tel.reload()
+        try:
+            port = tel.server.port()
+            on_ms, _ = step_ms(timing)
+            engines = [Engine(params, cfg, scfg, device=device)
+                       for _ in range(2)]
+            pub = WeightPublisher(bind=("127.0.0.1", 0))
+            host, pport = pub.start()
+            try:
+                pub.publish(params)
+                sub = WeightSubscriber(engines[0], "%s:%d" % (host, pport))
+                if sub.sync_once(wait=60.0) != 1:
+                    raise AssertionError("leg D's sync did not apply")
+            finally:
+                pub.close()
+            router, reps = _fleet(engines)
+            scraped = {}
+
+            def kill(router, ent):
+                code, body = _http_get(port, "/servingz")
+                scraped["servingz"] = (code, json.loads(body))
+                return _kill_replica(reps, engines)(router, ent)
+
+            if device == "cuda":
+                torch.cuda.synchronize()
+            fa.flash_attention.launches = 0
+            outs, killed = _fleet_serve(router, reqs, new, kill=kill)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            k2 = fa.flash_attention.launches
+            engines[0].rollback_weights()
+            code, metrics = _http_get(port, "/metrics")
+            tel.flush(mark="exit")
+            _close_fleet(router, reps, engines)
+            del engines
+        finally:
+            tel.reset()
+    tel.reload()   # the environment restored: telemetry off, no server
+    lines = open(journal).read().splitlines()
+    recs = [json.loads(line) for line in lines if line.strip()]
+    missing = [n for n in TELEMETRY_CATALOG
+               if not re.search(r"^%s(_bucket|_count|\{| )" % _prom_name(n),
+                                metrics, re.M)]
+    sz_code, sz = scraped["servingz"]
+    table = [r for e in sz["engines"] for r in e["requests"]]
+    rec = {"leg": "D", "metrics_status": code,
+           "catalog": len(TELEMETRY_CATALOG), "catalog_missing": missing,
+           "servingz_status": sz_code, "servingz_engines": len(sz["engines"]),
+           "servingz_requests": len(table),
+           "journal_lines": len(lines), "journal_kinds": sorted(
+               {r["kind"] for r in recs}),
+           "decode_step_ms_telemetry_off": off_ms,
+           "decode_step_ms_telemetry_on": on_ms, "decode_steps": n_steps,
+           "killed": killed, "launches_k2": k2,
+           "seconds": time.perf_counter() - t0}
+    log(dict(phase="fleet_telemetry", **rec))
+    if code != 200 or missing:
+        raise AssertionError("/metrics lacks %r" % missing)
+    if sz_code != 200 or not table:
+        raise AssertionError("/servingz showed no live request")
+    if len(recs) != len(lines) or not {"meta", "span", "metrics",
+                                       "wsync"} <= set(rec["journal_kinds"]):
+        raise AssertionError("journal kinds %r" % rec["journal_kinds"])
+    return dict(rec, outs=outs)
+
+
+def phase_fleet(device="cuda", model_kw=FLAGSHIP, long_len=2048, new=48,
+                cd_new=16, trainer_seq=1024, swap_new=1024):
+    """The serving fleet on the card (``phase_fleet``): leg A, two
+    flagship Engines behind ReplicaServers and a Router on loopback,
+    byte-equal to a lone Engine, and again through a replica killed
+    mid-decode; leg B, replica processes (``fleet_processes``); leg C,
+    live weight sync (``fleet_wsync``); leg D, telemetry
+    (``fleet_telemetry``). ``device``/``model_kw``/``long_len`` let a CPU
+    rehearsal run the same code small. Returns the K2/K3/K4 counts."""
+    import torch
+
+    from mxnet_tpu_torch.models.transformer import (TransformerConfig,
+                                                    init_params)
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.parallel import create_mesh
+    from mxnet_tpu_torch.serving import Engine, ServingConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    cfg = TransformerConfig(**model_kw)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    mesh = create_mesh((1,), ("seq",), devices=[device])
+    scfg = ServingConfig(mesh=mesh, cp_kind="ulysses", cp_min_tokens=long_len,
+                         **FLEET_SERVING)
+    reqs = _fleet_prompts(cfg.vocab_size, long_len)
+    per_long = cfg.num_layers if device == "cuda" else 0
+    # predicted K2 launches (one long prompt a run, once a layer): leg A 1
+    # + 2 (the killed replica's prefill and the survivor's redelivery);
+    # leg C 2 training steps + 4 serving runs; leg D 2 (a kill)
+    predicted = {"fleet_in_process": 3 * per_long,
+                 "fleet_wsync_training": 2 * per_long,
+                 "fleet_wsync_serving": 4 * per_long,
+                 "fleet_telemetry": 2 * per_long}
+
+    # -- leg A ---------------------------------------------------------
+    lone = Engine(params, cfg, scfg, device=device)
+    want = _engine_streams(lone, reqs, new)
+    del lone
+    engines = [Engine(params, cfg, scfg, device=device) for _ in range(2)]
+    router, reps = _fleet(engines)
+    try:
+        sync()
+        fa.flash_attention.launches = 0
+        ta = time.perf_counter()
+        round1, _ = _fleet_serve(router, reqs, new)
+        round1_s = time.perf_counter() - ta
+        ta = time.perf_counter()
+        round2, killed = _fleet_serve(router, reqs, new,
+                                      kill=_kill_replica(reps, engines))
+        round2_s = time.perf_counter() - ta
+        sync()
+        k2_a = fa.flash_attention.launches
+        stats = router.stats()
+    finally:
+        _close_fleet(router, reps, engines)
+    del engines
+    margin = FLEET_MARGIN[cfg.dtype]
+    agree1 = stream_agreement(params, cfg, reqs, want, round1, margin)
+    agree2 = stream_agreement(params, cfg, reqs, want, round2, margin)
+    rec_a = {"leg": "A", "requests": len(reqs), "max_new_tokens": new,
+             "round_s": round1_s, "round_kill_s": round2_s,
+             "streams_equal": sum(r["equal"] for r in agree1),
+             "streams_equal_after_kill": sum(r["equal"] for r in agree2),
+             "parted": [r for r in agree1 + agree2 if not r["equal"]],
+             "wide_checked": sum(r["wide_checked"]
+                                 for r in agree1 + agree2),
+             "killed": killed,
+             "evictions": stats["evictions"],
+             "redelivered": stats["redelivered"], "launches_k2": k2_a,
+             "launches_k2_predicted": predicted["fleet_in_process"]}
+    log(dict(phase="fleet_in_process", **rec_a))
+    if killed["unfinished_on_replica"] < 1:
+        raise AssertionError("the kill found nothing in flight: %r" % killed)
+    if stats["evictions"] != 1 or stats["redelivered"] < 1:
+        raise AssertionError("router saw %r" % stats)
+    if k2_a != predicted["fleet_in_process"]:
+        raise AssertionError("K2 launched %d times in leg A, predicted %d"
+                             % (k2_a, predicted["fleet_in_process"]))
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    rec_b = fleet_processes(device, root)
+    c_reqs = [reqs[0], reqs[1], reqs[2], reqs[6]]
+    rec_c = fleet_wsync(device, cfg, params, scfg, c_reqs, cd_new,
+                        trainer_seq=trainer_seq, swap_new=swap_new)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    rec_d = fleet_telemetry(device, cfg, params, scfg, reqs, new)
+    agree_d = stream_agreement(params, cfg, reqs, want, rec_d.pop("outs"),
+                               FLEET_MARGIN[cfg.dtype])
+    log({"phase": "fleet_telemetry_streams",
+         "streams_equal": sum(r["equal"] for r in agree_d),
+         "parted": [r for r in agree_d if not r["equal"]]})
+    got = {"fleet_in_process": k2_a,
+           "fleet_wsync_training": rec_c["launches_training"]["flash_fwd"],
+           "fleet_wsync_serving": rec_c["launches_serving_k2"],
+           "fleet_telemetry": rec_d["launches_k2"]}
+    if got != predicted:
+        raise AssertionError("K2 launches %r, predicted %r"
+                             % (got, predicted))
+    for k in ("flash_bwd_dq", "flash_bwd_dkv"):
+        if rec_c["launches_training"][k] != 2 * per_long:
+            raise AssertionError("%s launched %d times in leg C"
+                                 % (k, rec_c["launches_training"][k]))
+    out = {"k2": got, "k3": rec_c["launches_training"]["flash_bwd_dq"],
+           "k4": rec_c["launches_training"]["flash_bwd_dkv"],
+           "seconds": time.perf_counter() - t0}
+    log(dict(phase="fleet", **out))
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6124,6 +6847,8 @@ def main():
     mp = _timed("model_parallel", phase_model_parallel)
     torch.cuda.empty_cache()
     _timed("dist", phase_dist)
+    torch.cuda.empty_cache()
+    fleet = _timed("fleet", phase_fleet)
     log({"phase_seconds": phase_s,
          "phases_total_s": sum(phase_s.values())})
     fwd_main = fwd_checks[-1]   # the training shape, the LM's views
@@ -6132,10 +6857,12 @@ def main():
         "name": "flash_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:93",
-        "launches": serving + serving_sampled + training["flash_fwd"],
+        "launches": (serving + serving_sampled + training["flash_fwd"]
+                     + sum(fleet["k2"].values())),
         "launches_by_path": {"serving": serving,
                              "serving_sampled": serving_sampled,
-                             "training": training["flash_fwd"]},
+                             "training": training["flash_fwd"],
+                             **fleet["k2"]},
         "max_abs_err": max(c["max_abs_err"] for c in fwd_checks),
         "shape": fwd_main["shape"], "layout": fwd_main["layout"],
         "ms": fwd_main["ms"], "graph_ms": fwd_main["graph_ms"],
@@ -6145,15 +6872,17 @@ def main():
         "serving_shape": {k: fwd_checks[0][k] for k in (
             "shape", "ms", "graph_ms", "plain_ms", "bound_ms",
             "library_ms")}}]
-    for name, n, line, outs in (("flash_bwd_dq", "dq", 145, ("dq",)),
-                                ("flash_bwd_dkv", "dkv", 185,
-                                 ("dk", "dv"))):
+    for name, n, line, outs, fk in (("flash_bwd_dq", "dq", 145, ("dq",),
+                                     "k3"),
+                                    ("flash_bwd_dkv", "dkv", 185,
+                                     ("dk", "dv"), "k4")):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/ops/csrc/flash_bwd.cu",
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:%d" % line,
-            "launches": training[name],
-            "launches_by_path": {"training": training[name]},
+            "launches": training[name] + fleet[fk],
+            "launches_by_path": {"training": training[name],
+                                 "fleet_wsync_training": fleet[fk]},
             "max_abs_err": max(c["err"][o]["abs"] for c in bwd_checks
                                for o in outs),
             "max_err_to_limit": max(c["err"][o]["elem"] for c in bwd_checks

@@ -63,7 +63,17 @@ on one card:
   ``torch.export``; mirroring (``MXNET_BACKWARD_DO_MIRROR``,
   ``force_mirroring``) in the executor; the host modules ``viz``,
   ``test_utils``, ``profiler`` (``torch.profiler``), ``runtime``,
-  ``libinfo`` and ``misc``.
+  ``libinfo`` and ``misc``;
+- the serving fleet and its operations: ``serving.Engine``'s
+  ``drain``/``resume`` and live weight sync (``install_weights``,
+  ``rollback_weights``; ``wsync``: a ``WeightPublisher`` serving
+  versioned weight sets, a ``WeightSubscriber`` in each serving process
+  under ``MXNET_WSYNC=1``), ``serving.fleet`` (a ``Router`` over
+  ``ReplicaServer``s, redelivering the streams of a dead replica), and
+  ``telemetry`` (``MXNET_TELEMETRY=1``: counters, spans, a JSONL
+  journal, ``/metrics`` and ``/servingz`` over HTTP), with the RPC wire
+  (``elastic.protocol``) and the retry and fault-injection layer
+  (``resilience``) they stand on.
 
 Entry points run on ``cuda:0`` unless given a device or context; without
 CUDA and without one they raise.
@@ -73,6 +83,11 @@ from __future__ import annotations
 __version__ = "0.1.0"
 
 from .base import MXNetError
+# telemetry first: its atexit journal hook must register before the
+# dependency engine's exit drain (atexit runs hooks in reverse order)
+from . import telemetry
+from . import resilience
+from . import elastic
 from .context import (Context, cpu, cpu_pinned, current_context, gpu,
                       num_devices)
 from . import ndarray
@@ -148,4 +163,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "rtc", "operator", "torch_plugin", "th", "parallel", "serving",
            "engine", "stream", "recordio", "opencv", "cv", "cpu_pinned",
            "predictor", "Predictor", "test_utils", "visualization", "viz",
-           "profiler", "runtime", "libinfo", "misc"]
+           "profiler", "runtime", "libinfo", "misc", "telemetry",
+           "resilience", "elastic"]

@@ -7,11 +7,16 @@
   (:mod:`mxnet_tpu_torch.threefry`);
 - :mod:`.scheduler` — continuous batching (host-only copy);
 - :mod:`.engine` — ``Engine.submit(prompt) -> stream of tokens``, plain
-  or speculative (draft + verify), and the synchronous ``generate``.
+  or speculative (draft + verify), the synchronous ``generate``,
+  drain/resume, live weight sync (``install_weights``,
+  ``rollback_weights``) and the ``serving.*`` telemetry catalog;
+- :mod:`.fleet` — replicas behind a health-routed router, redelivering
+  every stream of a dead replica on a survivor.
 """
 from __future__ import annotations
 
-from .engine import Engine, QueueFullError, ServingConfig, StreamHandle
+from .engine import (Engine, QueueFullError, ServingConfig, StreamHandle,
+                     live_engines)
 from .kv_cache import PagedKVPool, blocks_for_tokens
 from .model import ServingModel, cp_prefill_kv
 from .scheduler import Request, Scheduler, StepPlan
@@ -19,5 +24,5 @@ from .scheduler import Request, Scheduler, StepPlan
 __all__ = [
     "Engine", "ServingConfig", "StreamHandle", "QueueFullError",
     "PagedKVPool", "blocks_for_tokens", "ServingModel", "cp_prefill_kv",
-    "Request", "Scheduler", "StepPlan",
+    "Request", "Scheduler", "StepPlan", "live_engines",
 ]

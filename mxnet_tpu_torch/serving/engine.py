@@ -28,8 +28,39 @@ accept/reject and resampling on the device, and the bookkeeping rolls
 both block tables back to the first rejection. Off by default, and then
 no draft pool exists.
 
-Not in this release (ROADMAP queue 1): telemetry, live weight sync,
-drain/resume and introspection.
+Draining: ``drain()`` closes admissions (``submit`` raises
+:class:`QueueFullError` with reason ``draining``) while everything
+accepted runs to completion; ``resume()`` reopens them.
+
+Telemetry (``MXNET_TELEMETRY=1``, ``telemetry/``): the JAX package's
+catalog — counters ``serving.requests_{admitted,completed,evicted,
+rejected,cancelled}``, ``serving.streams_reaped``,
+``serving.drains_total`` and ``serving.spec_turns`` /
+``serving.spec_tokens_drafted`` / ``serving.spec_tokens_accepted``;
+gauges ``serving.kv_pool_utilization`` / ``serving.kv_pool_hwm_blocks``
+/ ``serving.tokens_per_s`` / ``serving.queue_depth`` /
+``serving.spec_accept_rate``; histograms ``serving.ttft_s``,
+``serving.ttft_sync_s`` (TTFTs inside a weight-sync window),
+``serving.token_latency_s``, ``serving.decode_batch_size``,
+``serving.decode_step_s`` and ``serving.spec_accepted_tokens``; spans
+``serve.decode``, ``serve.prefill``, ``serve.draft_prefill``,
+``serve.cp_prefill``, ``serve.spec_turn`` and a request's lifecycle
+events under one trace id. ``Engine.stats()`` mirrors them as plain
+numbers with telemetry off; ``introspect()`` is ``/servingz``'s payload.
+
+Live weight sync (``MXNET_WSYNC``, ``wsync/``): ``install_weights``
+copies a gated param set (target + draft) onto the engine's device,
+then swaps it in, with the f32 unembedding of the cp prefill, under
+the step lock between scheduled steps; ``rollback_weights`` restores
+the newest last-good ring entry. Off by default: no subscriber thread,
+no ring growth, no journal records.
+
+Not in this release: the JAX package's lock tracer
+(``MXNET_ENGINE_VERIFY``, ``analysis/engine_verify.py``), its
+compile/transfer verifier (``MXNET_JIT_VERIFY``,
+``analysis/compile_verify.py``) and the mxprof attribution
+(``MXNET_PROF``, ``telemetry/prof.py``): with any of them set,
+``Engine`` raises.
 """
 from __future__ import annotations
 
@@ -38,26 +69,54 @@ import os
 import queue as _queue
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
 
+from .. import telemetry as _tel
 from ..base import MXNetError, env_bool as _env_bool, env_int as _env_int
 from ..context import resolve_device
+from ..wsync import enabled as _wsync_enabled
 from . import sampling as _samp
 from .kv_cache import PagedKVPool, blocks_for_tokens
 from .model import ServingModel, cp_prefill_kv
 from .scheduler import CANCELLED, DECODE, FINISHED, PREFILL, Request, \
     Scheduler
 
-__all__ = ["Engine", "ServingConfig", "StreamHandle", "QueueFullError"]
+__all__ = ["Engine", "ServingConfig", "StreamHandle", "QueueFullError",
+           "live_engines"]
 
 _END = object()
 
+# every constructed Engine, weakly held — the /servingz introspection
+# endpoint (telemetry/server.py) iterates this to render live request
+# tables without the serving layer ever knowing about HTTP
+_live_engines = weakref.WeakSet()
+
+# switches of the JAX package whose modules are not ported
+_UNPORTED_SWITCHES = (
+    ("MXNET_ENGINE_VERIFY", "the lock tracer (analysis/engine_verify.py)"),
+    ("MXNET_JIT_VERIFY",
+     "the compile/transfer verifier (analysis/compile_verify.py)"),
+    ("MXNET_PROF", "the mxprof attribution layer (telemetry/prof.py)"))
+
+
+def live_engines():
+    """The Engines currently alive in this process (weakly tracked)."""
+    return sorted(_live_engines, key=id)
+
+
+def _env_on(name):
+    return os.environ.get(name, "").strip().lower() not in (
+        "", "0", "false", "off", "no")
+
 
 class QueueFullError(MXNetError):
-    """submit() past max_queue_depth — shed load upstream. Carries the
-    observed ``queue_depth`` and a ``retry_after_s`` hint."""
+    """submit() past max_queue_depth, or during a drain — shed load
+    upstream. Carries the observed ``queue_depth`` and a computed
+    ``retry_after_s`` hint (one admission slot's expected time to free
+    at the current service rate), which the fleet router reads."""
 
     def __init__(self, message, queue_depth=0, retry_after_s=1.0):
         super().__init__(message)
@@ -179,6 +238,10 @@ class StreamHandle:
 class Engine:
     """Continuous-batching serving engine over a transformer LM.
 
+    ``SPEC_WINDOW_SECS`` bounds the sliding window behind the
+    ``spec_accept_rate_window`` stat (the current draft quality; the
+    cumulative rate is reported alongside).
+
     Parameters
     ----------
     params : dict of tensors
@@ -195,16 +258,23 @@ class Engine:
         Where the engine runs; default ``cuda:0`` (raises without CUDA).
     """
 
+    #: sliding-window width for the live accept-rate signal
+    SPEC_WINDOW_SECS = 30.0
+
     def __init__(self, params, model_cfg, cfg=None, draft_params=None,
                  draft_cfg=None, device=None):
+        for name, what in _UNPORTED_SWITCHES:
+            if _env_on(name):
+                raise MXNetError("%s: %s is not ported; unset it"
+                                 % (name, what))
         self.cfg = cfg or ServingConfig()
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
         self.model_cfg = model_cfg
         # cp prefill samples its first token from f32 x_last @ embed.T:
-        # the f32 unembedding is made once here, not per long prompt
-        self._unembed = (self.params["embed"].float().T.contiguous()
-                         if self.cfg.mesh is not None else None)
+        # the f32 unembedding is made once a weight version, not per
+        # long prompt
+        self._unembed = self._make_unembed(self.params)
         bs = self.cfg.block_size
         max_seq = min(self.cfg.max_seq_tokens or model_cfg.max_seq_len,
                       model_cfg.max_seq_len)
@@ -282,9 +352,37 @@ class Engine:
         self._ttfts = []
         self._token_lats = []
         self._rate_window = []  # (t, cumulative tokens) for tokens/s
+        # (t, drafted, accepted) per spec turn over a sliding window:
+        # the accept-rate signal must track CURRENT draft quality, not
+        # the lifetime average
+        self._spec_window = []
         self._thread = None
         self._stop = False
         self._last_rate = 0.0
+        self._draining = False
+        self._drained = False
+        # -- wsync: staged hot-swap state. _installed_params and
+        # _installed_draft are identity tokens — step() rejects a params
+        # rebind that bypassed install_weights(), so the gates
+        # (shape/dtype, finiteness, acceptance) are enforced
+        self._installed_params = self.params
+        self._installed_draft = self.draft_params
+        self._weight_version = None
+        self._weight_ring = []   # (version, params, draft, unembed)
+        self._weight_ring_keep = max(1, _env_int("MXNET_WSYNC_RING", 2))
+        try:
+            self._sync_ttft_window = float(
+                os.environ.get("MXNET_WSYNC_TTFT_WINDOW", "") or 2.0)
+        except ValueError:
+            self._sync_ttft_window = 2.0
+        self._sync_mark_until = 0.0   # monotonic: TTFTs before this
+        self._sync_ttfts = []         # land in the sync-window stats
+        self._wsync_sub = None
+        if _wsync_enabled():
+            from ..wsync.subscriber import maybe_autosync
+
+            self._wsync_sub = maybe_autosync(self)
+        _live_engines.add(self)
 
     # -- intake --------------------------------------------------------------
     def submit(self, prompt, max_new_tokens=16, eos_id=None,
@@ -299,13 +397,23 @@ class Engine:
         and re-chunking. Under speculation a shifted turn alignment may
         change which salt stream a position draws from (accepted draft,
         residual or bonus): the same distribution, byte-stable only at
-        temperature 0 or for a fixed schedule. ``prefix_tokens`` are
-        tokens this request already
-        streamed elsewhere: they are folded into the recompute context
-        and count against ``max_new_tokens`` without being re-emitted.
+        temperature 0 or for a fixed schedule.
 
-        Raises QueueFullError past ``max_queue_depth`` and MXNetError for
-        requests that could never fit the KV pool / position table.
+        ``prefix_tokens`` is the fleet redelivery hook
+        (``serving/fleet/router.py``): tokens this request already
+        streamed on a replica that died are folded into the recompute
+        context. The request prefills ``prompt + prefix`` and decodes
+        onward; the prefix counts against ``max_new_tokens`` but is
+        never re-emitted. Sampling is keyed by (seed, global position),
+        so the continuation is the uninterrupted stream's wherever the
+        numerics agree: in f32 on the host exactly; in bf16 on the card
+        the prefill's products round unlike the decode steps' and can
+        part from it at a near-tie.
+
+        Raises QueueFullError past ``max_queue_depth`` or while
+        draining, and MXNetError for requests that could never fit the
+        KV pool / position table (all counted under
+        serving.requests_rejected).
         """
         if temperature < 0 or top_k < 0 or not 0.0 < top_p <= 1.0:
             with self._lock:
@@ -322,7 +430,7 @@ class Engine:
             pre = np.asarray(prefix_tokens, np.int32).reshape(-1)
             if pre.shape[0] >= max_new_tokens:
                 with self._lock:
-                    self._reject()
+                    self._reject("prefix")
                 raise MXNetError(
                     "prefix_tokens (%d) already meets max_new_tokens "
                     "(%d) — nothing left to generate" % (pre.shape[0],
@@ -334,19 +442,37 @@ class Engine:
                     self.sched.max_request_tokens(),
                     self.model.max_blocks * self.cfg.block_size)
         with self._lock:
+            if self._draining:
+                depth = len(self.sched.queue)
+                self._reject("draining", depth)
+                raise QueueFullError(
+                    "engine draining — admissions closed (resume() "
+                    "reopens)", queue_depth=depth,
+                    retry_after_s=self._retry_after_locked(depth))
             if total > limit:
-                self._reject()
+                self._reject("geometry")
                 raise MXNetError(
                     "request needs %d tokens; engine limit is %d "
                     "(pool/max_seq geometry)" % (total, limit))
             if len(self.sched.queue) >= self.cfg.max_queue_depth:
                 depth = len(self.sched.queue)
-                self._reject()
+                self._reject("queue_full", depth)
                 raise QueueFullError(
                     "admission queue full (%d)" % self.cfg.max_queue_depth,
                     queue_depth=depth,
-                    retry_after_s=self._retry_after_locked())
+                    retry_after_s=self._retry_after_locked(depth))
             req.submit_t = time.monotonic()
+            if _tel.ENABLED:
+                # request-scoped trace: every lifecycle span of this
+                # request (submit -> prefill -> decode -> complete)
+                # shares one trace id
+                req.trace = _tel.mint_trace()
+                req.wall0 = time.time()
+                _tel.event("serve.request.submit", t=req.wall0,
+                           trace=req.trace, rid=req.rid,
+                           prompt_len=int(req.prompt.shape[0]),
+                           prefix_len=len(req.generated),
+                           max_new_tokens=req.max_new_tokens)
             handle = StreamHandle(self, req)
             self._by_rid[req.rid] = req
             self.sched.submit(req)
@@ -368,12 +494,98 @@ class Engine:
             s = req.stream
             if s is not None and s._idle_abandoned(now, idle):
                 self._stats["streams_reaped"] += 1
+                if _tel.ENABLED:
+                    _tel.counter("serving.streams_reaped").inc()
+                    _tel.event("serve.stream.reaped", rid=req.rid,
+                               trace=req.trace,
+                               idle_s=now - s._touched_t,
+                               tokens=len(req.generated))
                 self.sched.cancel(req)
 
-    def _reject(self):
-        self._stats["rejected"] += 1
+    # -- graceful drain ------------------------------------------------------
+    def drain(self, wait=False, timeout=None):
+        """Stop admissions; everything already accepted (queued or
+        active) runs to completion. New ``submit`` calls raise
+        :class:`QueueFullError` (counted as rejections — an upstream
+        router sheds to other replicas). When the last in-flight
+        request finishes, a ``drained`` event lands in the scheduler
+        event log, ``serve.drained`` in the journal, and ``/servingz``
+        reports ``drained: true``.
 
-    def _retry_after_locked(self):
+        ``wait=True`` blocks until drained (the caller must be driving
+        steps, or have ``start()`` running). Returns True when drained.
+        """
+        with self._lock:
+            if not self._draining:
+                self._draining = True
+                if _tel.ENABLED:
+                    _tel.counter("serving.drains_total").inc()
+                self._check_drained_locked()
+                self._work.notify_all()
+            if not wait:
+                return self._drained
+            deadline = (time.monotonic() + timeout
+                        if timeout is not None else None)
+            while not self._drained:
+                remaining = None
+                if deadline is not None:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        return False
+                self._work.wait(timeout=remaining if remaining is not None
+                                else 0.5)
+            return True
+
+    def resume(self):
+        """Reopen admissions after :meth:`drain`."""
+        with self._lock:
+            if self._draining:
+                self._draining = False
+                self._drained = False
+                self._work.notify_all()
+
+    def accepting(self):
+        """True while ``submit`` admits work — the /readyz signal: a
+        draining replica is alive but not ready."""
+        with self._lock:
+            return not self._draining
+
+    @property
+    def draining(self):
+        with self._lock:
+            return self._draining
+
+    @property
+    def drained(self):
+        with self._lock:
+            return self._drained
+
+    def _check_drained_locked(self):
+        """Latch the drained state once the last accepted request is
+        gone (caller holds ``_lock``)."""
+        if (self._draining and not self._drained
+                and not self.sched.queue and not self.sched.active):
+            self._drained = True
+            self.sched.note_drained()
+            if _tel.ENABLED:
+                _tel.event("serve.drained",
+                           completed=self._stats["completed"],
+                           cancelled=self._stats["cancelled"])
+            self._work.notify_all()
+
+    def _reject(self, reason="params", queue_depth=None):
+        self._stats["rejected"] += 1
+        if _tel.ENABLED:
+            _tel.counter("serving.requests_rejected").inc()
+            # the rejection detail rides a journal event (reason, depth
+            # and the backoff hint handed to the caller)
+            _tel.event("serve.request.reject", reason=reason,
+                       queue_depth=queue_depth,
+                       retry_after_s=(
+                           self._retry_after_locked(queue_depth)
+                           if queue_depth is not None else None))
+
+    def _retry_after_locked(self, queue_depth=None):
         """Backoff hint for a rejected submit: expected seconds until
         one admission slot frees at the current token rate, clamped to
         [0.05, 30]; 1 s when idle or cold."""
@@ -436,6 +648,168 @@ class Engine:
                 np.zeros((b, 1), np.int32), d, q, np.zeros((b,), np.int32),
                 1 + ks, bt, act)
 
+    # -- live weight sync (wsync/) -------------------------------------------
+    def install_weights(self, version, params, draft_params=None,
+                        trace=None):
+        """Atomically swap in a gated weight set between scheduled steps:
+        target params, draft params, and the f32 unembedding of the cp
+        prefill in ONE transaction under the step lock — no drain. The
+        set (tensors on any device, or numpy arrays) is first copied
+        onto the engine's device on a side stream, outside the locks,
+        so the locks cover a rebind only. The outgoing version lands on
+        the bounded last-good ring (``MXNET_WSYNC_RING``) for
+        :meth:`rollback_weights`.
+
+        Gates (reject ⇒ ``wsync.rejected_total`` + a journaled
+        ``rejected`` record + MXNetError, live params untouched):
+
+        - shape/dtype mismatch against the live set — hard reject;
+        - non-finite values in any floating tensor, bf16 included.
+
+        ``draft_params`` refresh in the same transaction; a version
+        without a draft half swaps the target only (and a draft half is
+        dropped when the engine was built without a draft model).
+        """
+        from ..wsync import common as _wc
+
+        version = int(version)
+        if _wc.param_manifest(params) != _wc.param_manifest(self.params):
+            self._reject_weights(
+                version, trace, "shape/dtype mismatch against live "
+                "params (the engine's buffers are sized for them — a "
+                "resized model needs a new engine, not a sync)")
+        if draft_params is not None and self.draft_model is None:
+            draft_params = None
+        if draft_params is not None and (
+                _wc.param_manifest(draft_params)
+                != _wc.param_manifest(self.draft_params)):
+            self._reject_weights(
+                version, trace,
+                "draft shape/dtype mismatch against live draft params")
+        staged, staged_draft, unembed = self._stage_weights(
+            params, draft_params)
+        bad = _wc.nonfinite_keys(_wc.flatten_params(staged))
+        if bad:
+            self._reject_weights(
+                version, trace,
+                "non-finite tensors: %s" % ", ".join(sorted(bad)[:4]))
+        if staged_draft is not None:
+            dbad = _wc.nonfinite_keys(_wc.flatten_params(staged_draft))
+            if dbad:
+                self._reject_weights(
+                    version, trace, "non-finite draft tensors: %s"
+                    % ", ".join(sorted(dbad)[:4]))
+        with self._step_lock:
+            with self._lock:
+                self._weight_ring.append(
+                    (self._weight_version, self.params, self.draft_params,
+                     self._unembed))
+                del self._weight_ring[:-self._weight_ring_keep]
+                self.params = staged
+                self._installed_params = staged
+                if staged_draft is not None:
+                    self.draft_params = staged_draft
+                self._installed_draft = self.draft_params
+                self._unembed = unembed
+                self._weight_version = version
+                self._sync_mark_until = (time.monotonic()
+                                         + self._sync_ttft_window)
+                if _tel.ENABLED:
+                    _tel.counter("wsync.versions_applied_total").inc()
+                    _tel.gauge("wsync.current_version").set(version)
+                _wc.journal("applied", version, trace=trace,
+                            draft=staged_draft is not None,
+                            ring=len(self._weight_ring))
+        return version
+
+    def _stage_weights(self, params, draft_params):
+        """Fresh copies of ``params`` (and ``draft_params``) on the
+        engine's device, and the f32 unembedding when the engine has a
+        mesh. On CUDA the copies run on a side stream, so the decode
+        loop's kernels keep running, and the host waits for them before
+        the swap."""
+        from ..wsync import common as _wc
+
+        def copy(tree):
+            return _tree_map(
+                lambda t: (t.detach() if isinstance(t, torch.Tensor)
+                           else _wc.host_tensor(t)).to(self.device,
+                                                       copy=True), tree)
+
+        if self.device.type != "cuda":
+            staged = copy(params)
+            draft = copy(draft_params) if draft_params is not None else None
+            return staged, draft, self._make_unembed(staged)
+        side = torch.cuda.Stream(self.device)
+        main = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(side):
+            staged = copy(params)
+            draft = copy(draft_params) if draft_params is not None else None
+            unembed = self._make_unembed(staged)
+        side.synchronize()
+        # the tensors were made on the side stream and are read on the
+        # main one: their memory must not be reused before that stream's
+        # reads finish
+        for tree in (staged, draft, unembed):
+            for t in _leaves(tree):
+                t.record_stream(main)
+        return staged, draft, unembed
+
+    def _make_unembed(self, params):
+        """cp prefill samples its first token from f32 x_last @ embed.T:
+        the f32 unembedding is made once a weight version."""
+        if self.cfg.mesh is None:
+            return None
+        return params["embed"].float().T.contiguous()
+
+    def rollback_weights(self, trace=None):
+        """Reinstall the newest last-good ring entry (target + draft +
+        unembedding in one transaction, like :meth:`install_weights`).
+        A rollback CONSUMES its entry — repeated calls walk further
+        back, never loop on one version. Returns ``{"from_version",
+        "to_version"}``; raises MXNetError on an empty ring."""
+        from ..wsync import common as _wc
+
+        with self._step_lock:
+            with self._lock:
+                if not self._weight_ring:
+                    raise MXNetError(
+                        "rollback_weights: last-good ring is empty "
+                        "(no prior version to restore)")
+                version, params, draft, unembed = self._weight_ring.pop()
+                from_v = self._weight_version
+                if trace is None and _tel.ENABLED:
+                    trace = _tel.mint_trace()
+                self.params = params
+                self._installed_params = params
+                if draft is not None and self.draft_model is not None:
+                    self.draft_params = draft
+                self._installed_draft = self.draft_params
+                self._unembed = unembed
+                self._weight_version = version
+                if _tel.ENABLED:
+                    _tel.counter("wsync.rollbacks_total").inc()
+                    _tel.gauge("wsync.current_version").set(
+                        version if version is not None else 0)
+                _wc.journal("rolled_back", version, trace=trace,
+                            from_version=from_v,
+                            ring=len(self._weight_ring))
+        return {"from_version": from_v, "to_version": version}
+
+    def _reject_weights(self, version, trace, reason):
+        from ..wsync import common as _wc
+
+        if _tel.ENABLED:
+            _tel.counter("wsync.rejected_total").inc()
+        _wc.journal("rejected", version, trace=trace, reason=reason)
+        raise MXNetError("weight sync version %d rejected: %s"
+                         % (version, reason))
+
+    def weight_version(self):
+        """Version installed by the newest sync (None before any)."""
+        with self._lock:
+            return self._weight_version
+
     # -- synchronous batch API -----------------------------------------------
     def generate(self, prompts, max_new_tokens=16):
         """Submit all prompts, drive the loop to completion, return the
@@ -452,6 +826,14 @@ class Engine:
         """Run one scheduler step (<=1 decode batch + <=1 prefill
         batch). Returns True when any work ran."""
         with self._step_lock:
+            if (self.params is not self._installed_params
+                    or (self.draft_model is not None
+                        and self.draft_params is not self._installed_draft)):
+                raise MXNetError(
+                    "Engine params were rebound without "
+                    "install_weights(): a direct write bypasses the "
+                    "staged-swap gates (shape/dtype, finiteness, "
+                    "acceptance)")
             with self._lock:
                 self._reap_idle_locked(time.monotonic())
                 plan = self.sched.plan()
@@ -459,6 +841,10 @@ class Engine:
                 decode = list(plan.decode)
                 prefill = list(plan.prefill)
                 spec_k = dict(plan.spec_k)
+                now = time.monotonic()
+                for req, _cs, _clen in prefill:
+                    if req.admit_t is None:  # first admission only —
+                        req.admit_t = now    # eviction re-prefills later
             worked = False
             if decode:
                 self._run_decode(decode, spec_k)
@@ -470,7 +856,7 @@ class Engine:
                 with self._lock:
                     self._stats["steps"] += 1
                     self._mirror_events()
-                    self._update_rate()
+                    self._update_gauges()
             return worked
 
     def run_until_idle(self, max_steps=None):
@@ -563,6 +949,7 @@ class Engine:
             self._run_plain_decode(plain)
 
     def _run_plain_decode(self, reqs):
+        t0 = time.monotonic()
         B = len(reqs)
         tokens = np.asarray([[r.generated[-1]] for r in reqs], np.int32)
         start = np.asarray(
@@ -571,13 +958,17 @@ class Engine:
         # static policy = fixed-shape serving: decode dispatches at the
         # full batch width even as the batch drains
         min_b = self.cfg.max_batch if self.cfg.policy == "static" else None
-        nxt = self.model.step(
-            self.params, self.pool.k, self.pool.v, tokens, start,
-            np.ones((B,), np.int32), self._tables(reqs),
-            np.ones((B,), bool), min_batch_bucket=min_b,
-            temperature=temp, top_k=tk, top_p=tp, seed=sd)
+        with _tel.span("serve.decode"):
+            nxt = self.model.step(
+                self.params, self.pool.k, self.pool.v, tokens, start,
+                np.ones((B,), np.int32), self._tables(reqs),
+                np.ones((B,), bool), min_batch_bucket=min_b,
+                temperature=temp, top_k=tk, top_p=tp, seed=sd)
         now = time.monotonic()
         with self._lock:
+            if _tel.ENABLED:
+                _tel.histogram("serving.decode_batch_size").observe(B)
+                _tel.histogram("serving.decode_step_s").observe(now - t0)
             for r, t in zip(reqs, nxt):
                 if r.state != DECODE:   # cancelled while stepping
                     continue
@@ -603,6 +994,7 @@ class Engine:
         corrected or bonus token into each stream. The turn's only
         device->host pulls are ints: the accepted counts, the final
         tokens and the draft tokens."""
+        t0 = time.monotonic()
         B = len(reqs)
         # a fixed chain length: ks masks each row's unused tail
         K = self.cfg.spec_k
@@ -627,19 +1019,22 @@ class Engine:
         for i, r in enumerate(reqs):
             ing[i, :lens[i]] = self._stream_slice(r, r.draft_pos, int(P[i]))
         karr = np.asarray(ks, np.int32)
-        dmat, qmat = self.draft_model.draft_turn(
-            self.draft_params, self.draft_pool.k, self.draft_pool.v, ing,
-            dstart, lens, dtables, np.ones((B,), bool), karr, K,
-            temperature=temp, top_k=tk, top_p=tp, seed=sd)
-        # verify: one ragged target step over [prev, d_0..d_k]
-        prev = np.asarray([[r.generated[-1]] for r in reqs], np.int32)
-        n_dev, fin_dev = self.model.verify(
-            self.params, self.pool.k, self.pool.v, prev, dmat, qmat, P - 1,
-            1 + karr, self._tables(reqs), np.ones((B,), bool),
-            temperature=temp, top_k=tk, top_p=tp, seed=sd)
-        n = n_dev.cpu().numpy()
-        fin = fin_dev.cpu().numpy()
-        drafts = dmat.cpu().numpy()
+        # the spec turn IS the decode dispatch when speculation is on —
+        # it gets its own span (serve.spec_turn)
+        with _tel.span("serve.spec_turn"):
+            dmat, qmat = self.draft_model.draft_turn(
+                self.draft_params, self.draft_pool.k, self.draft_pool.v,
+                ing, dstart, lens, dtables, np.ones((B,), bool), karr, K,
+                temperature=temp, top_k=tk, top_p=tp, seed=sd)
+            # verify: one ragged target step over [prev, d_0..d_k]
+            prev = np.asarray([[r.generated[-1]] for r in reqs], np.int32)
+            n_dev, fin_dev = self.model.verify(
+                self.params, self.pool.k, self.pool.v, prev, dmat, qmat,
+                P - 1, 1 + karr, self._tables(reqs), np.ones((B,), bool),
+                temperature=temp, top_k=tk, top_p=tp, seed=sd)
+            n = n_dev.cpu().numpy()
+            fin = fin_dev.cpu().numpy()
+            drafts = dmat.cpu().numpy()
         now = time.monotonic()
 
         drafted = accepted = 0
@@ -666,6 +1061,19 @@ class Engine:
             self._stats["spec_turns"] += 1
             self._stats["spec_tokens_drafted"] += drafted
             self._stats["spec_tokens_accepted"] += accepted
+            self._spec_window.append((now, drafted, accepted))
+            self._spec_window = [
+                x for x in self._spec_window
+                if now - x[0] <= self.SPEC_WINDOW_SECS]
+            if _tel.ENABLED:
+                _tel.counter("serving.spec_turns").inc()
+                _tel.counter("serving.spec_tokens_drafted").inc(drafted)
+                _tel.counter("serving.spec_tokens_accepted").inc(accepted)
+                h = _tel.histogram("serving.spec_accepted_tokens")
+                for i, r in enumerate(reqs):
+                    h.observe(min(int(n[i]), int(ks[i])))
+                _tel.histogram("serving.decode_batch_size").observe(B)
+                _tel.histogram("serving.decode_step_s").observe(now - t0)
 
     def _run_prefill(self, chunks):
         # context-parallel long prompts take their own path, off the
@@ -691,19 +1099,21 @@ class Engine:
             start[i] = cs
             chunk_len[i] = clen
         temp, tk, tp, sd = self._samp_arrays(reqs)
-        nxt = self.model.step(
-            self.params, self.pool.k, self.pool.v, tokens, start,
-            chunk_len, self._tables(reqs), np.ones((B,), bool),
-            temperature=temp, top_k=tk, top_p=tp, seed=sd)
+        with _tel.span("serve.prefill"):
+            nxt = self.model.step(
+                self.params, self.pool.k, self.pool.v, tokens, start,
+                chunk_len, self._tables(reqs), np.ones((B,), bool),
+                temperature=temp, top_k=tk, top_p=tp, seed=sd)
         if self.draft_model is not None:
             # mirror the chunk into the draft pool (same tokens and
             # positions, the draft's own tables) so draft KV stays
             # position-consistent with the target from admission on; the
             # mirror runs while speculation is toggled off too
-            self.draft_model.step(
-                self.draft_params, self.draft_pool.k, self.draft_pool.v,
-                tokens, start, chunk_len, self._draft_tables(reqs),
-                np.ones((B,), bool))
+            with _tel.span("serve.draft_prefill"):
+                self.draft_model.step(
+                    self.draft_params, self.draft_pool.k,
+                    self.draft_pool.v, tokens, start, chunk_len,
+                    self._draft_tables(reqs), np.ones((B,), bool))
         now = time.monotonic()
         with self._lock:
             for i, (req, cs, clen) in enumerate(batched):
@@ -712,8 +1122,11 @@ class Engine:
                 self.sched.note_prefilled(req, clen)
                 req.draft_pos = cs + clen
                 if req.state == DECODE:
-                    # the final prefill chunk's logits give the first
-                    # new token
+                    if req.prefill_done_t is None:  # first time only —
+                        req.prefill_done_t = now    # an eviction
+                    # re-prefill must not swallow the first decode phase
+                    # from the journaled lifecycle spans; the final
+                    # prefill chunk's logits give the first new token
                     self._emit(req, int(nxt[i]), now)
 
     def _cp_eligible(self, req):
@@ -725,10 +1138,11 @@ class Engine:
         """Whole-prompt context-parallel prefill over the mesh, then
         scatter the dense K/V into this request's pool blocks."""
         cfg = self.model_cfg
-        k, v, x_last = cp_prefill_kv(
-            self.params, cfg, req.context, self.cfg.mesh,
-            kind=self.cfg.cp_kind, chunk=self.cfg.cp_chunk,
-            seq_axis=self.cfg.cp_seq_axis)
+        with _tel.span("serve.cp_prefill"):
+            k, v, x_last = cp_prefill_kv(
+                self.params, cfg, req.context, self.cfg.mesh,
+                kind=self.cfg.cp_kind, chunk=self.cfg.cp_chunk,
+                seq_axis=self.cfg.cp_seq_axis)
         bs = self.cfg.block_size
         T = req.ctx_len
         nb = blocks_for_tokens(T, bs)
@@ -766,6 +1180,8 @@ class Engine:
                 return
             self.sched.note_prefilled(req, T - req.prefilled)
             req.draft_pos = T
+            if req.state == DECODE and req.prefill_done_t is None:
+                req.prefill_done_t = now
             self._emit(req, first, now)
 
     # -- per-token bookkeeping (under self._lock) ----------------------------
@@ -775,8 +1191,20 @@ class Engine:
         if req.first_token_t is None:
             req.first_token_t = now
             self._ttfts.append(now - req.submit_t)
+            if _tel.ENABLED:
+                _tel.histogram("serving.ttft_s").observe(now - req.submit_t)
+            if now <= self._sync_mark_until:
+                # TTFT landed inside a weight-sync window: the
+                # degradation signal a sync is judged by
+                self._sync_ttfts.append(now - req.submit_t)
+                if _tel.ENABLED:
+                    _tel.histogram("serving.ttft_sync_s").observe(
+                        now - req.submit_t)
         if req.last_token_t is not None:
             self._token_lats.append(now - req.last_token_t)
+            if _tel.ENABLED:
+                _tel.histogram("serving.token_latency_s").observe(
+                    now - req.last_token_t)
         req.last_token_t = now
         self._stats["tokens_emitted"] += 1
         self._rate_window.append((now, self._stats["tokens_emitted"]))
@@ -790,13 +1218,38 @@ class Engine:
         if done:
             req.finish_t = now
             self.sched.finish(req)
+            self._trace_request(req, "complete", now)
             self._mirror_events()
             if stream is not None:
                 stream._end("finished")
 
+    def _trace_request(self, req, status, now):
+        """Journal the request's lifecycle as spans sharing its trace id
+        (submit already landed at intake), re-anchored from the
+        monotonic stamps to the submit wall clock."""
+        if req.trace is None:
+            return
+
+        def w(mono):  # monotonic stamp -> journal wall clock
+            return req.wall0 + (mono - req.submit_t)
+
+        _tel.event("serve.request", t=req.wall0, dur=now - req.submit_t,
+                   trace=req.trace, rid=req.rid, status=status,
+                   tokens=len(req.generated), evictions=req.evictions)
+        if req.admit_t is not None:
+            _tel.event("serve.request.prefill", t=w(req.admit_t),
+                       dur=(req.prefill_done_t or now) - req.admit_t,
+                       trace=req.trace, rid=req.rid)
+        if req.prefill_done_t is not None:
+            _tel.event("serve.request.decode", t=w(req.prefill_done_t),
+                       dur=now - req.prefill_done_t,
+                       trace=req.trace, rid=req.rid)
+        _tel.event("serve.request.%s" % status, t=w(now),
+                   trace=req.trace, rid=req.rid)
+
     def _mirror_events(self):
-        """Fold scheduler event counts into stats and close out
-        cancelled streams."""
+        """Fold scheduler event counts into stats + mxtel counters,
+        close out cancelled streams, and latch the drained state."""
         mapping = {"admit": "admitted", "complete": "completed",
                    "evict": "evicted", "cancel": "cancelled"}
         for ev, stat in mapping.items():
@@ -805,16 +1258,22 @@ class Engine:
             if d:
                 self._stats[stat] += d
                 self._last_counts[ev] = n
+                if _tel.ENABLED:
+                    _tel.counter("serving.requests_%s" % stat).inc(d)
         for rid, req in list(self._by_rid.items()):
             if req.state == CANCELLED:
                 if req.stream is not None and req.stream.status == "running":
                     req.stream._end("cancelled")
+                self._trace_request(req, "cancel", time.monotonic())
                 del self._by_rid[rid]
             elif req.state == FINISHED:
                 del self._by_rid[rid]
+        self._check_drained_locked()
 
-    def _update_rate(self):
-        """tokens/s over a sliding 2 s window of emissions."""
+    def _update_gauges(self):
+        """tokens/s over a sliding 2 s window of emissions, and the
+        serving gauges."""
+        util = self.pool.utilization()
         now = time.monotonic()
         win = [x for x in self._rate_window if now - x[0] <= 2.0]
         self._rate_window = win
@@ -822,6 +1281,26 @@ class Engine:
         if len(win) >= 2 and win[-1][0] > win[0][0]:
             rate = (win[-1][1] - win[0][1]) / (win[-1][0] - win[0][0])
         self._last_rate = rate
+        if _tel.ENABLED:
+            _tel.gauge("serving.kv_pool_utilization").set(util)
+            _tel.gauge("serving.kv_pool_hwm_blocks").set(
+                self.pool.high_water_mark())
+            _tel.gauge("serving.tokens_per_s").set(rate)
+            _tel.gauge("serving.queue_depth").set(len(self.sched.queue))
+            if self._stats["spec_tokens_drafted"]:
+                _tel.gauge("serving.spec_accept_rate").set(
+                    self._stats["spec_tokens_accepted"]
+                    / float(self._stats["spec_tokens_drafted"]))
+
+    def note_idle(self):
+        """Mark the engine idle: the tokens/s gauge drops to zero
+        instead of freezing at its last in-flight value."""
+        with self._lock:
+            self._rate_window = []
+            self._last_rate = 0.0
+            if _tel.ENABLED:
+                _tel.gauge("serving.tokens_per_s").set(0.0)
+                _tel.gauge("serving.queue_depth").set(len(self.sched.queue))
 
     # -- reporting -----------------------------------------------------------
     def latency_samples(self):
@@ -830,7 +1309,8 @@ class Engine:
             return list(self._ttfts), list(self._token_lats)
 
     def stats(self):
-        """Plain-number serving metrics."""
+        """Plain-number mirror of the serving metrics (works with
+        telemetry off); the JAX package's keys plus ``cp_prefills``."""
         def pct(xs, q):
             if not xs:
                 return None
@@ -839,27 +1319,114 @@ class Engine:
         with self._lock:
             out = dict(self._stats)
             drafted = self._stats["spec_tokens_drafted"]
+            now = time.monotonic()
+            win = [x for x in self._spec_window
+                   if now - x[0] <= self.SPEC_WINDOW_SECS]
+            wd = sum(x[1] for x in win)
+            wa = sum(x[2] for x in win)
             out.update({
                 "spec_enabled": self.sched.spec_active(),
                 "spec_accept_rate": (
                     self._stats["spec_tokens_accepted"] / float(drafted)
                     if drafted else None),
+                # the actionable signal: accept rate over the last
+                # SPEC_WINDOW_SECS of turns (None when no recent turns)
+                "spec_window_drafted": wd,
+                "spec_window_accepted": wa,
+                "spec_accept_rate_window": (wa / float(wd) if wd
+                                            else None),
                 "kv_pool_utilization": self.pool.utilization(),
                 "kv_pool_hwm_blocks": self.pool.high_water_mark(),
                 "queue_depth": len(self.sched.queue),
                 "active": len(self.sched.active),
+                "draining": self._draining,
+                "drained": self._drained,
                 "tokens_per_s_window": self._last_rate,
+                "weight_version": self._weight_version,
+                "weight_ring": len(self._weight_ring),
                 "ttft_p50_s": pct(self._ttfts, 50),
                 "ttft_p99_s": pct(self._ttfts, 99),
+                "ttft_sync_p99_s": pct(self._sync_ttfts, 99),
                 "token_latency_p50_s": pct(self._token_lats, 50),
                 "token_latency_p99_s": pct(self._token_lats, 99),
             })
         return out
 
+    def introspect(self, event_tail=50):
+        """Live request table + pool state + scheduler event tail — the
+        /servingz endpoint's payload (telemetry/server.py): every queued
+        and active request with its state, progress, and trace id."""
+        now = time.monotonic()
+        with self._lock:
+            reqs = []
+            for req in list(self.sched.active) + list(self.sched.queue):
+                reqs.append({
+                    "rid": req.rid, "state": req.state,
+                    "trace": req.trace,
+                    "prompt_len": int(req.prompt.shape[0]),
+                    "ctx_len": req.ctx_len,
+                    "prefilled": req.prefilled,
+                    "generated": len(req.generated),
+                    "max_new_tokens": req.max_new_tokens,
+                    "blocks": len(req.blocks),
+                    "evictions": req.evictions,
+                    "age_s": (now - req.submit_t
+                              if req.submit_t is not None else None),
+                })
+            out = {
+                "policy": self.cfg.policy,
+                "draining": self._draining,
+                "drained": self._drained,
+                "spec": {
+                    "configured": self.draft_model is not None,
+                    "enabled": self.sched.spec_active(),
+                    "spec_k": self.sched.spec_k,
+                    "draft_pool_utilization": (
+                        self.draft_pool.utilization()
+                        if self.draft_pool is not None else None),
+                },
+                "wsync": {
+                    "version": self._weight_version,
+                    "ring": len(self._weight_ring),
+                    "syncing": self._wsync_sub is not None,
+                },
+                "requests": reqs,
+                "pool": {
+                    "capacity_blocks": self.pool.capacity,
+                    "free_blocks": self.pool.num_free,
+                    "utilization": self.pool.utilization(),
+                    "hwm_blocks": self.pool.high_water_mark(),
+                    "block_size": self.cfg.block_size,
+                },
+                # the event log is a bounded ring — this is the TAIL;
+                # events_total keeps the true count
+                "events": [list(e) for e in
+                           list(self.sched.events)[-event_tail:]],
+                "events_total": self.sched.events_total,
+            }
+        # stats() sorts the latency sample lists: in its own lock window
+        out["stats"] = self.stats()
+        return out
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
 
 def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_device(v, device) for v in tree)
-    return tree.to(device)
+    return _tree_map(lambda t: t.to(device), tree)

@@ -22,6 +22,19 @@ from mxnet_tpu_torch.serving import (Engine, PagedKVPool, QueueFullError,
                                      ServingConfig)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _unported_switches_off():
+    """The suite's conftest arms the JAX package's lock tracer and
+    compile verifier (``MXNET_ENGINE_VERIFY``, ``MXNET_JIT_VERIFY``) for
+    every test; the port has neither, and its Engine refuses those
+    switches, so its tests run with them unset."""
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("MXNET_ENGINE_VERIFY", "MXNET_JIT_VERIFY",
+                     "MXNET_PROF"):
+            mp.delenv(name, raising=False)
+        yield
+
+
 def _np_params(cfg, seed):
     """Params in the JAX package's layout and scales, made with numpy."""
     rng = np.random.RandomState(seed)

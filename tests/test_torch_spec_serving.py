@@ -47,6 +47,19 @@ SPEC = dict(POOL, spec=True, spec_k=3, token_budget=64)
 FILTERS = [(0.8, 0, 1.0), (1.3, 10, 1.0), (0.9, 0, 0.8), (1.0, 7, 0.9)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _unported_switches_off():
+    """The suite's conftest arms the JAX package's lock tracer and
+    compile verifier (``MXNET_ENGINE_VERIFY``, ``MXNET_JIT_VERIFY``) for
+    every test; the port has neither, and its Engine refuses those
+    switches, so its tests run with them unset."""
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("MXNET_ENGINE_VERIFY", "MXNET_JIT_VERIFY",
+                     "MXNET_PROF"):
+            mp.delenv(name, raising=False)
+        yield
+
+
 def _np_params(cfg, seed):
     """Params in the JAX package's layout and scales, made with numpy."""
     rng = np.random.RandomState(seed)
