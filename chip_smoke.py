@@ -257,9 +257,29 @@ Phases (any failure raises and the script exits non-zero):
    HTTP server: ``/metrics`` holds ``TELEMETRY_CATALOG``, ``/servingz``
    the live request table, every journal line parses, and one engine's
    decode step time with telemetry off and on;
-25. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
+25. the training guardian (``phase_guardian``, ``MXNET_GUARDIAN=1``):
+   (A) ResNet-50 at bench.py's configuration (batch 128, 224^2, bf16,
+   the s2d stem) through the scanned ``FeedForward.fit`` (K = 4): a
+   clean guarded fit bit-equal to the unguarded one from the same seed
+   (ms a step both ways: the sentinel's cost); ``grad.nan`` and
+   ``loss.spike`` armed once each, the guardian's counters equal to
+   ``GUARD_PREDICTED_II`` and every weight finite; three consecutive
+   poisoned steps rolling back, the restored state bit-equal to the
+   ring snapshot; (B) the same model through the per-batch
+   ``Module.fit``, a step whose every update draws ``grad.nan`` leaving
+   weights and momenta bit-equal;
+26. mxprof (``phase_mxprof``, ``MXNET_PROF=1`` with telemetry, a journal
+   and the HTTP server): the flagship Engine (the cp prefill, K2) and
+   leg A's fit; ``/profilez`` holds both paths' step breakdowns, every
+   program's analytic FLOPs and the derived MFU;
+   ``tools/torch_telemetry_report.py`` renders the journal; mxprof's
+   cost on decode tokens/s and the fit's ms a step;
+27. the guardian's vote (``phase_guardian_vote``): two gloo ranks on the
+   card through ``tools/torch_launch.py``, one rank's NaN gradient
+   making both skip;
+28. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
    main paths, error, times and bound;
-26. the last line: ``{"ok": true, "device": {...}}``.
+29. the last line: ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matrix products and cuDNN convolutions in every phase
 (set once in ``main``), so f32 work runs in full f32.
@@ -6736,6 +6756,574 @@ def phase_fleet(device="cuda", model_kw=FLAGSHIP, long_len=2048, new=48,
     return out
 
 
+# the training guardian and mxprof: legs A-D. ResNet-50 at
+# bench.py's configuration (batch 128, 224^2, bf16, the s2d stem) through
+# the scanned FeedForward.fit, K = GUARD_SCAN_K
+GUARD_SCAN_K = 4
+GUARD_BATCHES = 8        # an epoch; A(i) and leg C run 2 epochs
+# leg A(ii): one grad.nan (step 3) and one loss.spike (step 8, the last)
+# over 8 steps with MXNET_GUARDIAN_WARMUP=4 (the spike is the 7th
+# loss.spike draw: grad.nan's fire skips that step's)
+GUARD_SPEC_II = "grad.nan:error:skip=2:count=1;loss.spike:error:skip=6:count=1"
+GUARD_PREDICTED_II = {"nonfinite_steps": 1, "skipped_steps": 1,
+                      "anomaly_steps": 1, "rollbacks": 0, "steps": 8}
+# leg A(iii): MXNET_GUARDIAN_MAX_SKIPS (3) consecutive poisoned steps,
+# 5-7 of 8: the rollback to the ring's one snapshot (step 0)
+GUARD_SPEC_III = "grad.nan:error:skip=4:count=3"
+GUARD_PREDICTED_III = {"nonfinite_steps": 3, "skipped_steps": 3,
+                       "anomaly_steps": 0, "rollbacks": 1}
+GUARD_ENV = ("MXNET_GUARDIAN", "MXNET_GUARDIAN_WARMUP",
+             "MXNET_GUARDIAN_MAX_SKIPS", "MXNET_GUARDIAN_SNAPSHOT_STEPS",
+             "MXNET_GUARDIAN_GRADNORM_MAX", "MXNET_GUARDIAN_FF_BATCHES",
+             "MXNET_FAULT_SPEC", "MXNET_SCAN_TRAIN", "MXNET_TRAIN_SCAN_K",
+             "MXNET_COMPUTE_DTYPE", "MXNET_PROF", "MXNET_TELEMETRY",
+             "MXNET_TELEMETRY_JOURNAL", "MXNET_TELEMETRY_HTTP")
+
+
+def _host_params(params):
+    return {k: v._data.detach().to("cpu", copy=True)
+            for k, v in params.items()}
+
+
+def _bench_fit(device, x, y, batch, image, classes, epochs, env,
+               spec=None, on_trainer=None):
+    """One ``FeedForward(get_resnet(classes, 50, stem="s2d"),
+    compute_dtype="bfloat16").fit`` from seed 0 over ``x``/``y`` with the
+    scanned trainer, under ``env``; ``spec`` arms the fault points.
+    Returns (arg_params on the host, epoch seconds, the guardian or
+    None, K1 launches, the trainer)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import softmax as sm
+    from mxnet_tpu_torch.parallel import fit_trainer
+    from mxnet_tpu_torch.resilience import faults, guardian
+
+    guards, trainers = [], []
+    real_make, real_create = (fit_trainer.make_fit_trainer,
+                              guardian.TrainingGuardian.create)
+
+    def make(*a, **kw):
+        trainers.append(real_make(*a, **kw))
+        if on_trainer is not None:
+            on_trainer(trainers[-1])
+        return trainers[-1]
+
+    def create(cls, *a, **kw):
+        guards.append(real_create.__func__(cls, *a, **kw))
+        return guards[-1]
+
+    fit_trainer.make_fit_trainer = make
+    guardian.TrainingGuardian.create = classmethod(create)
+    faults.clear()
+    try:
+        with mock.patch.dict(os.environ):
+            for k in GUARD_ENV:
+                os.environ.pop(k, None)
+            os.environ["MXNET_TRAIN_SCAN_K"] = str(GUARD_SCAN_K)
+            os.environ.update(env)
+            if spec:
+                faults.inject(spec)
+            mx.random.seed(0)
+            model = mx.FeedForward(
+                mx.models.get_resnet(classes, 50, stem="s2d", image=image),
+                ctx=_ctx(device), num_epoch=epochs, learning_rate=0.05,
+                momentum=0.9, compute_dtype="bfloat16")
+            stamps = []
+
+            def on_epoch(*_):
+                _sync(device)
+                stamps.append(time.perf_counter())
+
+            _sync(device)
+            sm.fused_softmax.launches = 0
+            t0 = time.perf_counter()
+            model.fit(X=mx.io.NDArrayIter(x, y, batch_size=batch),
+                      eval_metric="acc", epoch_end_callback=on_epoch)
+            _sync(device)
+            launches = sm.fused_softmax.launches
+    finally:
+        faults.clear()
+        fit_trainer.make_fit_trainer = real_make
+        guardian.TrainingGuardian.create = real_create
+    if len(trainers) != 1:
+        raise AssertionError("the fit built %d scanned trainers"
+                             % len(trainers))
+    epoch_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    return (_host_params(model.arg_params), epoch_s, guards[0], launches,
+            trainers[0])
+
+
+def _chunk_ms(device, guard, x, y, batch, image, classes, reps=3):
+    """The sentinel's cost where it runs: one ``FitTrainer`` (bench
+    configuration, K = GUARD_SCAN_K) with ``MXNET_GUARDIAN`` = ``guard``,
+    a chunk staged on the device once, two warm ``run_chunk`` calls,
+    then ``reps`` timed: ms a step to return (dispatch) and to the
+    card's end."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import fit_trainer
+
+    K = GUARD_SCAN_K
+    sym = mx.models.get_resnet(classes, 50, stem="s2d", image=image)
+    shapes = {"data": (batch, 3, image, image), "softmax_label": (batch,)}
+    with mock.patch.dict(os.environ, MXNET_GUARDIAN=guard):
+        mx.random.seed(0)
+        exe = sym.simple_bind(_ctx(device), grad_req="null", **shapes)
+        init = mx.initializer.Xavier()
+        args = {}
+        for n, a in exe.arg_dict.items():
+            if n not in shapes:
+                init(n, a)
+                args[n] = a
+        opt = mx.optimizer.create("sgd", learning_rate=0.05, momentum=0.9,
+                                  rescale_grad=1.0 / batch)
+        tr = fit_trainer.make_fit_trainer(
+            sym, _ctx(device), shapes, opt, args, dict(exe.aux_dict),
+            sorted(args), compute_dtype="bfloat16")
+    staged = tr.stage_chunk([{"data": x[i * batch:(i + 1) * batch],
+                              "softmax_label": y[i * batch:(i + 1) * batch]}
+                             for i in range(K)])
+    for _ in range(2):
+        tr.run_chunk(staged)
+        _sync(device)
+    out = []
+    for _ in range(reps):
+        _sync(device)
+        t0 = time.perf_counter()
+        tr.run_chunk(staged)
+        t1 = time.perf_counter()
+        _sync(device)
+        out.append([1e3 * (t1 - t0) / K, 1e3 * (time.perf_counter() - t0) / K])
+    del tr, exe
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _guard_counts(g):
+    return {"nonfinite_steps": g.nonfinite_steps,
+            "skipped_steps": g.skipped_steps,
+            "anomaly_steps": g.anomaly_steps, "rollbacks": g.rollbacks,
+            "steps": g.step}
+
+
+def guardian_scanned(device="cuda", batch=128, image=224, classes=1000,
+                     n_batches=GUARD_BATCHES):
+    """Leg A: the guarded scanned fit. (i) clean: 2 epochs unguarded,
+    guarded, guarded, unguarded from seed 0, bit-equal weights, ms a step
+    of epoch 2 each; then the sentinel's cost in ``run_chunk`` alone
+    (:func:`_chunk_ms`, off, on, on, off); (ii) ``GUARD_SPEC_II``: the counters
+    equal ``GUARD_PREDICTED_II``, every weight finite; (iii)
+    ``GUARD_SPEC_III``: ``GUARD_PREDICTED_III``, and the trainer's state
+    right after the rollback bit-equal to the ring snapshot it
+    restored (parameters, optimizer states, aux)."""
+    import math
+
+    import torch
+
+    x, y = _resnet_inputs(batch, image, classes, n_batches, seed=0)
+    rec = {"leg": "A", "batch": batch, "image": image, "classes": classes,
+           "stem": "s2d", "compute_dtype": "bfloat16", "K": GUARD_SCAN_K,
+           "batches_an_epoch": n_batches}
+    runs = {"off": [], "on": []}
+    l_i = 0
+    for turn in ("off", "on", "on", "off"):
+        w, ep, g, k1, _ = _bench_fit(
+            device, x, y, batch, image, classes, 2,
+            {"MXNET_GUARDIAN": "1"} if turn == "on" else {})
+        runs[turn].append((w, ep, g))
+        l_i += k1
+    plain = runs["off"][0][0]
+    guarded, g1 = runs["on"][0][0], runs["on"][0][2]
+    unequal = sorted(k for k in plain if not torch.equal(plain[k],
+                                                         guarded[k]))
+    unequal += sorted(k for w, _, _ in runs["off"][1:] + runs["on"][1:]
+                      for k in plain if not torch.equal(plain[k], w[k]))
+    step_ms = {t: [1e3 * r[1][-1] / n_batches for r in runs[t]]
+               for t in runs}
+    chunk = {"off": [], "on": []}
+    for turn in ("off", "on", "on", "off"):
+        chunk[turn] += _chunk_ms(device, "1" if turn == "on" else "0", x, y,
+                                 batch, image, classes)
+    rec["i"] = {"bit_equal": not unequal, "unequal": unequal[:8],
+                "counters": _guard_counts(g1),
+                "guardian_off": all(r[2] is None for r in runs["off"]),
+                "fit_step_ms_epoch2": step_ms,
+                "fit_sentinel_ms_a_step": (sum(step_ms["on"])
+                                           - sum(step_ms["off"])) / 2,
+                "chunk_ms_a_step_dispatch_end": chunk,
+                "chunk_sentinel_ms_a_step": (
+                    sum(r[1] for r in chunk["on"])
+                    - sum(r[1] for r in chunk["off"])) / len(chunk["on"]),
+                "step_ms_epoch2_off": sum(step_ms["off"]) / 2}
+
+    w, _, g2, l_ii, _ = _bench_fit(
+        device, x, y, batch, image, classes, 1,
+        {"MXNET_GUARDIAN": "1", "MXNET_GUARDIAN_WARMUP": "4"},
+        spec=GUARD_SPEC_II)
+    nonfinite = sorted(k for k, v in w.items()
+                       if not torch.isfinite(v.float()).all())
+    rec["ii"] = {"spec": GUARD_SPEC_II, "counters": _guard_counts(g2),
+                 "predicted": GUARD_PREDICTED_II, "nonfinite": nonfinite}
+
+    restored = []
+
+    def on_trainer(tr):
+        real = tr.restore_state
+
+        def restore_state(snap):
+            real(snap)
+            host = tr.snapshot_state()
+            same = all(torch.equal(host["params"][k], v)
+                       for k, v in snap["params"].items())
+            same = same and all(torch.equal(a, b) for a, b in
+                                zip(host["aux"], snap["aux"]))
+            same = same and all(torch.equal(a, b) for sa, sb in
+                                zip(host["opt_states"], snap["opt_states"])
+                                for a, b in zip(sa, sb))
+            restored.append(same)
+
+        tr.restore_state = restore_state
+
+    w3, _, g3, l_iii, _ = _bench_fit(
+        device, x, y, batch, image, classes, 1, {"MXNET_GUARDIAN": "1"},
+        spec=GUARD_SPEC_III, on_trainer=on_trainer)
+    rec["iii"] = {"spec": GUARD_SPEC_III, "counters": _guard_counts(g3),
+                  "predicted": GUARD_PREDICTED_III,
+                  "restored_bit_equal": restored,
+                  "finite": all(torch.isfinite(v.float()).all().item()
+                                for v in w3.values())}
+    rec["softmax_launches"] = l_i + l_ii + l_iii
+    log(dict(phase="guardian_scanned", **rec))
+    if unequal:
+        raise AssertionError("leg A(i): the guarded fit's weights differ "
+                             "from the unguarded fit's: %s" % unequal[:8])
+    if not rec["i"]["guardian_off"] \
+            or rec["i"]["counters"]["skipped_steps"] \
+            or rec["i"]["counters"]["anomaly_steps"] \
+            or rec["i"]["counters"]["steps"] != 2 * n_batches:
+        raise AssertionError("leg A(i) counters: %r" % rec["i"])
+    got = {k: rec["ii"]["counters"][k] for k in GUARD_PREDICTED_II}
+    if got != GUARD_PREDICTED_II or nonfinite:
+        raise AssertionError("leg A(ii): counters %r, predicted %r; "
+                             "non-finite %r" % (got, GUARD_PREDICTED_II,
+                                                nonfinite))
+    got = {k: rec["iii"]["counters"][k] for k in GUARD_PREDICTED_III}
+    if got != GUARD_PREDICTED_III or restored != [True] \
+            or not rec["iii"]["finite"]:
+        raise AssertionError("leg A(iii): counters %r (predicted %r), "
+                             "restored bit-equal %r" % (
+                                 got, GUARD_PREDICTED_III, restored))
+    expected = (8 * n_batches + 2 * n_batches) if device == "cuda" else 0
+    if rec["softmax_launches"] != expected:
+        raise AssertionError("leg A launched K1 %d times, expected %d"
+                             % (rec["softmax_launches"], expected))
+    if not all(math.isfinite(v) for t in step_ms.values() for v in t):
+        raise AssertionError("leg A(i) timing: %r" % rec["i"])
+    return rec
+
+
+def guardian_per_batch(device="cuda", batch=128, image=224, classes=1000,
+                       steps=3):
+    """Leg B: the same model (f32: the per-batch loop trains in the
+    parameters' dtype) through ``Module.fit`` with ``MXNET_SCAN_TRAIN=0``
+    and ``MXNET_GUARDIAN=1``: K1 through the executor once a step; every
+    parameter update of step 2 draws ``grad.nan`` (one draw an update),
+    and its weights and momenta after it are bit-equal to step 1's."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import softmax as sm
+    from mxnet_tpu_torch.resilience import faults
+
+    sym = mx.models.get_resnet(classes, 50, stem="s2d", image=image)
+    n_params = len([a for a in sym.list_arguments()
+                    if a not in ("data", "softmax_label")])
+    spec = "grad.nan:error:skip=%d:count=%d" % (n_params, n_params)
+    x, y = _resnet_inputs(batch, image, classes, steps, seed=1)
+    after, moms = [], []
+    with mock.patch.dict(os.environ):
+        for k in GUARD_ENV:
+            os.environ.pop(k, None)
+        os.environ.update(MXNET_SCAN_TRAIN="0", MXNET_GUARDIAN="1")
+        faults.clear()
+        faults.inject(spec)
+        try:
+            mx.random.seed(0)
+            mod = mx.module.Module(sym, context=_ctx(device))
+
+            def on_batch(param):
+                args, _ = mod.get_params()
+                after.append(_host_params(args))
+                moms.append({i: s._data.detach().to("cpu", copy=True)
+                             for i, s in mod._updater.states.items()})
+
+            _sync(device)
+            sm.fused_softmax.launches = 0
+            t0 = time.perf_counter()
+            mod.fit(mx.io.NDArrayIter(x, y, batch_size=batch),
+                    num_epoch=1, eval_metric="acc",
+                    batch_end_callback=on_batch,
+                    optimizer_params={"learning_rate": 0.05,
+                                      "momentum": 0.9})
+            _sync(device)
+            wall = time.perf_counter() - t0
+            launches = sm.fused_softmax.launches
+        finally:
+            faults.clear()
+    moved = sorted(k for k in after[0]
+                   if not torch.equal(after[0][k], after[1][k]))
+    mom_moved = sorted(i for i in moms[0]
+                       if not torch.equal(moms[0][i], moms[1][i]))
+    changed3 = sum(not torch.equal(after[1][k], after[2][k])
+                   for k in after[1])
+    rec = {"leg": "B", "batch": batch, "image": image, "steps": steps,
+           "params": n_params, "spec": spec, "wall_s": wall,
+           "step2_params_moved": moved[:8], "step2_momenta_moved":
+           mom_moved[:8], "step3_params_changed": changed3,
+           "softmax_launches": launches}
+    log(dict(phase="guardian_per_batch", **rec))
+    if moved or mom_moved:
+        raise AssertionError("leg B: step 2's poisoned update landed on "
+                             "%r / momenta %r" % (moved[:8], mom_moved[:8]))
+    if not changed3:
+        raise AssertionError("leg B: step 3 did not update")
+    if launches != (steps if device == "cuda" else 0):
+        raise AssertionError("leg B launched K1 %d times, expected %d"
+                             % (launches, steps))
+    return rec
+
+
+def phase_guardian(device="cuda", **kw):
+    """Legs A and B (the guardian on the scanned and per-batch fits)."""
+    return {"A": guardian_scanned(device, **kw),
+            "B": guardian_per_batch(device, **{
+                k: v for k, v in kw.items() if k != "n_batches"})}
+
+
+def phase_mxprof(device="cuda", model_kw=FLAGSHIP, long_len=2048, new=16,
+                 batch=128, image=224, classes=1000,
+                 n_batches=GUARD_BATCHES, fit_off=None):
+    """Leg C: MXNET_PROF=1 and MXNET_TELEMETRY=1 with the HTTP server
+    and a journal. The flagship serving Engine (phase_serving's: two
+    ``long_len`` prompts through the Ulysses cp prefill, K2 once a layer
+    each, and two short ones) serves its prompts with prof off and then
+    on (the first prof-on pass attributes each bucket's program, the
+    second is timed and counted); then leg A's unguarded bench fit for 2
+    epochs with prof on.
+    ``/profilez`` must hold the ``serve.decode``, ``serve.prefill`` and
+    ``train.scanned`` step breakdowns, every program its analytic FLOPs,
+    and a derived MFU; ``tools/torch_telemetry_report.py`` renders the
+    journal (exit 0, the profiling section). mxprof's cost, telemetry on
+    throughout: the median decode step of 8 short requests with prof
+    off, on, on, off; the fit's ms a step against ``fit_off`` (leg
+    A(i)'s unguarded epoch 2)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import telemetry as tel
+    from mxnet_tpu_torch.models.transformer import (TransformerConfig,
+                                                    init_params)
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.parallel import create_mesh
+    from mxnet_tpu_torch.serving import Engine, ServingConfig
+
+    cfg = TransformerConfig(**model_kw)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    mesh = create_mesh((1,), ("seq",), devices=[device])
+    scfg = ServingConfig(mesh=mesh, cp_kind="ulysses",
+                         cp_min_tokens=long_len, block_size=16,
+                         num_blocks=512, max_batch=8, prefill_chunk=64)
+    eng = Engine(params, cfg, scfg, device=device)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (long_len, long_len, 5, 37)]
+
+    def serve():
+        _sync(device)
+        t = time.perf_counter()
+        outs = eng.generate(prompts, max_new_tokens=new)
+        _sync(device)
+        return sum(len(s) for s in outs) / (time.perf_counter() - t)
+
+    def decode_ms(steps_new=32):
+        hs = [eng.submit(np.arange(3 + i, 40 + i, dtype=np.int32)
+                         % cfg.vocab_size, max_new_tokens=steps_new)
+              for i in range(8)]
+        eng.step()   # the prefill
+        times = []
+        while True:
+            t = time.perf_counter()
+            if not eng.step():
+                break
+            times.append(time.perf_counter() - t)
+        for h in hs:
+            h.result(timeout=60)
+        return 1e3 * float(np.median(times))
+
+    def prof_switch(on):
+        if on:
+            os.environ["MXNET_PROF"] = "1"
+        else:
+            os.environ.pop("MXNET_PROF", None)
+        tel.prof.reload()
+
+    serve()                      # warm
+    decode_ms()
+    tps_off = serve()
+    tmp = tempfile.mkdtemp(prefix="mxprof_")
+    journal = os.path.join(tmp, "journal.jsonl")
+    x, y = _resnet_inputs(batch, image, classes, n_batches, seed=0)
+    env = {"MXNET_PROF": "1", "MXNET_TELEMETRY": "1",
+           "MXNET_TELEMETRY_JOURNAL": journal,
+           "MXNET_TELEMETRY_HTTP": "127.0.0.1:0"}
+    with mock.patch.dict(os.environ, env):
+        tel.reset()
+        tel.reload()
+        try:
+            port = tel.server.port()
+            decode = {}
+            prof_switch(False)
+            decode["off_1"] = decode_ms()
+            prof_switch(True)
+            serve()     # each bucket's first step is attributed, not timed
+            decode_ms()
+            decode["on_1"] = decode_ms()
+            _sync(device)
+            fa.flash_attention.launches = 0
+            tps_on = serve()
+            k2 = fa.flash_attention.launches
+            decode["on_2"] = decode_ms()
+            prof_switch(False)
+            decode["off_2"] = decode_ms()
+            prof_switch(True)
+            _, fit_s, _, k1, _ = _bench_fit(device, x, y, batch, image,
+                                            classes, 2, env)
+            code, body = _http_get(port, "/profilez")
+            tel.flush(mark="exit")
+        finally:
+            tel.reset()
+    tel.reload()    # the environment restored: prof and telemetry off
+    del eng
+    prof = json.loads(body)
+    steps = prof["steps"]
+    report = subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tools", "torch_telemetry_report.py"),
+         journal], capture_output=True, text=True, timeout=120)
+    rec = {"leg": "C", "profilez_status": code,
+           "paths": {p: {k: s[k] for k in ("count", "batches", "total_s",
+                                            "phase_share", "bound",
+                                            "bound_votes")}
+                     for p, s in steps.items()},
+           "programs": [{k: r.get(k) for k in ("site", "flops", "calls",
+                                               "device_secs", "memory")}
+                        for r in prof["programs"]],
+           "derived": prof["derived"], "hbm": prof["hbm"],
+           "config_key": prof["config_key"],
+           "serve_tokens_per_s_telemetry_prof_off": tps_off,
+           "serve_tokens_per_s_telemetry_prof_on": tps_on,
+           "decode_step_ms_telemetry_on": decode,
+           "fit_step_ms_epoch2_prof_on": 1e3 * fit_s[-1] / n_batches,
+           "fit_step_ms_epoch2_prof_off": fit_off,
+           "report_rc": report.returncode,
+           "report_profiling": "-- profiling (mxprof) --" in report.stdout,
+           "report_tail": report.stdout.split(
+               "-- profiling (mxprof) --")[-1][:1500],
+           "launches_k1": k1, "launches_k2": k2}
+    log(dict(phase="mxprof", **rec))
+    need = {"serve.decode", "serve.prefill", "train.scanned"}
+    if code != 200 or not need <= set(steps):
+        raise AssertionError("/profilez %d lacks %r" % (
+            code, sorted(need - set(steps))))
+    if not prof["programs"] or not all(
+            (r.get("flops") or 0) > 0 for r in prof["programs"]):
+        raise AssertionError("a program without analytic flops: %r"
+                             % rec["programs"])
+    if not prof["derived"].get("mfu"):
+        raise AssertionError("no derived MFU: %r" % prof["derived"])
+    if report.returncode != 0 or not rec["report_profiling"] \
+            or "train.scanned" not in rec["report_tail"]:
+        raise AssertionError("torch_telemetry_report: rc %d\n%s\n%s" % (
+            report.returncode, report.stdout[-2000:], report.stderr[-2000:]))
+    if device == "cuda" and (k2 != 2 * cfg.num_layers
+                             or k1 != 2 * n_batches):
+        raise AssertionError("leg C launched K2 %d times (expected %d), "
+                             "K1 %d (expected %d)" % (
+                                 k2, 2 * cfg.num_layers, k1, 2 * n_batches))
+    return rec
+
+
+def vote_worker(ctx, out_dir):
+    """One rank of leg D (its record written to ``out_dir/<rank>.json``): a ``dist_sync`` store and a TrainingGuardian
+    over it; four guarded steps whose gradient is NaN on rank 1 at step
+    1 and on rank 0 at step 2. Both ranks must skip steps 1 and 2 (the
+    vote is one all-reduce of the flag) and update at 0 and 3."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.resilience.guardian import TrainingGuardian
+
+    kv = mx.kvstore.create("dist_sync")
+    rank = kv.rank
+    dev = mx.gpu(0) if ctx == "gpu" else mx.cpu()
+    guard = TrainingGuardian(kvstore=kv)
+    updated, t0 = [], time.perf_counter()
+    for s in range(4):
+        g = np.full((1024, 1024), 0.01, np.float32)
+        if (s, rank) in ((1, 1), (2, 0)):
+            g[5, 5] = np.nan
+        grad = mx.nd.array(g, ctx=dev)
+        guard.guard_batch(lambda s=s: updated.append(s),
+                          grad_arrays_fn=lambda grad=grad: [grad])
+    with open(os.path.join(out_dir, "%d.json" % rank), "w") as f:
+        json.dump({"rank": rank, "world": kv.num_workers,
+                   "updated": updated, "skipped_steps": guard.skipped_steps,
+                   "nonfinite_steps": guard.nonfinite_steps,
+                   "backend": mx.kvstore.backend(),
+                   "ms_a_step": 1e3 * (time.perf_counter() - t0) / 4}, f)
+
+
+def phase_guardian_vote(device="cuda", workers=2):
+    """Leg D: :func:`vote_worker` on two gloo ranks through
+    ``tools/torch_launch.py`` on the one card (as ``phase_dist`` runs its
+    ranks): every rank updates at steps 0 and 3 only, skips 2 steps and
+    counts its own non-finite step."""
+    import tempfile
+
+    ctx = "gpu" if device == "cuda" else "cpu"
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = tempfile.mkdtemp(prefix="guardian_vote_")
+    cmd = [sys.executable, "-c",
+           "import chip_smoke; chip_smoke.vote_worker(%r, %r)"
+           % (ctx, out_dir)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "tools", "torch_launch.py"),
+         "-n", str(workers), "--timeout", str(DIST_TIMEOUT - 30), "--"]
+        + cmd, cwd=root, capture_output=True, text=True,
+        timeout=DIST_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError("the vote ranks exited %d:\n%s\n%s" % (
+            proc.returncode, proc.stdout[-4000:], proc.stderr[-4000:]))
+    votes = []
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name)) as f:
+            votes.append(json.load(f))
+    rec = {"leg": "D", "workers": workers, "ranks": votes,
+           "wall_s": time.perf_counter() - t0}
+    log(dict(phase="guardian_vote", **rec))
+    if sorted(v["rank"] for v in votes) != list(range(workers)) or any(
+            v["updated"] != [0, 3] or v["skipped_steps"] != 2
+            or v["nonfinite_steps"] != 1 or v["world"] != workers
+            for v in votes):
+        raise AssertionError("leg D: %r" % votes)
+    return rec
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6849,6 +7437,13 @@ def main():
     _timed("dist", phase_dist)
     torch.cuda.empty_cache()
     fleet = _timed("fleet", phase_fleet)
+    torch.cuda.empty_cache()
+    guard = _timed("guardian", phase_guardian)
+    torch.cuda.empty_cache()
+    mxprof = _timed("mxprof", phase_mxprof, fit_off=guard["A"]["i"][
+        "step_ms_epoch2_off"])
+    torch.cuda.empty_cache()
+    _timed("guardian_vote", phase_guardian_vote)
     log({"phase_seconds": phase_s,
          "phases_total_s": sum(phase_s.values())})
     fwd_main = fwd_checks[-1]   # the training shape, the LM's views
@@ -6858,11 +7453,12 @@ def main():
         "source": "mxnet_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:93",
         "launches": (serving + serving_sampled + training["flash_fwd"]
-                     + sum(fleet["k2"].values())),
+                     + sum(fleet["k2"].values()) + mxprof["launches_k2"]),
         "launches_by_path": {"serving": serving,
                              "serving_sampled": serving_sampled,
                              "training": training["flash_fwd"],
-                             **fleet["k2"]},
+                             **fleet["k2"],
+                             "mxprof_serving": mxprof["launches_k2"]},
         "max_abs_err": max(c["max_abs_err"] for c in fwd_checks),
         "shape": fwd_main["shape"], "layout": fwd_main["layout"],
         "ms": fwd_main["ms"], "graph_ms": fwd_main["graph_ms"],
@@ -6921,7 +7517,10 @@ def main():
                      + predictor["softmax_launches"]
                      + predictor["exported_softmax_launches"]
                      + dp["softmax_launches"] + sum(dp_fits.values())
-                     + mp["softmax_launches"]),
+                     + mp["softmax_launches"]
+                     + guard["A"]["softmax_launches"]
+                     + guard["B"]["softmax_launches"]
+                     + mxprof["launches_k1"]),
         "launches_by_path": {"lenet_fit": lenet, "resnet50_fit": resnet,
                              "module": module,
                              "resnet50_module_fit": resnet_module,
@@ -6948,7 +7547,12 @@ def main():
                              **{"data_parallel_" + k: v
                                 for k, v in dp_fits.items()},
                              "lstm_model_parallel": mp[
-                                 "softmax_launches"]},
+                                 "softmax_launches"],
+                             "guardian_scanned": guard["A"][
+                                 "softmax_launches"],
+                             "guardian_per_batch": guard["B"][
+                                 "softmax_launches"],
+                             "mxprof_fit": mxprof["launches_k1"]},
         "max_abs_err": max(c["max_abs_err"] for c in softmax_checks),
         "max_err_to_limit": max(c["closeness"]["elem"]
                                 for c in softmax_checks),

@@ -73,7 +73,13 @@ on one card:
   ``telemetry`` (``MXNET_TELEMETRY=1``: counters, spans, a JSONL
   journal, ``/metrics`` and ``/servingz`` over HTTP), with the RPC wire
   (``elastic.protocol``) and the retry and fault-injection layer
-  (``resilience``) they stand on.
+  (``resilience``) they stand on;
+- the training guardian (``resilience.guardian``, ``MXNET_GUARDIAN=1``:
+  on-device sentinels in both fit loops, skip-steps, rollback, the
+  ``dist_sync`` vote) and mxprof (``telemetry.prof``, ``MXNET_PROF=1``:
+  analytic program costs, step breakdowns, MFU on ``/profilez``), with
+  the counters of the executor, the fits, the data layer, the kvstore
+  and the dependency engine.
 
 Entry points run on ``cuda:0`` unless given a device or context; without
 CUDA and without one they raise.

@@ -2,13 +2,16 @@
 
 Counterpart of ``mxnet_tpu/callback.py``: ``do_checkpoint`` (with
 rolling retention, ``keep_n``), ``log_train_metric``, ``Speedometer``
-and ``ProgressBar``, without the telemetry gauge.
+and ``ProgressBar``; ``Speedometer`` sets the ``train.samples_per_sec``
+gauge under ``MXNET_TELEMETRY=1``, as the JAX package's does.
 """
 from __future__ import annotations
 
 import logging
 import math
 import time
+
+from . import telemetry as _tel
 
 
 def do_checkpoint(prefix, period=1, keep_n=None):
@@ -71,6 +74,8 @@ class Speedometer:
                     self.tic = time.time()
                     return
                 speed = self.frequent * self.batch_size / elapsed
+                if _tel.ENABLED:
+                    _tel.gauge("train.samples_per_sec").set(speed)
                 if param.eval_metric is not None:
                     name_value = param.eval_metric.get_name_value()
                     for name, value in name_value:

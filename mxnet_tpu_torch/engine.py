@@ -19,8 +19,19 @@ Engine choice follows the reference env protocol (src/engine/engine.cc:13):
 MXNET_ENGINE_TYPE = ThreadedEngine | ThreadedEnginePerDevice (default) |
 NaiveEngine (the C++ engine running each op inline on the pushing
 thread). Worker count: MXNET_CPU_WORKER_NTHREADS. The compiler is
-``$CXX`` (default ``g++``). Not carried over: the verify/record trace
-(``MXNET_ENGINE_VERIFY``), fault injection and telemetry.
+``$CXX`` (default ``g++``).
+
+As in the JAX package (``mxnet_tpu/engine.py``): every task body fires
+the ``engine.task`` fault point first; ``MXNET_ENGINE_WAIT_TIMEOUT``
+(seconds, read at each wait) bounds ``wait_for_var``/``wait_for_all``
+and the exit drain, raising (at exit: logging) the pending-task dump
+(``pending_dump``: the native pending count, the queued and the
+in-flight tasks) instead of blocking forever; ``MXNET_ENGINE_INFO=1``
+logs each push; ``pending_snapshot`` feeds ``/enginez``. Telemetry
+(``MXNET_TELEMETRY=1``): ``engine.push_total``, ``engine.waits_total``,
+``engine.watchdog_fires_total``, the ``engine.task_secs`` histogram and
+the ``engine.queue_depth`` gauge. Not carried over: the verify/record
+trace (``MXNET_ENGINE_VERIFY``, ``analysis/engine_verify.py``).
 """
 from __future__ import annotations
 
@@ -32,9 +43,12 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
+from . import telemetry as _tel
 from .base import MXNetError
+from .resilience import faults as _faults
 
 __all__ = ["Engine", "get", "push", "wait_for_all", "BUILD_DIR"]
 
@@ -46,6 +60,21 @@ _CXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 _lib_lock = threading.Lock()
 _lib = None
+
+
+def _wait_timeout():
+    """MXNET_ENGINE_WAIT_TIMEOUT in seconds, or None when the watchdog
+    is off. Read per wait so an operator can arm it at any time."""
+    raw = os.environ.get("MXNET_ENGINE_WAIT_TIMEOUT", "").strip()
+    if not raw:
+        return None
+    try:
+        t = float(raw)
+    except ValueError:
+        raise MXNetError(
+            "MXNET_ENGINE_WAIT_TIMEOUT must be a number of seconds, "
+            "got %r" % raw)
+    return t if t > 0 else None
 
 
 def library_path(build_dir=None):
@@ -103,6 +132,8 @@ def _engine_lib():
         lib.EngineOprComplete.argtypes = [c.c_void_p]
         lib.EngineWaitForVar.argtypes = [c.c_void_p, c.c_void_p]
         lib.EngineWaitForAll.argtypes = [c.c_void_p]
+        lib.EnginePendingCount.restype = c.c_int64
+        lib.EnginePendingCount.argtypes = [c.c_void_p]
         lib.EngineLastError.restype = c.c_char_p
         lib.EngineLastError.argtypes = [c.c_void_p]
         _lib = lib
@@ -132,6 +163,9 @@ class Engine:
         if num_workers is None:
             num_workers = int(os.environ.get("MXNET_CPU_WORKER_NTHREADS", "0"))
         self.engine_type = engine_type
+        # MXNET_ENGINE_INFO: log each push (ref: threaded_engine.h:253)
+        self._verbose = os.environ.get("MXNET_ENGINE_INFO", "").strip() \
+            not in ("", "0", "false")
         threaded = 0 if engine_type == "NaiveEngine" else 1
         self._lib = _engine_lib()
         self._handle = ctypes.c_void_p(
@@ -141,21 +175,29 @@ class Engine:
         self._live_lock = threading.Lock()
         self._next_key = 1
         self._errors = []
+        # key -> fn name for ops dispatched to a worker but not yet
+        # completed (the wait watchdog's "in-flight" dump)
+        self._inflight = {}
         lib = self._lib
 
         def _trampoline(argp, token):
             key = argp  # void* cast back to the int key
             with self._live_lock:
                 fn, is_async = self._live.pop(key)
+                self._inflight[key] = getattr(fn, "__name__", None) or "fn"
+            t0 = time.monotonic() if _tel.ENABLED else 0.0
             if is_async:
                 called = [False]
 
-                def on_complete(_tok=token):
+                def on_complete(_tok=token, _key=key):
                     if not called[0]:
                         called[0] = True
+                        with self._live_lock:
+                            self._inflight.pop(_key, None)
                         lib.EngineOprComplete(_tok)
 
                 try:
+                    _faults.point("engine.task")
                     fn(on_complete)
                 except BaseException as e:  # surface on next wait()
                     with self._live_lock:
@@ -163,10 +205,19 @@ class Engine:
                     on_complete()
             else:
                 try:
+                    _faults.point("engine.task")
                     fn()
                 except BaseException as e:
                     with self._live_lock:
                         self._errors.append(e)
+                finally:
+                    with self._live_lock:
+                        self._inflight.pop(key, None)
+            if _tel.ENABLED:
+                # async latency covers fn's dispatch body (durability is
+                # on_complete's clock, which may outlive this frame)
+                _tel.histogram("engine.task_secs").observe(
+                    time.monotonic() - t0)
 
         self._trampoline = _ENGINE_FN(_trampoline)
 
@@ -240,6 +291,11 @@ class Engine:
 
     def _push(self, fn, const_vars, mutable_vars, priority, is_async):
         self._check_dup(const_vars, mutable_vars)
+        if self._verbose:
+            logging.info(
+                "engine: push %s const=%d mutable=%d priority=%d async=%s",
+                getattr(fn, "__name__", "fn"), len(const_vars),
+                len(mutable_vars), priority, is_async)
         with self._live_lock:
             handle = self._handle
         if handle is None:
@@ -247,6 +303,8 @@ class Engine:
         for v in list(const_vars) + list(mutable_vars):
             if not v._ptr:
                 raise MXNetError("engine variable used after delete_variable")
+        if _tel.ENABLED:
+            _tel.counter("engine.push_total").inc()
         with self._live_lock:
             key = self._next_key
             self._next_key += 1
@@ -259,6 +317,9 @@ class Engine:
         rc = self._lib.EnginePush(
             handle, self._trampoline, ctypes.c_void_p(key),
             c_arr, n_c, m_arr, n_m, priority, 0 if is_async else 1)
+        if _tel.ENABLED and rc == 0:
+            _tel.gauge("engine.queue_depth").set(
+                self._lib.EnginePendingCount(handle))
         if rc != 0:
             with self._live_lock:
                 self._live.pop(key, None)
@@ -267,18 +328,100 @@ class Engine:
 
     # -- sync ------------------------------------------------------------------
     def wait_for_var(self, var):
-        """ref: engine.h:166 WaitForVar."""
+        """ref: engine.h:166 WaitForVar. With MXNET_ENGINE_WAIT_TIMEOUT
+        set, a sentinel read op on the var bounds the wait: if it has
+        not run by the deadline, raise the pending-op dump instead of
+        blocking forever behind a task that never completes."""
+        if _tel.ENABLED:
+            _tel.counter("engine.waits_total").inc()
         h = self._handle_snapshot()
         if h is not None and var._ptr:
-            self._lib.EngineWaitForVar(h, var._ptr)
+            timeout = _wait_timeout()
+            if timeout is None:
+                self._lib.EngineWaitForVar(h, var._ptr)
+            else:
+                reached = threading.Event()
+
+                def __engine_wait_sentinel__():
+                    reached.set()
+
+                # an ordinary read push: runs once every op queued on
+                # the var before this wait has drained — WaitForVar's
+                # contract (ref: threaded_engine.cc:300)
+                self.push(__engine_wait_sentinel__, const_vars=[var],
+                          priority=1 << 20)
+                if not reached.wait(timeout):
+                    if _tel.ENABLED:
+                        _tel.counter("engine.watchdog_fires_total").inc()
+                    # a deferred task error is the likely ROOT CAUSE of
+                    # the wedge; surface it before the generic timeout
+                    self._raise_pending()
+                    raise MXNetError(
+                        "engine wait_for_var exceeded "
+                        "MXNET_ENGINE_WAIT_TIMEOUT=%gs\n%s"
+                        % (timeout, self.pending_dump()))
         self._raise_pending()
 
     def wait_for_all(self):
-        """ref: engine.h:170 WaitForAll."""
+        """ref: engine.h:170 WaitForAll. With MXNET_ENGINE_WAIT_TIMEOUT
+        set, polls the pending count with a deadline and raises the
+        pending-op dump instead of deadlocking."""
+        if _tel.ENABLED:
+            _tel.counter("engine.waits_total").inc()
         h = self._handle_snapshot()
         if h is not None:
-            self._lib.EngineWaitForAll(h)
+            timeout = _wait_timeout()
+            if timeout is None:
+                self._lib.EngineWaitForAll(h)
+            elif not self._poll_pending(h, timeout):
+                if _tel.ENABLED:
+                    _tel.counter("engine.watchdog_fires_total").inc()
+                self._raise_pending()  # root cause beats generic timeout
+                raise MXNetError(
+                    "engine wait_for_all exceeded "
+                    "MXNET_ENGINE_WAIT_TIMEOUT=%gs\n%s"
+                    % (timeout, self.pending_dump()))
         self._raise_pending()
+
+    def _poll_pending(self, h, timeout):
+        """Watchdog wait body: poll the native pending count until it
+        drains (True) or the deadline passes (False)."""
+        deadline = time.monotonic() + timeout
+        while self._lib.EnginePendingCount(h) > 0:
+            if time.monotonic() > deadline:
+                return False
+            time.sleep(0.002)
+        return True
+
+    def pending_count(self):
+        h = self._handle_snapshot()
+        if h is None:
+            return 0
+        return self._lib.EnginePendingCount(h)
+
+    def pending_snapshot(self):
+        """Structured pending-work snapshot: the native pending count
+        plus the queued (pushed, not yet dispatched) and in-flight
+        (dispatched, not yet completed) task names. The wait watchdog's
+        dump and ``/enginez`` both read this."""
+        with self._live_lock:
+            queued = [getattr(fn, "__name__", None) or "fn"
+                      for fn, _a in self._live.values()]
+            inflight = list(self._inflight.values())
+        return {"pending": self.pending_count(), "queued": queued,
+                "in_flight": inflight}
+
+    def pending_dump(self):
+        """Diagnostic text for the wait watchdog: how many ops the
+        native engine still counts pending, which tasks are queued and
+        which are in flight (dispatched, on_complete never called)."""
+        snap = self.pending_snapshot()
+        return "\n".join([
+            "pending ops: %d native; queued: %s; in-flight: %s"
+            % (snap["pending"], ", ".join(snap["queued"]) or "(none)",
+               ", ".join(snap["in_flight"]) or "(none)"),
+            "likely cause: an async task never invoked on_complete, or a "
+            "host task is blocked"])
 
     def _raise_pending(self):
         with self._live_lock:
@@ -298,16 +441,32 @@ class Engine:
 @atexit.register
 def _drain_at_exit():
     """Fence pending host tasks (async checkpoints etc.) at interpreter
-    exit; a swallowed worker-thread error must not vanish silently."""
+    exit; a swallowed worker-thread error must not vanish silently.
+    Honors MXNET_ENGINE_WAIT_TIMEOUT: a task wedged at exit logs the
+    pending-op dump instead of hanging interpreter shutdown forever."""
     e = Engine._instance
     if e is None or e._handle is None:
+        _tel.flush_at_exit()  # the journal's final flush rides this hook
         return
     try:
-        e._lib.EngineWaitForAll(e._handle)
+        timeout = _wait_timeout()
+        if timeout is None:
+            e._lib.EngineWaitForAll(e._handle)
+        elif not e._poll_pending(e._handle, timeout):
+            if _tel.ENABLED:
+                _tel.counter("engine.watchdog_fires_total").inc()
+            logging.error(
+                "engine: exit drain exceeded "
+                "MXNET_ENGINE_WAIT_TIMEOUT=%gs\n%s",
+                timeout, e.pending_dump())
     except Exception:
+        _tel.flush_at_exit()
         return
     for err in e._errors:
         logging.error("engine: pending task failed: %r", err)
+    # metrics recorded by tasks that completed during the drain are now
+    # final — flush them before the interpreter tears the journal down
+    _tel.flush_at_exit()
 
 
 def get():

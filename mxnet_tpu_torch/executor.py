@@ -106,23 +106,36 @@ order on ``torch.Tensor``s, and gradients come from ``torch.autograd``:
   complete. On the host every context is the one CPU device: there the
   contexts are bookkeeping and no copy happens.
 
-Not in this slice: profiling and the compile verifier.
+- Telemetry (``MXNET_TELEMETRY=1``): ``executor.forward_secs`` and
+  ``executor.backward_secs`` histograms of every call, and
+  ``executor.jit_builds_total`` counting the three entry points
+  (inference, training, training with gradients) a bind prepares, as
+  the JAX executor counts its three programs. mxprof (``MXNET_PROF=1``,
+  ``mxnet_tpu/executor.py:682-727``): each entry point's first call
+  records its analytic cost (``telemetry/prof.py``), keyed as the JAX
+  executor keys it, and its peak device memory; graphs with host ops
+  and model-parallel binds are not attributed, as in the JAX package.
+
+Not ported: the compile verifier.
 """
 from __future__ import annotations
 
 import math
 import os
 import re
+import time as _time
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import random as _random
+from . import telemetry as _tel
 from . import threefry
 from .base import (MXNetError, deterministic_grads, env_bool, env_int,
                    torch_dtype)
 from .context import Context
 from .ndarray import NDArray, _as_tensor, ones, zeros
+from .telemetry import prof as _prof
 
 __all__ = ["Executor"]
 
@@ -268,6 +281,14 @@ class Executor:
         self._outputs_nd = None
         self._graph = None       # (versions, output tensors, leaves, roots)
         self._grad_cache = None  # (versions, grads)
+        # mxprof: entry points attributed lazily at first dispatch
+        self._prof_done = set()
+        self._prof_analytic_memo = None
+        self._prof_ghash = None
+        if _tel.ENABLED and not self._hybrid:
+            # the JAX bind's three programs (fwd_infer, fwd_train,
+            # fwd_bwd): each bind prepares them afresh
+            _tel.counter("executor.jit_builds_total").inc(3)
         self._monitor_callback = None
 
     def _plan_release(self):
@@ -623,7 +644,71 @@ class Executor:
 
     def forward(self, is_train=False, **kwargs):
         """Run the graph; ``kwargs`` are written into the named argument
-        arrays first."""
+        arrays first. mxtel: per-call walltime lands in
+        ``executor.forward_secs``."""
+        if _prof.ENABLED:
+            tag = ("fwd_bwd" if is_train and self._grad_idx
+                   and all(self._head_no_grad)
+                   else "fwd_train" if is_train else "fwd_infer")
+            key = self._prof_attribute(tag)
+            if key is not None:
+                with _prof.measure_first_call(key, self._device):
+                    return self._timed_forward(is_train, **kwargs)
+        return self._timed_forward(is_train, **kwargs)
+
+    def _timed_forward(self, is_train, **kwargs):
+        if not _tel.ENABLED:
+            return self._forward_impl(is_train, **kwargs)
+        t0 = _time.monotonic()
+        try:
+            return self._forward_impl(is_train, **kwargs)
+        finally:
+            _tel.histogram("executor.forward_secs").observe(
+                _time.monotonic() - t0)
+
+    # -- mxprof attribution ----------------------------------------------------
+    def _prof_analytic(self):
+        """Analytic DAG cost for this bind (memoized)."""
+        if self._prof_analytic_memo is None:
+            try:
+                self._prof_analytic_memo = _prof.graph_cost(
+                    self._symbol,
+                    {n: a.shape for n, a in zip(self._arg_names,
+                                                self.arg_arrays)},
+                    {n: a._data.dtype for n, a in zip(self._arg_names,
+                                                      self.arg_arrays)})
+            except Exception:
+                self._prof_analytic_memo = {}
+        return self._prof_analytic_memo or None
+
+    def _prof_attribute(self, tag):
+        """Record entry point ``tag``'s cost on its first call (the
+        training-with-gradients one at ~3x the forward FLOPs); returns
+        its program key then, else None. Host-op graphs and
+        model-parallel binds are not attributed."""
+        if tag in self._prof_done or self._hybrid or self._multi_device \
+                or self.arg_arrays is None:
+            return None
+        self._prof_done.add(tag)
+        sig = ",".join(
+            "%s=%s:%s" % (n, "x".join(str(d) for d in a.shape),
+                          str(a._data.dtype).replace("torch.", ""))
+            for n, a in zip(self._arg_names, self.arg_arrays))
+        if self._prof_ghash is None:
+            self._prof_ghash = "%s|req=%s" % (
+                _prof.symbol_fingerprint(self._symbol), ",".join(self._reqs))
+        an = self._prof_analytic()
+        flops = None
+        if an:
+            flops = an["flops_train"] if tag == "fwd_bwd" else an["flops"]
+        key = "executor|%s|%s" % (tag, sig)
+        _prof.attribute_program(
+            key, self._forward_impl, site="executor.%s" % tag, analytic=an,
+            meta={"outputs": self._output_names}, graph_key=self._prof_ghash,
+            flops=flops)
+        return _prof.program_key_for(key, graph_key=self._prof_ghash)
+
+    def _forward_impl(self, is_train=False, **kwargs):
         if kwargs:
             arg_dict = self.arg_dict
             for k, v in kwargs.items():
@@ -652,7 +737,18 @@ class Executor:
 
     def backward(self, out_grads=None):
         """Gradients into ``grad_arrays`` per ``grad_req``; without
-        ``out_grads`` every head must be a loss op."""
+        ``out_grads`` every head must be a loss op. mxtel: per-call
+        walltime lands in ``executor.backward_secs``."""
+        if not _tel.ENABLED:
+            return self._backward_impl(out_grads)
+        t0 = _time.monotonic()
+        try:
+            return self._backward_impl(out_grads)
+        finally:
+            _tel.histogram("executor.backward_secs").observe(
+                _time.monotonic() - t0)
+
+    def _backward_impl(self, out_grads=None):
         if not self._grad_idx:
             return
         if out_grads is None:

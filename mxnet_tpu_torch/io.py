@@ -21,8 +21,12 @@ against libjpeg) is not carried over: the port has this one route.
 ``reset`` waits for the thread's batch in progress, so no batch crosses
 an epoch, and an error on the thread is raised to the consumer.
 ``NDArrayIter`` (and ``MNISTIter`` through it) shards by
-``num_parts``/``part_index`` as the JAX package's does. Not carried
-over: ``DataServiceIter`` (with ``data_service/``) and telemetry.
+``num_parts``/``part_index`` as the JAX package's does. Telemetry
+(``MXNET_TELEMETRY=1``): ``io.batch_fetch_secs`` for every batch of
+``NDArrayIter``, ``ImageRecordIter`` and ``PrefetchingIter`` (whose
+``io.prefetch_queue_depth`` gauge reads the queue before each get), as
+in the JAX package. Not carried over: ``DataServiceIter`` (with
+``data_service/``).
 """
 from __future__ import annotations
 
@@ -32,9 +36,11 @@ import queue as _queue
 import re as _re
 import struct
 import threading
+import time as _time
 
 import numpy as _np
 
+from . import telemetry as _tel
 from .base import MXNetError
 from .context import cpu
 from .ndarray import NDArray, array
@@ -265,6 +271,15 @@ class NDArrayIter(DataIter):
         return self.cursor < self.num_data
 
     def next(self):
+        if not _tel.ENABLED:
+            return self._next_impl()
+        t0 = _time.monotonic()
+        batch = self._next_impl()  # StopIteration is not a fetch
+        _tel.histogram("io.batch_fetch_secs").observe(
+            _time.monotonic() - t0)
+        return batch
+
+    def _next_impl(self):
         if self.iter_next():
             return DataBatch(
                 data=self.getdata(), label=self.getlabel(),
@@ -494,7 +509,16 @@ class PrefetchingIter(DataIter):
         self._start()
 
     def _fetch(self):
-        batches = self._queue.get()
+        if _tel.ENABLED:
+            # occupancy BEFORE the get: depth==0 means the consumer is
+            # about to stall on the producer
+            _tel.gauge("io.prefetch_queue_depth").set(self._queue.qsize())
+            t0 = _time.monotonic()
+            batches = self._queue.get()
+            _tel.histogram("io.batch_fetch_secs").observe(
+                _time.monotonic() - t0)
+        else:
+            batches = self._queue.get()
         if batches is None:
             self._queue.put(None)   # StopIteration again until reset
             return None
@@ -746,6 +770,15 @@ class ImageRecordIter(DataIter):
         return arr, label
 
     def next(self):
+        if not _tel.ENABLED:
+            return self._next_impl()
+        t0 = _time.monotonic()
+        batch = self._next_impl()
+        _tel.histogram("io.batch_fetch_secs").observe(
+            _time.monotonic() - t0)
+        return batch
+
+    def _next_impl(self):
         if not self.iter_next():
             raise StopIteration
         recs = [self._records[self._order[self.cursor + i]]

@@ -40,24 +40,35 @@ tensors on the cards, gloo for host tensors), and rank ``r`` works on
 through host memory here. A failed init raises; nothing retries with
 another backend. ``backend()`` says which one ran.
 
+``guardian_vote`` is the training guardian's group skip verdict: the
+local verdict on one process, and on ``dist_sync`` in several processes
+one all-reduce (max) of the flag over the process group, so a step
+poisoned on any rank is skipped on every rank. Telemetry
+(``MXNET_TELEMETRY=1``) counts as the JAX package's store does:
+``kvstore.push_total``/``push_bytes_total``, ``pull_total``/
+``pull_bytes_total``, ``wire_bytes_total``/``logical_bytes_total`` and
+the ``compression_ratio`` gauge of the fused all-reduces (1.0: no
+quantized wire), and the ``barrier_wait_secs`` histogram.
+
 Not ported, each raising ``MXNetError`` where the port meets it: the
 asynchronous dist server (``dist_async`` in several processes warns and
 keeps synchronous semantics, as the JAX package does without its
-transport), the elastic store (``MXNET_KV_ELASTIC``), the sharded update
-(``MXNET_KV_SHARD_UPDATE``), the quantized wire (``MXNET_KV_QUANTIZE``),
-heartbeats and their readers (``dead_ranks``, ``guardian_vote``,
-``MXNET_KV_BARRIER_TIMEOUT``) and the store's telemetry counters
-(``MXNET_TELEMETRY``).
+transport), the elastic store (``MXNET_KV_ELASTIC``, and with it its
+vote), the sharded update (``MXNET_KV_SHARD_UPDATE``), the quantized
+wire (``MXNET_KV_QUANTIZE``), heartbeats and their readers
+(``dead_ranks``, ``MXNET_KV_BARRIER_TIMEOUT``).
 """
 from __future__ import annotations
 
 import os
 import pickle
+import time
 import warnings
 from datetime import timedelta
 
 import torch
 
+from . import telemetry as _tel
 from .base import MXNetError
 from .ndarray import NDArray
 
@@ -79,6 +90,12 @@ _UNPORTED_DIST_KNOBS = (
     ("MXNET_KV_QUANTIZE", "the quantized wire"),
     ("MXNET_KV_BARRIER_TIMEOUT", "barrier deadlines over heartbeats"),
 )
+
+
+def _nd_bytes(arr):
+    """Payload size of one NDArray (telemetry byte counters)."""
+    t = arr._data
+    return t.numel() * t.element_size()
 
 
 def _env_on(name):
@@ -191,6 +208,10 @@ class KVStore:
             if k not in self._store:
                 raise MXNetError("key %s has not been inited" % k)
             merged_list.append(self._reduce(grouped[k]))
+        if _tel.ENABLED:
+            _tel.counter("kvstore.push_total").inc()
+            _tel.counter("kvstore.push_bytes_total").inc(
+                sum(_nd_bytes(m) for m in merged_list))
         merged_list = self._global_reduce_many(merged_list)
         for k, merged in zip(order, merged_list):
             stored = self._store[k]
@@ -211,6 +232,12 @@ class KVStore:
                 raise MXNetError("key %s has not been inited" % k)
             for t in (o if isinstance(o, (list, tuple)) else [o]):
                 self._store[k].copyto(t)
+        if _tel.ENABLED:
+            _tel.counter("kvstore.pull_total").inc()
+            _tel.counter("kvstore.pull_bytes_total").inc(sum(
+                _nd_bytes(self._store[k])
+                * (len(o) if isinstance(o, (list, tuple)) else 1)
+                for k, o in zip(keys, outs)))
 
     @staticmethod
     def _reduce(vals):
@@ -269,6 +296,7 @@ class KVStore:
             else:
                 out[idx] = self._global_reduce(m)
         bucket_bytes = self._BUCKET_BYTES
+        logical_bytes = 0
         for idxs in groups.values():
             buckets, cur, cur_bytes = [], [], 0
             for idx in idxs:
@@ -288,13 +316,29 @@ class KVStore:
                 flat = torch.cat([p._data.float().reshape(-1)
                                   for p in parts])
                 self._all_reduce(flat)
+                logical_bytes += flat.numel() * 4
                 off = 0
                 for i, p in zip(bucket, parts):
                     n = p._data.numel()
                     piece = flat[off:off + n].reshape(p._data.shape)
                     out[i] = NDArray(piece.to(p._data.dtype), p.context)
                     off += n
+        if _tel.ENABLED and logical_bytes:
+            self._account_wire(logical_bytes, logical_bytes)
         return out
+
+    def _account_wire(self, wire, logical):
+        """Fold one transfer into the ``kvstore.wire_bytes_total`` /
+        ``kvstore.logical_bytes_total`` counters and the running
+        ``kvstore.compression_ratio`` gauge (the JAX package's
+        ``_account_wire``; the port's wire is never quantized)."""
+        self._wire_total = getattr(self, "_wire_total", 0) + int(wire)
+        self._logical_total = getattr(self, "_logical_total", 0) + \
+            int(logical)
+        _tel.counter("kvstore.wire_bytes_total").inc(int(wire))
+        _tel.counter("kvstore.logical_bytes_total").inc(int(logical))
+        _tel.gauge("kvstore.compression_ratio").set(
+            self._wire_total / float(self._logical_total))
 
     # -- optimizer/updater -----------------------------------------------------
     def set_optimizer(self, optimizer):
@@ -319,7 +363,15 @@ class KVStore:
         which gloo carries under either backend); a no-op in one."""
         self._barrier_count += 1
         if self._multi_process():
-            _dist().all_reduce(torch.zeros(1))
+            if _tel.ENABLED:
+                t0 = time.monotonic()
+                try:
+                    _dist().all_reduce(torch.zeros(1))
+                finally:
+                    _tel.histogram("kvstore.barrier_wait_secs").observe(
+                        time.monotonic() - t0)
+            else:
+                _dist().all_reduce(torch.zeros(1))
 
     def send_command_to_servers(self, head, body):
         """ref: kvstore.py:318. There are no server processes; head 0
@@ -343,8 +395,23 @@ class KVStore:
                          "ported")
 
     def guardian_vote(self, step, poisoned):
-        raise MXNetError("guardian_vote: the store's heartbeats and the "
-                         "training guardian are not ported")
+        """Group skip verdict for one optimizer step (the training-run
+        guardian's coordinated skip, ``mxnet_tpu/kvstore.py:783-835``).
+        True when ANY rank voted poisoned — every rank then skips the
+        same step, so replicas never diverge. A store of one process
+        answers with the local verdict; ``dist`` types in several
+        processes take one all-reduce (max) of the flag over the
+        process group, a host tensor, which gloo carries under either
+        backend. Every rank must call it once a step, as the JAX
+        package's rounds require. The elastic store, whose vote rides
+        its coordinator, is not ported: ``MXNET_KV_ELASTIC`` raises at
+        :func:`create`."""
+        if not self._multi_process():
+            return bool(poisoned)
+        dist = _dist()
+        flag = torch.tensor([1.0 if poisoned else 0.0])
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item() > 0)
 
     def save_optimizer_states(self, fname):
         assert self._optimizer is not None
@@ -383,9 +450,6 @@ def create(name="local"):
     if name not in _KNOWN:
         raise MXNetError("unknown KVStore type %s (known: %s)"
                          % (name, _KNOWN))
-    if _env_on("MXNET_TELEMETRY"):
-        raise MXNetError("MXNET_TELEMETRY: the kvstore's telemetry "
-                         "counters are not ported; unset it")
     if name.startswith("dist"):
         for knob, what in _UNPORTED_DIST_KNOBS:
             if _env_on(knob):

@@ -64,7 +64,20 @@ per-batch loop, with the monitor's taps) and ``work_load_list``.
 ``fit(resume=True)`` (or a prefix) restarts from the newest valid
 checkpoint of the prefix, as the JAX package's does.
 
-Not in this slice: the guardian, telemetry and mxprof.
+The training guardian (``MXNET_GUARDIAN=1``, ``resilience/guardian.py``)
+guards both loops as the JAX package's do (``model.py:141-278``,
+``:379-580``): the per-batch loop reads each step's verdict from the
+updater's device sentinel after the metric, the scanned loop from the
+chunk's per-step flags at its drain; a poisoned streak of
+``MXNET_GUARDIAN_MAX_SKIPS`` rolls back to the in-memory ring (weights,
+optimizer states, aux) or the newest checkpoint. ``save_checkpoint``
+fires the ``ckpt.write`` fault point between the temporary file and its
+rename. Telemetry (``MXNET_TELEMETRY=1``) gets the JAX package's
+``epoch``/``batch``/``chunk`` spans and the ``train.step_secs``
+histogram and ``train.samples_per_sec`` gauge of the per-batch loop;
+mxprof (``MXNET_PROF=1``) a ``step_breakdown`` record per batch
+(``train.batch``) or per chunk (``train.scanned``), the first call of a
+program left out.
 """
 from __future__ import annotations
 
@@ -78,8 +91,12 @@ from collections import namedtuple
 import numpy as _np
 import torch
 
+from . import telemetry as _tel
 from .base import MXNetError
 from .context import Context, cpu, current_context
+from .resilience import faults as _faults
+from .resilience import guardian as _guardian
+from .telemetry import prof as _prof
 from .ndarray import NDArray, array, load as nd_load, save as nd_save, zeros
 from . import io
 from . import metric as metric_mod
@@ -158,6 +175,12 @@ def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore):
         arg_list, grad_list = pair
         if grad_list[0] is None:
             continue
+        # grad.nan/loss.spike chaos points (no-op unless armed): only
+        # for a store with no in-process updater — one with an updater
+        # injects inside get_updater already
+        if getattr(kvstore, "_updater", None) is None:
+            grad_list = [g if g is None else _guardian.corrupt_grad(g)
+                         for g in grad_list]
         kvstore.push(index, grad_list, priority=-index)
         kvstore.pull(index, arg_list, priority=-index)
 
@@ -208,7 +231,50 @@ def _buffer_batch(data_batch, input_names):
     return dict(zip(input_names, arrs))
 
 
-def _scan_epoch(trainer, batches, epoch, K, drain):
+def _sync_event(device):
+    """A CUDA event recorded on ``device``'s current stream (None on
+    the host): the mxprof clock for when queued device work ends."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def _scan_flush(trainer, buf, epoch, nbatch0, guardian=None):
+    """Queue one K-batch chunk; returns the pending record drained
+    after the NEXT chunk is queued (shared by FeedForward's
+    ``_train_scanned`` and ``Module._try_scanned_fit``). The "chunk"
+    span covers staging + queueing. Guardian snapshots are captured
+    HERE, before the chunk mutates the trainer state: the state is then
+    the previous chunk's result, which the drain running alongside
+    verifies, and the payload joins the ring only after that
+    verification passes (``commit_snapshot``). Under mxprof the staging
+    is the host phase and ``run_chunk`` the dispatch phase; the drain
+    measures the device and D2H phases. A chunk whose program was
+    attributed on this call is not recorded."""
+    with _tel.span("chunk"):
+        snap = None
+        if guardian is not None and guardian.snapshot_due():
+            snap = trainer.snapshot_state()
+        if _prof.ENABLED:
+            n_attr = _prof.attribution_count()
+            t0 = time.monotonic()
+            staged = trainer.stage_chunk(buf)
+            t1 = time.monotonic()
+            outs = trainer.run_chunk(staged)
+            t2 = time.monotonic()
+            prof_ctx = (trainer.last_program_key, t1 - t0, t2 - t1,
+                        _sync_event(trainer._device)) \
+                if _prof.attribution_count() == n_attr else None
+        else:
+            outs = trainer.run_chunk(trainer.stage_chunk(buf))
+            prof_ctx = None
+        return (outs, trainer.take_step_flags(), snap, buf, epoch, nbatch0,
+                prof_ctx)
+
+
+def _scan_epoch(trainer, batches, epoch, K, drain, guardian=None):
     """Queue an epoch's batches K at a time (the tail a smaller chunk),
     each chunk drained after the next is queued (shared by the two
     scanned loops)."""
@@ -216,8 +282,8 @@ def _scan_epoch(trainer, batches, epoch, K, drain):
 
     def flush():
         nonlocal pending, buf
-        queued = (trainer.run_chunk(trainer.stage_chunk(buf)), buf, epoch,
-                  nbatch - len(buf))
+        queued = _scan_flush(trainer, buf, epoch, nbatch - len(buf),
+                             guardian=guardian)
         drain(pending)
         pending, buf = queued, []
 
@@ -229,45 +295,92 @@ def _scan_epoch(trainer, batches, epoch, K, drain):
     if buf:
         flush()
     drain(pending)
+    if guardian is not None:
+        guardian.end_epoch()  # no chunk in flight across the boundary
 
 
-def _host(t):
-    """A device output as a host numpy array (bf16 as f32, which numpy
-    lacks)."""
-    if t.dtype == torch.bfloat16:
-        t = t.float()
-    return t.cpu().numpy()
+def _host_pull(tensors):
+    """Device tensors as host numpy arrays (bf16 as f32, which numpy
+    lacks), with one synchronisation for all of them: on a card every
+    copy is queued without blocking and the stream is waited on once."""
+    tensors = [t.float() if t.dtype == torch.bfloat16 else t
+               for t in tensors]
+    dev = tensors[0].device if tensors else None
+    if dev is None or dev.type != "cuda":
+        return [t.cpu().numpy() for t in tensors]
+    host = [t.to("cpu", non_blocking=True) for t in tensors]
+    torch.cuda.current_stream(dev).synchronize()
+    return [h.numpy() for h in host]
 
 
 def _scan_drain(pending, eval_metric, label_names, batch_end_callback,
-                nbatch_base):
+                nbatch_base, guardian=None):
     """The metric and the per-batch callbacks of a queued chunk; the
-    copy of its outputs to the host is the chunk's one synchronisation.
-    ``nbatch_base``: FeedForward numbers batches from 1, Module from 0.
-    Accuracy needs only each sample's argmax, so a single [K, N, C] head
-    is reduced to [K, N] class ids on the card first."""
+    copy of its outputs (and of the guardian's per-step flags) to the
+    host is the chunk's one synchronisation. ``nbatch_base``:
+    FeedForward numbers batches from 1, Module from 0. Accuracy needs
+    only each sample's argmax, so a single [K, N, C] head is reduced to
+    [K, N] class ids on the card first. Returns the guardian's chunk
+    verdict ("ok"/"skip"/"rollback"; "ok" when unguarded) — the caller
+    owns acting on a rollback."""
     if pending is None:
-        return
-    outs, bufs, epoch, nbatch0 = pending
+        return "ok"
+    outs, flags, snap, bufs, epoch, nbatch0, prof_ctx = pending
+    if guardian is not None:
+        # the snapshot captured at this chunk's flush is the PREVIOUS
+        # chunk's result, verified by the drain that ran alongside that
+        # flush — commit it before accounting this chunk's flags
+        guardian.commit_snapshot(snap)
+    if prof_ctx is not None:
+        # device phase: how long the drain truly waits on the chunk's
+        # kernels (zero when the card finished while the host staged
+        # the next chunk)
+        td = time.monotonic()
+        if prof_ctx[3] is not None:
+            prof_ctx[3].synchronize()
+        t_device = time.monotonic() - td
+        td = time.monotonic()
     if (type(eval_metric) is metric_mod.Accuracy and len(outs) == 1
             and outs[0].dim() == 3):
-        host_outs = [outs[0].argmax(dim=-1).cpu().numpy()]
+        pulled = [outs[0].argmax(dim=-1)]
     else:
-        host_outs = [_host(o) for o in outs]
+        pulled = list(outs)
+    if flags is not None:
+        pulled += [flags[0], flags[1]]
+    host_outs = _host_pull(pulled)
+    if flags is not None:
+        host_outs, flags = host_outs[:-2], (host_outs[-2], host_outs[-1])
+    if prof_ctx is not None:
+        key, t_host, t_dispatch, _ev = prof_ctx
+        samples = None
+        if host_outs and getattr(host_outs[0], "ndim", 0) >= 2:
+            samples = int(host_outs[0].shape[0] * host_outs[0].shape[1])
+        _prof.note_step(
+            "train.scanned",
+            {"host": t_host, "dispatch": t_dispatch, "device": t_device,
+             "d2h": time.monotonic() - td},
+            key=key, batches=len(bufs), samples=samples)
+    losses = [] if guardian is not None else None
     for k, b in enumerate(bufs):
         labels = [NDArray(b[n], cpu()) for n in label_names]
         preds = [NDArray(h[k], cpu()) for h in host_outs]
         eval_metric.update(labels, preds)
+        if losses is not None:
+            losses.append(guardian.metric_step_loss())
         if batch_end_callback is not None:
             _multiple_callbacks(batch_end_callback, BatchEndParam(
                 epoch=epoch, nbatch=nbatch0 + k + nbatch_base,
                 eval_metric=eval_metric, locals=locals()))
+    if guardian is not None:
+        return guardian.drain_chunk(flags, losses)
+    return "ok"
 
 
 def _train_scanned(trainer, symbol, ctx0, param_names, aux_names, arg_params,
                    aux_params, begin_epoch, end_epoch, epoch_size, optimizer,
                    train_data, eval_data, eval_metric, epoch_end_callback,
-                   batch_end_callback, logger, eval_batch_end_callback, K):
+                   batch_end_callback, logger, eval_batch_end_callback, K,
+                   guardian=None):
     """The scanned single-device loop: the per-batch loop's metrics,
     callbacks (after their chunk) and epoch checkpoints, with the steps
     run K at a time by ``trainer``."""
@@ -275,8 +388,13 @@ def _train_scanned(trainer, symbol, ctx0, param_names, aux_names, arg_params,
     eval_exe = None
 
     def _drain(pending):
-        _scan_drain(pending, eval_metric, label_names, batch_end_callback,
-                    nbatch_base=1)
+        action = _scan_drain(pending, eval_metric, label_names,
+                             batch_end_callback, nbatch_base=1,
+                             guardian=guardian)
+        if guardian is not None and action == "rollback":
+            guardian.rollback(trainer.restore_state,
+                              disk_restore_fn=trainer.load_params,
+                              data_iter=train_data)
 
     def _epoch_batches(epoch):
         """The per-batch loop's epoch: ``epoch_size`` batches, resetting
@@ -300,7 +418,9 @@ def _train_scanned(trainer, symbol, ctx0, param_names, aux_names, arg_params,
     for epoch in range(begin_epoch, end_epoch):
         tic = time.time()
         eval_metric.reset()
-        _scan_epoch(trainer, _epoch_batches(epoch), epoch, K, _drain)
+        with _tel.span("epoch"):
+            _scan_epoch(trainer, _epoch_batches(epoch), epoch, K, _drain,
+                        guardian=guardian)
         logger.info("Epoch[%d] Time cost=%.3f", epoch, time.time() - tic)
         trainer.write_back(arg_params, aux_params, aux_names)
         _multiple_callbacks(epoch_end_callback, epoch, symbol, arg_params,
@@ -348,6 +468,14 @@ def _train_multi_device(symbol, ctx, arg_names, param_names, aux_names,
     the per-batch loop over every device."""
     if logger is None:
         logger = logging
+    # training-run guardian (MXNET_GUARDIAN=1): None when off — every
+    # hook below reduces to a None check
+    guard = _guardian.TrainingGuardian.create(
+        kvstore=kvstore, epoch_end_callback=epoch_end_callback, logger=logger)
+    if guard is not None:
+        if eval_metric is not None:
+            guard.attach_metric(eval_metric)  # loss-like metrics only
+        guard.attach_data_iter(train_data)
     K = _scan_k()
     scan_attempted = False
     if (K > 1 and len(ctx) == 1 and kvstore is None and not update_on_kvstore
@@ -376,7 +504,7 @@ def _train_multi_device(symbol, ctx, arg_names, param_names, aux_names,
                     arg_params, aux_params, begin_epoch, end_epoch,
                     epoch_size, optimizer, train_data, eval_data,
                     eval_metric, epoch_end_callback, batch_end_callback,
-                    logger, eval_batch_end_callback, K)
+                    logger, eval_batch_end_callback, K, guardian=guard)
             scan_attempted = True
     if compute_dtype is not None:
         # mixed precision rides the scanned trainer; the per-batch loop
@@ -391,7 +519,8 @@ def _train_multi_device(symbol, ctx, arg_names, param_names, aux_names,
                      epoch_size, optimizer, train_data, eval_data,
                      eval_metric, epoch_end_callback, batch_end_callback,
                      logger, eval_batch_end_callback, sym_gen,
-                     work_load_list, monitor, kvstore, update_on_kvstore)
+                     work_load_list, monitor, kvstore, update_on_kvstore,
+                     guard=guard)
 
 
 def _train_per_batch(symbol, ctx, arg_names, param_names, aux_names,
@@ -400,7 +529,7 @@ def _train_per_batch(symbol, ctx, arg_names, param_names, aux_names,
                      eval_metric, epoch_end_callback, batch_end_callback,
                      logger, eval_batch_end_callback, sym_gen,
                      work_load_list=None, monitor=None, kvstore=None,
-                     update_on_kvstore=False):
+                     update_on_kvstore=False, guard=None):
     """The per-batch training loop over the devices of ``ctx``
     (``mxnet_tpu/model.py:491-566``): gradients are summed and the
     weights updated through ``kvstore`` when it updates, else through
@@ -423,22 +552,123 @@ def _train_per_batch(symbol, ctx, arg_names, param_names, aux_names,
     if update_on_kvstore:
         kvstore.set_optimizer(optimizer)
 
+    # the updater whose device sentinel the guardian reads per step:
+    # the local closure, or the one kvstore.set_optimizer installed
+    guard_updater = None
+    if guard is not None:
+        guard_updater = getattr(kvstore, "_updater", None) \
+            if update_on_kvstore else updater
+
+    def _guard_snapshot():
+        executor_manager.copy_to(arg_params, aux_params)
+        return ({k: _guardian._host_copy(v) for k, v in arg_params.items()},
+                {k: _guardian._host_copy(v) for k, v in aux_params.items()},
+                _guardian.snapshot_updater_states(guard_updater))
+
+    def _guard_restore(payload):
+        args, auxs, opt_states = payload
+        for k, v in args.items():
+            arg_params[k][:] = v
+        for k, v in auxs.items():
+            aux_params[k][:] = v
+        executor_manager.set_params(arg_params, aux_params)
+        _guardian.restore_updater_states(guard_updater, opt_states)
+
+    def _guard_disk_restore(args, auxs):
+        for k, v in args.items():
+            if k in arg_params:
+                arg_params[k][:] = v
+        for k, v in auxs.items():
+            if k in aux_params:
+                aux_params[k][:] = v
+        executor_manager.set_params(arg_params, aux_params)
+        # no optimizer state in a .params checkpoint: drop the momenta
+        _guardian.zero_updater_states(guard_updater)
+
+    devices = sorted({c.torch_device for c in ctx}, key=str)
+
     def _train_one_batch(data_batch, epoch, nbatch, eval_metric):
+        """One optimizer step, in a "batch" span nested under the epoch
+        span; step walltime and samples/sec feed the train.* metrics."""
+        step_tic = time.monotonic() if _tel.ENABLED else 0.0
+        # mxprof: fenced sub-phase stamps — host input prep, fwd/bwd
+        # dispatch, the wait on the card, optimizer update, metric D2H
+        prof_t = {"update": 0.0, "d2h": 0.0} if _prof.ENABLED else None
+        n_attr = _prof.attribution_count() if prof_t is not None else 0
+
+        def _timed(fn, slot):
+            if prof_t is None:
+                return fn()
+            t = time.monotonic()
+            try:
+                return fn()
+            finally:
+                prof_t[slot] += time.monotonic() - t
+
+        t0 = time.monotonic() if prof_t is not None else 0.0
         executor_manager.load_data_batch(data_batch)
         if monitor is not None:
             monitor.tic()
+        t1 = time.monotonic() if prof_t is not None else 0.0
         executor_manager.forward(is_train=True)
         executor_manager.backward()
-        if update_on_kvstore:
-            _update_params_on_kvstore(executor_manager.param_arrays,
-                                      executor_manager.grad_arrays, kvstore)
+        if prof_t is not None:
+            t2 = time.monotonic()
+            prof_t["host"] = t1 - t0
+            prof_t["dispatch"] = t2 - t1
+            # device phase: the kernels are queued; without this wait
+            # their time would land in update/d2h and a compute-bound
+            # run would read host-bound (paid only under MXNET_PROF=1)
+            for dev in devices:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            prof_t["device"] = time.monotonic() - t2
+
+        def _do_update():
+            if update_on_kvstore:
+                _update_params_on_kvstore(executor_manager.param_arrays,
+                                          executor_manager.grad_arrays,
+                                          kvstore)
+            else:
+                _update_params(executor_manager.param_arrays,
+                               executor_manager.grad_arrays, updater=updater,
+                               num_device=len(ctx), kvstore=kvstore)
+
+        if guard is None:
+            _timed(_do_update, "update")
+            if monitor is not None:
+                monitor.toc_print()
+            _timed(lambda: executor_manager.update_metric(
+                eval_metric, data_batch.label), "d2h")
         else:
-            _update_params(executor_manager.param_arrays,
-                           executor_manager.grad_arrays, updater=updater,
-                           num_device=len(ctx), kvstore=kvstore)
-        if monitor is not None:
-            monitor.toc_print()
-        executor_manager.update_metric(eval_metric, data_batch.label)
+            # metric BEFORE the guarded update: outputs don't depend on
+            # it, and the guardian's loss feed reads this batch's delta
+            _timed(lambda: executor_manager.update_metric(
+                eval_metric, data_batch.label), "d2h")
+            action = _timed(lambda: guard.guard_batch(
+                _do_update,
+                grad_arrays_fn=lambda: [
+                    g[0] for g in executor_manager.grad_arrays
+                    if g and g[0] is not None],
+                updater=guard_updater), "update")
+            if action == "rollback":
+                guard.rollback(_guard_restore,
+                               disk_restore_fn=_guard_disk_restore,
+                               data_iter=train_data)
+            else:
+                guard.maybe_snapshot(_guard_snapshot)
+            if monitor is not None:
+                monitor.toc_print()
+        if prof_t is not None and _prof.attribution_count() == n_attr:
+            # a batch whose forward attributed a program is left out
+            _prof.note_step("train.batch", prof_t, batches=1,
+                            samples=train_data.batch_size)
+        if _tel.ENABLED:
+            dt = time.monotonic() - step_tic
+            _tel.histogram("train.step_secs").observe(dt)
+            if dt > 0:
+                _tel.gauge("train.samples_per_sec").set(
+                    train_data.batch_size / dt)
         if batch_end_callback is not None:
             batch_end_params = BatchEndParam(
                 epoch=epoch, nbatch=nbatch, eval_metric=eval_metric,
@@ -455,7 +685,8 @@ def _train_per_batch(symbol, ctx, arg_names, param_names, aux_names,
             do_reset = True
             for data_batch in train_data:
                 nbatch += 1
-                _train_one_batch(data_batch, epoch, nbatch, eval_metric)
+                with _tel.span("batch"):
+                    _train_one_batch(data_batch, epoch, nbatch, eval_metric)
                 if epoch_size is not None and nbatch >= epoch_size:
                     do_reset = False
                     break
@@ -489,7 +720,8 @@ def _train_per_batch(symbol, ctx, arg_names, param_names, aux_names,
 
     train_data.reset()
     for epoch in range(begin_epoch, end_epoch):
-        _train_one_epoch(epoch)
+        with _tel.span("epoch"):
+            _train_one_epoch(epoch)
 
 
 _ckpt_vars = {}  # prefix -> engine write-var serializing its checkpoints
@@ -515,6 +747,9 @@ def _write_params_atomic(param_name, save_dict):
         return
     tmp = "%s.tmp-%d" % (param_name, os.getpid())
     nd_save(tmp, save_dict)
+    # the injected crash window: tmp written, final name untouched —
+    # recovery must see the previous epoch, never a torn file
+    _faults.point("ckpt.write")
     with open(tmp, "rb") as f:
         os.fsync(f.fileno())
     os.replace(tmp, param_name)

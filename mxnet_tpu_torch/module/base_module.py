@@ -5,24 +5,22 @@ The port's copy of ``mxnet_tpu/module/base_module.py``. ``fit`` first
 offers the epochs to ``_try_scanned_fit`` (``Module``'s scanned path,
 ``parallel/fit_trainer.py``; other module kinds decline), else runs the
 per-batch loop (forward_backward, update, update_metric, the
-callbacks). Left out: the telemetry spans, and the training guardian;
-``MXNET_GUARDIAN=1`` raises rather than train unguarded.
+callbacks), under the JAX package's ``epoch``/``batch`` telemetry spans
+and ``train.*`` metrics. With ``MXNET_GUARDIAN=1`` both loops are
+guarded (``resilience/guardian.py``; the plumbing of
+``mxnet_tpu/module/base_module.py:208-241``, ``:274-323``): the metric
+first, then the guarded update, whose verdict the updater's device
+sentinel gives; a rollback restores weights, aux and optimizer states.
 """
 from __future__ import annotations
 
 import logging
-import os
 import time
 
-from ..base import MXNetError
 from .. import metric as metric_mod
+from .. import telemetry as _tel
 from ..model import BatchEndParam, _multiple_callbacks
-
-
-def _guardian_requested():
-    """``MXNET_GUARDIAN`` read as the JAX package reads it."""
-    return os.environ.get("MXNET_GUARDIAN", "0").strip().lower() not in (
-        "", "0", "false", "off", "no")
+from ..resilience import guardian as _guardian
 
 
 class BaseModule:
@@ -213,6 +211,41 @@ class BaseModule:
         loop unconditionally."""
         return False
 
+    # -- guardian plumbing -----------------------------------------------------
+    def _guardian_updater(self):
+        """The updater whose device sentinel carries this module's
+        per-step verdicts: the local one, or the kvstore-installed one."""
+        upd = getattr(self, "_updater", None)
+        if upd is not None:
+            return upd
+        kv = getattr(self, "_kvstore", None)
+        return getattr(kv, "_updater", None) if kv is not None else None
+
+    def _guardian_grads(self):
+        """First-device gradient NDArrays (vote-path stats); [] when the
+        module kind exposes no grad arrays."""
+        fn = getattr(self, "_grad_arrays", None)
+        if fn is None:
+            return []
+        return [g[0] for g in fn() if g and g[0] is not None]
+
+    def _guardian_snapshot(self):
+        arg_params, aux_params = self.get_params()
+        return ({k: _guardian._host_copy(v) for k, v in arg_params.items()},
+                {k: _guardian._host_copy(v) for k, v in aux_params.items()},
+                _guardian.snapshot_updater_states(self._guardian_updater()))
+
+    def _guardian_restore(self, payload):
+        args, auxs, opt_states = payload
+        self.set_params(args, auxs)
+        _guardian.restore_updater_states(self._guardian_updater(), opt_states)
+
+    def _guardian_disk_restore(self, args, auxs):
+        self.set_params(args, auxs)
+        # a .params checkpoint has no optimizer state; stale (possibly
+        # poisoned) momenta must not survive the rollback
+        _guardian.zero_updater_states(self._guardian_updater())
+
     def fit(self, train_data, eval_data=None, eval_metric="acc",
             epoch_end_callback=None, batch_end_callback=None, kvstore="local",
             optimizer="sgd", optimizer_params=(("learning_rate", 0.01),),
@@ -222,9 +255,6 @@ class BaseModule:
             begin_epoch=0, num_epoch=None, validation_metric=None, monitor=None):
         """ref: python/mxnet/module/base_module.py:275."""
         assert num_epoch is not None, "please specify number of epochs"
-        if _guardian_requested():
-            raise MXNetError("MXNET_GUARDIAN=1: the training guardian is "
-                             "not ported; unset it to train unguarded")
         from ..initializer import Uniform
 
         if initializer is None:
@@ -247,30 +277,70 @@ class BaseModule:
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
 
+        # training-run guardian (MXNET_GUARDIAN=1): non-finite sentinel,
+        # skip-steps, rollback-to-last-good — None when off
+        guard = _guardian.TrainingGuardian.create(
+            kvstore=getattr(self, "_kvstore", None),
+            epoch_end_callback=epoch_end_callback, logger=self.logger)
+        if guard is not None:
+            # loss z-score channel: live when the eval metric is
+            # loss-like (ce/perplexity/mse/...), inert for accuracy
+            guard.attach_metric(eval_metric)
+            guard.attach_data_iter(train_data)
+
         # the scanned path (parallel/fit_trainer.py): plain one-device
         # Module only; False falls through to the per-batch loop
         if self._try_scanned_fit(
                 train_data, eval_data, eval_metric, validation_metric,
                 epoch_end_callback, batch_end_callback, eval_end_callback,
-                eval_batch_end_callback, begin_epoch, num_epoch, monitor):
+                eval_batch_end_callback, begin_epoch, num_epoch, monitor,
+                guardian=guard):
             return
+
+        def _fit_one_batch(epoch, nbatch, data_batch):
+            step_tic = time.monotonic() if _tel.ENABLED else 0.0
+            if monitor is not None:
+                monitor.tic()
+            self.forward_backward(data_batch)
+            if guard is None:
+                self.update()
+                self.update_metric(eval_metric, data_batch.label)
+            else:
+                # metric BEFORE the guarded update: the outputs do not
+                # depend on the update, and the guardian's loss feed
+                # reads this batch's metric delta
+                self.update_metric(eval_metric, data_batch.label)
+                action = guard.guard_batch(
+                    self.update, grad_arrays_fn=self._guardian_grads,
+                    updater=self._guardian_updater())
+                if action == "rollback":
+                    guard.rollback(
+                        self._guardian_restore,
+                        disk_restore_fn=self._guardian_disk_restore,
+                        data_iter=train_data)
+                else:
+                    guard.maybe_snapshot(self._guardian_snapshot)
+            if monitor is not None:
+                monitor.toc_print()
+            if _tel.ENABLED:
+                dt = time.monotonic() - step_tic
+                _tel.histogram("train.step_secs").observe(dt)
+                if dt > 0 and getattr(train_data, "batch_size", 0):
+                    _tel.gauge("train.samples_per_sec").set(
+                        train_data.batch_size / dt)
+            if batch_end_callback is not None:
+                batch_end_params = BatchEndParam(
+                    epoch=epoch, nbatch=nbatch, eval_metric=eval_metric, locals=locals()
+                )
+                _multiple_callbacks(batch_end_callback, batch_end_params)
 
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
-            for nbatch, data_batch in enumerate(train_data):
-                if monitor is not None:
-                    monitor.tic()
-                self.forward_backward(data_batch)
-                self.update()
-                self.update_metric(eval_metric, data_batch.label)
-                if monitor is not None:
-                    monitor.toc_print()
-                if batch_end_callback is not None:
-                    batch_end_params = BatchEndParam(
-                        epoch=epoch, nbatch=nbatch, eval_metric=eval_metric, locals=locals()
-                    )
-                    _multiple_callbacks(batch_end_callback, batch_end_params)
+            with _tel.span("epoch"):
+                for nbatch, data_batch in enumerate(train_data):
+                    with _tel.span("batch"):
+                        _fit_one_batch(epoch, nbatch, data_batch)
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             toc = time.time()

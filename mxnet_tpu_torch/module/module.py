@@ -44,6 +44,7 @@ from ..context import Context, cpu, current_context
 from ..initializer import Uniform
 from ..ndarray import concatenate, zeros
 from .. import optimizer as opt
+from .. import telemetry as _tel
 from ..executor_manager import _split_input_slice
 from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
                      _update_params_on_kvstore)
@@ -456,7 +457,7 @@ class Module(BaseModule):
                          validation_metric, epoch_end_callback,
                          batch_end_callback, eval_end_callback,
                          eval_batch_end_callback, begin_epoch, num_epoch,
-                         monitor):
+                         monitor, guardian=None):
         """Run fit() as K-step chunks when eligible (the path FeedForward
         takes, ``model._train_scanned``): one device, no kvstore, a
         scannable optimizer, ``grad_req="write"``, no monitor. Per-batch
@@ -495,15 +496,22 @@ class Module(BaseModule):
         label_names = [_desc_name(d) for d in train_data.provide_label]
 
         def _drain(pending):
-            _scan_drain(pending, eval_metric, label_names,
-                        batch_end_callback, nbatch_base=0)
+            action = _scan_drain(pending, eval_metric, label_names,
+                                 batch_end_callback, nbatch_base=0,
+                                 guardian=guardian)
+            if guardian is not None and action == "rollback":
+                guardian.rollback(trainer.restore_state,
+                                  disk_restore_fn=trainer.load_params,
+                                  data_iter=train_data)
 
         self._scan_live = (trainer, arg_params, aux_params)
         try:
             for epoch in range(begin_epoch, num_epoch):
                 tic = _time.time()
                 eval_metric.reset()
-                _scan_epoch(trainer, train_data, epoch, K, _drain)
+                with _tel.span("epoch"):
+                    _scan_epoch(trainer, train_data, epoch, K, _drain,
+                                guardian=guardian)
                 for name, val in eval_metric.get_name_value():
                     self.logger.info("Epoch[%d] Train-%s=%f", epoch, name,
                                      val)

@@ -18,8 +18,9 @@ storage). Two notes:
   the scanned fit (``parallel/fit_trainer.py``) is the step's own count
   inside the chunk, since the trainer calls ``update`` once a step.
 
-``get_updater`` creates state lazily per index and has no fault
-injection or guardian.
+``get_updater`` creates state lazily per index, applies the
+``grad.nan``/``loss.spike`` fault points, and under ``MXNET_GUARDIAN=1``
+runs each update through the guardian's on-device sentinel.
 """
 from __future__ import annotations
 
@@ -376,16 +377,38 @@ class Test(Optimizer):
 create = Optimizer.create_optimizer
 
 
-def get_updater(optimizer):
+def get_updater(optimizer, inject_faults=True):
     """Closure ``updater(index, grad, weight)`` with per-index state,
-    created on the first update of each index."""
+    created on the first update of each index
+    (``mxnet_tpu/optimizer.py:368-409``).
+
+    With ``MXNET_GUARDIAN=1`` every update runs through the guardian's
+    on-device sentinel (``resilience/guardian.py``): a gradient with
+    NaN/Inf (or past ``MXNET_GUARDIAN_GRADNORM_MAX``) leaves the weight
+    and the optimizer state as they were, through ``torch.where`` on the
+    device, with no host synchronisation; the sentinel rides on
+    ``updater.sentinel`` for the training loop's per-step read. The
+    ``grad.nan``/``loss.spike`` fault points live here too, outside the
+    guardian switch (an unguarded run can be poisoned the same way);
+    ``inject_faults=False`` opts a secondary updater out of the draw.
+    ``updater.states`` is what the guardian's snapshots read."""
+    from .resilience import guardian as _guardian
+
     states = {}
+    sentinel = _guardian.updater_sentinel()  # None unless MXNET_GUARDIAN=1
 
     def updater(index, grad, weight):
         if index not in states:
             states[index] = optimizer.create_state(index, weight)
-        optimizer.update(index, weight, grad, states[index])
+        if inject_faults:
+            grad = _guardian.corrupt_grad(grad)  # no-op unless armed
+        if sentinel is None:
+            optimizer.update(index, weight, grad, states[index])
+        else:
+            sentinel.guarded_update(optimizer, index, weight, grad,
+                                    states[index])
 
+    updater.sentinel = sentinel
     updater.states = states
     return updater
 

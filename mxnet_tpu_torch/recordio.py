@@ -7,9 +7,10 @@ byte-identically: records framed as [kMagic u32][(cflag<<29)|len u32][data,
 
 mxnet_tpu_torch's copy of ``mxnet_tpu/recordio.py``: the same framing,
 index cache and ``corrupt`` policy, through one route, the Python reader
-and writer. Not carried over: the native reader and writer
-(``src/recordio.cc`` with its read-ahead thread), the fault-injection
-point and the telemetry counters.
+and writer. Reads fire the ``rio.read`` fault point; telemetry counts
+``io.records_skipped_total`` and ``io.record_index_corrupt_total``. Not
+carried over: the native reader and writer (``src/recordio.cc`` with
+its read-ahead thread).
 """
 from __future__ import annotations
 
@@ -19,7 +20,9 @@ import struct
 
 import numpy as _np
 
+from . import telemetry as _tel
 from .base import MXNetError
+from .resilience import faults as _faults
 
 __all__ = [
     "MXRecordIO", "MXIndexedRecordIO", "IRHeader", "pack", "unpack",
@@ -107,6 +110,8 @@ def _quarantine_index_cache(cache_path, why):
     """PR 6 tuning-db discipline: an undecodable sidecar is renamed
     aside (never deleted — it is evidence) and counted; the caller
     rebuilds from the authoritative .rec."""
+    if _tel.ENABLED:
+        _tel.counter("io.record_index_corrupt_total").inc()
     try:
         os.replace(cache_path, cache_path + ".corrupt")
     except OSError:
@@ -281,8 +286,11 @@ class MXRecordIO:
 
     def _note_skip(self):
         """Count one lost record (corrupt="skip" policy) in
-        ``num_skipped``."""
+        ``num_skipped`` and, when telemetry is on, in the process-wide
+        ``io.records_skipped_total`` counter."""
         self.num_skipped += 1
+        if _tel.ENABLED:
+            _tel.counter("io.records_skipped_total").inc()
 
     def _resync(self, from_pos):
         """corrupt="skip" recovery: scan forward from `from_pos` for the
@@ -312,6 +320,7 @@ class MXRecordIO:
 
     def read(self):
         assert not self.writable
+        _faults.point("rio.read")
         skip = self.corrupt == "skip"
         out = None  # accumulates multipart records (cflag 1..3)
         # resync can land on the continuation (cflag 2/3) of the record

@@ -55,12 +55,15 @@ the step lock between scheduled steps; ``rollback_weights`` restores
 the newest last-good ring entry. Off by default: no subscriber thread,
 no ring growth, no journal records.
 
+mxprof (``MXNET_PROF=1``, ``telemetry/prof.py``): the serving model's
+steps land ``serve.prefill``/``serve.decode`` step breakdowns, and a
+speculative turn ``serve.spec_draft`` and ``serve.spec_verify`` ones
+(``mxnet_tpu/serving/engine.py:994-1131``).
+
 Not in this release: the JAX package's lock tracer
-(``MXNET_ENGINE_VERIFY``, ``analysis/engine_verify.py``), its
+(``MXNET_ENGINE_VERIFY``, ``analysis/engine_verify.py``) and its
 compile/transfer verifier (``MXNET_JIT_VERIFY``,
-``analysis/compile_verify.py``) and the mxprof attribution
-(``MXNET_PROF``, ``telemetry/prof.py``): with any of them set,
-``Engine`` raises.
+``analysis/compile_verify.py``): with either set, ``Engine`` raises.
 """
 from __future__ import annotations
 
@@ -75,12 +78,13 @@ import numpy as np
 import torch
 
 from .. import telemetry as _tel
+from ..telemetry import prof as _prof
 from ..base import MXNetError, env_bool as _env_bool, env_int as _env_int
 from ..context import resolve_device
 from ..wsync import enabled as _wsync_enabled
 from . import sampling as _samp
 from .kv_cache import PagedKVPool, blocks_for_tokens
-from .model import ServingModel, cp_prefill_kv
+from .model import ServingModel, bucket_for, cp_prefill_kv
 from .scheduler import CANCELLED, DECODE, FINISHED, PREFILL, Request, \
     Scheduler
 
@@ -98,8 +102,7 @@ _live_engines = weakref.WeakSet()
 _UNPORTED_SWITCHES = (
     ("MXNET_ENGINE_VERIFY", "the lock tracer (analysis/engine_verify.py)"),
     ("MXNET_JIT_VERIFY",
-     "the compile/transfer verifier (analysis/compile_verify.py)"),
-    ("MXNET_PROF", "the mxprof attribution layer (telemetry/prof.py)"))
+     "the compile/transfer verifier (analysis/compile_verify.py)"))
 
 
 def live_engines():
@@ -994,6 +997,8 @@ class Engine:
         corrected or bonus token into each stream. The turn's only
         device->host pulls are ints: the accepted counts, the final
         tokens and the draft tokens."""
+        prof_on = _prof.ENABLED
+        ac0 = _prof.attribution_count() if prof_on else 0
         t0 = time.monotonic()
         B = len(reqs)
         # a fixed chain length: ks masks each row's unused tail
@@ -1022,22 +1027,30 @@ class Engine:
         # the spec turn IS the decode dispatch when speculation is on —
         # it gets its own span (serve.spec_turn)
         with _tel.span("serve.spec_turn"):
+            td0 = time.monotonic() if prof_on else 0.0
             dmat, qmat = self.draft_model.draft_turn(
                 self.draft_params, self.draft_pool.k, self.draft_pool.v,
                 ing, dstart, lens, dtables, np.ones((B,), bool), karr, K,
                 temperature=temp, top_k=tk, top_p=tp, seed=sd)
+            if prof_on:
+                self._sync()
+                td1 = time.monotonic()
             # verify: one ragged target step over [prev, d_0..d_k]
             prev = np.asarray([[r.generated[-1]] for r in reqs], np.int32)
             n_dev, fin_dev = self.model.verify(
                 self.params, self.pool.k, self.pool.v, prev, dmat, qmat,
                 P - 1, 1 + karr, self._tables(reqs), np.ones((B,), bool),
                 temperature=temp, top_k=tk, top_p=tp, seed=sd)
+            if prof_on:
+                tv1 = time.monotonic()
+                self._sync()
+                tv2 = time.monotonic()
             n = n_dev.cpu().numpy()
             fin = fin_dev.cpu().numpy()
             drafts = dmat.cpu().numpy()
         now = time.monotonic()
 
-        drafted = accepted = 0
+        drafted = accepted = emitted = 0
         with self._lock:
             for i, r in enumerate(reqs):
                 if r.state != DECODE:         # cancelled while stepping
@@ -1054,6 +1067,7 @@ class Engine:
                 accepted += j
                 for t in list(drafts[i, :j]) + [int(fin[i])]:
                     self._emit(r, int(t), now)
+                    emitted += 1
                     if r.state != DECODE:     # eos / max_new hit
                         break
                 if r.state == DECODE:
@@ -1074,6 +1088,28 @@ class Engine:
                     h.observe(min(int(n[i]), int(ks[i])))
                 _tel.histogram("serving.decode_batch_size").observe(B)
                 _tel.histogram("serving.decode_step_s").observe(now - t0)
+        if prof_on and _prof.attribution_count() == ac0:
+            Bb = bucket_for(B, self.model.batch_buckets)
+            Cin = int(lens.max())
+            _prof.note_step(
+                "serve.spec_draft",
+                {"host": td0 - t0, "device": td1 - td0},
+                key=self.draft_model._prof_keys.get(
+                    ("draft_turn", Bb, Cin if Cin == 1 else
+                     bucket_for(Cin, self.draft_model.chunk_buckets), K)),
+                tokens=int(np.sum(lens)) + B * (K - 1))
+            _prof.note_step(
+                "serve.spec_verify",
+                {"dispatch": tv1 - td1, "device": tv2 - tv1,
+                 "d2h": now - tv2},
+                key=self.model._prof_keys.get(("verify", Bb, K)),
+                tokens=emitted,
+                d2h_bytes=int(n.nbytes + fin.nbytes + drafts.nbytes))
+
+    def _sync(self):
+        """Wait for the engine's card (mxprof's device clock)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _run_prefill(self, chunks):
         # context-parallel long prompts take their own path, off the

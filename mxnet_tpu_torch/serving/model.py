@@ -39,13 +39,24 @@ streams match the JAX package token for token.
 Long-context prefill on a mesh reuses the context-parallel attention of
 ``parallel/ring_attention.py`` / ``parallel/ulysses.py``: see
 :func:`cp_prefill_kv`.
+
+mxprof (``MXNET_PROF=1``, ``mxnet_tpu/serving/model.py:415-513``): each
+bucket's program is attributed on its first call (``telemetry/prof.py``:
+the step's matmul FLOPs at its bucket shape, 2 x parameters x tokens;
+attention's score products, which depend on each row's context, are
+left out), and every later :meth:`ServingModel.step` lands a
+``serve.prefill``/``serve.decode`` step breakdown (host staging,
+dispatch, the wait on the card, the token pull) with its ``d2h_bytes``.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from .. import threefry as _tf
+from ..telemetry import prof as _prof
 from ..models.transformer import TransformerConfig, _gelu, _layer_norm
 from . import sampling as _samp
 
@@ -85,6 +96,43 @@ class ServingModel:
         self.max_blocks = int(max_blocks_per_req)
         self.batch_buckets = tuple(sorted(set(int(b) for b in batch_buckets)))
         self.chunk_buckets = tuple(sorted(set(int(c) for c in chunk_buckets)))
+        self._prof_keys = {}
+
+    def _step_flops(self, tokens):
+        """Matmul FLOPs of the layers over ``tokens`` (padded) positions:
+        the q/k/v/o and MLP products, 2 FLOPs a weight a token (the
+        callers add the unembedding of the positions that sample)."""
+        c = self.cfg
+        d = c.d_model
+        per_token = c.num_layers * 2 * (4 * d * d + 2 * d * c.d_ff)
+        return tokens * per_token
+
+    def _attribute(self, key, fn, meta):
+        """mxprof: record this bucket's program on its first call;
+        returns True when the attribution happened now."""
+        if not _prof.ENABLED or key in self._prof_keys:
+            return False
+        kind = key[0]
+        name = "serve.%s|%s" % (kind, "|".join(str(k) for k in key[1:]))
+        # graph identity: the program kind, the full model geometry and
+        # the paged-pool layout
+        ghash = _prof.graph_hash("%s|%r|bs=%d|W=%d" % (
+            kind, self.cfg, self.block_size, self.max_blocks))
+        unembed = 2 * self.cfg.d_model * self.cfg.vocab_size
+        B = key[1]
+        if kind == "step":
+            flops = self._step_flops(B * key[2]) + B * unembed
+        elif kind == "draft_turn":
+            C, K = key[2], key[3]
+            flops = (self._step_flops(B * C + B * (K - 1))
+                     + B * K * unembed)
+        else:   # verify over K + 1 positions a row
+            flops = (self._step_flops(B * (key[2] + 1))
+                     + B * (key[2] + 1) * unembed)
+        _prof.attribute_program(name, fn, site="serving.%s" % kind,
+                                meta=meta, graph_key=ghash, flops=flops)
+        self._prof_keys[key] = _prof.program_key_for(name, graph_key=ghash)
+        return True
 
     # -- the transformer body ------------------------------------------------
     def _body(self, params, kpool, vpool, tokens, start, chunk_len,
@@ -245,15 +293,37 @@ class ServingModel:
                        self.batch_buckets)
         C = 1 if C_real == 1 else bucket_for(C_real, self.chunk_buckets)
         dev = kpool.device
+        prof_on = _prof.ENABLED
+        t0 = time.monotonic() if prof_on else 0.0
         samp = self._sampling_arrays(B, B_real, temperature, top_k, top_p,
                                      seed)
+        tok_t = self._tokens(tokens, B, C, dev)
+        batch = self._batch(B, dev, start, chunk_len, block_tables, active)
+        attributed_now = prof_on and self._attribute(
+            ("step", B, C), self._sample_step,
+            meta={"batch_bucket": B, "chunk_bucket": C})
+        t1 = time.monotonic() if prof_on else 0.0
         with torch.no_grad():
-            nxt, _ = self._sample_step(
-                params, kpool, vpool, self._tokens(tokens, B, C, dev),
-                *self._batch(B, dev, start, chunk_len, block_tables, active),
-                samp, _samp.SALT_TARGET)
+            nxt, _ = self._sample_step(params, kpool, vpool, tok_t, *batch,
+                                       samp, _samp.SALT_TARGET)
+        if prof_on:
+            t2 = time.monotonic()
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+            t3 = time.monotonic()
         # the step's one device->host pull: the token vector
-        return nxt.cpu().numpy()[:B_real]
+        out_tok = nxt.cpu().numpy()[:B_real]
+        if prof_on and not attributed_now:
+            # the bucket's first step is left out: its allocations and
+            # kernel selection would drown the steady-state shares
+            _prof.note_step(
+                "serve.decode" if C == 1 else "serve.prefill",
+                {"host": t1 - t0, "dispatch": t2 - t1,
+                 "device": t3 - t2, "d2h": time.monotonic() - t3},
+                key=self._prof_keys.get(("step", B, C)),
+                tokens=int(np.sum(np.asarray(chunk_len)[:B_real])),
+                d2h_bytes=int(nxt.element_size() * B_real))
+        return out_tok
 
     def draft_turn(self, params, kpool, vpool, tokens, start, chunk_len,
                    block_tables, active, ks, K, temperature=None,
@@ -284,6 +354,8 @@ class ServingModel:
                              np.zeros((B - B_real,), np.int64)])
         ks = _tensor(ks, dev)
         K = int(K)
+        self._attribute(("draft_turn", B, C, K), self.draft_turn,
+                        meta={"batch_bucket": B, "chunk_bucket": C, "K": K})
         with torch.no_grad():
             p0 = start + clen        # global position of proposal d_0
             keys = [None] * K
@@ -338,6 +410,8 @@ class ServingModel:
                        draft_tokens.new_zeros((pad, K)).long()])
         q = torch.cat([qdists, qdists.new_ones((pad, K, V))])
         prev = self._tokens(np.asarray(prev_tokens), B, 1, dev)
+        self._attribute(("verify", B, K), self.verify,
+                        meta={"batch_bucket": B, "K": K})
         with torch.no_grad():
             n, tok = self._verify(params, kpool, vpool,
                                   torch.cat([prev, d], dim=1), d, q, start,

@@ -4,10 +4,12 @@ Counterpart of ``mxnet_tpu/telemetry/``: an *off-by-default* structured
 record of what the runtime did — counters/gauges/histograms per layer
 (registry.py), nested spans (tracing.py), and a JSONL run journal +
 Prometheus/console exporters (export.py), served live over HTTP
-(server.py). In this release the serving engine, live weight sync
-(``wsync/``), the serving fleet (``serving/fleet/``) and the retry and
-fault-injection layer (``resilience/``) report in, under the JAX
-package's metric and span names.
+(server.py). The serving engine, live weight sync (``wsync/``), the
+serving fleet (``serving/fleet/``), the dependency engine, the kvstore,
+the executor, the data layer (``io.py``, ``recordio.py``), the training
+loops and the guardian, and the retry and fault-injection layer
+(``resilience/``) report in, under the JAX package's metric and span
+names.
 
 Enablement contract::
 
@@ -19,6 +21,9 @@ Enablement contract::
                                       # /healthz /readyz /statusz
                                       # /tracez /enginez /servingz
                                       # /profilez
+    MXNET_PROF=1                      # mxprof attribution layer
+                                      # (prof.py, its own off-by-default
+                                      # switch)
 
 Instrumented hot paths guard on the module attribute ``ENABLED``::
 
@@ -31,23 +36,20 @@ so the disabled cost is one attribute read + truth test per site and
 ``span()`` returns a shared null context. ``reload()`` re-reads the
 environment (tests toggle via monkeypatch.setenv + reload()).
 
-Not in this release (ROADMAP Queue 1 item 6): the mxprof attribution
-layer (``telemetry/prof.py``; ``MXNET_PROF=1`` raises here, and
-``/profilez`` answers an error), the journal merger (``merge.py``) and
-the report tools; the counters of the kvstore (``MXNET_TELEMETRY=1``
-still raises at ``kvstore.create``), the dependency engine, the
-executor and the data layer.
+Render a journal with ``tools/torch_telemetry_report.py``; merge the
+journals of several ranks with ``tools/torch_trace_merge.py``
+(``merge.py``).
 """
 from __future__ import annotations
 
 import os
 import time as _time
 
-from ..base import MXNetError
 from . import registry as _registry_mod
 from . import tracing
 from . import export
 from . import server
+from . import prof
 from .registry import Counter, Gauge, Histogram, Registry, default_registry
 from .tracing import (
     span, current_span, span_aggregates, span_tail,
@@ -60,7 +62,7 @@ from .export import (
 __all__ = [
     "ENABLED", "enabled", "reload", "reset", "flush",
     "counter", "gauge", "histogram", "span", "current_span",
-    "span_aggregates", "span_tail", "snapshot",
+    "span_aggregates", "span_tail", "snapshot", "prof",
     "wire_context", "mint_trace", "open_spans", "event",
     "Counter", "Gauge", "Histogram", "Registry", "default_registry",
     "console_summary", "prometheus_text", "journal_path", "flush_at_exit",
@@ -87,12 +89,8 @@ def reload():
     """Re-read MXNET_TELEMETRY / MXNET_TELEMETRY_JOURNAL /
     MXNET_TELEMETRY_FLUSH_SECS / MXNET_TELEMETRY_HTTP and apply them.
     Called once at import; tests call it after mutating the
-    environment. Raises MXNetError under ``MXNET_PROF`` (the mxprof
-    layer, ``telemetry/prof.py``, is not ported)."""
+    environment."""
     global ENABLED
-    if _env_on("MXNET_PROF"):
-        raise MXNetError("MXNET_PROF: the mxprof attribution layer "
-                         "(telemetry/prof.py) is not ported; unset it")
     ENABLED = _env_on("MXNET_TELEMETRY")
     path = os.environ.get("MXNET_TELEMETRY_JOURNAL", "").strip() or None
     if not ENABLED:
@@ -108,6 +106,9 @@ def reload():
     http_spec = server.parse_spec(
         os.environ.get("MXNET_TELEMETRY_HTTP")) if ENABLED else None
     server.configure(http_spec)
+    # mxprof (prof.py) has its own master switch (MXNET_PROF) but rides
+    # the same reload cycle so one env round-trip configures both
+    prof.reload()
     return ENABLED
 
 
@@ -142,6 +143,7 @@ def reset():
     not touch the enable flag or the journal file."""
     _registry_mod.default_registry().reset()
     tracing.reset()
+    prof.reset()
 
 
 reload()

@@ -13,13 +13,16 @@ mxtel state of a running trainer or serving engine over plain HTTP:
                       counters (JSON)
 ``/tracez``           currently-open spans + the recent finished-span ring
                       (``?n=`` bounds the tail; JSON)
-``/enginez``          dependency-engine introspection: ``{"engine": null}``
-                      before the engine exists; the pending-task dump of
-                      the JAX package's wait watchdog is not ported (501)
+``/enginez``          dependency-engine pending count, queued + in-flight
+                      task dump (the wait watchdog's introspection, live;
+                      ``{"engine": null}`` before the engine exists)
 ``/servingz``         live serving-request table, KV-pool utilization,
                       scheduler event tail for every serving Engine
-``/profilez``         501: the mxprof attribution layer
-                      (``telemetry/prof.py``) is not ported
+``/profilez``         mxprof attribution (prof.py, ``MXNET_PROF=1``): top
+                      programs by device time with their analytic flops
+                      and first-call peak memory, step-time
+                      decomposition, derived MFU/roofline%, device
+                      memory live/peak
 ====================  =========================================================
 
 Enablement: ``MXNET_TELEMETRY=1`` plus ``MXNET_TELEMETRY_HTTP=<port>``
@@ -295,11 +298,6 @@ def _tracez(params):
     })
 
 
-def _not_ported(what):
-    return (501, "application/json",
-            json.dumps({"error": "%s is not ported" % what}) + "\n")
-
-
 def _enginez(params):
     eng_mod = sys.modules.get("mxnet_tpu_torch.engine")
     eng = getattr(eng_mod, "Engine", None) if eng_mod else None
@@ -308,9 +306,6 @@ def _enginez(params):
         # introspection must never CREATE the engine singleton: a scrape
         # of a process that never pushed host work reports exactly that
         return _json({"engine": None})
-    if not hasattr(inst, "pending_snapshot"):
-        return _not_ported("the dependency engine's pending-task dump "
-                           "(Engine.pending_snapshot, engine.py)")
     snap = inst.pending_snapshot()
     snap.update({
         "engine": inst.engine_type,
@@ -323,8 +318,16 @@ def _enginez(params):
 
 
 def _profilez(params):
-    """mxprof live attribution: not ported (501)."""
-    return _not_ported("the mxprof attribution layer (telemetry/prof.py)")
+    """mxprof live attribution. Answers with ``enabled: false`` (not an
+    error) when MXNET_PROF is unset — a scraper can always tell "off"
+    from "down"."""
+    from . import prof as _prof
+
+    try:
+        n = max(1, int(params.get("n", "20")))
+    except ValueError:
+        n = 20
+    return _json(_prof.snapshot(top=n))
 
 
 def _servingz(params):

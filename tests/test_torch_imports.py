@@ -4,7 +4,9 @@
   neither ``jax`` nor ``mxnet_tpu`` in ``sys.modules``;
 - no source of the port, nor ``chip_smoke.py``, the profile tools,
   ``tools/torch_im2rec.py``, ``tools/torch_bench_io.py``,
-  ``tools/torch_launch.py``, ``tools/torch_bandwidth.py``, the dist
+  ``tools/torch_launch.py``, ``tools/torch_bandwidth.py``,
+  ``tools/torch_trace_merge.py``, ``tools/torch_telemetry_report.py``,
+  the dist
   workers of ``tests/torch_nightly``, the card's
   test files or the port's examples (``examples/rnn_torch``,
   ``examples/ssd_torch``, ``examples/image-classification_torch``,
@@ -35,14 +37,18 @@
   ``engine``, ``predictor``, ``test_utils``, ``visualization``,
   ``profiler``, ``runtime``, ``libinfo``, ``misc``, ``ops.opdoc``,
   ``kvstore``, ``kvstore_server``, ``telemetry``, ``elastic``,
-  ``resilience``, ``wsync`` and ``serving.fleet``;
+  ``resilience`` (with ``resilience.guardian``), ``telemetry.prof``,
+  ``telemetry.merge``, ``wsync`` and ``serving.fleet``;
+- ``tools/torch_trace_merge.py`` and ``tools/torch_telemetry_report.py``
+  run ``--help`` in a fresh interpreter without importing either;
 - the two entry points ``python -m mxnet_tpu_torch.serving.fleet.replica``
   and ``python -m mxnet_tpu_torch.wsync.publisher`` import neither;
 - every card test file (``tests/test_torch_*_cuda.py``) carries the
   ``cuda`` marker;
 - the host-only scheduler copy matches its original below the imports;
-  the byte copies of the telemetry registry, the RPC wire, the retry and
-  fault-injection modules and the wsync client match their originals
+  the byte copies of the telemetry registry and journal merger, the RPC
+  wire, the retry and fault-injection modules and the wsync client
+  match their originals
   whole, and the tracer, the exporters, the wsync package and the fleet
   router their originals with named replacements.
 """
@@ -192,7 +198,8 @@ for must in ('model', 'rtc', 'ops._nvrtc', 'ops.matmul_stats', 'monitor',
              'kvstore', 'kvstore_server', 'telemetry', 'telemetry.registry',
              'telemetry.tracing', 'telemetry.export', 'telemetry.server',
              'elastic', 'elastic.protocol', 'elastic.client', 'resilience',
-             'resilience.retry', 'resilience.faults', 'wsync', 'wsync.common',
+             'resilience.retry', 'resilience.faults', 'resilience.guardian',
+             'telemetry.prof', 'telemetry.merge', 'wsync', 'wsync.common',
              'wsync.client', 'wsync.publisher', 'wsync.subscriber',
              'serving.fleet', 'serving.fleet.router',
              'serving.fleet.replica'):
@@ -261,6 +268,33 @@ def test_entry_point_leaves_jax_out(module):
     assert proc.stdout.strip().splitlines()[-1] == "forbidden []"
 
 
+_TOOL = """
+import runpy, sys
+sys.argv = [%r, '--help']
+try:
+    runpy.run_path(%r, run_name='__main__')
+except SystemExit as e:
+    assert e.code == 0, e.code
+print('forbidden', sorted(m for m in sys.modules
+                          if m.split('.')[0] in %r))
+"""
+
+
+@pytest.mark.parametrize("tool", ["torch_trace_merge.py",
+                                  "torch_telemetry_report.py"])
+def test_tool_help_leaves_jax_out(tool):
+    """The journal tools' ``--help`` in a fresh interpreter: usage
+    printed, exit 0, neither jax nor the JAX package imported."""
+    path = str(ROOT / "tools" / tool)
+    proc = subprocess.run(
+        [sys.executable, "-c", _TOOL % (path, path, FORBIDDEN)],
+        cwd=str(ROOT), env=_env(), capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "usage: " in proc.stdout
+    assert proc.stdout.strip().splitlines()[-1] == "forbidden []"
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -281,6 +315,8 @@ def _imports(path):
         ROOT / "tools" / "torch_bench_io.py",
         ROOT / "tools" / "torch_launch.py",
         ROOT / "tools" / "torch_bandwidth.py",
+        ROOT / "tools" / "torch_trace_merge.py",
+        ROOT / "tools" / "torch_telemetry_report.py",
         ROOT / "tests" / "torch_nightly" / "dist_sync_kvstore.py",
         ROOT / "tests" / "torch_nightly" / "dist_lenet.py",
         ROOT / "tests" / "test_torch_kvstore_cuda.py",
@@ -297,7 +333,8 @@ def _imports(path):
         ROOT / "tests" / "test_torch_host_ops_cuda.py",
         ROOT / "tests" / "test_torch_recordio_cuda.py",
         ROOT / "tests" / "test_torch_predictor_cuda.py",
-        ROOT / "tests" / "test_torch_fleet_cuda.py"]
+        ROOT / "tests" / "test_torch_fleet_cuda.py",
+        ROOT / "tests" / "test_torch_guardian_cuda.py"]
     + sorted((ROOT / "examples" / "rnn_torch").glob("*.py"))
     + sorted((ROOT / "examples" / "ssd_torch").glob("*.py"))
     + sorted((ROOT / "examples" / "image-classification_torch").glob(
@@ -341,7 +378,7 @@ def test_scheduler_copy_matches_original():
 # host-only modules carried over whole
 BYTE_COPIES = ["telemetry/registry.py", "elastic/protocol.py",
                "resilience/retry.py", "resilience/faults.py",
-               "wsync/client.py"]
+               "wsync/client.py", "telemetry/merge.py"]
 
 
 @pytest.mark.parametrize("rel", BYTE_COPIES)

@@ -13,8 +13,9 @@
   router, a weight sync, a replica killed mid-stream) gives the JAX
   package's ``serving.*``, ``wsync.*`` and ``fleet.*`` metric names and
   the same span names, and ``chip_smoke.TELEMETRY_CATALOG`` is that set;
-- the HTTP server's endpoints, ``MXNET_PROF`` refused, and the fault
-  and retry copies counting their fires.
+- the HTTP server's endpoints (``/profilez`` from mxprof, ``/enginez``
+  from the dependency engine), ``MXNET_PROF`` switching mxprof on at
+  ``reload()``, and the fault and retry copies counting their fires.
 
 The tiny model is the JAX package's fleet tests' (vocab 61, 2 layers,
 d_model 32, f32), its parameters carried across with
@@ -32,7 +33,9 @@ import jax
 import numpy as np
 import pytest
 
+import mxnet_tpu as mj
 import mxnet_tpu.telemetry as jtel
+import mxnet_tpu_torch as mt
 from mxnet_tpu.models import transformer as jt
 from mxnet_tpu.serving import Engine as JEngine
 from mxnet_tpu.serving import ServingConfig as JServingConfig
@@ -42,7 +45,6 @@ from mxnet_tpu.telemetry.registry import Registry as JRegistry
 from mxnet_tpu.wsync.publisher import WeightPublisher as JPublisher
 from mxnet_tpu.wsync.subscriber import WeightSubscriber as JSubscriber
 from mxnet_tpu_torch import telemetry as tel
-from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.models import transformer as tt
 from mxnet_tpu_torch.serving import Engine, ServingConfig
 from mxnet_tpu_torch.serving.fleet import ReplicaServer, Router
@@ -234,11 +236,14 @@ def test_span_lands_in_the_port_profilers_trace(monkeypatch, tmp_path):
 
 
 def test_mxnet_prof_is_refused(monkeypatch):
+    # mxprof is ported: reload() turns it on instead of refusing
     monkeypatch.setenv("MXNET_PROF", "1")
-    with pytest.raises(MXNetError, match="telemetry/prof.py"):
+    try:
+        assert tel.reload() is not None and tel.prof.ENABLED
+    finally:
+        monkeypatch.undo()
         tel.reload()
-    monkeypatch.undo()
-    tel.reload()
+    assert not tel.prof.ENABLED
 
 
 # -- the serving fleet's catalog -----------------------------------------------------------
@@ -402,10 +407,14 @@ def test_http_endpoints(monkeypatch):
         assert code == 503 and me in body
         eng.resume()
         code, body = _get(port, "/profilez")
-        assert code == 501 and "telemetry/prof.py" in body
+        assert code == 200 and set(json.loads(body)) == {
+            "enabled", "config_key", "programs", "steps", "derived", "hbm"}
         code, body = _get(port, "/enginez")
-        assert (code, json.loads(body)) == (200, {"engine": None}) or (
-            code == 501 and "pending_snapshot" in body)
+        assert code == 200
+        eng_body = json.loads(body)
+        assert eng_body == {"engine": None} or {
+            "pending", "queued", "in_flight", "engine", "native",
+            "counters"} <= set(eng_body)
         code, body = _get(port, "/statusz")
         st = json.loads(body)
         assert code == 200 and st["jit_verify"] is None
@@ -456,3 +465,156 @@ def test_fault_point_and_retry_count_their_fires(monkeypatch):
         monkeypatch.undo()
         tel.reset()
         tel.reload()
+
+
+# -- the training path's counters -----------------------------------------------------------
+def _metric_names(t):
+    snap = t.snapshot()
+    return {k: set(snap[k]) for k in ("counters", "gauges", "histograms")}
+
+
+def _train_and_serve(pkg, tiny_engine):
+    """A LeNet fit on each path, a dependency-engine task and a served
+    request, with telemetry on."""
+    rng = np.random.RandomState(4)
+    x = rng.rand(64, 1, 28, 28).astype(np.float32)
+    y = rng.randint(0, 10, 64).astype(np.float32)
+    for scan in ("1", "0"):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("MXNET_SCAN_TRAIN", scan)
+            mp.setenv("MXNET_TRAIN_SCAN_K", "2")
+            pkg.random.seed(0)
+            m = pkg.FeedForward(pkg.models.get_lenet(), ctx=pkg.cpu(),
+                                num_epoch=1, learning_rate=0.05,
+                                numpy_batch_size=16,
+                                initializer=pkg.initializer.Xavier())
+            m.fit(pkg.io.NDArrayIter(x, y, batch_size=16),
+                  batch_end_callback=pkg.callback.Speedometer(16, 2))
+    eng = pkg.engine.Engine.get()
+    var = eng.new_variable()
+    eng.push(lambda: None, mutable_vars=[var])
+    eng.wait_for_var(var)
+    eng.wait_for_all()
+    tiny_engine()
+
+
+def test_training_and_serving_metric_names_equal_jax(both_on):
+    def serve(pkg):
+        tree = _np_params(0)
+        if pkg == "jax":
+            eng = JEngine(jax.tree_util.tree_map(jax.numpy.asarray, tree),
+                          jt.TransformerConfig(**MODEL),
+                          JServingConfig(**POOL))
+        else:
+            eng = Engine(tt.params_from_numpy(tree, device="cpu"),
+                         tt.TransformerConfig(**MODEL), ServingConfig(**POOL),
+                         device="cpu")
+        eng.submit(np.arange(1, 6, dtype=np.int32), max_new_tokens=4)
+        eng.run_until_idle()
+
+    _train_and_serve(mj, lambda: serve("jax"))
+    _train_and_serve(mt, lambda: serve("port"))
+    want, got = _metric_names(jtel), _metric_names(tel)
+    # the JAX package's compile layer (jit cache) and its compile/transfer
+    # verifier (analysis/compile_verify.py) are not ported
+    skip = ("compile.", "jit.verify_")
+    for kind in want:
+        want_k = {n for n in want[kind] if not n.startswith(skip)}
+        assert got[kind] == want_k, (kind, got[kind] ^ want_k)
+
+
+def test_training_path_counters_under_telemetry(both_on, tmp_path):
+    """MXNET_TELEMETRY=1 on the executor, the fits, io.py, recordio.py,
+    the kvstore and the dependency engine: each reports its metrics (the
+    port once ignored the switch there without a word)."""
+    _train_and_serve(mt, lambda: None)
+    rec = mt.recordio.MXRecordIO(str(tmp_path / "r.rec"), "w")
+    rec.write(b"abcd" * 4)
+    rec.close()
+    raw = bytearray((tmp_path / "r.rec").read_bytes())
+    raw[0] ^= 0xFF           # break the record's magic
+    (tmp_path / "r.rec").write_bytes(bytes(raw))
+    r = mt.recordio.MXRecordIO(str(tmp_path / "r.rec"), "r", corrupt="skip")
+    assert r.read() is None and r.num_skipped == 1
+    kv = mt.kvstore.create("local")
+    kv.init(3, mt.nd.ones((2, 2), ctx=mt.cpu()))
+    kv.push(3, [mt.nd.ones((2, 2), ctx=mt.cpu())] * 2)
+    kv.pull(3, out=mt.nd.zeros((2, 2), ctx=mt.cpu()))
+    names = _metric_names(tel)
+    assert {"executor.jit_builds_total", "engine.push_total",
+            "engine.waits_total", "io.records_skipped_total",
+            "kvstore.push_total", "kvstore.pull_total",
+            "kvstore.push_bytes_total"} <= names["counters"]
+    assert {"train.samples_per_sec", "engine.queue_depth"} <= names["gauges"]
+    assert {"executor.forward_secs", "executor.backward_secs",
+            "train.step_secs", "io.batch_fetch_secs",
+            "engine.task_secs"} <= names["histograms"]
+    spans = {s["name"] for s in tel.span_tail(10000)}
+    assert {"epoch", "batch", "chunk"} <= spans
+
+
+def test_fault_points_of_the_training_path(tmp_path):
+    """``rio.read``, ``ckpt.write`` and ``engine.task`` fire where the JAX
+    package's do: before a record's read (which then still succeeds),
+    between a checkpoint's temporary file and its rename (no
+    ``.params`` left behind), and before a dependency-engine task's
+    body (raised at the wait)."""
+    from mxnet_tpu_torch.resilience import faults
+
+    path = tmp_path / "a.rec"
+    w = mt.recordio.MXRecordIO(str(path), "w")
+    w.write(b"x" * 8)
+    w.close()
+    try:
+        faults.inject("rio.read:error:count=1")
+        r = mt.recordio.MXRecordIO(str(path), "r")
+        with pytest.raises(faults.FaultInjected):
+            r.read()
+        assert r.read() == b"x" * 8
+        prefix = str(tmp_path / "m")
+        args = {"w": mt.nd.ones((2,), ctx=mt.cpu())}
+        faults.inject("ckpt.write:error:count=1")
+        with pytest.raises(faults.FaultInjected):
+            mt.model.save_checkpoint(prefix, 1, None, args, {}, sync=True)
+        assert not Path(prefix + "-0001.params").exists()
+        mt.model.save_checkpoint(prefix, 1, None, args, {}, sync=True)
+        assert Path(prefix + "-0001.params").exists()
+        eng = mt.engine.Engine.get()
+        var = eng.new_variable()
+        faults.inject("engine.task:error:count=1")
+        eng.push(lambda: None, mutable_vars=[var])
+        with pytest.raises(faults.FaultInjected):
+            eng.wait_for_var(var)
+    finally:
+        faults.clear()
+
+
+def test_engine_wait_watchdog_dumps_the_pending_tasks(monkeypatch):
+    """``MXNET_ENGINE_WAIT_TIMEOUT`` bounds a wait behind a task that has
+    not completed: the wait raises the pending-task dump naming it, and
+    ``pending_snapshot`` (``/enginez``'s body) lists it in flight."""
+    eng = mt.engine.Engine.get()
+    var = eng.new_variable()
+    release = threading.Event()
+
+    def stuck_task(on_complete):
+        def later():
+            release.wait(20)
+            on_complete()
+
+        threading.Thread(target=later, daemon=True).start()
+
+    eng.push_async(stuck_task, mutable_vars=[var])
+    monkeypatch.setenv("MXNET_ENGINE_WAIT_TIMEOUT", "0.3")
+    try:
+        with pytest.raises(mt.MXNetError, match="in-flight: stuck_task"):
+            eng.wait_for_var(var)
+        with pytest.raises(mt.MXNetError, match="MXNET_ENGINE_WAIT_TIMEOUT"):
+            eng.wait_for_all()
+        snap = eng.pending_snapshot()
+        assert "stuck_task" in snap["in_flight"] and snap["pending"] >= 1
+    finally:
+        release.set()
+        monkeypatch.delenv("MXNET_ENGINE_WAIT_TIMEOUT")
+        eng.wait_for_all()
+    assert eng.pending_snapshot()["in_flight"] == []
