@@ -277,9 +277,28 @@ Phases (any failure raises and the script exits non-zero):
 27. the guardian's vote (``phase_guardian_vote``): two gloo ranks on the
    card through ``tools/torch_launch.py``, one rank's NaN gradient
    making both skip;
-28. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
+28. the compile layer and the compile/transfer verifier
+   (``phase_compile``): K1 and K2 at the phase's shapes against their
+   plain versions; (A) bench.py's ResNet-50 through
+   ``make_symbol_train_step`` under ``MXNET_COMPILE_OPT=1`` (fold,
+   layout, fuse, precision), ``MXNET_COMPILE_VERIFY=1`` and
+   ``MXNET_JIT_VERIFY=1`` beside the same step without them: the JAX
+   package's pass report on the graph, no fallback, no host
+   synchronisation, 8 losses from the same state within 2%, ms a step
+   and peak memory of
+   both, a one-step profile of each by layer kind with the convolution
+   kernels' names; (B) the tuner under ``MXNET_COMPILE_TUNE=1`` and a
+   fresh cache directory: trials on the first bind, none and the same
+   layouts in a second process; (C) the Predictor on Inception-BN at
+   batch 32, unfolded, with fold and fuse (bit-equal) and with every
+   pass (1e-3); (D) the flagship Engine under ``MXNET_JIT_VERIFY=1``, 8
+   requests: no unexpected recompile, every decode step's D2H ledger the
+   token vector, the negative controls caught and raised; (E) the
+   persistent cubin cache over three processes: a miss, a hit without
+   NVRTC, a corrupt entry counted and recompiled;
+29. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
    main paths, error, times and bound;
-29. the last line: ``{"ok": true, "device": {...}}``.
+30. the last line: ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matrix products and cuDNN convolutions in every phase
 (set once in ``main``), so f32 work runs in full f32.
@@ -7324,6 +7343,845 @@ def phase_guardian_vote(device="cuda", workers=2):
     return rec
 
 
+# -- the compile layer and the compile/transfer verifier (phase_compile) -------
+COMPILE_STEPS = 8          # leg A: steps a loop, timed and compared
+# leg A: each step's mean cross-entropy from the same state, rewritten
+# against unrewritten: within max(ATOL, RTOL x the loss) nats
+COMPILE_LOSS_ATOL = 0.05
+COMPILE_LOSS_RTOL = 0.02
+# leg A: the JAX package's pass report on bench.py's ResNet-50 graph
+# (tests/test_torch_compile.py holds the port's equal to it on the CPU)
+COMPILE_RESNET50_REPORT = {"fold": 0, "layout": 53, "fuse": 16,
+                           "precision": 0}
+COMPILE_PREDICT_TOL = 1e-3  # leg C: all passes against the unfolded batch
+COMPILE_CACHE_BODY = "mul_add"
+COMPILE_ENV = ("MXNET_COMPILE_OPT", "MXNET_COMPILE_PASSES",
+               "MXNET_COMPILE_CACHE_DIR", "MXNET_COMPILE_TUNE",
+               "MXNET_COMPILE_VERIFY", "MXNET_COMPILE_MATMUL_PREC",
+               "MXNET_JIT_VERIFY")
+
+# the layer kind of a kernel in leg A's profile: the nearest ``mx::<op>``
+# range (forward) or autograd node (backward)
+COMPILE_KIND_FWD = {
+    "Convolution": "convolution", "_mxc_conv_nhwc": "convolution",
+    "BatchNorm": "batchnorm", "_mxc_bn_nhwc": "batchnorm",
+    "Pooling": "pooling", "_mxc_pool_nhwc": "pooling",
+    "_mxc_to_nhwc": "layout_transpose", "_mxc_to_nchw": "layout_transpose",
+    "Activation": "elementwise", "_plus": "elementwise",
+    "FullyConnected": "fully_connected", "SoftmaxOutput": "softmax_output",
+    "transpose": "s2d_stem", "Reshape": "s2d_stem", "Pad": "s2d_stem"}
+COMPILE_KIND_BWD = (("Convolution", "convolution"),
+                    ("BNTrainNorm", "batchnorm"), ("Pool", "pooling"),
+                    ("Relu", "elementwise"), ("Add", "elementwise"),
+                    ("Threshold", "elementwise"), ("Permute", "layout"),
+                    ("Clone", "layout"), ("SoftmaxOutput", "softmax_output"),
+                    ("Mm", "fully_connected"), ("Addmm", "fully_connected"))
+
+
+class _Env:
+    """Set environment variables for a block and restore them after,
+    re-reading the compile layer's and the verifier's switches."""
+
+    def __init__(self, **env):
+        self.env = env
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in COMPILE_ENV}
+        for k in COMPILE_ENV:
+            os.environ.pop(k, None)
+        os.environ.update(self.env)
+        _compile_reload()
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        _compile_reload()
+
+
+def _compile_reload():
+    from mxnet_tpu_torch import compile as mxc
+    from mxnet_tpu_torch.analysis import compile_verify as cv
+
+    mxc.reload()
+    cv.reload()
+
+
+def _compile_kind(event, kernel):
+    if "softmax_narrow" in kernel or "softmax_wide" in kernel:
+        return "softmax_kernel_K1"
+    e = event
+    while e is not None:
+        name = e.name
+        if name.startswith("mx::"):
+            return COMPILE_KIND_FWD.get(name[4:], "other") + "_fwd"
+        if name.startswith("autograd::engine::evaluate_function: "):
+            fn = name.split(": ", 1)[1]
+            for tag, kind in COMPILE_KIND_BWD:
+                if tag in fn:
+                    return kind + "_bwd"
+            return "other_bwd"
+        if name.startswith("Optimizer.") or name.startswith("aten::_foreach"):
+            return "sgd_update"
+        e = e.cpu_parent
+    return "other"
+
+
+def _step_profile(step, state, batch, key):
+    """One training step under ``torch.profiler`` with every op's forward
+    in an ``mx::<op>`` range: device ms by layer kind, the convolution
+    kernels' names by device ms, and the kernels' count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mxnet_tpu_torch.ops import registry
+
+    apply = registry.OpDef.apply
+
+    def labelled(self, *a, **k):
+        with record_function("mx::" + self.name):
+            return apply(self, *a, **k)
+
+    registry.OpDef.apply = labelled
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(state, batch, key)
+            torch.cuda.synchronize()
+    finally:
+        registry.OpDef.apply = apply
+    by, conv, n = {}, {}, 0
+    for e in prof.events():
+        for k in getattr(e, "kernels", ()):
+            kind = _compile_kind(e, k.name)
+            ms = k.duration / 1e3
+            by[kind] = by.get(kind, 0.0) + ms
+            n += 1
+            if kind.startswith("convolution"):
+                conv[k.name] = conv.get(k.name, 0.0) + ms
+    top = sorted(conv.items(), key=lambda kv: -kv[1])[:6]
+    return {"device_ms_by_kind": dict(sorted(by.items(),
+                                             key=lambda kv: -kv[1])),
+            "device_ms": sum(by.values()), "kernels": n,
+            "conv_kernels_top": [[name[:160], ms] for name, ms in top]}
+
+
+def _loop_timed(step, state, batches, key, device):
+    """One ``step.loop`` over ``batches``: (state, outs, ms a step by CUDA
+    events around it, peak allocated GB during it)."""
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+    else:
+        w0 = time.perf_counter()
+    state, outs = step.loop(state, batches, key)
+    k = next(iter(batches.values())).shape[0]
+    if device == "cuda":
+        t1.record()
+        t1.synchronize()
+        return (state, outs, t0.elapsed_time(t1) / k,
+                torch.cuda.max_memory_allocated() / 1e9)
+    return state, outs, 1e3 * (time.perf_counter() - w0) / k, None
+
+
+def _copy_train_state(dst, src):
+    """Write ``src``'s parameters, SGD momenta and aux states into
+    ``dst``'s tensors, in place."""
+    import torch
+
+    with torch.no_grad():
+        for n, p in src["params"].items():
+            q = dst["params"][n]
+            q.copy_(p)
+            m = src["opt_state"].state.get(p, {}).get("momentum_buffer")
+            if m is not None:
+                dst["opt_state"].state.setdefault(q, {})[
+                    "momentum_buffer"] = m.clone()
+        for a, b in zip(dst["aux"], src["aux"]):
+            a.copy_(b)
+
+
+def _no_sync_loop(step, state, batches, key, device):
+    """``step.loop`` with the sync debug mode at ``error`` on a card: a
+    host synchronisation inside the K steps raises."""
+    import torch
+
+    if device == "cuda":
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        return step.loop(state, batches, key)
+    finally:
+        if device == "cuda":
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def compile_leg_a(device="cuda", batch=128, image=224, classes=1000,
+                  steps=COMPILE_STEPS, expect=COMPILE_RESNET50_REPORT):
+    """Leg A: bench.py's ResNet-50 (s2d stem, bf16, SGD 0.05 / 0.9, batch
+    128) through ``make_symbol_train_step`` under ``MXNET_COMPILE_OPT=1``
+    (all four passes), ``MXNET_COMPILE_VERIFY=1`` (the bind checks the
+    rewritten graph against the unrewritten one on the card) and
+    ``MXNET_JIT_VERIFY=1`` (the loop is the verifier's
+    ``symbol_trainer.loop`` boundary), beside the same step without
+    them, both from the same seeded state on the same batches and keys.
+    Checks: the pass report is the JAX package's on this graph
+    (``expect``; ``tests/test_torch_compile.py``), no fallback warning,
+    no host synchronisation inside either loop (sync debug mode
+    ``error``), and over ``steps`` batches the rewritten step's mean
+    cross-entropy, run from a copy of the unrewritten trajectory's state
+    at each step, within max(COMPILE_LOSS_ATOL, COMPILE_LOSS_RTOL x the
+    loss) nats of the unrewritten step's (the layout pass reorders the
+    convolutions' and BatchNorm's reductions, and bf16 activations round
+    by that order; two trajectories would not do: at bench.py's lr the
+    first steps blow the loss up to the clamp and back, so rounding
+    differences grow without bound between them), every head and parameter finite, no unexpected
+    recompile, K1 once a step. Prints ms a step (CUDA events over a loop
+    of ``steps``; plain, rewritten, plain, rewritten), peak memory of
+    each, and a one-step profile of each by layer kind with the
+    convolution kernels' names."""
+    import logging
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import compile as mxc
+    from mxnet_tpu_torch import threefry
+    from mxnet_tpu_torch.analysis import compile_verify as cv
+    from mxnet_tpu_torch.ops import softmax as sm
+    from mxnet_tpu_torch.parallel import make_symbol_train_step
+
+    ctx = _ctx(device)
+    dev = ctx.torch_device
+    shapes = {"data": (batch, 3, image, image), "softmax_label": (batch,)}
+    sym = mx.models.get_resnet(classes, 50, stem="s2d", image=image)
+    key = threefry.prng_key(0, device="cpu")
+    batches = _bench_batches(steps, batch, image, classes, torch.bfloat16,
+                             dev)
+    labels = batches["softmax_label"]
+    warned = []
+
+    class _Catch(logging.Handler):
+        def emit(self, record):
+            warned.append(record.getMessage())
+
+    log_c = logging.getLogger("mxnet_tpu_torch.compile")
+    handler = _Catch(level=logging.WARNING)
+    log_c.addHandler(handler)
+    rec = {"leg": "A", "batch": batch, "image": image, "steps": steps}
+    try:
+        step_p, st_p = make_symbol_train_step(sym, shapes, ctx=ctx,
+                                              compute_dtype="bfloat16")
+        with _Env(MXNET_COMPILE_OPT="1", MXNET_COMPILE_VERIFY="1",
+                  MXNET_JIT_VERIFY="1"):
+            cv.reset()
+            t0 = time.perf_counter()
+            step_o, st_o = make_symbol_train_step(sym, shapes, ctx=ctx,
+                                                  compute_dtype="bfloat16")
+            rec["bind_s_with_verify"] = time.perf_counter() - t0
+            report = mxc.last_report()
+            rec["report"] = report
+            same_start = all(torch.equal(st_o["params"][n], p)
+                             for n, p in st_p["params"].items())
+            _sync(device)
+            sm.fused_softmax.launches = 0
+            # the losses compared: each step from the same state
+            keys = threefry.split(key, steps)
+            lp, lo = [], []
+            for k in range(steps):
+                b = {n: v[k] for n, v in batches.items()}
+                _copy_train_state(st_o, st_p)
+                st_o, (po,) = step_o(st_o, b, keys[k])
+                st_p, (pp,) = step_p(st_p, b, keys[k])
+                lo.append(float(_ce(po, labels[k]).mean()))
+                lp.append(float(_ce(pp, labels[k]).mean()))
+            st_o, o_o = _no_sync_loop(step_o, st_o, batches, key, device)
+            st_p, o_p = _no_sync_loop(step_p, st_p, batches, key, device)
+            run_steps = 4 * steps
+            times = {"plain": [], "passes": []}
+            peak = {}
+            for name in ("plain", "passes", "plain", "passes"):
+                step, st = ((step_p, st_p) if name == "plain"
+                            else (step_o, st_o))
+                st, _, ms, gb = _loop_timed(step, st, batches, key, device)
+                times[name].append(ms)
+                peak[name] = gb
+                run_steps += steps
+            if device == "cuda":
+                first = {k: v[0] for k, v in batches.items()}
+                rec["profile"] = {
+                    "plain": _step_profile(step_p, st_p, first, key),
+                    "passes": _step_profile(step_o, st_o, first, key)}
+                run_steps += 2
+            _sync(device)
+            launches = sm.fused_softmax.launches
+            unexpected = cv.unexpected()
+            boundaries = cv.summary()["boundaries"]
+    finally:
+        log_c.removeHandler(handler)
+    diff = [abs(a - b) for a, b in zip(lo, lp)]
+    limit = [max(COMPILE_LOSS_ATOL, COMPILE_LOSS_RTOL * abs(b)) for b in lp]
+    finite = _finite(list(o_p) + list(o_o) + list(st_p["params"].values())
+                     + list(st_o["params"].values()))
+    rec.update({
+        "same_start": same_start, "losses_plain": lp, "losses_passes": lo,
+        "loss_abs_diff": diff, "loss_limit": limit,
+        "ms_a_step": times,
+        "ms_a_step_ratio": min(times["passes"]) / min(times["plain"]),
+        "peak_mem_gb": peak, "fallback_warnings": warned,
+        "k1_launches": launches, "steps_run": run_steps,
+        "unexpected_recompiles": len(unexpected),
+        "boundaries": boundaries, "finite": finite})
+    log(dict(phase="compile", **rec))
+    want_k1 = run_steps if device == "cuda" else 0
+    checks = {
+        "the JAX package's pass report": all(
+            report.get(k) == v for k, v in expect.items()),
+        "no fallback": not warned,
+        "same starting state": same_start,
+        "losses": all(d <= m for d, m in zip(diff, limit)),
+        "finite": finite,
+        "no unexpected recompile": not unexpected,
+        "loop boundary": boundaries.get("symbol_trainer.loop", {}).get(
+            "compiles") == 1,
+        "K1 once a step": launches == want_k1}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError("compile leg A: %s failed: %r" % (failed, rec))
+    return rec
+
+
+def compile_leg_b(device="cuda", batch=128, image=224, classes=1000):
+    """Leg B: the tuner. Under ``MXNET_COMPILE_TUNE=1`` and a fresh
+    ``MXNET_COMPILE_CACHE_DIR`` the first bind of leg A's graph times
+    each contested convolution's two layouts once (and the FC's two
+    accumulations) on the card and stores the winners; a second process
+    binds the same graph with the same directory and must time nothing
+    and rewrite the same convolutions to NHWC. Prints the trials, their
+    seconds, how many convolutions chose NHWC, the stored timings' range
+    and the FC's kernels under both accumulation choices
+    (:func:`_fc_precision_kernels`)."""
+    import shutil
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import compile as mxc
+    from mxnet_tpu_torch.compile import autotune
+
+    ctx = _ctx(device)
+    shapes = {"data": (batch, 3, image, image), "softmax_label": (batch,)}
+    sym = mx.models.get_resnet(classes, 50, stem="s2d", image=image)
+    tmp = tempfile.mkdtemp(prefix="mx_tune_")
+    env = {"MXNET_COMPILE_OPT": "1", "MXNET_COMPILE_TUNE": "1",
+           "MXNET_COMPILE_CACHE_DIR": tmp}
+    try:
+        with _Env(**env):
+            trials0, secs0 = autotune.TRIALS, autotune.TRIAL_SECS
+            t0 = time.perf_counter()
+            exe = sym.simple_bind(ctx, grad_req="null", **shapes)
+            bind_s = time.perf_counter() - t0
+            trials = autotune.TRIALS - trials0
+            trial_s = autotune.TRIAL_SECS - secs0
+            report = mxc.last_report()
+            nhwc = sorted(n.name for n in exe._exec_symbol.nodes
+                          if not n.is_variable
+                          and n.op.name == "_mxc_conv_nhwc")
+            convs = sum(1 for n in sym.nodes if not n.is_variable
+                        and n.op.name == "Convolution")
+            db = autotune.TuningDB(os.path.join(tmp, "tuning.json"))
+            entries = db._load()
+            del exe
+        root = os.path.dirname(os.path.abspath(__file__))
+        child_env = dict(os.environ, PYTHONPATH=root, **env)
+        if device != "cuda":
+            child_env["CUDA_VISIBLE_DEVICES"] = ""
+        child = subprocess.run(
+            [sys.executable, "-c", _TUNE_CHILD % (root, device, batch,
+                                                  image, classes)],
+            cwd=root, env=child_env, capture_output=True, text=True,
+            timeout=600)
+        if child.returncode != 0:
+            raise AssertionError("leg B's second process failed:\n%s"
+                                 % child.stderr[-4000:])
+        second = json.loads(child.stdout.strip().splitlines()[-1])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    kinds = {}
+    for k, v in entries.items():
+        kind = k.split("|", 1)[0]
+        kinds.setdefault(kind, {}).setdefault(v["choice"], 0)
+        kinds[kind][v["choice"]] += 1
+    ratios = [v["timings"]["nchw"] / v["timings"]["nhwc"]
+              for k, v in entries.items() if k.startswith("conv_layout|")
+              and len(v.get("timings", {})) == 2]
+    rec = {"leg": "B", "trials": trials, "trial_s": trial_s,
+           "bind_s": bind_s, "report": report, "convs": convs,
+           "convs_nhwc": len(nhwc), "db_choices": kinds,
+           "db_backend": sorted({v["backend"] for v in entries.values()}),
+           "conv_nchw_over_nhwc_s": [min(ratios), max(ratios)]
+           if ratios else None,
+           "matmul_prec_timings_s": [v["timings"] for k, v in entries.items()
+                                     if k.startswith("matmul_prec|")],
+           "fc_precision_kernels": _fc_precision_kernels(device, batch,
+                                                         classes),
+           "second_process": {k: v for k, v in second.items()
+                              if k != "nhwc"}}
+    log(dict(phase="compile", **rec))
+    checks = {"trials": trials > 0,
+              "every contested conv in the db": sum(
+                  kinds.get("conv_layout", {}).values()) > 0,
+              "second process: no trials": second["trials"] == 0,
+              "second process: the same layouts": second["nhwc"] == nhwc}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError("compile leg B: %s failed: %r" % (failed, rec))
+    return rec
+
+
+def _fc_precision_kernels(device, batch, classes, hidden=2048):
+    """The FullyConnected of bench.py's ResNet-50 in the dtype its step
+    computes in (bf16, [batch, 2048] x [classes, 2048]^T) under the
+    precision pass's two choices: the stock ``torch.matmul`` ('f32':
+    f32 accumulation) and ``precision.fast_matmul`` ('fast': cuBLAS's
+    reduced-precision reduction allowed for the call): each one's
+    kernels by name (None where the profiler gave none) and ms a call
+    (CUDA events, 20 calls); raises if the 'fast' call leaves the
+    process's flag changed."""
+    if device != "cuda":
+        return None
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.compile.precision import fast_matmul
+
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    g = torch.Generator(device="cuda").manual_seed(42)
+    x = torch.randn(batch, hidden, generator=g, device="cuda").to(
+        torch.bfloat16)
+    w = torch.randn(classes, hidden, generator=g, device="cuda").to(
+        torch.bfloat16)
+    out = {}
+    for name, fn in (("f32", lambda: torch.matmul(x, w.t())),
+                     ("fast", lambda: fast_matmul(x, w))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        cuda = torch.autograd.DeviceType.CUDA
+        names = sorted({k.name for e in prof.events()
+                        for k in getattr(e, "kernels", ())}
+                       | {e.name for e in prof.events()
+                          if e.device_type == cuda})
+        # None: the profiler returned no kernel for the call ("not
+        # measured"), which a process that profiled before can see
+        out[name] = {"kernels": [n[:160] for n in names] or None,
+                     "ms": cuda_ms(fn)}
+    out["same_kernels"] = (out["f32"]["kernels"] == out["fast"]["kernels"]
+                           if out["f32"]["kernels"]
+                           and out["fast"]["kernels"] else None)
+    # the process's flag, which the 'fast' call sets and restores
+    out["process_allows_bf16_reduced_precision_reduction"] = flag
+    if torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            != flag:
+        raise AssertionError("fast_matmul left the process's flag changed")
+    return out
+
+
+_TUNE_CHILD = r"""
+import json, sys
+sys.path.insert(0, %r)
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch.compile import autotune
+device, batch, image, classes = %r, %d, %d, %d
+ctx = mx.gpu(0) if device == "cuda" else mx.cpu()
+sym = mx.models.get_resnet(classes, 50, stem="s2d", image=image)
+exe = sym.simple_bind(ctx, grad_req="null", data=(batch, 3, image, image),
+                      softmax_label=(batch,))
+print(json.dumps({"trials": autotune.TRIALS,
+                  "report": mx.compile.last_report(),
+                  "nhwc": sorted(n.name for n in exe._exec_symbol.nodes
+                                 if not n.is_variable
+                                 and n.op.name == "_mxc_conv_nhwc")}))
+"""
+
+
+def compile_leg_c(device="cuda", batch=32, image=224, runs=10):
+    """Leg C: the Predictor on Inception-BN at batch ``batch``
+    (``phase_predictor``'s seeded checkpoint) with the frozen-parameter
+    fold: unfolded (the layer off), under ``MXNET_COMPILE_PASSES=fold,
+    fuse`` (outputs bit-equal to the unfolded Predictor's) and under all
+    four passes (within COMPILE_PREDICT_TOL); each one's ms a batch
+    (median of ``runs``, synchronised) and K1 once a forward."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import compile as mxc
+    from mxnet_tpu_torch.ops import softmax as sm
+
+    ctx = _ctx(device)
+    sym = _inception_bn_net(mx)
+    shapes = {"data": (batch, 3, image, image), "softmax_label": (batch,)}
+    args, aux = zoo_params(sym, shapes, seed=17)
+    rng = np.random.RandomState(18)
+    aux = {n: (0.1 * rng.randn(*v.shape) if n.endswith("mean")
+               else 0.5 + rng.rand(*v.shape)).astype(np.float32)
+           for n, v in aux.items()}
+    tmp = tempfile.mkdtemp(prefix="mx_compile_pred_")
+    out, rec = {}, {"leg": "C", "batch": batch, "image": image}
+    try:
+        prefix = os.path.join(tmp, "inception-bn")
+        mx.model.save_checkpoint(
+            prefix, 1, sym,
+            {k: mx.nd.array(v, ctx=mx.cpu()) for k, v in args.items()
+             if k not in shapes},
+            {k: mx.nd.array(v, ctx=mx.cpu()) for k, v in aux.items()},
+            sync=True)
+        x = args["data"]
+        for name, env in (("unfolded", {}),
+                          ("fold_fuse", {"MXNET_COMPILE_OPT": "1",
+                                         "MXNET_COMPILE_PASSES": "fold,fuse"}),
+                          ("all_passes", {"MXNET_COMPILE_OPT": "1"})):
+            with _Env(**env):
+                pred = mx.Predictor.from_checkpoint(
+                    prefix, 1, ctx=ctx, input_shapes={"data": x.shape})
+                report = mxc.last_report() if env else None
+            sm.fused_softmax.launches = 0
+            pred.forward(data=x)
+            out[name] = pred.get_output(0)
+            launches = sm.fused_softmax.launches
+            times = []
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                pred.forward(data=x)
+                pred.get_output(0)
+                _sync(device)
+                times.append((time.perf_counter() - t0) * 1e3)
+            times.sort()
+            rec[name] = {"report": report, "k1_launches": launches,
+                         "ms_per_batch": times[len(times) // 2],
+                         "ms_min_max": [times[0], times[-1]],
+                         "nodes": sum(1 for n in pred._exe._nodes
+                                      if not n.is_variable)}
+            del pred
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["fold_fuse_bit_equal"] = bool(np.array_equal(out["fold_fuse"],
+                                                     out["unfolded"]))
+    rec["all_passes_max_abs_err"] = float(np.max(np.abs(
+        out["all_passes"] - out["unfolded"])))
+    rec["tol"] = COMPILE_PREDICT_TOL
+    log(dict(phase="compile", **rec))
+    want_k1 = 1 if device == "cuda" else 0
+    checks = {
+        "finite": all(np.all(np.isfinite(o)) for o in out.values()),
+        "fold + fuse bit-equal": rec["fold_fuse_bit_equal"],
+        "all passes within tol": rec["all_passes_max_abs_err"]
+        <= COMPILE_PREDICT_TOL,
+        "all passes rewrote": rec["all_passes"]["report"]["layout"] > 0,
+        "K1 once a forward": all(rec[n]["k1_launches"] == want_k1
+                                 for n in out)}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError("compile leg C: %s failed: %r" % (failed, rec))
+    return rec
+
+
+def compile_leg_d(device="cuda", model_kw=FLAGSHIP, long_len=2048, new=16):
+    """Leg D: the flagship serving ``Engine`` (``phase_serving``'s: the
+    Ulysses prefill of a ``long_len`` prompt through K2) under
+    ``MXNET_JIT_VERIFY=1``, 8 requests of mixed lengths, ``new`` tokens
+    each. Checks: no unexpected recompile, no D2H violation, every decode
+    step's ledger exactly 4 bytes a lane of its batch bucket (the token
+    vector), K2 once a layer for the long prompt (its count zeroed just
+    before and read just after); negative controls inside
+    ``expecting_violations``: a dispatch of a decode bucket's program at
+    an off-bucket chunk is caught naming the tokens argument, and a
+    region over its budget is caught with its site; outside, the same
+    off-bucket dispatch raises ``JitVerifyError`` naming the argument."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.analysis import compile_verify as cv
+    from mxnet_tpu_torch.models.transformer import (TransformerConfig,
+                                                    init_params)
+    from mxnet_tpu_torch.ops.flash_attention import flash_attention
+    from mxnet_tpu_torch.parallel import create_mesh
+    from mxnet_tpu_torch.serving import Engine, ServingConfig
+    from mxnet_tpu_torch.serving import sampling as samp_mod
+
+    cfg = TransformerConfig(**model_kw)
+    rng = np.random.RandomState(3)
+    lens = [long_len, 5, 37, 120, 300, 9, 64, 17]
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in lens]
+    regions = []
+    inner = cv.d2h_region
+
+    @contextlib.contextmanager
+    def region(name, budget_bytes=None):
+        with inner(name, budget_bytes=budget_bytes) as r:
+            yield r
+        if r is not None:
+            regions.append((name, budget_bytes, r["bytes"]))
+
+    rec = {"leg": "D", "prompts": lens, "max_new_tokens": new}
+    with _Env(MXNET_JIT_VERIFY="1"):
+        cv.reset()
+        cv.d2h_region = region
+        try:
+            params = init_params(cfg, torch.Generator(
+                device=device).manual_seed(0), device)
+            mesh = create_mesh((1,), ("seq",), devices=[device])
+            scfg = ServingConfig(mesh=mesh, cp_kind="ulysses",
+                                 cp_min_tokens=long_len, block_size=16,
+                                 num_blocks=512, max_batch=8,
+                                 prefill_chunk=64)
+            eng = Engine(params, cfg, scfg, device=device)
+            _sync(device)
+            flash_attention.launches = 0
+            t0 = time.perf_counter()
+            outs = eng.generate(prompts, max_new_tokens=new)
+            _sync(device)
+            wall = time.perf_counter() - t0
+            launches = flash_attention.launches
+        finally:
+            cv.d2h_region = inner
+        unexpected, violations = cv.unexpected(), cv.d2h_violations()
+        summary = cv.summary()
+        # negative controls: a decode bucket's program at a chunk the
+        # bucket does not hold, and a region with too small a budget
+        m = eng.model
+        dev = eng.pool.k.device
+
+        def dispatch(B, C):
+            fn = m._compiled(("step", B, 1))
+            with torch.no_grad():
+                fn(eng.params, eng.pool.k, eng.pool.v,
+                   torch.zeros((B, C), dtype=torch.int64, device=dev),
+                   *m._batch(B, dev, [0], [1],
+                             np.zeros((1, m.max_blocks), np.int64), [False]),
+                   m._sampling_arrays(B, 1, None, None, None, None),
+                   samp_mod.SALT_TARGET)
+
+        lo, hi = m.batch_buckets[0], m.batch_buckets[-1]
+        with cv.expecting_violations() as caught:
+            dispatch(lo, 1)          # the bucket's own chunk: no compile
+            dispatch(lo, 3)
+            with cv.d2h_region("serve.decode_step.too_tight",
+                               budget_bytes=1):
+                m.step(eng.params, eng.pool.k, eng.pool.v,
+                       np.zeros((1, 1), np.int64), np.zeros((1,), np.int64),
+                       np.ones((1,), np.int64),
+                       np.zeros((1, m.max_blocks), np.int64),
+                       np.zeros((1,), bool))
+            dispatch(hi, 1)
+        raised = None
+        try:
+            dispatch(hi, 2)
+        except cv.JitVerifyError as e:
+            raised = str(e)
+    decode = [(b, n) for name, b, n in regions if name == "serve.decode_step"]
+    tokens = sum(len(s) for s in outs)
+    rec.update({
+        "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+        "k2_launches": launches, "unexpected_recompiles": len(unexpected),
+        "d2h_violations": len(violations),
+        "boundaries": summary["boundaries"], "groups": summary["groups"],
+        "decode_steps": len(decode),
+        "decode_bytes_per_step": sorted({n for _, n in decode}),
+        "decode_budgets": sorted({b for b, _ in decode}),
+        "d2h_sites": summary["d2h_sites"],
+        "caught": [{k: v for k, v in c.items() if k != "sites"}
+                   for c in caught],
+        "raised": raised})
+    log(dict(phase="compile", **rec))
+    want_k2 = cfg.num_layers if device == "cuda" else 0
+    checks = {
+        "streams": [len(s) for s in outs] == [new] * len(prompts),
+        "no unexpected recompile": not unexpected,
+        "no D2H violation": not violations,
+        "decode ledger = the token vector": bool(decode) and all(
+            n == b for b, n in decode),
+        "K2 once a layer": launches == want_k2,
+        "off-bucket caught": any(
+            c["event"] == "unexpected_recompile"
+            and any(d.startswith("arg[3]: shape") for d in c["diff"])
+            for c in caught),
+        "over-budget region caught": any(
+            c["event"] == "d2h_over_budget" for c in caught),
+        "off-bucket raises": raised is not None and "arg[3]: shape" in raised}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError("compile leg D: %s failed: %r" % (failed, rec))
+    return rec
+
+
+_CACHE_CHILD = r"""
+import json, sys, time
+import torch
+sys.path.insert(0, %r)
+import chip_smoke
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import rtc
+from mxnet_tpu_torch.compile import jit_cache
+from mxnet_tpu_torch.ops import _nvrtc
+torch.backends.cuda.matmul.allow_tf32 = False
+n = chip_smoke.RTC_N
+body, plain = chip_smoke.RTC_BODIES[%r]
+g = torch.Generator(device="cuda").manual_seed(31)
+ctx = mx.gpu(0)
+a, b, c = (mx.nd.NDArray(torch.rand(n, generator=g, device="cuda"), ctx)
+           for _ in range(3))
+out = mx.nd.zeros((n,), ctx=ctx)
+k = mx.rtc.Rtc(%r, [("a", a), ("b", b), ("c", c)], [("out", out)], body)
+rtc.launches = 0
+t0 = time.perf_counter()
+k.push([a, b, c], [out], grid_dims=(chip_smoke.RTC_GRID, 1, 1),
+       block_dims=(chip_smoke.RTC_BLOCK, 1, 1))
+torch.cuda.synchronize()
+first_ms = 1e3 * (time.perf_counter() - t0)
+close = chip_smoke.closeness(out._data, plain(a._data, b._data, c._data),
+                             1e-4)
+print(json.dumps(dict(jit_cache.stats(), nvrtc=_nvrtc.COMPILES,
+                      launches=rtc.launches, first_push_ms=first_ms,
+                      closeness=close, dir=jit_cache.active_dir())))
+"""
+
+
+def compile_leg_e(device="cuda"):
+    """Leg E: the persistent cubin cache. Three processes push
+    RTC_BODIES' real-size body (K5, f32 [2^26]) under one fresh
+    ``MXNET_COMPILE_CACHE_DIR``: the first compiles it with NVRTC (one
+    miss), the second loads the cubin (one hit, no NVRTC compile); one
+    byte of the entry is flipped, and the third counts one corrupt
+    entry, recompiles (one miss) and still agrees with the body's plain
+    twin (tol 1e-4), as every process must. Prints each process's first
+    push (compile or load included)."""
+    import shutil
+    import tempfile
+
+    if device != "cuda":
+        return {"leg": "E", "skipped": "CUDA C bodies run on a card only",
+                "launches": 0}
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="mx_cubins_")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("MXNET_COMPILE")}
+    env.update(PYTHONPATH=root, MXNET_COMPILE_CACHE_DIR=tmp)
+
+    def child():
+        proc = subprocess.run(
+            [sys.executable, "-c", _CACHE_CHILD % (
+                root, COMPILE_CACHE_BODY, COMPILE_CACHE_BODY)],
+            cwd=root, env=env, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError("leg E's process failed:\n%s"
+                                 % proc.stderr[-4000:])
+        return json.loads(proc.stdout.strip().splitlines()[-1])
+
+    try:
+        runs = [child(), child()]
+        entries = [p for p in os.listdir(runs[0]["dir"])
+                   if p.endswith("-cubin")]
+        path = os.path.join(runs[0]["dir"], entries[0])
+        with open(path, "rb") as f:
+            raw = bytearray(f.read())
+        raw[len(raw) // 2] ^= 0x10
+        with open(path, "wb") as f:
+            f.write(bytes(raw))
+        runs.append(child())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"leg": "E", "body": COMPILE_CACHE_BODY, "n": RTC_N,
+           "entries": len(entries),
+           "processes": [{k: v for k, v in r.items() if k != "dir"}
+                         for r in runs],
+           "launches": sum(r["launches"] for r in runs)}
+    log(dict(phase="compile", **rec))
+    first, second, third = runs
+    checks = {
+        "first: one miss, one NVRTC compile": (
+            first["misses"], first["hits"], first["nvrtc"]) == (1, 0, 1),
+        "second: one hit, no NVRTC compile": (
+            second["hits"], second["misses"], second["nvrtc"]) == (1, 0, 0),
+        "third: one corrupt entry, recompiled": (
+            third["corrupt"], third["misses"], third["nvrtc"]) == (1, 1, 1),
+        "each agrees with the plain twin": all(
+            within(r["closeness"], 1e-4) for r in runs),
+        "one launch each": [r["launches"] for r in runs] == [1, 1, 1]}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError("compile leg E: %s failed: %r" % (failed, rec))
+    return rec
+
+
+def compile_kernel_checks(device="cuda"):
+    """K1 and K2 at this phase's shapes against their plain versions
+    (under :func:`closeness`, bf16 tol 1e-2), outside the counted
+    windows: K1 at [128, 1000] bf16 (leg A's heads), K2 at [1, 8, 2048,
+    128] bf16 causal (leg D's prefill). K5 is held in each leg-E
+    process."""
+    import torch
+
+    from mxnet_tpu_torch.ops.flash_attention import (attention_reference,
+                                                     flash_attention_fwd)
+    from mxnet_tpu_torch.ops.softmax import fused_softmax, softmax_reference
+
+    if device != "cuda":
+        return {}
+    g = torch.Generator(device="cuda").manual_seed(40)
+    x = (torch.randn(128, 1000, generator=g, device="cuda") * 3).to(
+        torch.bfloat16)
+    k1 = closeness(fused_softmax(x), softmax_reference(x), 1e-2)
+    q, k, v = _kernel_inputs((1, 8, 2048, 128), torch.bfloat16, None,
+                             "plain", 41)
+    o, _ = flash_attention_fwd(q, k, v, causal=True)
+    k2 = closeness(o, attention_reference(q, k, v, causal=True)[0], 1e-2)
+    rec = {"k1_128x1000_bf16": k1, "k2_1x8x2048x128_bf16": k2}
+    log(dict(phase="compile_kernel_checks", **rec))
+    if not (within(k1, 1e-2) and within(k2, 1e-2)):
+        raise AssertionError("compile phase kernel checks: %r" % rec)
+    return rec
+
+
+def phase_compile(device="cuda", **kw):
+    """The compile layer and the compile/transfer verifier on the card:
+    legs A-E (see each ``compile_leg_*``) and the kernels of their path
+    held against their plain versions. Returns the legs' records."""
+    legs = {}
+    t0 = time.perf_counter()
+    legs["kernels"] = compile_kernel_checks(device)
+    for name, fn in (("A", compile_leg_a), ("B", compile_leg_b),
+                     ("C", compile_leg_c), ("D", compile_leg_d),
+                     ("E", compile_leg_e)):
+        t1 = time.perf_counter()
+        legs[name] = fn(device, **kw.get(name, {}))
+        legs[name]["leg_s"] = time.perf_counter() - t1
+        if device == "cuda":
+            import torch
+
+            torch.cuda.empty_cache()
+    log({"phase": "compile", "legs_s": {k: v.get("leg_s") for k, v in
+                                        legs.items() if k != "kernels"},
+         "total_s": time.perf_counter() - t0})
+    return legs
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -7444,6 +8302,8 @@ def main():
         "step_ms_epoch2_off"])
     torch.cuda.empty_cache()
     _timed("guardian_vote", phase_guardian_vote)
+    torch.cuda.empty_cache()
+    comp = _timed("compile", phase_compile)
     log({"phase_seconds": phase_s,
          "phases_total_s": sum(phase_s.values())})
     fwd_main = fwd_checks[-1]   # the training shape, the LM's views
@@ -7453,12 +8313,15 @@ def main():
         "source": "mxnet_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:93",
         "launches": (serving + serving_sampled + training["flash_fwd"]
-                     + sum(fleet["k2"].values()) + mxprof["launches_k2"]),
+                     + sum(fleet["k2"].values()) + mxprof["launches_k2"]
+                     + comp["D"]["k2_launches"]),
         "launches_by_path": {"serving": serving,
                              "serving_sampled": serving_sampled,
                              "training": training["flash_fwd"],
                              **fleet["k2"],
-                             "mxprof_serving": mxprof["launches_k2"]},
+                             "mxprof_serving": mxprof["launches_k2"],
+                             "compile_jit_verify_serving": comp["D"][
+                                 "k2_launches"]},
         "max_abs_err": max(c["max_abs_err"] for c in fwd_checks),
         "shape": fwd_main["shape"], "layout": fwd_main["layout"],
         "ms": fwd_main["ms"], "graph_ms": fwd_main["graph_ms"],
@@ -7520,7 +8383,10 @@ def main():
                      + mp["softmax_launches"]
                      + guard["A"]["softmax_launches"]
                      + guard["B"]["softmax_launches"]
-                     + mxprof["launches_k1"]),
+                     + mxprof["launches_k1"]
+                     + comp["A"]["k1_launches"]
+                     + sum(comp["C"][n]["k1_launches"] for n in (
+                         "unfolded", "fold_fuse", "all_passes"))),
         "launches_by_path": {"lenet_fit": lenet, "resnet50_fit": resnet,
                              "module": module,
                              "resnet50_module_fit": resnet_module,
@@ -7552,7 +8418,12 @@ def main():
                                  "softmax_launches"],
                              "guardian_per_batch": guard["B"][
                                  "softmax_launches"],
-                             "mxprof_fit": mxprof["launches_k1"]},
+                             "mxprof_fit": mxprof["launches_k1"],
+                             "compile_resnet50_bench": comp["A"][
+                                 "k1_launches"],
+                             **{"compile_predictor_" + n: comp["C"][n][
+                                 "k1_launches"] for n in (
+                                 "unfolded", "fold_fuse", "all_passes")}},
         "max_abs_err": max(c["max_abs_err"] for c in softmax_checks),
         "max_err_to_limit": max(c["closeness"]["elem"]
                                 for c in softmax_checks),
@@ -7585,8 +8456,9 @@ def main():
         "source": "mxnet_tpu_torch/rtc.py",
         "bodies": "chip_smoke.py RTC_BODIES (CUDA C, compiled by NVRTC)",
         "replaces": "mxnet_tpu/rtc.py:107",
-        "launches": rtc["launches"],
-        "launches_by_path": {"rtc": rtc["launches"]},
+        "launches": rtc["launches"] + comp["E"]["launches"],
+        "launches_by_path": {"rtc": rtc["launches"],
+                             "compile_cubin_cache": comp["E"]["launches"]},
         "max_abs_err": max(c["abs"] for c in rtc["checks"].values()),
         "max_err_to_limit": max(c["elem"] for c in rtc["checks"].values()),
         "shape": [RTC_N], "dtype": "float32", "ms": f32["ms"],

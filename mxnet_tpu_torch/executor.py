@@ -116,10 +116,26 @@ order on ``torch.Tensor``s, and gradients come from ``torch.autograd``:
   executor keys it, and its peak device memory; graphs with host ops
   and model-parallel binds are not attributed, as in the JAX package.
 
-Not ported: the compile verifier.
+- The compile layer (``compile/``, ``mxnet_tpu/executor.py:127-155``):
+  with ``MXNET_COMPILE_OPT=1`` the bind rewrites the graph before the
+  walk (fold, layout, fuse, precision) and the executor walks the
+  rewritten graph, ``_exec_symbol``; argument and aux mapping key off
+  the original graph's variable nodes, which the passes keep by
+  identity, and loss-head semantics come from the user's graph.
+  Binds with ``group2ctx`` are not rewritten (placement is per original
+  node). A failing pass falls back to the unrewritten graph with a
+  warning, except ``CompileVerifyError`` (``MXNET_COMPILE_VERIFY=1``),
+  which propagates. Every bind arms the persistent cubin cache when
+  ``MXNET_COMPILE_CACHE_DIR`` is set. Under ``MXNET_JIT_VERIFY`` the
+  three entry points are boundaries of ``analysis/compile_verify.py``
+  (``executor.fwd_infer``, ``executor.fwd_train``,
+  ``executor.fwd_bwd``, budget 2 each, group ``executor.bind``), as in
+  the JAX executor; host-op and model-parallel binds are not wrapped.
 """
 from __future__ import annotations
 
+import functools
+import logging
 import math
 import os
 import re
@@ -128,9 +144,11 @@ import time as _time
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from . import compile as _compile
 from . import random as _random
 from . import telemetry as _tel
 from . import threefry
+from .analysis import compile_verify as _cv
 from .base import (MXNetError, deterministic_grads, env_bool, env_int,
                    torch_dtype)
 from .context import Context
@@ -240,13 +258,36 @@ class Executor:
                     raise MXNetError("bind: %s array on %s, its node on %s"
                                      % (kind, a._data.device, c))
 
-        self._nodes = symbol.nodes
+        # argument mapping keys off the ORIGINAL symbol's variable nodes;
+        # the compile passes keep variable objects by identity, so the
+        # same map serves the rewritten graph
         self._var_argidx = {}
         ai = 0
-        for n in self._nodes:
+        for n in symbol.nodes:
             if n.is_variable:
                 self._var_argidx[id(n)] = ai
                 ai += 1
+        self._exec_symbol = symbol
+        if _compile.ENABLED and not self._group2ctx:
+            try:
+                self._exec_symbol = _compile.optimize(
+                    symbol,
+                    input_shapes={n: a.shape for n, a in
+                                  zip(self._arg_names, self.arg_arrays)},
+                    input_types={n: a.dtype for n, a in
+                                 zip(self._arg_names, self.arg_arrays)
+                                 if a.dtype is not torch.bfloat16},
+                    device=self._device, **dict(_compile_opts or {}))
+            except _compile.CompileVerifyError:
+                raise
+            except Exception as e:
+                logging.getLogger("mxnet_tpu_torch.compile").warning(
+                    "graph rewrite failed (%s: %s); binding the "
+                    "unrewritten graph", type(e).__name__, e)
+                self._exec_symbol = symbol
+        self._nodes = self._exec_symbol.nodes
+        for n in self._nodes:   # nodes the rewrite made run on the bind ctx
+            self._node_ctx.setdefault(id(n), self._ctx)
         self._node_aux = {}
         pos = 0
         for n in self._nodes:
@@ -257,7 +298,10 @@ class Executor:
                 self._node_aux[id(n)] = (pos, pos + na)
                 pos += na
         nid = {id(n): i for i, n in enumerate(self._nodes)}
-        self._heads = [(nid[id(nd)], i) for nd, i in symbol._outputs]
+        self._heads = [(nid[id(nd)], i)
+                       for nd, i in self._exec_symbol._outputs]
+        # loss-head semantics come from the USER's graph (rewrites never
+        # wrap loss heads)
         self._head_no_grad = [
             (not nd.is_variable) and nd.op.head_no_grad(nd.params)
             for nd, _ in symbol._outputs]
@@ -277,6 +321,26 @@ class Executor:
                            for n in self._nodes)
         self._host_op_cache = {}   # user operators of this binding
         self._host_roots = []      # loss-semantics host outputs, last walk
+        # persistent cubin cache (MXNET_COMPILE_CACHE_DIR): no-op when
+        # unconfigured
+        _compile.ensure_jit_cache()
+        # the three entry points; verifier boundaries under
+        # MXNET_JIT_VERIFY (the walk itself otherwise). Budget 2: the key
+        # is None or a tensor, and the recompute of a backward writes no
+        # aux — two legal signatures each
+        self._fwd_infer = functools.partial(self._run, is_train=False)
+        self._fwd_train = functools.partial(self._run, is_train=True)
+        self._fwd_bwd = self._forward_graph
+        if not (self._hybrid or self._multi_device or self._group2ctx):
+            self._fwd_infer = _cv.wrap(
+                "executor.fwd_infer", self._fwd_infer, budget=2,
+                group="executor.bind")
+            self._fwd_train = _cv.wrap(
+                "executor.fwd_train", self._fwd_train, budget=2,
+                group="executor.bind")
+            self._fwd_bwd = _cv.wrap(
+                "executor.fwd_bwd", self._fwd_bwd, budget=2,
+                group="executor.bind")
 
         self._outputs_nd = None
         self._graph = None       # (versions, output tensors, leaves, roots)
@@ -550,12 +614,13 @@ class Executor:
         for j, v in zip(aux_ids, got[len(out_keys):]):
             new_aux[j] = v
 
-    def _forward_graph(self, write_aux, key, tap=False):
+    def _forward_graph(self, vals, aux_vals, key, write_aux, tap=False):
         """Forward with autograd recording over the differentiated
-        arguments, random nodes under ``key``; keeps (versions, outputs,
-        leaves, host roots) for backward. A graph with host ops reads
-        copies of the arguments (see the module's docstring)."""
-        vals = [a._data for a in self.arg_arrays]
+        arguments ``vals`` (the bound arrays' tensors), random nodes
+        under ``key``; keeps (versions, outputs, leaves, host roots) for
+        backward. A graph with host ops reads copies of the arguments
+        (see the module's docstring)."""
+        vals = list(vals)
         if self._hybrid:
             vals = [v.detach().clone() for v in vals]
         leaves = []
@@ -565,7 +630,7 @@ class Executor:
             vals[i] = leaf
             leaves.append(leaf)
         with torch.enable_grad():
-            outs, new_aux = self._run(vals, self._aux_vals(), True, tap, key)
+            outs, new_aux = self._run(vals, aux_vals, True, tap, key)
         self._write_outputs(outs)
         if write_aux:
             self._write_aux(new_aux)
@@ -724,12 +789,14 @@ class Executor:
             _random.next_key()   # the JAX package's monitor replay's key
         key = _random.next_key() if is_train else None
         if is_train and self._grad_idx:
-            self._forward_graph(write_aux=True, key=key, tap=True)
+            self._fwd_bwd([a._data for a in self.arg_arrays],
+                          self._aux_vals(), key, True, tap=True)
         else:
+            run = self._fwd_train if is_train else self._fwd_infer
             with torch.no_grad():
-                outs, new_aux = self._run(
+                outs, new_aux = run(
                     [a._data for a in self.arg_arrays], self._aux_vals(),
-                    is_train, tap=True, key=key)
+                    tap=True, key=key)
             self._write_outputs(outs)
             if is_train:
                 self._write_aux(new_aux)
@@ -779,7 +846,8 @@ class Executor:
             if self._graph is None:
                 raise MXNetError("backward before forward(is_train=True)")
         elif self._graph is None or self._graph[0] != self._versions():
-            self._forward_graph(write_aux=False, key=_random.next_key())
+            self._fwd_bwd([a._data for a in self.arg_arrays],
+                          self._aux_vals(), _random.next_key(), False)
         _, outs, leaves, roots = self._graph
         self._graph = None
         pairs = [(o, g) for o, g in zip(outs, hg)

@@ -92,6 +92,7 @@ import numpy as _np
 import torch
 
 from . import telemetry as _tel
+from .analysis import compile_verify as _cv
 from .base import MXNetError
 from .context import Context, cpu, current_context
 from .resilience import faults as _faults
@@ -345,6 +346,9 @@ def _scan_drain(pending, eval_metric, label_names, batch_end_callback,
         pulled = [outs[0].argmax(dim=-1)]
     else:
         pulled = list(outs)
+    # the chunk's heads: one D2H a head (the guardian's flags ride along)
+    _cv.note_d2h(sum(t.numel() * t.element_size() for t in pulled),
+                 "mxnet_tpu_torch/model.py::_scan_drain")
     if flags is not None:
         pulled += [flags[0], flags[1]]
     host_outs = _host_pull(pulled)

@@ -4,7 +4,11 @@ and loader behind :mod:`mxnet_tpu_torch.rtc`.
 - :func:`compile_cubin` compiles one CUDA C source with NVRTC for
   ``sm_90a`` (``-std=c++17``, the toolkit's headers on the include path
   so ``cuda_fp16.h``/``cuda_bf16.h`` resolve) and returns the CUBIN; a
-  failed compile raises :class:`MXNetError` carrying NVRTC's log.
+  failed compile raises :class:`MXNetError` carrying NVRTC's log. Under
+  ``MXNET_COMPILE_CACHE_DIR`` the cubin is loaded from, or stored in,
+  the persistent cache (``compile/jit_cache.py``), keyed by the source,
+  the name, :data:`ARCH` and the NVRTC version; :data:`COMPILES` counts
+  the NVRTC compiles this process actually ran.
 - :func:`load_function` loads a CUBIN into the primary context of one
   device (``cuModuleLoadData``) and looks a kernel up by name.
 - :func:`launch` calls ``cuLaunchKernel`` with one pointer argument per
@@ -35,9 +39,13 @@ from pathlib import Path
 
 from ..base import MXNetError
 
-__all__ = ["compile_cubin", "load_function", "launch", "info", "ARCH"]
+__all__ = ["compile_cubin", "load_function", "launch", "info", "ARCH",
+           "COMPILES"]
 
 ARCH = "sm_90a"
+
+#: NVRTC compiles run in this process (a cache hit runs none)
+COMPILES = 0
 
 _P = ctypes.c_void_p
 _U = ctypes.c_uint
@@ -158,8 +166,24 @@ def _nvrtc_check(nvrtc, res, what, log=""):
 
 def compile_cubin(source, name):
     """CUBIN bytes of ``source`` compiled by NVRTC for :data:`ARCH`;
-    raises with NVRTC's log on a compile error."""
+    raises with NVRTC's log on a compile error. With the persistent
+    cache armed, a stored cubin of the same source, name, architecture
+    and NVRTC version is loaded instead."""
+    _load()
+    from ..compile import ensure_jit_cache, jit_cache
+
+    d = ensure_jit_cache()
+    if d is None:
+        return _nvrtc_compile(source, name)
+    key = jit_cache.entry_key(source, name, ARCH, info["nvrtc_version"])
+    return jit_cache.load_or_build(
+        key, lambda: _nvrtc_compile(source, name), directory=d)
+
+
+def _nvrtc_compile(source, name):
+    global COMPILES
     _, nvrtc = _load()
+    COMPILES += 1
     prog = _P()
     _nvrtc_check(nvrtc, nvrtc.nvrtcCreateProgram(
         ctypes.byref(prog), source.encode(), ("%s.cu" % name).encode(), 0,

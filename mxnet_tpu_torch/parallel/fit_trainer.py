@@ -41,17 +41,29 @@ rollback and disk-rollback fallback. Under ``MXNET_PROF=1`` the chunk
 program is attributed once a chunk length (``telemetry/prof.py``: K
 times the graph's analytic training FLOPs) and ``last_program_key``
 names it for the fit loop's step breakdown.
+
+The bind applies the ``MXNET_COMPILE_OPT`` graph rewrites to the walk
+the steps run and arms the persistent cubin cache
+(``mxnet_tpu/parallel/fit_trainer.py:121-126``). Under
+``MXNET_JIT_VERIFY`` each chunk length's program is the verifier
+boundary ``fit_trainer.loop|K=<K>`` (budget 1, group
+``train.fit_loop``): its learning rates, keys and fault multipliers go
+in as arrays, as they do into the JAX trainer's scanned program, so a
+new schedule value is not a new signature.
 """
 from __future__ import annotations
 
+import numpy as _np
 import torch
 
+from .. import compile as _compile
 from .. import random as _random
 from .. import telemetry as _tel
 from .. import threefry
 from ..resilience import faults as _flt
 from ..resilience import guardian as _grd
 from ..telemetry import prof as _prof
+from ..analysis import compile_verify as _cv
 from ..base import MXNetError, torch_dtype
 from ..ndarray import NDArray, _as_tensor
 from .symbol_trainer import train_grads, write_aux
@@ -95,6 +107,8 @@ class FitTrainer:
         if any((not n.is_variable) and n.op.is_host_op for n in symbol.nodes):
             raise MXNetError("scanned fit does not support host ops "
                              "(Custom/NumpyOp/torch bridge)")
+        # the bind applies the MXNET_COMPILE_OPT rewrites to the walk
+        _compile.ensure_jit_cache()
         exe = symbol.simple_bind(ctx, grad_req="null", **input_shapes)
         if not all(exe._head_no_grad):
             raise MXNetError("scanned fit requires loss-op heads")
@@ -131,7 +145,7 @@ class FitTrainer:
         self._prof_analytic = None
         self._prof_keys = {}
         self.last_program_key = None
-        self._seen_k = set()
+        self._jit_cache = {}   # K -> the chunk program (a boundary)
 
     def _guard_buffers(self):
         """Re-home every tensor a step writes (parameters, optimizer-state
@@ -225,22 +239,35 @@ class FitTrainer:
         # into the chunk (the JAX trainer stages them the same way)
         mults = ([_grd.grad_fault_multiplier() for _ in range(K)]
                  if self._inject else [1.0] * K)
-        if K not in self._seen_k:
-            self._seen_k.add(K)
+        if K not in self._jit_cache:
+            # one "compile" per chunk length K (the memo key IS the
+            # bucket) — MXNET_JIT_VERIFY names any arg that breaks it
+            self._jit_cache[K] = _cv.wrap(
+                "fit_trainer.loop|K=%d" % K, self._chunk_program, budget=1,
+                group="train.fit_loop")
             if _tel.ENABLED:
                 # a chunk length's first run, the JAX trainer's jit build
                 _tel.counter("executor.jit_builds_total").inc()
             if _prof.ENABLED:
                 self._attribute(K, batches)
+        fn = self._jit_cache[K]
+        args = (batches, _np.asarray(lrs, _np.float64), keys,
+                _np.asarray(mults, _np.float64))
         self.last_program_key = self._prof_keys.get(K)
         if self.last_program_key is not None:
             with _prof.measure_first_call(self.last_program_key,
                                           self._device):
-                outs, flags = self._steps(K, batches, lrs, keys, mults)
+                outs, flags = fn(*args)
         else:
-            outs, flags = self._steps(K, batches, lrs, keys, mults)
+            outs, flags = fn(*args)
         self._last_flags = flags
         return [torch.stack(col) for col in zip(*outs)]
+
+    def _chunk_program(self, batches, lrs, keys, mults):
+        """The K-step program of one chunk: ``lrs`` and ``mults`` are
+        float64 arrays (their values exact), ``keys`` the K step keys."""
+        return self._steps(len(lrs), batches, lrs.tolist(), keys,
+                           mults.tolist())
 
     def _steps(self, K, batches, lrs, keys, mults):
         guard = self._guard_on

@@ -24,7 +24,9 @@ from __future__ import annotations
 import numpy as _np
 import torch
 
+from .. import compile as _compile
 from .. import threefry
+from ..analysis import compile_verify as _cv
 from ..base import MXNetError, deterministic_grads, torch_dtype
 from ..context import Context, cpu, current_context, gpu
 from ..ndarray import _as_tensor
@@ -136,6 +138,9 @@ def make_symbol_train_step(symbol, input_shapes, optimizer=None,
     if any((not n.is_variable) and n.op.is_host_op for n in symbol.nodes):
         raise MXNetError("make_symbol_train_step does not support host "
                          "ops (Custom/NumpyOp/torch bridge)")
+    # the throwaway bind applies the MXNET_COMPILE_OPT rewrites to the
+    # walk the step borrows
+    _compile.ensure_jit_cache()
     exe = symbol.simple_bind(ctx, grad_req="null", **input_shapes)
     run = exe._run
     no_head_grad = exe._head_no_grad
@@ -180,15 +185,16 @@ def make_symbol_train_step(symbol, input_shapes, optimizer=None,
             write_aux(state["aux"], new_aux)
         return state, outs
 
+    # fixed-shape bind: the step and each chunk length of the loop
+    # "compile" once (MXNET_JIT_VERIFY names an argument that varies)
+    jitted = _cv.wrap("symbol_trainer.step", _step, budget=1,
+                      group="train.symbol_step")
+
     def step(state, batch, key):
         batch = {k: _as_tensor(v, device) for k, v in batch.items()}
-        return _step(state, batch, key)
+        return jitted(state, batch, key)
 
-    def loop(state, batches, key):
-        """K train steps, one a batch slice, queued without a host
-        synchronisation; returns ``(state, outs)`` with each head's
-        outputs stacked over the K steps."""
-        batches = {k: _as_tensor(v, device) for k, v in batches.items()}
+    def _loop(state, batches, key):
         K = next(iter(batches.values())).shape[0]
         keys = threefry.split(key, K)
         outs = []
@@ -197,6 +203,16 @@ def make_symbol_train_step(symbol, input_shapes, optimizer=None,
                              keys[k])
             outs.append(o)
         return state, tuple(torch.stack(col) for col in zip(*outs))
+
+    jitted_loop = _cv.wrap("symbol_trainer.loop", _loop, budget=4,
+                           group="train.symbol_step")
+
+    def loop(state, batches, key):
+        """K train steps, one a batch slice, queued without a host
+        synchronisation; returns ``(state, outs)`` with each head's
+        outputs stacked over the K steps."""
+        batches = {k: _as_tensor(v, device) for k, v in batches.items()}
+        return jitted_loop(state, batches, key)
 
     step.loop = loop
     return step, state

@@ -17,10 +17,15 @@ counterpart of buffer donation).
 - Only a one-device mesh exists: ``create_mesh`` raises for more, and
   shardings (``param_spec``, ``batch_spec``, :func:`data_parallel_spec`)
   raise until the multi-GPU slice lands.
+- Under ``MXNET_JIT_VERIFY`` the step is the verifier boundary
+  ``trainer.sharded_step`` (budget 1, group ``train.sharded_step``), as
+  in the JAX package.
 """
 from __future__ import annotations
 
 import torch
+
+from ..analysis import compile_verify as _cv
 
 __all__ = ["data_parallel_spec", "make_train_step", "ShardedTrainer"]
 
@@ -89,6 +94,11 @@ def make_train_step(loss_fn, optimizer=None, mesh=None, param_spec=None,
         if has_aux:
             return params, opt_state, loss.detach(), aux
         return params, opt_state, loss.detach()
+
+    # fixed-shape step: one "compile" (MXNET_JIT_VERIFY names the
+    # argument if a varying value sneaks into its signature)
+    step_fn = _cv.wrap("trainer.sharded_step", step_fn, budget=1,
+                       group="train.sharded_step")
 
     def init_state(params):
         leaves = list(_leaves(params))

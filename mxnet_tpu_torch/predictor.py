@@ -27,9 +27,13 @@ Where the port parts from the JAX package:
 
 - ``ctx=None`` means ``gpu(0)``, as for every entry point of the port
   (the JAX package's default is ``cpu()``); without CUDA it raises.
-- No fold pass and no persistent compile cache: the JAX ``_bind`` folds
-  the frozen parameters into constants through its ``compile`` layer,
-  which the port does not have; here the graph binds as it is, with
+- The compile layer, as in the JAX ``_bind``
+  (``mxnet_tpu/predictor.py:125-141``): predict-time weights never
+  change after bind, so under ``MXNET_COMPILE_OPT=1`` the bind hands the
+  checkpoint's parameters to the fold pass as ``frozen_params``
+  (parameter-only subexpressions become constants on the bind's
+  device); the bind arms the persistent cubin cache when
+  ``MXNET_COMPILE_CACHE_DIR`` is set. The graph binds with
   ``grad_req="null"``.
 - The artifact keeps the JAX package's envelope (``b"MXTC"``, the
   header's length, a JSON header) with a ``torch.export.save`` body; a
@@ -141,8 +145,14 @@ class Predictor:
         self._args = args
         self._arg_params = arg_params
         self._aux_params = aux_params
-        self._exe = self._symbol.bind(self._ctx, args, aux_states=aux,
-                                      grad_req="null")
+        from . import compile as _compile
+
+        _compile.ensure_jit_cache()
+        frozen = {n: args[n] for n in arg_names
+                  if n not in input_shapes and n in arg_params}
+        self._exe = self._symbol.bind(
+            self._ctx, args, aux_states=aux, grad_req="null",
+            _compile_opts={"frozen_params": frozen} if frozen else None)
         self._outputs = None
 
     @classmethod

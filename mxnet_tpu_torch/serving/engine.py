@@ -60,10 +60,18 @@ steps land ``serve.prefill``/``serve.decode`` step breakdowns, and a
 speculative turn ``serve.spec_draft`` and ``serve.spec_verify`` ones
 (``mxnet_tpu/serving/engine.py:994-1131``).
 
+The compile/transfer verifier (``MXNET_JIT_VERIFY``,
+``analysis/compile_verify.py``): the serving model's bucket programs
+are its boundaries, and the decode step and the speculative turn are
+D2H regions with the JAX package's budgets
+(``mxnet_tpu/serving/engine.py:968``, ``:1042``, ``:1069``): a plain
+decode step may pull 4 bytes a lane of its batch bucket (the token
+vector), a speculative turn 4·B·(K + 3) (accepted counts, final tokens
+and draft tokens; never logits).
+
 Not in this release: the JAX package's lock tracer
-(``MXNET_ENGINE_VERIFY``, ``analysis/engine_verify.py``) and its
-compile/transfer verifier (``MXNET_JIT_VERIFY``,
-``analysis/compile_verify.py``): with either set, ``Engine`` raises.
+(``MXNET_ENGINE_VERIFY``, ``analysis/engine_verify.py``): with it set,
+``Engine`` raises.
 """
 from __future__ import annotations
 
@@ -78,6 +86,7 @@ import numpy as np
 import torch
 
 from .. import telemetry as _tel
+from ..analysis import compile_verify as _cv
 from ..telemetry import prof as _prof
 from ..base import MXNetError, env_bool as _env_bool, env_int as _env_int
 from ..context import resolve_device
@@ -100,9 +109,7 @@ _live_engines = weakref.WeakSet()
 
 # switches of the JAX package whose modules are not ported
 _UNPORTED_SWITCHES = (
-    ("MXNET_ENGINE_VERIFY", "the lock tracer (analysis/engine_verify.py)"),
-    ("MXNET_JIT_VERIFY",
-     "the compile/transfer verifier (analysis/compile_verify.py)"))
+    ("MXNET_ENGINE_VERIFY", "the lock tracer (analysis/engine_verify.py)"),)
 
 
 def live_engines():
@@ -961,7 +968,12 @@ class Engine:
         # static policy = fixed-shape serving: decode dispatches at the
         # full batch width even as the batch drains
         min_b = self.cfg.max_batch if self.cfg.policy == "static" else None
-        with _tel.span("serve.decode"):
+        # token-vector-only contract: the step's one D2H is the sampled
+        # token vector at bucket width (4 bytes a lane) — the ledger
+        # fails the turn if anything more (e.g. logits) crosses
+        Bv = bucket_for(max(B, min_b or 1), self.model.batch_buckets)
+        with _tel.span("serve.decode"), \
+                _cv.d2h_region("serve.decode_step", budget_bytes=4 * Bv):
             nxt = self.model.step(
                 self.params, self.pool.k, self.pool.v, tokens, start,
                 np.ones((B,), np.int32), self._tables(reqs),
@@ -1026,7 +1038,10 @@ class Engine:
         karr = np.asarray(ks, np.int32)
         # the spec turn IS the decode dispatch when speculation is on —
         # it gets its own span (serve.spec_turn)
-        with _tel.span("serve.spec_turn"):
+        Bv = bucket_for(B, self.model.batch_buckets)
+        with _tel.span("serve.spec_turn"), \
+                _cv.d2h_region("serve.spec_turn",
+                               budget_bytes=4 * Bv * (K + 3)):
             td0 = time.monotonic() if prof_on else 0.0
             dmat, qmat = self.draft_model.draft_turn(
                 self.draft_params, self.draft_pool.k, self.draft_pool.v,
@@ -1048,6 +1063,9 @@ class Engine:
             n = n_dev.cpu().numpy()
             fin = fin_dev.cpu().numpy()
             drafts = dmat.cpu().numpy()
+            _cv.note_d2h(
+                n.nbytes + fin.nbytes + drafts.nbytes,
+                "mxnet_tpu_torch/serving/engine.py::Engine._run_spec_turn")
         now = time.monotonic()
 
         drafted = accepted = emitted = 0

@@ -47,6 +47,15 @@ attention's score products, which depend on each row's context, are
 left out), and every later :meth:`ServingModel.step` lands a
 ``serve.prefill``/``serve.decode`` step breakdown (host staging,
 dispatch, the wait on the card, the token pull) with its ``d2h_bytes``.
+
+Under ``MXNET_JIT_VERIFY`` (``analysis/compile_verify.py``) each bucket's
+program is a verifier boundary, memoized by ``(kind, *bucket)`` as the
+JAX package memoizes its jitted programs and with its names
+(``serve.step|B|C``, ``serve.draft_turn|B|C|K``, ``serve.verify|B|K``,
+budget 1 each) and group budgets (``serve.step`` and
+``serve.draft_turn``: batch buckets x (chunk buckets + 1);
+``serve.verify``: batch buckets); :meth:`ServingModel.step` accounts its
+token-vector pull in the D2H ledger.
 """
 from __future__ import annotations
 
@@ -56,6 +65,7 @@ import numpy as np
 import torch
 
 from .. import threefry as _tf
+from ..analysis import compile_verify as _cv
 from ..telemetry import prof as _prof
 from ..models.transformer import TransformerConfig, _gelu, _layer_norm
 from . import sampling as _samp
@@ -97,6 +107,14 @@ class ServingModel:
         self.batch_buckets = tuple(sorted(set(int(b) for b in batch_buckets)))
         self.chunk_buckets = tuple(sorted(set(int(c) for c in chunk_buckets)))
         self._prof_keys = {}
+        self._programs = {}  # (kind, *bucket) -> the program (a boundary)
+        # bucket-derived compile budgets: decode (C=1) plus one program
+        # per (batch, chunk) bucket pair; draft_turn/verify budgets are
+        # per (batch, K) but K is static per engine — bound by batches
+        n_bc = len(self.batch_buckets) * (len(self.chunk_buckets) + 1)
+        _cv.declare_budget("serve.step", n_bc)
+        _cv.declare_budget("serve.draft_turn", n_bc)
+        _cv.declare_budget("serve.verify", len(self.batch_buckets))
 
     def _step_flops(self, tokens):
         """Matmul FLOPs of the layers over ``tokens`` (padded) positions:
@@ -133,6 +151,24 @@ class ServingModel:
                                 meta=meta, graph_key=ghash, flops=flops)
         self._prof_keys[key] = _prof.program_key_for(name, graph_key=ghash)
         return True
+
+    _KIND_IMPLS = {"step": "_sample_step", "draft_turn": "_draft_turn_impl",
+                   "verify": "_verify"}
+
+    def _compiled(self, key):
+        """key = (kind, *bucket): the program of that kind at that
+        bucket, memoized — a verifier boundary under MXNET_JIT_VERIFY
+        (one "compile" per memo entry: the key IS the bucket, and a
+        second signature behind the same key is a broken contract the
+        verifier names by arg-diff)."""
+        fn = self._programs.get(key)
+        if fn is None:
+            fn = getattr(self, self._KIND_IMPLS[key[0]])
+            fn = _cv.wrap("serve.%s|%s" % (key[0], "|".join(
+                str(k) for k in key[1:])), fn, budget=1,
+                group="serve.%s" % key[0])
+            self._programs[key] = fn
+        return fn
 
     # -- the transformer body ------------------------------------------------
     def _body(self, params, kpool, vpool, tokens, start, chunk_len,
@@ -303,16 +339,20 @@ class ServingModel:
             ("step", B, C), self._sample_step,
             meta={"batch_bucket": B, "chunk_bucket": C})
         t1 = time.monotonic() if prof_on else 0.0
+        fn = self._compiled(("step", B, C))
         with torch.no_grad():
-            nxt, _ = self._sample_step(params, kpool, vpool, tok_t, *batch,
-                                       samp, _samp.SALT_TARGET)
+            nxt, _ = fn(params, kpool, vpool, tok_t, *batch, samp,
+                        _samp.SALT_TARGET)
         if prof_on:
             t2 = time.monotonic()
             if dev.type == "cuda":
                 torch.cuda.current_stream(dev).synchronize()
             t3 = time.monotonic()
         # the step's one device->host pull: the token vector
-        out_tok = nxt.cpu().numpy()[:B_real]
+        host_nxt = nxt.cpu().numpy()
+        _cv.note_d2h(host_nxt.nbytes,
+                     "mxnet_tpu_torch/serving/model.py::ServingModel.step")
+        out_tok = host_nxt[:B_real]
         if prof_on and not attributed_now:
             # the bucket's first step is left out: its allocations and
             # kernel selection would drown the steady-state shares
@@ -356,27 +396,38 @@ class ServingModel:
         K = int(K)
         self._attribute(("draft_turn", B, C, K), self.draft_turn,
                         meta={"batch_bucket": B, "chunk_bucket": C, "K": K})
+        fn = self._compiled(("draft_turn", B, C, K))
+        tok = self._tokens(tokens, B, C, dev)
         with torch.no_grad():
-            p0 = start + clen        # global position of proposal d_0
-            keys = [None] * K
-            if (samp[0] > 0).any():
-                pos = p0[:, None] + torch.arange(K, device=dev)[None, :]
-                keys = _samp.fold_keys(np.repeat(samp[3], K), pos.reshape(-1),
-                                       _samp.SALT_DRAFT).reshape(B, K, 2)
-                keys = keys.unbind(1)
-            tok, q = self._sample_step(
-                params, kpool, vpool, self._tokens(tokens, B, C, dev), start,
-                clen, bt, act, samp, _samp.SALT_DRAFT, keys[0])
-            toks, qs = [tok], [q]
-            ones = torch.ones_like(start)
-            for j in range(1, K):
-                tok, q = self._sample_step(
-                    params, kpool, vpool, tok[:, None].long(), p0 + j - 1,
-                    ones, bt, act & (ks > j), samp, _samp.SALT_DRAFT, keys[j])
-                toks.append(tok)
-                qs.append(q)
-        return (torch.stack(toks, dim=1)[:B_real],
-                torch.stack(qs, dim=1)[:B_real])
+            toks, qs = fn(params, kpool, vpool, tok, start, clen, bt, act,
+                          ks, samp, K)
+        return toks[:B_real], qs[:B_real]
+
+    def _draft_turn_impl(self, params, kpool, vpool, tok, start, clen, bt,
+                         act, ks, samp, K):
+        """The draft turn on padded device inputs: the catch-up chunk,
+        then K - 1 single-token steps; (draft [B, K], qdists [B, K,
+        V])."""
+        dev = kpool.device
+        B = tok.shape[0]
+        p0 = start + clen        # global position of proposal d_0
+        keys = [None] * K
+        if (samp[0] > 0).any():
+            pos = p0[:, None] + torch.arange(K, device=dev)[None, :]
+            keys = _samp.fold_keys(np.repeat(samp[3], K), pos.reshape(-1),
+                                   _samp.SALT_DRAFT).reshape(B, K, 2)
+            keys = keys.unbind(1)
+        t, q = self._sample_step(params, kpool, vpool, tok, start, clen, bt,
+                                 act, samp, _samp.SALT_DRAFT, keys[0])
+        toks, qs = [t], [q]
+        ones = torch.ones_like(start)
+        for j in range(1, K):
+            t, q = self._sample_step(
+                params, kpool, vpool, t[:, None].long(), p0 + j - 1, ones,
+                bt, act & (ks > j), samp, _samp.SALT_DRAFT, keys[j])
+            toks.append(t)
+            qs.append(q)
+        return torch.stack(toks, dim=1), torch.stack(qs, dim=1)
 
     def verify(self, params, kpool, vpool, prev_tokens, draft_tokens,
                qdists, start, chunk_len, block_tables, active,
@@ -412,10 +463,10 @@ class ServingModel:
         prev = self._tokens(np.asarray(prev_tokens), B, 1, dev)
         self._attribute(("verify", B, K), self.verify,
                         meta={"batch_bucket": B, "K": K})
+        fn = self._compiled(("verify", B, K))
         with torch.no_grad():
-            n, tok = self._verify(params, kpool, vpool,
-                                  torch.cat([prev, d], dim=1), d, q, start,
-                                  clen, bt, act, (temp, tk, tp, sd))
+            n, tok = fn(params, kpool, vpool, torch.cat([prev, d], dim=1), d,
+                        q, start, clen, bt, act, (temp, tk, tp, sd))
         return n[:B_real], tok[:B_real]
 
     def _verify(self, params, kpool, vpool, tokens, d, qdists, start,

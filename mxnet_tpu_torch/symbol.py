@@ -6,9 +6,9 @@ package's, so ``tojson()``, ``infer_shape`` and the ``list_*`` results
 are the same in both packages (``tests/test_torch_symbol.py``).
 ``bind``/``simple_bind`` hand the graph to the port's
 :class:`~mxnet_tpu_torch.executor.Executor`, which evaluates it node by
-node on ``torch.Tensor``s. Not carried over: the compile layer's
-``optimize``, the ``lint`` pass, and stream URIs in ``save``/``load``
-(local paths only).
+node on ``torch.Tensor``s; ``optimize`` runs the compile layer's
+rewrite passes (``compile/``). Not carried over: the ``lint`` pass, and
+stream URIs in ``save``/``load`` (local paths only).
 
 Op constructor functions (``sym.Convolution``, ...) are installed by
 ``ops.install``.
@@ -391,9 +391,10 @@ class Symbol:
     def bind(self, ctx, args, args_grad=None, grad_req="write", aux_states=None,
              group2ctx=None, shared_exec=None, _compile_opts=None):
         """ref: python/mxnet/symbol.py:716 / MXExecutorBindEX (c_api.h:973).
-        ``group2ctx``, ``shared_exec`` and ``_compile_opts`` are accepted
-        for the JAX package's signature; the port's Executor runs on one
-        device and raises on ``group2ctx``."""
+        ``_compile_opts`` (internal) forwards options to the compile
+        layer's graph rewrite — the Predictor passes its frozen
+        parameters here so constant folding may bake them
+        (compile/fold.py)."""
         from .executor import Executor
 
         return Executor(
@@ -406,6 +407,20 @@ class Symbol:
         """ref: python/mxnet/symbol.py:851 — kept for API parity; gradients
         are produced by Executor.backward (torch.autograd)."""
         raise MXNetError("Symbol.grad is superseded by Executor.backward in this framework")
+
+    # -- compilation -----------------------------------------------------------
+    def optimize(self, input_shapes=None, input_types=None,
+                 frozen_params=None):
+        """Run the compile-layer rewrite passes over this DAG and return
+        the rewritten Symbol (``self`` when nothing applies or the
+        layer is disabled). The result shares variable nodes with this
+        graph and contains executor-internal ops — bind it, don't
+        serialize it. See ``MXNET_COMPILE_OPT`` (``compile/``)."""
+        from . import compile as _compile
+
+        return _compile.optimize(self, input_shapes=input_shapes,
+                                 input_types=input_types,
+                                 frozen_params=frozen_params)
 
     # -- serialization ---------------------------------------------------------
     def tojson(self):

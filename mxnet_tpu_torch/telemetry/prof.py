@@ -27,11 +27,10 @@ Three views, keyed as the JAX package keys them:
    on a card.
 
 2. **Analytic graph cost.** :func:`graph_cost` walks a Symbol DAG with
-   the port's copy of the JAX package's shape and dtype sweeps
-   (``compile/ir.py``'s ``propagate_shapes``/``propagate_dtypes``, which
-   the port does not otherwise carry) and computes per-node FLOPs/bytes
-   from the op metadata alone — no device. The numbers are the JAX
-   package's, node for node.
+   the compile layer's shape and dtype sweeps (``compile/ir.py``'s
+   ``propagate_shapes``/``propagate_dtypes``) and computes per-node
+   FLOPs/bytes from the op metadata alone — no device. The numbers are
+   the JAX package's, node for node.
 
 3. **Step-time decomposition.** The train and serving step paths feed
    :func:`note_step` fenced sub-phase durations — ``host`` (input
@@ -115,7 +114,6 @@ _last_gauge_t = 0.0
 #: advanced: a program's first call (allocator growth, cuDNN's algorithm
 #: search, kernel builds) would dominate the phase shares.
 _attr_calls = 0
-_prefix = None
 
 
 def attribution_count():
@@ -167,57 +165,6 @@ def hbm_gbps():
     """Memory bandwidth (GB/s) for roofline%: ``MXNET_PROF_HBM_GBPS``,
     else the H100 SXM's HBM3 (3,350)."""
     return _env_float("MXNET_PROF_HBM_GBPS", DEFAULT_HBM_GBPS)
-
-
-# -- the jax-free shape and dtype sweeps (mxnet_tpu/compile/ir.py) -------------
-def _propagate_shapes(nodes, seed, sweeps=3):
-    """Best-effort forward/backward shape sweep over the DAG: ``seed``
-    maps ``(id(node), out_idx)`` -> shape; unknown stays absent, op
-    infer errors are skipped."""
-    shapes = dict(seed)
-    for _ in range(sweeps):
-        changed = False
-        for n in nodes:
-            if n.is_variable:
-                continue
-            in_shapes = [shapes.get((id(s), i)) for s, i in n.inputs]
-            try:
-                ins, outs, _aux = n.op.infer_shape(n.params, in_shapes)
-            except Exception:
-                continue
-            for (src, i), s in zip(n.inputs, ins):
-                if s is not None and shapes.get((id(src), i)) != tuple(s):
-                    shapes[(id(src), i)] = tuple(s)
-                    changed = True
-            for i, s in enumerate(outs):
-                if s is not None and shapes.get((id(n), i)) != tuple(s):
-                    shapes[(id(n), i)] = tuple(s)
-                    changed = True
-        if not changed:
-            break
-    return shapes
-
-
-def _propagate_dtypes(nodes, seed, sweeps=3):
-    """The dtype analog of :func:`_propagate_shapes`."""
-    dtypes = dict(seed)
-    for _ in range(sweeps):
-        changed = False
-        for n in nodes:
-            if n.is_variable:
-                continue
-            in_types = [dtypes.get((id(s), i)) for s, i in n.inputs]
-            try:
-                _ins, outs, _aux = n.op.infer_type(n.params, in_types)
-            except Exception:
-                continue
-            for i, t in enumerate(outs):
-                if t is not None and dtypes.get((id(n), i)) != t:
-                    dtypes[(id(n), i)] = t
-                    changed = True
-        if not changed:
-            break
-    return dtypes
 
 
 # -- analytic graph cost ------------------------------------------------------
@@ -292,6 +239,8 @@ def graph_cost(symbol, input_shapes, input_types=None):
     counted in ``unresolved``)."""
     import numpy as np
 
+    from ..compile.ir import propagate_dtypes, propagate_shapes
+
     nodes = symbol.nodes
     name_to_var = {n.name: n for n in nodes if n.is_variable}
     seed = {}
@@ -299,13 +248,13 @@ def graph_cost(symbol, input_shapes, input_types=None):
         v = name_to_var.get(name)
         if v is not None and shape is not None:
             seed[(id(v), 0)] = tuple(shape)
-    shapes = _propagate_shapes(nodes, seed)
+    shapes = propagate_shapes(nodes, seed)
     tseed = {}
     for name, t in (input_types or {}).items():
         v = name_to_var.get(name)
         if v is not None and t is not None:
             tseed[(id(v), 0)] = _np_dtype(t)
-    dtypes = _propagate_dtypes(nodes, tseed)
+    dtypes = propagate_dtypes(nodes, tseed)
 
     out = []
     total_flops = 0
@@ -372,24 +321,17 @@ def _np_dtype(t):
 
 # -- program attribution -------------------------------------------------------
 def config_key_prefix():
-    """The configuration root of every program key. The JAX package
-    uses its persistent jit cache's ``compile.config_key()``, which the
-    port does not carry (no compiled programs, no cache); the port's
-    root names what decides how its programs run instead: the torch and
-    CUDA versions and the device (``"cpu"`` without a card)."""
-    global _prefix
-    if _prefix is None:
-        import torch
+    """The compile layer's configuration key (``compile.config_key()``),
+    as in the JAX package: program records and the persistent cache's
+    entries share a key root. The device is not in it: the cubin
+    cache's entries carry the architecture and the NVRTC version, and
+    the tuning database's the card's name."""
+    try:
+        from .. import compile as _compile
 
-        dev = "cpu"
-        if torch.cuda.is_available():
-            try:
-                dev = torch.cuda.get_device_name(0)
-            except Exception:
-                dev = "cuda"
-        _prefix = "torch=%s|cuda=%s|dev=%s" % (
-            torch.__version__, torch.version.cuda, dev)
-    return _prefix
+        return _compile.config_key()
+    except Exception:
+        return "v1|opt=?"
 
 
 def graph_hash(text):

@@ -261,9 +261,19 @@ def _statusz(params):
     snap = _registry.default_registry().snapshot()
     compile_counters = {k: v for k, v in snap["counters"].items()
                         if k.startswith("compile.")}
-    # the JAX package's persistent jit cache and its mxjit verifier
-    # (compile/, analysis/) are not ported: no mirrors, no verifier
-    jit_verify = None
+    jc = sys.modules.get("mxnet_tpu_torch.compile.jit_cache")
+    if jc is not None:
+        # plain-int mirrors: live even across registry resets and in
+        # telemetry-off subprocesses (jit_cache.HITS/MISSES/CORRUPT)
+        for name in ("HITS", "MISSES", "CORRUPT"):
+            compile_counters["compile.jit_cache_%s" % name.lower()] = \
+                int(getattr(jc, name, 0))
+    # mxjit verifier snapshot (per-boundary compile counts vs budgets,
+    # D2H ledger) — only when the module is live and armed, never an
+    # import from here
+    cv = sys.modules.get("mxnet_tpu_torch.analysis.compile_verify")
+    jit_verify = (cv.summary() if cv is not None
+                  and getattr(cv, "ENABLED", False) else None)
     return _json({
         "pid": os.getpid(),
         "rank": int(os.environ.get("MXNET_PROC_ID", "0") or 0),

@@ -48,14 +48,18 @@ from mxnet_tpu_torch.serving.fleet import FleetClient, ReplicaServer, Router
 ROOT = Path(__file__).resolve().parents[1]
 MODEL = dict(vocab_size=61, num_layers=2, d_model=32, num_heads=2, d_ff=64,
              max_seq_len=96, dtype="float32")
-UNPORTED = ("MXNET_ENGINE_VERIFY", "MXNET_JIT_VERIFY", "MXNET_PROF")
+UNPORTED = ("MXNET_ENGINE_VERIFY", "MXNET_PROF")
+# switches of the JAX package's analysis and profiling layers; the port
+# carries mxprof and the compile/transfer verifier, not the lock tracer
+SWITCHES = ("MXNET_ENGINE_VERIFY", "MXNET_JIT_VERIFY", "MXNET_PROF")
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _unported_switches_off():
-    """The suite's conftest arms the JAX package's lock tracer and
-    compile verifier for every test; the port has neither, and its
-    Engine refuses those switches, so its tests run with them unset."""
+    """The suite's conftest arms the JAX package's lock tracer for every
+    test; the port's Engine refuses it, so its tests run with it unset
+    (the compile verifier is ported and stays in the conftest's record
+    mode)."""
     with pytest.MonkeyPatch.context() as mp:
         for name in UNPORTED:
             mp.delenv(name, raising=False)
@@ -185,11 +189,12 @@ def test_submit_prefix_rejects_exhausted_budget(model):
     assert eng.stats()["rejected"] == 1
 
 
-@pytest.mark.parametrize("name", UNPORTED)
+@pytest.mark.parametrize("name", SWITCHES)
 def test_unported_switch_raises(model, monkeypatch, name):
     monkeypatch.setenv(name, "1")
-    if name == "MXNET_PROF":
-        # mxprof is ported (telemetry/prof.py): the switch builds
+    if name in ("MXNET_PROF", "MXNET_JIT_VERIFY"):
+        # mxprof (telemetry/prof.py) and the compile/transfer verifier
+        # (analysis/compile_verify.py) are ported: the switch builds
         _mk_engine(model)
         return
     with pytest.raises(MXNetError, match="not ported"):

@@ -27,7 +27,8 @@
   ``PrefetchingIter``, ``opencv.resize``, ``nd.save`` to ``mem://``, a
   mirrored LeNet step, a ``Predictor`` and its exported program, a
   profiled ``test_utils.simple_forward``, ``runtime``, a ``local``
-  kvstore summing a push from two contexts) neither
+  kvstore summing a push from two contexts, a LeNet step bound under
+  ``MXNET_COMPILE_OPT=1``) neither
   the kernel build
   module ``ops._build`` nor the NVRTC binding ``ops._nvrtc`` is
   imported; the walk over every submodule
@@ -38,7 +39,8 @@
   ``profiler``, ``runtime``, ``libinfo``, ``misc``, ``ops.opdoc``,
   ``kvstore``, ``kvstore_server``, ``telemetry``, ``elastic``,
   ``resilience`` (with ``resilience.guardian``), ``telemetry.prof``,
-  ``telemetry.merge``, ``wsync`` and ``serving.fleet``;
+  ``telemetry.merge``, ``wsync``, ``serving.fleet``, ``compile/`` and
+  ``analysis/``;
 - ``tools/torch_trace_merge.py`` and ``tools/torch_telemetry_report.py``
   run ``--help`` in a fresh interpreter without importing either;
 - the two entry points ``python -m mxnet_tpu_torch.serving.fleet.replica``
@@ -47,8 +49,8 @@
   ``cuda`` marker;
 - the host-only scheduler copy matches its original below the imports;
   the byte copies of the telemetry registry and journal merger, the RPC
-  wire, the retry and fault-injection modules and the wsync client
-  match their originals
+  wire, the retry and fault-injection modules, the wsync client and
+  the compile layer's IR walks match their originals
   whole, and the tracer, the exporters, the wsync package and the fleet
   router their originals with named replacements.
 """
@@ -181,6 +183,16 @@ kv.push(0, [mx.nd.ones((2, 3), ctx=mx.cpu(i)) for i in range(2)])
 pulled = mx.nd.zeros((2, 3), ctx=mx.cpu())
 kv.pull(0, out=pulled)
 assert (pulled.asnumpy() == 2).all()
+import os
+os.environ['MXNET_COMPILE_OPT'] = '1'
+mx.compile.reload()
+exe = mx.models.get_lenet().simple_bind(mx.cpu(), data=(2, 1, 28, 28),
+                                        softmax_label=(2,))
+exe.forward(is_train=True)
+exe.backward()
+assert mx.compile.last_report()['layout'] == 2
+del os.environ['MXNET_COMPILE_OPT']
+mx.compile.reload()
 print('cpu_path', 'mxnet_tpu_torch.ops._build' in sys.modules,
       'mxnet_tpu_torch.ops._nvrtc' in sys.modules, forbidden())
 import mxnet_tpu_torch as pkg
@@ -202,7 +214,10 @@ for must in ('model', 'rtc', 'ops._nvrtc', 'ops.matmul_stats', 'monitor',
              'telemetry.prof', 'telemetry.merge', 'wsync', 'wsync.common',
              'wsync.client', 'wsync.publisher', 'wsync.subscriber',
              'serving.fleet', 'serving.fleet.router',
-             'serving.fleet.replica'):
+             'serving.fleet.replica', 'compile', 'compile.ir',
+             'compile.pipeline', 'compile.fold', 'compile.layout',
+             'compile.fuse', 'compile.precision', 'compile.autotune',
+             'compile.jit_cache', 'analysis', 'analysis.compile_verify'):
     assert 'mxnet_tpu_torch.' + must in names, (must, names)
 for n in names:
     importlib.import_module(n)
@@ -212,11 +227,10 @@ print('all_modules', forbidden())
 
 def _env():
     """The environment of a fresh interpreter: this one's, without the
-    JAX package's verifier switches that the suite's conftest sets (the
-    port's Engine refuses them)."""
+    JAX package's lock tracer switch that the suite's conftest sets (the
+    port's Engine refuses it)."""
     env = {k: v for k, v in os.environ.items()
-           if k not in ("MXNET_ENGINE_VERIFY", "MXNET_JIT_VERIFY",
-                        "MXNET_PROF")}
+           if k not in ("MXNET_ENGINE_VERIFY", "MXNET_PROF")}
     env["PYTHONPATH"] = str(ROOT)
     return env
 
@@ -334,7 +348,8 @@ def _imports(path):
         ROOT / "tests" / "test_torch_recordio_cuda.py",
         ROOT / "tests" / "test_torch_predictor_cuda.py",
         ROOT / "tests" / "test_torch_fleet_cuda.py",
-        ROOT / "tests" / "test_torch_guardian_cuda.py"]
+        ROOT / "tests" / "test_torch_guardian_cuda.py",
+        ROOT / "tests" / "test_torch_compile_cuda.py"]
     + sorted((ROOT / "examples" / "rnn_torch").glob("*.py"))
     + sorted((ROOT / "examples" / "ssd_torch").glob("*.py"))
     + sorted((ROOT / "examples" / "image-classification_torch").glob(
@@ -378,7 +393,7 @@ def test_scheduler_copy_matches_original():
 # host-only modules carried over whole
 BYTE_COPIES = ["telemetry/registry.py", "elastic/protocol.py",
                "resilience/retry.py", "resilience/faults.py",
-               "wsync/client.py", "telemetry/merge.py"]
+               "wsync/client.py", "telemetry/merge.py", "compile/ir.py"]
 
 
 @pytest.mark.parametrize("rel", BYTE_COPIES)

@@ -41,7 +41,7 @@ def _env():
     prev = jax.config.values["jax_disable_most_optimizations"]
     jax.config.update("jax_disable_most_optimizations", True)
     with pytest.MonkeyPatch.context() as mp:
-        for k in ("MXNET_ENGINE_VERIFY", "MXNET_JIT_VERIFY", "MXNET_PROF",
+        for k in ("MXNET_ENGINE_VERIFY", "MXNET_PROF",
                   "MXNET_SCAN_TRAIN", "MXNET_GUARDIAN", "MXNET_FAULT_SPEC",
                   "MXNET_PROF_PEAK_FLOPS", "MXNET_PROF_HBM_GBPS",
                   "MXNET_COMPUTE_DTYPE"):
@@ -166,7 +166,10 @@ def test_attribute_program_and_derived(prof_on, monkeypatch):
     assert prof.attribution_count() == n
     key = prof.program_key_for("site|x", graph_key="g1")
     assert key == "%s|site|x|g=g1" % prof.config_key_prefix()
-    assert prof.config_key_prefix().startswith("torch=")
+    # the compile layer's key, as the JAX package's prof keys programs
+    from mxnet_tpu_torch import compile as mxc
+
+    assert prof.config_key_prefix() == mxc.config_key()
     prof.note_step("train.batch", {"device": 0.5, "host": 0.1}, key=key)
     (rec,) = prof.program_records()
     assert rec["flops"] == an["flops"] and rec["calls"] == 1

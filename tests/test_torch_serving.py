@@ -24,13 +24,12 @@ from mxnet_tpu_torch.serving import (Engine, PagedKVPool, QueueFullError,
 
 @pytest.fixture(scope="module", autouse=True)
 def _unported_switches_off():
-    """The suite's conftest arms the JAX package's lock tracer and
-    compile verifier (``MXNET_ENGINE_VERIFY``, ``MXNET_JIT_VERIFY``) for
-    every test; the port has neither, and its Engine refuses those
-    switches, so its tests run with them unset."""
+    """The suite's conftest arms the JAX package's lock tracer
+    (``MXNET_ENGINE_VERIFY``) for every test; the port's Engine refuses
+    it, so its tests run with it unset (the compile verifier,
+    ``MXNET_JIT_VERIFY``, is ported and stays in record mode)."""
     with pytest.MonkeyPatch.context() as mp:
-        for name in ("MXNET_ENGINE_VERIFY", "MXNET_JIT_VERIFY",
-                     "MXNET_PROF"):
+        for name in ("MXNET_ENGINE_VERIFY", "MXNET_PROF"):
             mp.delenv(name, raising=False)
         yield
 

@@ -56,13 +56,13 @@ ROOT = Path(__file__).resolve().parents[1]
 MODEL = dict(vocab_size=61, num_layers=2, d_model=32, num_heads=2, d_ff=64,
              max_seq_len=96, dtype="float32")
 POOL = dict(block_size=8, num_blocks=97, max_batch=4, prefill_chunk=16)
-UNPORTED = ("MXNET_ENGINE_VERIFY", "MXNET_JIT_VERIFY", "MXNET_PROF")
+UNPORTED = ("MXNET_ENGINE_VERIFY", "MXNET_PROF")
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _unported_switches_off():
-    """The suite's conftest arms the JAX package's lock tracer and
-    compile verifier; the port's Engine refuses those switches."""
+    """The suite's conftest arms the JAX package's lock tracer; the
+    port's Engine refuses it (the compile verifier is ported)."""
     with pytest.MonkeyPatch.context() as mp:
         for name in UNPORTED:
             mp.delenv(name, raising=False)
@@ -417,7 +417,14 @@ def test_http_endpoints(monkeypatch):
             "counters"} <= set(eng_body)
         code, body = _get(port, "/statusz")
         st = json.loads(body)
-        assert code == 200 and st["jit_verify"] is None
+        # the verifier's summary when it is armed (the suite's conftest
+        # arms it in record mode)
+        from mxnet_tpu_torch.analysis import compile_verify as cv
+
+        assert code == 200 and (st["jit_verify"] is None) == (
+            not cv.ENABLED)
+        if cv.ENABLED:
+            assert set(st["jit_verify"]) == set(cv.summary())
         assert {"pid", "rank", "world", "uptime_s", "server_uptime_s",
                 "journal", "jit_cache_dir", "compile", "env"} <= set(st)
         code, body = _get(port, "/tracez?n=5")
@@ -515,12 +522,8 @@ def test_training_and_serving_metric_names_equal_jax(both_on):
     _train_and_serve(mj, lambda: serve("jax"))
     _train_and_serve(mt, lambda: serve("port"))
     want, got = _metric_names(jtel), _metric_names(tel)
-    # the JAX package's compile layer (jit cache) and its compile/transfer
-    # verifier (analysis/compile_verify.py) are not ported
-    skip = ("compile.", "jit.verify_")
     for kind in want:
-        want_k = {n for n in want[kind] if not n.startswith(skip)}
-        assert got[kind] == want_k, (kind, got[kind] ^ want_k)
+        assert got[kind] == want[kind], (kind, got[kind] ^ want[kind])
 
 
 def test_training_path_counters_under_telemetry(both_on, tmp_path):

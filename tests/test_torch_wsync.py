@@ -60,13 +60,13 @@ MODEL = dict(vocab_size=61, num_layers=2, d_model=32, num_heads=2, d_ff=64,
 POOL = dict(block_size=8, num_blocks=33, max_batch=4, prefill_chunk=16,
             token_budget=64)
 PROMPTS = [[7, 11, 13, 17, 19, 23], [3, 1, 4, 1, 5, 9, 2, 6]]
-UNPORTED = ("MXNET_ENGINE_VERIFY", "MXNET_JIT_VERIFY", "MXNET_PROF")
+UNPORTED = ("MXNET_ENGINE_VERIFY", "MXNET_PROF")
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _unported_switches_off():
-    """The suite's conftest arms the JAX package's lock tracer and
-    compile verifier; the port's Engine refuses those switches."""
+    """The suite's conftest arms the JAX package's lock tracer; the
+    port's Engine refuses it (the compile verifier is ported)."""
     with pytest.MonkeyPatch.context() as mp:
         for name in UNPORTED:
             mp.delenv(name, raising=False)
